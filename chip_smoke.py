@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``rayzath_tpu_torch``) on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code != 0):
+
+1. Environment: the card (``nvidia-smi``), torch and nvcc versions; build the
+   hand-written kernels from ``rayzath_tpu_torch/csrc`` (timed).
+2. Kernel against plain: B1 ``cluster_closest`` and B2 ``cluster_shadow``
+   against their plain PyTorch versions on the card, for cornell_box_nee,
+   multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
+   bounce-like rays from the first hits (uniform-sphere directions from a
+   numpy seed), in the order the integrator hands them over (32x32 tiles,
+   or the coherence sort for scenes of >= 16 clusters). Hit ids must be
+   equal except on rays an f64 Moller-Trumbore calls chaotic (at most 1e-4
+   of the rays), t to rtol 1e-5; shadow rgba to rtol 1e-5 / atol 1e-6 where
+   the plain alpha >= 1e-4, both below 1e-4 elsewhere. Median times of
+   kernel and plain with CUDA events.
+3. End to end: cornell_box_nee and multi_light at 64^2, depth 4, 4 passes,
+   on the card (kernels) and on the CPU (plain versions) with the same
+   numpy uniforms; sample counts equal, radiance as ``assert_images_match``.
+4. The slice at size: ``Renderer(device="cuda")`` renders cornell_box_nee
+   (32 passes), multi_light and mesh_heavy (8 passes) at 512^2, depth 8;
+   NaN-free, samples accumulated, image mean in (5, 220), and the launch
+   counters of both kernels (reset just before) at least one per pass.
+
+The last lines of standard output are the kernels' JSON record, the card's
+``nvidia-smi`` name and power limit, and the result line
+``{"ok": true, "device": {...}}``. Needs one CUDA device and nvcc; there is
+no CPU fallback.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SCENES = ("cornell_box_nee", "multi_light", "mesh_heavy")
+RES = 512
+PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+def nvcc_release(nvcc: str) -> str:
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    m = re.search(r"release ([0-9.]+)", out)
+    return m.group(1) if m else out.strip().splitlines()[-1]
+
+
+def cuda_ms(fn, runs: int) -> float:
+    """Median milliseconds of ``fn()`` over ``runs`` launches (CUDA events,
+    after one warm-up call)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def plain_runs(fn) -> tuple[float, int]:
+    """Median of up to 20 timed runs of a plain version, fewer when one run
+    is slow (mesh_heavy's plain walk is an all-pairs pass over 65k
+    triangles), so the script stays inside its time limit."""
+    first = cuda_ms(fn, 1)
+    runs = int(max(3, min(20, PLAIN_BUDGET_MS // max(first, 1e-3))))
+    return cuda_ms(fn, runs), runs
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def coherent_order(scene, o, d, extras):
+    """The ray order the integrator gives the kernels: its own
+    ``_run_coherent`` and sort decision, with a ``run`` that keeps the rays
+    it is handed."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    cfg = rt.RenderConfig()
+    handed = []
+
+    def keep(*rays):
+        handed.append(rays)
+        return rays
+
+    I._run_coherent(cfg, (RES, RES), o, d, extras, keep,
+                    sort=I._sort_traversal(cfg, scene))
+    o, d, *extras = handed[0]
+    return o, d, tuple(extras)
+
+
+def scene_rays(name: str, dev):
+    """(scene, camera rays, bounce-like rays), each ray set (o, d)."""
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    from rayzath_tpu_torch.ops import camera as cam_ops
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    world = rt.scenes.SCENES[name](RES, RES)
+    scene = compile_world(world, device=dev)
+    cam = compile_camera(world.cameras[0], dev)
+    r = RES * RES
+    o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(RES, RES, device=dev),
+                                 torch.full((r, 4), 0.5, device=dev))
+    t, tid = tc.cluster_closest_plain(o, d, torch.zeros(r, device=dev),
+                                      torch.full((r,), 1e30, device=dev),
+                                      scene.cl_box, scene.cl_lw)
+    hit = tid >= 0
+    tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
+    n = torch.linalg.cross(tp[:, 3:6], tp[:, 6:9])
+    n = n / torch.clamp(n.norm(dim=1, keepdim=True), min=1e-20)
+    n = torch.where(((n * d).sum(1) > 0)[:, None], -n, n)
+    p = o + d * t[:, None] + n * (1e-4 * t)[:, None]
+    o2 = torch.where(hit[:, None], p, o)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    v = rng.normal(size=(r, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    d2 = torch.as_tensor(v, device=dev)
+    return scene, (o, d), (o2.contiguous(), d2)
+
+
+def check_closest(scene, o, d, near, far, label):
+    """B1 kernel vs plain on one ray set. Returns (max |dt| on agreeing
+    hits, kernel t, kernel ids in cluster order)."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils.parity import closest_f64
+    t_k, tid_k = tc.cluster_closest(o, d, near, far, scene.cl_box, scene.cl_lw,
+                                    scene.cl_order)
+    t_p, rid_p = tc.cluster_closest_plain(o, d, near, far, scene.cl_box,
+                                          scene.cl_lw)
+    tid_p = tc._map_ids(rid_p, scene.cl_order)
+    torch.cuda.synchronize()
+    diff = (tid_k != tid_p).cpu().numpy()
+    n_diff = int(diff.sum())
+    if n_diff:
+        nt = scene.n_triangles
+        _, chaotic = closest_f64(o.cpu().numpy()[diff], d.cpu().numpy()[diff],
+                                 scene.tri_v0[:nt].cpu().numpy(),
+                                 scene.tri_e1[:nt].cpu().numpy(),
+                                 scene.tri_e2[:nt].cpu().numpy(),
+                                 near.cpu().numpy()[diff], far.cpu().numpy()[diff])
+        if not chaotic.all():
+            raise AssertionError(f"{label}: {int((~chaotic).sum())} non-chaotic "
+                                 "hit-id mismatches between kernel and plain")
+        if n_diff > 1e-4 * len(diff):
+            raise AssertionError(f"{label}: {n_diff} chaotic id mismatches "
+                                 f"exceed 1e-4 of {len(diff)} rays")
+    same = (tid_k >= 0) & (tid_k == tid_p)
+    torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5, atol=0)
+    err = float((t_k[same] - t_p[same]).abs().max()) if bool(same.any()) else 0.0
+    print(f"  {label}: B1 hits {int((tid_k >= 0).sum())}/{len(diff)}, "
+          f"id mismatches {n_diff} (all f64-chaotic), max |dt| {err:.3e}",
+          flush=True)
+    return err, t_k, tid_k
+
+
+def check_shadow(scene, o, d, dist, label):
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    mat = scene.mat_color[scene.tri_mat.long()]
+    op_rgb, op_a = mat[:, :3].contiguous(), (1.0 - mat[:, 3]).contiguous()
+    rgb_k, a_k = tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                                   scene.cl_order, scene.cl_base,
+                                   scene.cl_count, op_rgb, op_a)
+    op_tab = tc.cluster_opacity(op_rgb, op_a, scene.cl_order, scene.cl_base,
+                                scene.cl_count)
+    rgb_p, a_p = tc.cluster_shadow_plain(o, d, dist, scene.cl_box,
+                                         scene.cl_lw, op_tab)
+    torch.cuda.synchronize()
+    live = a_p >= 1e-4
+    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
+    if not bool((a_k[~live] < 1e-4).all()):
+        raise AssertionError(f"{label}: kernel alpha >= 1e-4 where plain < 1e-4")
+    err = 0.0
+    if bool(live.any()):
+        err = max(float((a_k[live] - a_p[live]).abs().max()),
+                  float((rgb_k[live] - rgb_p[live]).abs().max()))
+    print(f"  {label}: B2 unblocked {int(live.sum())}/{len(live)}, "
+          f"max |d rgba| {err:.3e}", flush=True)
+    return err, op_rgb, op_a, op_tab
+
+
+def phase_kernels(card: str, dev):
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.intersect import BIG
+    out = {"cluster_closest": {"err": 0.0}, "cluster_shadow": {"err": 0.0}}
+    for name in SCENES:
+        t0 = time.perf_counter()
+        scene, cam_set, bounce_set = scene_rays(name, dev)
+        r = RES * RES
+        print(f"{name}: {scene.n_triangles} triangles, {scene.n_clusters} "
+              f"clusters, rays {r} x 2 sets", flush=True)
+        timing = {}
+        for set_name, (o, d) in (("camera", cam_set), ("bounce", bounce_set)):
+            near = torch.zeros(r, device=dev)
+            far = torch.full((r,), 1e30, device=dev)
+            o, d, (near, far) = coherent_order(scene, o, d, (near, far))
+            e1, t_k, tid_k = check_closest(scene, o, d, near, far,
+                                           f"{name}/{set_name}")
+            big = torch.full((r,), BIG, device=dev)
+            dist_hit = torch.where(tid_k >= 0, t_k, big)
+            e2, op_rgb, op_a, op_tab = check_shadow(
+                scene, o, d, dist_hit, f"{name}/{set_name}/dist=hit")
+            e3, *_ = check_shadow(scene, o, d, big, f"{name}/{set_name}/dist=BIG")
+            out["cluster_closest"]["err"] = max(out["cluster_closest"]["err"], e1)
+            out["cluster_shadow"]["err"] = max(out["cluster_shadow"]["err"], e2, e3)
+            timing[set_name] = (o, d, near, far, big, op_rgb, op_a, op_tab)
+        # times on the bounce-like set: the wavefront of every later bounce
+        o, d, near, far, big, op_rgb, op_a, op_tab = timing["bounce"]
+        k1 = cuda_ms(lambda: tc.cluster_closest(o, d, near, far, scene.cl_box,
+                                                scene.cl_lw, scene.cl_order), 20)
+        p1, n1 = plain_runs(lambda: tc.cluster_closest_plain(
+            o, d, near, far, scene.cl_box, scene.cl_lw))
+        k2 = cuda_ms(lambda: tc.cluster_shadow(
+            o, d, big, scene.cl_box, scene.cl_lw, scene.cl_order,
+            scene.cl_base, scene.cl_count, op_rgb, op_a), 20)
+        p2, n2 = plain_runs(lambda: tc.cluster_shadow_plain(
+            o, d, big, scene.cl_box, scene.cl_lw, op_tab))
+        oc, dc, nc, fc, *_ = timing["camera"]
+        kc = cuda_ms(lambda: tc.cluster_closest(oc, dc, nc, fc, scene.cl_box,
+                                                scene.cl_lw, scene.cl_order), 20)
+        print(f"  {name} times [{card}]: B1 kernel {k1:.3f} ms vs plain "
+              f"{p1:.3f} ms (median of 20 / {n1}); B2 kernel {k2:.3f} ms vs "
+              f"plain {p2:.3f} ms (median of 20 / {n2}); B1 on camera rays "
+              f"{kc:.3f} ms; phase {time.perf_counter() - t0:.1f} s", flush=True)
+        out["cluster_closest"][name] = (k1, p1)
+        out["cluster_shadow"][name] = (k2, p2)
+        del scene, cam_set, bounce_set, timing
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: end to end on the card against the CPU plain path
+# ---------------------------------------------------------------------------
+
+def render_passes(name, dev, res, passes, depth, seed):
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    world = rt.scenes.SCENES[name](res, res)
+    scene = compile_world(world, device=dev)
+    cam = compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=depth))
+    ns = I.n_streams(cfg, scene)
+    rng = np.random.default_rng(seed)
+    st = init_state(res, res, dev)
+    for _ in range(passes):
+        u = torch.as_tensor(rng.random((res * res, ns), dtype=np.float32),
+                            device=dev)
+        st = I.bounce_step(scene, cam, cfg, st, u=u)
+    return st.accum.cpu().numpy()
+
+
+def phase_end_to_end(dev):
+    from rayzath_tpu_torch.utils.parity import images_match
+    for name in ("cornell_box_nee", "multi_light"):
+        a_gpu = render_passes(name, dev, 64, 4, 4, seed=7)
+        a_cpu = render_passes(name, "cpu", 64, 4, 4, seed=7)
+        close = images_match(a_gpu, a_cpu)
+        print(f"{name}: 64^2 x 4 passes, CUDA kernels vs CPU plain: sample "
+              f"counts equal, {close:.4f} of pixels within 2e-3", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice at size through the public entry point
+# ---------------------------------------------------------------------------
+
+def phase_slice(card: str, dev):
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    launches = {"cluster_closest": 0, "cluster_shadow": 0}
+    for name, rpp in (("cornell_box_nee", 32), ("multi_light", 8),
+                      ("mesh_heavy", 8)):
+        world = rt.scenes.SCENES[name](RES, RES)
+        r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
+                        device=dev)
+        t0 = time.perf_counter()
+        r.render(rpp=1)                      # warm-up: compile_world + 1 pass
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        tc.cluster_closest.launches = 0
+        tc.cluster_shadow.launches = 0
+        t0 = time.perf_counter()
+        r.render(rpp=rpp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n1, n2 = tc.cluster_closest.launches, tc.cluster_shadow.launches
+        if n1 < rpp or n2 < rpp:
+            raise AssertionError(f"{name}: launches B1 {n1}, B2 {n2} < {rpp} passes")
+        launches["cluster_closest"] += n1
+        launches["cluster_shadow"] += n2
+        accum = r.views[id(world.cameras[0])].state.accum
+        if bool(torch.isnan(accum).any()):
+            raise AssertionError(f"{name}: NaN in accum")
+        if not float(accum[..., 3].sum()) > 0:
+            raise AssertionError(f"{name}: no samples accumulated")
+        mean = float(r.image().mean())
+        if not 5.0 < mean < 220.0:
+            raise AssertionError(f"{name}: image mean {mean} outside (5, 220)")
+        mrays = rpp * RES * RES / dt / 1e6
+        print(f"{name}: {RES}^2 depth 8, {rpp} passes in {dt:.3f} s = "
+              f"{mrays:.3f} Mrays/s, warm-up {warm:.2f} s, launches B1 {n1} "
+              f"B2 {n2}, image mean {mean:.1f} [{card}]", flush=True)
+        del r, world
+        torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device (torch.cuda.is_available() is false)")
+    if not (ROOT / "rayzath_tpu_torch" / "__init__.py").is_file():
+        return fail(f"rayzath_tpu_torch not found beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT))
+    from rayzath_tpu_torch.ops import _kernels
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
+          f"nvcc {nvcc_release(_kernels._nvcc())}", flush=True)
+    t0 = time.perf_counter()
+    built = _kernels.build()
+    _kernels.load()
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
+          f"{built.relative_to(ROOT)}", flush=True)
+
+    t_phase = time.perf_counter()
+    kernels = phase_kernels(card, dev)
+    print(f"phase 2 (kernel vs plain) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    t_phase = time.perf_counter()
+    phase_end_to_end(dev)
+    print(f"phase 3 (end to end) {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    launches = phase_slice(card, dev)
+    print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    record = []
+    for name, src, line in (("cluster_closest", "cluster_closest.cu", 872),
+                            ("cluster_shadow", "cluster_shadow.cu", 975)):
+        k, p = kernels[name]["mesh_heavy"]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": f"rayzath_tpu_torch/csrc/{src}",
+            "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
+            "launches": launches[name], "max_abs_err": kernels[name]["err"],
+            "ms": k, "plain_ms": p})
+    print(json.dumps({"kernels": record}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,589 @@
+"""Wavefront path-tracing integrator on torch tensors, soup path.
+
+Counterpart of ``rayzath_tpu/engine/integrator.py`` for world-space soup
+scenes without texture maps. The whole wavefront of R = W*H rays advances ONE
+bounce per :func:`bounce_step` over SoA buffers; terminated paths regenerate
+camera rays in place (reference cuda_render_kernel.cu:50-65). Behaviour
+follows the JAX package line for line: Beer's-law absorption
+(cuda_render_kernel.cu:162-176), exponential scattering media
+(cuda_material.cuh:141-159), the uber-material BSDF
+(cuda_material.cuh:162-301), NEE with MIS power weights for spot + direct
+lights (cuda_render_kernel.cu:239-355), sky-sphere environment.
+
+Two traversal kernels carry the path (ops/traverse_cluster.py): B1
+``cluster_closest`` answers every bounce's closest-hit query and B2
+``cluster_shadow`` traces every NEE shadow ray.
+
+Uniforms: ``bounce_step(..., u=None)`` takes an optional [R, ns] tensor (the
+tests inject the JAX package's ``pass_uniforms`` streams through it).
+Without one, each pass draws ``torch.rand`` from a generator seeded by
+(seed, pass index), so a pass is reproducible and a checkpoint resumes the
+same render. Bit-exact threefry streams are ROADMAP A3.
+
+Forward only (the slice runs under ``torch.no_grad``): the JAX package's
+score-function surrogate ratios have a forward value of exactly 1 and are
+the constant 1 here; their gradient use is ROADMAP A12. The ``score`` state
+column is still updated as in JAX, because checkpoints carry it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.device_scene import TorchScene, TorchCamera, WORLD_MATERIAL_ID
+from ..ops import camera as cam_ops
+from ..ops.intersect import refine_tri
+from ..ops.sort_rays import sort_payload, unsort_payload
+from ..ops.traverse_cluster import cluster_closest, cluster_shadow
+from ..ops.vec import (dot, normalize, lerp, reflect, halfway,
+                       cosine_sample_hemisphere, sample_sphere,
+                       sample_hemisphere, sample_disk, fresnel_specular_ratio,
+                       cross)
+from .config import RenderConfig
+from .state import RenderState, BIG, PATH_LIMIT
+
+
+def check_config(cfg: RenderConfig) -> None:
+    """Raise for the configurations whose code paths are not ported."""
+    if not cfg.packet_traversal:
+        raise NotImplementedError(
+            "packet_traversal=False selects the XLA skip-link walk, which is "
+            "not ported (ROADMAP A17)")
+    if cfg.brute_force_threshold > 0:
+        raise NotImplementedError(
+            "the dense projection path (brute_force_threshold > 0) is not "
+            "ported (ROADMAP A4)")
+    if cfg.two_level:
+        raise NotImplementedError(
+            "two-level instanced scenes are not ported yet (ROADMAP A11)")
+
+
+# ---------------------------------------------------------------------------
+# material fetch
+# ---------------------------------------------------------------------------
+
+class MatProps(NamedTuple):
+    color_rgb: torch.Tensor   # [R,3]
+    alpha_op: torch.Tensor    # [R] 1 - alpha: 0 = opaque
+    metalness: torch.Tensor   # [R]
+    roughness: torch.Tensor   # [R]
+    emission: torch.Tensor    # [R]
+    ior: torch.Tensor         # [R]
+    scattering: torch.Tensor  # [R]
+
+
+def mat_pack(scene: TorchScene) -> torch.Tensor:
+    """[M,14] packed material rows built from the live SoA leaves: color 0:4,
+    metalness 4, roughness 5, emission 6, ior 7, scattering 8, maps 9:14."""
+    return torch.cat([
+        scene.mat_color,
+        scene.mat_metalness[:, None], scene.mat_roughness[:, None],
+        scene.mat_emission[:, None], scene.mat_ior[:, None],
+        scene.mat_scattering[:, None],
+        scene.mat_maps.to(torch.float32)], dim=1)
+
+
+def material_fetch(scene: TorchScene, mp, mat_id) -> MatProps:
+    """Material properties at a surface point (reference
+    Material::color/emission/metalness/roughness, cuda_material.cuh:70-123),
+    without texture maps (ROADMAP A9)."""
+    row = mp[torch.clamp(mat_id, 0, scene.n_materials - 1).long()]
+    return MatProps(row[:, 0:3], 1.0 - row[:, 3], row[:, 4], row[:, 5],
+                    row[:, 6], row[:, 7], row[:, 8])
+
+
+# ---------------------------------------------------------------------------
+# ray order for the traversal kernels
+# ---------------------------------------------------------------------------
+
+TILE = 32  # image tile side: one 32x32 tile = 8 thread blocks of 128 rays
+
+
+def _tileable(hw, r: int) -> bool:
+    return (hw is not None and hw[0] % TILE == 0 and hw[1] % TILE == 0
+            and hw[0] * hw[1] == r)
+
+
+def _tile(x, hw):
+    """Permute row-major rays into 32x32 image tiles (reshape/permute only),
+    so a thread block covers a narrow frustum instead of image rows."""
+    h, w = hw
+    t = TILE
+    rest = tuple(x.shape[1:])
+    x = x.reshape((h // t, t, w // t, t) + rest)
+    x = x.permute((0, 2, 1, 3) + tuple(range(4, 4 + len(rest))))
+    return x.reshape((h * w,) + rest).contiguous()
+
+
+def _untile(x, hw):
+    h, w = hw
+    t = TILE
+    rest = tuple(x.shape[1:])
+    x = x.reshape((h // t, w // t, t, t) + rest)
+    x = x.permute((0, 2, 1, 3) + tuple(range(4, 4 + len(rest))))
+    return x.reshape((h * w,) + rest).contiguous()
+
+
+def _sort_traversal(cfg: RenderConfig, scene: TorchScene) -> bool:
+    """Effective ray-sort decision: ``cfg.ray_sort``, or (None = auto) sort
+    when the scene has at least 16 real clusters, as in the JAX package.
+    Whether sorting pays for a per-ray walk on the GPU is not measured yet
+    (PERF.md, open questions)."""
+    if cfg.ray_sort is not None:
+        return cfg.ray_sort
+    return scene.n_clusters >= 16
+
+
+def _run_coherent(cfg: RenderConfig, hw, o, d, extras, run, sort=False):
+    """Run a cluster traversal on a coherence-ordered ray order and return
+    its per-ray results in the original order. With ``sort``: the coherence
+    key sort (ops/sort_rays.py); otherwise 32x32 image tiles when the
+    wavefront is a whole tileable image."""
+    if sort:
+        o_s, d_s, extras_s, idx_s = sort_payload(o, d, extras)
+        return unsort_payload(idx_s, run(o_s, d_s, *extras_s))
+    if _tileable(hw, o.shape[0]):
+        outs = run(_tile(o, hw), _tile(d, hw), *[_tile(e, hw) for e in extras])
+        return tuple(_untile(x, hw) for x in outs)
+    return run(o.contiguous(), d.contiguous(),
+               *[e.contiguous() for e in extras])
+
+
+def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
+                hw=None):
+    """Returns (t, tri_id, b1, b2, external, tp): the B1 kernel's hit id and
+    (t, b1, b2) re-derived by ``refine_tri`` on the hit's packed attribute
+    row ``tp`` ([R,32], see TorchScene.tri_pack)."""
+    t, tid = _run_coherent(
+        cfg, hw, o, d, (near, far),
+        lambda o, d, near, far: cluster_closest(
+            o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order),
+        sort=_sort_traversal(cfg, scene))
+    tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
+    t_r, b1_r, b2_r, det = refine_tri(o, d, tp[:, 0:3], tp[:, 3:6], tp[:, 6:9])
+    ext = det > 0.0
+    hit_mask = tid >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=o.device)
+    t = torch.where(hit_mask, t_r, t)
+    b1 = torch.where(hit_mask, b1_r, zero)
+    b2 = torch.where(hit_mask, b2_r, zero)
+    return t, tid, b1, b2, ext, tp
+
+
+def shadow_test(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
+    """Transmission-filtered visibility (reference World::anyIntersection):
+    the B2 kernel's product of constant material opacity over every hit."""
+    mat = scene.mat_color[scene.tri_mat.long()]
+    op_rgb = mat[:, :3]
+    op_a = 1.0 - mat[:, 3]
+    return _run_coherent(
+        cfg, hw, o, d, (dist,),
+        lambda o, d, dist: cluster_shadow(
+            o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
+            scene.cl_base, scene.cl_count, op_rgb, op_a),
+        sort=_sort_traversal(cfg, scene))
+
+
+# ---------------------------------------------------------------------------
+# BSDF (reference cuda_material.cuh:162-301)
+# ---------------------------------------------------------------------------
+
+def brdf_eval(d_in, mapped_normal, surface_scattering, roughness, alpha_op,
+              reflectance, vpl):
+    """The reference BRDF (cuda_material.cuh:162-182). ``vpl`` must be unit."""
+    is_scatter = surface_scattering > 0.0
+    n_dot_o = dot(mapped_normal, vpl)
+    n_dot_i = dot(mapped_normal, -d_in)
+    vh = halfway(d_in, vpl)
+    # clipped: both vectors are unit only to rounding, and |n_dot_h| > 1
+    # would let b cross zero for roughness 0 (mirrors) and ndf become inf
+    n_dot_h = torch.clamp(dot(mapped_normal, vh), -1.0, 1.0)
+    b = n_dot_h * n_dot_h * (roughness - 1.0) + 1.0001
+    ndf = (roughness + 1e-5) / (b * b)
+
+    def att(c):
+        c = torch.clamp(c, min=0.0)
+        return c / (c * (1.0 - roughness) + roughness + 1e-7)
+
+    attenuation = att(n_dot_i) * att(n_dot_o)
+    diffuse = n_dot_o * (alpha_op == 0.0).to(n_dot_o.dtype)
+    specular = ndf * attenuation / torch.clamp(n_dot_i * n_dot_o, min=1e-7)
+    val = lerp(diffuse, specular * n_dot_o, reflectance)
+    val = torch.where((n_dot_o <= 0.0) | (n_dot_i <= 0.0),
+                      torch.zeros_like(val), val)
+    return torch.where(is_scatter, torch.ones_like(val), val)
+
+
+def sample_direction(d_in, normal, mapped_normal, mat: MatProps,
+                     surf_scattering, fresnel, reflectance, refr_ratio, refr_b,
+                     u_r1, u_r2, u_lottery):
+    """Importance-sample the next direction (reference
+    Material::sampleDirection, cuda_material.cuh:203-301).
+    Returns (next_dir, tint_factor, refracted)."""
+    def flip_above(v, n):
+        c = dot(n, v)[:, None]
+        return torch.where(c < 0.0, v - 2.0 * c * n, v)
+
+    # 1) scattering medium event or transmissive surface in a scattering material
+    scatter_dir = sample_sphere(u_r1, u_r2, d_in)
+
+    # 2) transmission (refract or fresnel-reflect)
+    refr_dir = d_in * refr_ratio[:, None] + mapped_normal * refr_b[:, None]
+    refl_m = flip_above(reflect(d_in, mapped_normal), normal)
+    take_refr = fresnel < u_lottery
+    trans_dir = torch.where(take_refr[:, None], refr_dir, refl_m)
+    trans_tint = torch.where(take_refr, torch.ones_like(mat.metalness),
+                             mat.metalness)
+
+    # 3) diffuse
+    diff_dir = flip_above(cosine_sample_hemisphere(u_r1, u_r2, mapped_normal),
+                          normal)
+
+    # 4) glossy
+    vh = sample_hemisphere(u_r1, 1.0 - torch.pow(u_r2 + 1e-5, mat.roughness),
+                           mapped_normal)
+    gloss_dir = flip_above(reflect(d_in, vh), normal)
+
+    is_trans = mat.alpha_op > 0.0
+    is_scat = is_trans & (surf_scattering > 0.0)
+    is_diffuse = ~is_trans & (u_lottery > reflectance)
+
+    next_dir = torch.where(is_scat[:, None], scatter_dir,
+                torch.where(is_trans[:, None], trans_dir,
+                 torch.where(is_diffuse[:, None], diff_dir, gloss_dir)))
+    one = torch.ones_like(mat.metalness)
+    tint = torch.where(is_scat, mat.metalness,
+            torch.where(is_trans, trans_tint,
+             torch.where(is_diffuse, one, mat.metalness)))
+    refracted = is_trans & ~is_scat & take_refr
+    return normalize(next_dir), tint, refracted
+
+
+# ---------------------------------------------------------------------------
+# next-event estimation (reference cuda_render_kernel.cu:239-355)
+# ---------------------------------------------------------------------------
+
+def _where0(cond, x):
+    return torch.where(cond, torch.zeros_like(x), x)
+
+
+def _nee_spot(scene, cfg, point, next_dir, d_in, mapped_normal, surf_scattering,
+              roughness, alpha_op, reflectance, brdf_color, vs_pdf,
+              medium_scattering, u, hw=None):
+    n_lights = scene.n_spot_lights
+    n_samples = cfg.light_sampling.spot_light
+    total = torch.zeros_like(point)
+    for s in range(n_samples):
+        us = u[:, 3 * s:3 * s + 3]
+        li = torch.clamp((us[:, 0] * n_lights).to(torch.int32),
+                         max=n_lights - 1).long()
+        lpos = scene.spot_pos[li]
+        ldir = scene.spot_dir[li]
+        lcol = scene.spot_color[li]
+        lsize = scene.spot_size[li]
+        lemit = scene.spot_emission[li]
+        lcos = scene.spot_cos_angle[li]
+
+        # sampleDirection (cuda_spot_light.cuh:56-80)
+        v_pl0 = lpos - point
+        d_pl0 = torch.sqrt(torch.clamp(dot(v_pl0, v_pl0), min=1e-20))
+        vop_dot = dot(v_pl0, next_dir)
+        d_pq = torch.sqrt(torch.clamp(d_pl0 * d_pl0 - vop_dot * vop_dot,
+                                      min=1e-20))
+        would_hit = (d_pq < lsize) & (vop_dot > 0.0)
+        d_oq = torch.sqrt(torch.clamp(d_pl0 * d_pl0 - d_pq * d_pq, min=1e-20))
+        vpl_hit = next_dir * torch.clamp(d_oq, min=1e-4)[:, None]
+        vpl_disk = sample_disk(us[:, 1], us[:, 2], v_pl0 / d_pl0[:, None],
+                               lsize) + v_pl0
+        vpl = torch.where(would_hit[:, None], vpl_hit, vpl_disk)
+        se = torch.where(would_hit, lemit, torch.zeros_like(lemit))
+
+        d_pl = torch.sqrt(torch.clamp(dot(vpl, vpl), min=1e-20))
+        vpl_n = vpl / d_pl[:, None]
+        brdf = brdf_eval(d_in, mapped_normal, surf_scattering, roughness,
+                         alpha_op, reflectance, vpl_n)
+        solid_angle = (lsize * lsize * torch.pi) / ((d_pl + 1.0) * (d_pl + 1.0))
+        sctr = torch.exp(-d_pl * medium_scattering)
+        beam = (lcos < dot(-vpl_n, ldir)).to(torch.float32)
+
+        l_pdf = 1.0 / torch.clamp(solid_angle, min=1e-20)
+        vsw = vs_pdf / (vs_pdf + l_pdf)
+        lw = 1.0 - vsw
+        le = lemit * solid_angle * brdf
+        radiance = (le * lw + se * vsw) * sctr * beam
+        radiance = _where0(radiance < 1e-4, radiance)
+        radiance = _where0(brdf < 1e-4, radiance)
+
+        v_rgb, v_a = shadow_test(scene, cfg, point, vpl_n, d_pl, hw=hw)
+        total = total + lcol * brdf_color * (radiance * v_a)[:, None] * v_rgb
+    pdf = n_samples / float(n_lights)
+    return total / pdf
+
+
+def _nee_direct(scene, cfg, point, next_dir, d_in, mapped_normal, surf_scattering,
+                roughness, alpha_op, reflectance, brdf_color, vs_pdf, u, hw=None):
+    n_lights = scene.n_direct_lights
+    n_samples = cfg.light_sampling.direct_light
+    total = torch.zeros_like(point)
+    for s in range(n_samples):
+        us = u[:, 3 * s:3 * s + 3]
+        li = torch.clamp((us[:, 0] * n_lights).to(torch.int32),
+                         max=n_lights - 1).long()
+        ldir = scene.dir_dir[li]
+        lcol = scene.dir_color[li]
+        lemit = scene.dir_emission[li]
+        lcos = scene.dir_cos[li]
+
+        # sampleDirection (cuda_direct_light.cuh:50-67)
+        would_hit = dot(next_dir, -ldir) > lcos
+        cone = sample_sphere(us[:, 1], us[:, 2] * 0.5 * (1.0 - lcos), -ldir)
+        vpl = torch.where(would_hit[:, None], next_dir, cone)
+        se = torch.where(would_hit, lemit, torch.zeros_like(lemit))
+
+        vpl_n = normalize(vpl)
+        brdf = brdf_eval(d_in, mapped_normal, surf_scattering, roughness,
+                         alpha_op, reflectance, vpl_n)
+        solid_angle = 2.0 * torch.pi * (1.0 - lcos)
+        l_pdf = 1.0 / torch.clamp(solid_angle, min=1e-20)
+        vsw = vs_pdf / (vs_pdf + l_pdf)
+        lw = 1.0 - vsw
+        le = lemit * solid_angle * brdf
+        radiance = le * lw + se * vsw
+        radiance = _where0(radiance < 1e-4, radiance)
+
+        v_rgb, v_a = shadow_test(scene, cfg, point, vpl_n,
+                                 torch.full_like(se, BIG), hw=hw)
+        total = total + lcol * brdf_color * (radiance * v_a)[:, None] * v_rgb
+    pdf = n_samples / float(n_lights)
+    return total / pdf
+
+
+# ---------------------------------------------------------------------------
+# one wavefront bounce
+# ---------------------------------------------------------------------------
+
+def n_streams(cfg: RenderConfig, scene: TorchScene) -> int:
+    ns = 8
+    if scene.n_spot_lights:
+        ns += 3 * cfg.light_sampling.spot_light
+    if scene.n_direct_lights:
+        ns += 3 * cfg.light_sampling.direct_light
+    return ns
+
+
+def pass_uniforms(seed: int, pass_idx: int, r: int, ns: int, device):
+    """[R, ns] uniforms of one pass, from a generator seeded by
+    (seed, pass): the same pass always draws the same numbers."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 0x9E3779B1 + int(pass_idx)) % (2 ** 63))
+    return torch.rand((r, ns), generator=g, dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
+                state: RenderState, seed: int = 0, u=None,
+                row0: int = 0) -> RenderState:
+    """Advance every pixel's path by one bounce (reference
+    renderCumulativePass, cuda_render_kernel.cu:67-121).
+
+    ``u``: optional [R, ns] uniforms (ns = :func:`n_streams`); None draws
+    :func:`pass_uniforms` for (seed, state.pass_idx). ``row0``: global image
+    row of this wavefront's first row."""
+    H, W = state.height, state.width
+    R = H * W
+    dev = state.accum.device
+    f32 = torch.float32
+    if u is None:
+        u = pass_uniforms(seed, state.pass_idx, R, n_streams(cfg, scene), dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
+
+    o, d = state.origin, state.direction
+    depth0 = state.path_depth
+    # camera segments refresh their clip range (cuda_render_kernel.cu:95)
+    near = torch.where(depth0 == 0, cam.near_far[0], state.near)
+    far = torch.where(depth0 == 0, cam.near_far[1], state.far)
+
+    mp = mat_pack(scene)
+    med = torch.clamp(state.medium, 0, scene.n_materials - 1)
+    med_row = mp[med.long()]
+    med_color = med_row[:, 0:4]
+    med_ior = med_row[:, 7]
+    med_scatter = med_row[:, 8]
+
+    # --- volumetric free flight (cuda_material.cuh:141-159) ---
+    sigma = torch.clamp(med_scatter, min=1e-20)
+    scat_dist = -torch.log(u[:, 0] + 1e-4) / sigma
+    has_scatter = med_scatter > 1e-4
+    far_eff = torch.where(has_scatter, torch.minimum(far, scat_dist), far)
+
+    # --- closest intersection (tp = the hit's packed attribute row) ---
+    t, tri_id, b1, b2, external, tp = closest_hit(
+        scene, cfg, o, d, near, far_eff, hw=(H, W))
+    hit_obj = tri_id >= 0
+    scatter_evt = has_scatter & ~hit_obj & (scat_dist < far)
+    any_hit = hit_obj | scatter_evt
+    t_final = torch.where(hit_obj, t, torch.where(scatter_evt, scat_dist, far_eff))
+
+    # --- free-flight log-likelihood, kept in the state as in JAX; the
+    # score-function ratios built from it are 1 in the forward pass
+    # (ROADMAP A12) ---
+    logp = torch.where(scatter_evt, torch.log(sigma) - sigma * t_final,
+                       torch.where(has_scatter, -sigma * t_final, zero))
+    score = state.score + logp
+
+    e1, e2 = tp[:, 3:6], tp[:, 6:9]
+    n0_w, n1_w, n2_w = tp[:, 9:12], tp[:, 12:15], tp[:, 15:18]
+    tri_mat_hit = torch.round(tp[:, 24]).to(torch.int32)
+
+    world_id = torch.full_like(tri_mat_hit, WORLD_MATERIAL_ID)
+    surf_mat = torch.where(hit_obj, tri_mat_hit,
+                           torch.where(scatter_evt, med, world_id))
+    behind_mat = torch.where(hit_obj & external, surf_mat,
+                             torch.where(scatter_evt, med, world_id))
+
+    # --- surface frame ---
+    b0 = 1.0 - b1 - b2
+    ext_f = torch.where(external, one, -one)[:, None]
+    flat_n = normalize(cross(e1, e2)) * ext_f
+    vtx_n = normalize(n0_w * b0[:, None] + n1_w * b1[:, None]
+                      + n2_w * b2[:, None])
+
+    mat = material_fetch(scene, mp, surf_mat)
+    mapped = vtx_n * ext_f
+
+    normal = torch.where(hit_obj[:, None], flat_n, d)
+    mapped_normal = torch.where(hit_obj[:, None], mapped, d)
+
+    # --- Beer's law (cuda_render_kernel.cu:162-176), base floored at 1e-6 ---
+    med_alpha_op = 1.0 - med_color[:, 3]
+    throughput = (state.throughput * med_color[:, :3]
+                  * torch.pow(torch.clamp(med_alpha_op, min=1e-6),
+                              t_final)[:, None])
+
+    # --- emissive contribution ---
+    contrib = torch.where((mat.emission > 0.0)[:, None],
+                          throughput * mat.color_rgb * mat.emission[:, None],
+                          zero)
+
+    new_depth = torch.where(any_hit, depth0 + 1,
+                            torch.full_like(depth0, PATH_LIMIT))
+
+    # --- fresnel / reflectance ---
+    n2 = mp[torch.clamp(behind_mat, 0, scene.n_materials - 1).long()][:, 7]
+    fresnel, refr_ratio, refr_b = fresnel_specular_ratio(mapped_normal, d,
+                                                         med_ior, n2)
+    reflectance = lerp(fresnel, 1.0, mat.metalness)
+
+    surf_scattering = mat.scattering
+    next_dir, tint, refracted = sample_direction(
+        d, normal, mapped_normal, mat, surf_scattering, fresnel, reflectance,
+        refr_ratio, refr_b, u[:, 1], u[:, 2], u[:, 3])
+
+    # hit point with normal nudge (cuda_render_kernel.cu:214-216); the
+    # nudge normal flips when refracting (cuda_material.cuh:272)
+    nudge_n = torch.where(refracted[:, None], -normal, normal)
+    point = o + d * t_final[:, None] + nudge_n * (1e-4 * t_final)[:, None]
+
+    # --- NEE (only for surviving surface interactions); masked lanes get
+    # a safe origin so the light math stays finite ---
+    if scene.n_spot_lights or scene.n_direct_lights:
+        point_nee = torch.where(any_hit[:, None], point, zero)
+        vs_pdf = brdf_eval(d, mapped_normal, surf_scattering, mat.roughness,
+                           mat.alpha_op, reflectance, next_dir)
+        brdf_color = lerp(mat.color_rgb, torch.ones_like(mat.color_rgb),
+                          reflectance[:, None])
+        direct = torch.zeros_like(point)
+        off = 8
+        if scene.n_spot_lights:
+            ns = 3 * cfg.light_sampling.spot_light
+            direct = direct + _nee_spot(
+                scene, cfg, point_nee, next_dir, d, mapped_normal,
+                surf_scattering, mat.roughness, mat.alpha_op, reflectance,
+                brdf_color, vs_pdf, med_scatter, u[:, off:off + ns], hw=(H, W))
+            off += ns
+        if scene.n_direct_lights:
+            ns = 3 * cfg.light_sampling.direct_light
+            direct = direct + _nee_direct(
+                scene, cfg, point_nee, next_dir, d, mapped_normal,
+                surf_scattering, mat.roughness, mat.alpha_op, reflectance,
+                brdf_color, vs_pdf, u[:, off:off + ns], hw=(H, W))
+        metallic_tint = lerp(torch.ones_like(mat.color_rgb), mat.color_rgb,
+                             mat.metalness[:, None])
+        contrib = contrib + torch.where(any_hit[:, None],
+                                        direct * throughput * metallic_tint,
+                                        zero)
+
+    # --- throughput tint (cuda_render_kernel.cu:235) ---
+    throughput_next = lerp(throughput, throughput * mat.color_rgb, tint[:, None])
+
+    # --- accumulate (fresh tensors: the input state stays valid) ---
+    path_continues = new_depth < cfg.tracing.max_depth
+    terminated = ~path_continues
+    accum = state.accum.clone()
+    accum[:, :, :3] += contrib.reshape(H, W, 3)
+    accum[:, :, 3] += terminated.to(f32).reshape(H, W)
+
+    # depth/space buffers on camera segments (renderFirstPass,
+    # cuda_render_kernel.cu:39-43)
+    cam_seg = (depth0 == 0).reshape(H, W)
+    depth_buf = torch.where(cam_seg, t_final.reshape(H, W), state.depth_buf)
+    space_buf = torch.where(cam_seg[..., None],
+                            (o + d * t_final[:, None]).reshape(H, W, 3),
+                            state.space_buf)
+
+    # --- continue or regenerate (cuda_render_kernel.cu:107-120) ---
+    new_medium = torch.where(refracted, behind_mat, med)
+    pix = cam_ops.pixel_grid(W, H, row0, device=dev)
+    cam_o, cam_d = cam_ops.generate_rays(cam, pix, u[:, 4:8])
+
+    tm = terminated[:, None]
+    return state.replace(
+        accum=accum, depth_buf=depth_buf, space_buf=space_buf,
+        origin=torch.where(tm, cam_o, point),
+        direction=torch.where(tm, cam_d, next_dir),
+        throughput=torch.where(tm, one, throughput_next),
+        medium=torch.where(terminated, torch.full_like(med, WORLD_MATERIAL_ID),
+                           new_medium),
+        path_depth=torch.where(terminated, torch.zeros_like(new_depth), new_depth),
+        near=torch.where(terminated, cam.near_far[0], zero),
+        far=torch.where(terminated, cam.near_far[1],
+                        torch.full_like(far, BIG)),
+        score=torch.where(terminated, zero, score),
+        pass_idx=state.pass_idx + 1)
+
+
+# ---------------------------------------------------------------------------
+# multi-bounce render step
+# ---------------------------------------------------------------------------
+
+def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
+                 state: RenderState, seed: int, n_steps: int,
+                 row0: int = 0) -> RenderState:
+    """Run ``n_steps`` cumulative bounce passes (the analog of the reference
+    render cycle, cuda_engine_renderer.cu:125-186)."""
+    check_config(cfg)
+    for _ in range(n_steps):
+        state = bounce_step(scene, cam, cfg, state, seed, row0=row0)
+    return state
+
+
+@torch.no_grad()
+def ray_cast(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
+             state: RenderState, pixel_x: int, pixel_y: int):
+    """Object picking (reference rayCast kernel, cuda_render_kernel.cu:130-144):
+    re-trace the pixel's primary ray in a depth window around the stored
+    depth. Returns (instance_idx, material_idx) as ints (-1 = none)."""
+    dev = state.depth_buf.device
+    px = torch.tensor([[float(pixel_x), float(pixel_y)]], dtype=torch.float32,
+                      device=dev)
+    o, d = cam_ops.simple_ray(cam, px)
+    depth = state.depth_buf[pixel_y, pixel_x]
+    near = (depth * 0.99).reshape(1)
+    far = (depth * 1.01).reshape(1)
+    _, tid, _, _, _, _ = closest_hit(scene, cfg, o, d, near, far)
+    tri = int(tid[0])
+    if tri < 0:
+        return -1, -1
+    return int(scene.tri_inst[tri]), int(scene.tri_mat[tri])

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels (``rayzath_tpu_torch/csrc``).
+
+The sources are compiled by ``nvcc`` into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds) and loaded with
+``ctypes``. The library lands in ``rayzath_tpu_torch/build/rz_kernels/``,
+inside the package in a checkout and in an installed copy alike (git ignores
+it), named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused. Nothing is built at import time:
+:func:`load` runs on the first kernel launch.
+
+Flags: ``-O3`` for ``sm_90a``, IEEE division and square root, no fast math,
+and ``-fmad=false`` so that every multiply and add rounds on its own, as the
+plain PyTorch versions do; the kernels then return the plain versions' hits
+bit for bit wherever their culling lets a ray reach its triangle.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "build" / "rz_kernels"
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id, stream
+    "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a, stream
+    "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):        # sources and headers
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librz_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (first use only) and load the kernel library. Raises when there
+    is no CUDA device or no compiler; there is no fallback."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the cluster kernels need one")
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rz_error_string.argtypes = [ctypes.c_int]
+    lib.rz_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(code: int) -> str:
+    return f"{code} ({load().rz_error_string(code).decode()})"

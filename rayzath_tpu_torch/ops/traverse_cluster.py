@@ -1,0 +1,321 @@
+"""Flat cluster traversal: closest hit (B1) and transmission shadow (B2).
+
+Counterpart of the soup half of ``rayzath_tpu/ops/traverse_cluster.py``.
+The acceleration structure is the same flat table of triangle clusters (the
+leaves of an ordinary BVH build, at most 128 triangles each), built on the
+host by :func:`build_cluster_tables`:
+
+* ``box_tab [8, Cp]``: per cluster the AABB min (rows 0-2) and max (rows
+  3-5), the first triangle in cluster order (row 6) and the triangle count
+  (row 7, 0 = padding lane).
+* ``frames [Cp, 4, 384]``: cluster-local projection frames. For cluster c
+  with centre ``ctr = (bmin + bmax) / 2``, triangle j and part a (x, y, z):
+  ``o'_a = sum_k frames[c, k, a*128 + j] * (o - ctr, 1)_k`` and
+  ``d'_a = sum_k frames[c, k, a*128 + j] * (d, 0)_k``. Then
+  ``t = o'_z / -d'_z`` (d'_z nudged by DET_EPS when tiny),
+  ``b1 = o'_x + t d'_x`` and ``b2 = o'_y + t d'_y``.
+
+Each public entry point (``cluster_closest``, ``cluster_shadow``) takes the
+plain PyTorch version for a tensor on the CPU and launches the hand-written
+CUDA kernel (``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``) for a
+tensor on a CUDA device; any other device raises. Each counts its kernel
+launches in a ``launches`` attribute. The plain versions visit every real
+cluster with no culling; the kernels cull conservatively, so both return
+the same hits.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .bvh import build_bvh, triangle_aabbs
+from .intersect import BIG, DET_EPS, triangle_frames
+
+CLUSTER_T = 128         # triangles per cluster
+
+# box_tab row layout ([8, Cp] f32, clusters on columns)
+B_MIN = 0               # rows 0..2: cluster AABB min xyz
+B_MAX = 3               # rows 3..5: cluster AABB max xyz
+B_BASE = 6              # row 6: first triangle (reordered index)
+B_CNT = 7               # row 7: triangle count (0 = padding lane)
+
+
+# ---------------------------------------------------------------------------
+# host build (copied from the JAX package; NumPy only)
+# ---------------------------------------------------------------------------
+
+def build_cluster_tables(tri_v0, tri_e1, tri_e2, cluster_t: int = CLUSTER_T):
+    """Host build of the flat cluster tables.
+
+    Returns (box_tab [8, Cp] f32, frames [Cp, 4, 3*cluster_t] f32,
+    order [T] i32 reordered -> original, base [Cp] i32, count [Cp] i32).
+    """
+    tri_v0 = np.asarray(tri_v0, np.float32)
+    tri_e1 = np.asarray(tri_e1, np.float32)
+    tri_e2 = np.asarray(tri_e2, np.float32)
+    t_count = len(tri_v0)
+    # triangle ids are carried as f32 in box_tab row 6: exact below 2^24
+    assert t_count < 2 ** 24, "f32 triangle ids overflow at 2^24 triangles"
+    pmin, pmax = triangle_aabbs(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
+    bvh = build_bvh(pmin, pmax, leaf_size=cluster_t)
+    order = bvh.order if t_count else np.zeros(0, np.int32)
+    v0, e1, e2 = tri_v0[order], tri_e1[order], tri_e2[order]
+
+    # leaves -> clusters, SPLITTING any leaf larger than cluster_t (the
+    # BVH's too-large-object partition can emit oversized leaves when
+    # centroids coincide); chunk bounds recomputed from the chunk's own
+    # triangle AABBs so culling stays tight
+    pmin_r = pmin[order] if t_count else pmin
+    pmax_r = pmax[order] if t_count else pmax
+    leaves = []          # (begin, count, bmin, bmax) per CLUSTER
+    if t_count:
+        for node in np.nonzero(bvh.node_count > 0)[0]:
+            b = int(bvh.node_begin[node])
+            n = int(bvh.node_count[node])
+            if n <= cluster_t:
+                leaves.append((b, n, bvh.node_min[node], bvh.node_max[node]))
+            else:
+                for b0 in range(b, b + n, cluster_t):
+                    m = min(cluster_t, b + n - b0)
+                    leaves.append((b0, m, pmin_r[b0:b0 + m].min(0),
+                                   pmax_r[b0:b0 + m].max(0)))
+    c = len(leaves)
+    cp = max(128, -(-max(c, 1) // 128) * 128)
+    box = np.zeros((8, cp), np.float32)
+    # padding lanes: inverted boxes that no slab test can reach
+    box[B_MIN:B_MIN + 3, :] = 3e38
+    box[B_MAX:B_MAX + 3, :] = -3e38
+    base = np.zeros(cp, np.int32)
+    count = np.zeros(cp, np.int32)
+    frames = np.zeros((cp, 4, 3 * cluster_t), np.float32)
+    # never-hit padding frames: w = 0, c = (-1, -1, 1) => b1 = -1 everywhere
+    frames[:, 3, 0 * cluster_t:1 * cluster_t] = -1.0
+    frames[:, 3, 1 * cluster_t:2 * cluster_t] = -1.0
+    frames[:, 3, 2 * cluster_t:3 * cluster_t] = 1.0
+    if t_count:
+        w_all, c_all = triangle_frames(v0, e1, e2)      # [3, 3T], [3T]
+        for s, (b, n, bmin, bmax) in enumerate(leaves):
+            base[s] = b
+            count[s] = n
+            box[B_MIN:B_MIN + 3, s] = bmin
+            box[B_MAX:B_MAX + 3, s] = bmax
+            box[B_BASE, s] = float(b)
+            box[B_CNT, s] = float(n)
+            # frames are evaluated against CLUSTER-LOCAL ray origins
+            # (o - box center): absorb the center into the constant term in
+            # f64 so the traversal sees small, well-conditioned magnitudes
+            ctr = (bmin.astype(np.float64) + bmax.astype(np.float64)) * 0.5
+            for a in range(3):                          # local coord part
+                cols = slice(a * t_count + b, a * t_count + b + n)
+                w_c = w_all[:, cols].astype(np.float64)
+                frames[s, 0:3, a * cluster_t:a * cluster_t + n] = w_all[:, cols]
+                frames[s, 3, a * cluster_t:a * cluster_t + n] = (
+                    c_all[cols].astype(np.float64) + ctr @ w_c
+                ).astype(np.float32)
+    return box, frames, order.astype(np.int32), base, count
+
+
+def cluster_opacity(op_rgb, op_a, order, base, count,
+                    cluster_t: int = CLUSTER_T):
+    """[Cp, 4, cluster_t] per-cluster rgba opacity from the live material
+    opacity tables (original triangle order), rebuilt on every call so that
+    material edits are never stale. Padding slots get 1."""
+    ops = torch.cat([op_rgb, op_a[:, None]], dim=1)[order]          # [T,4]
+    lanes = torch.arange(cluster_t, device=op_rgb.device)
+    idx = base[:, None].long() + lanes[None, :]                      # [C,ct]
+    valid = lanes[None, :] < count[:, None]
+    idx = torch.clamp(idx, 0, max(ops.shape[0] - 1, 0))
+    vals = torch.where(valid[:, :, None], ops[idx],
+                       torch.ones((), dtype=ops.dtype, device=ops.device))
+    return vals.permute(0, 2, 1).contiguous()                        # [C,4,ct]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (no culling)
+# ---------------------------------------------------------------------------
+
+def _real_clusters(box_tab):
+    """[(cluster, first triangle)] of every non-padding row, read once."""
+    rows = box_tab[[B_BASE, B_CNT]].cpu()
+    return [(c, int(rows[0, c])) for c in
+            torch.nonzero(rows[1] > 0).flatten().tolist()]
+
+
+def _project(origin, direction, box_tab, frames, c):
+    """(t, b1, b2) [R, 128] of every ray against cluster ``c``'s triangles,
+    with the kernels' exact operation order."""
+    ct = CLUSTER_T
+    ctr = (box_tab[B_MIN:B_MIN + 3, c] + box_tab[B_MAX:B_MAX + 3, c]) * 0.5
+    p = origin - ctr
+    f = frames[c]                                                   # [4, 384]
+    px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
+    ol = f[0] * px + f[1] * py + f[2] * pz + f[3]                   # [R, 384]
+    dl = f[0] * dx + f[1] * dy + f[2] * dz
+    olx, oly, olz = ol[:, 0:ct], ol[:, ct:2 * ct], ol[:, 2 * ct:]
+    dlx, dly, dlz = dl[:, 0:ct], dl[:, ct:2 * ct], dl[:, 2 * ct:]
+    dlz = dlz + (dlz.abs() < DET_EPS).to(dlz.dtype) * DET_EPS
+    t = olz / -dlz
+    b1 = olx + t * dlx
+    b2 = oly + t * dly
+    return t, b1, b2
+
+
+def _inside(b1, b2):
+    return (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+
+
+def cluster_closest_plain(origin, direction, near, far, box_tab, frames):
+    """Closest hit over every real cluster, in table order. Returns
+    (t [R], id [R] i32 in CLUSTER order, -1 = miss). A ray with far <= 0 is
+    invalid: it returns t = -1 and id -1. Ties inside a cluster keep the
+    lowest id; across clusters a later cluster must be strictly nearer."""
+    r = origin.shape[0]
+    dev = origin.device
+    ok = far > 0.0
+    best_t = torch.where(ok, torch.clamp(far, max=BIG),
+                         torch.full_like(far, -1.0))
+    best_id = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    lanes = torch.arange(CLUSTER_T, dtype=torch.int32, device=dev)
+    big = torch.full((), BIG, dtype=torch.float32, device=dev)
+    for c, base in _real_clusters(box_tab):
+        t, b1, b2 = _project(origin, direction, box_tab, frames, c)
+        valid = (_inside(b1, b2) & (t > near[:, None]) & (t < best_t[:, None])
+                 & ok[:, None])
+        tm = torch.where(valid, t, big)
+        t_new = tm.amin(dim=1)
+        j = torch.where(tm == t_new[:, None], lanes,
+                        torch.full_like(lanes, CLUSTER_T)).amin(dim=1)
+        got = t_new < best_t
+        best_id = torch.where(got, base + j, best_id)
+        best_t = torch.where(got, t_new, best_t)
+    return best_t, best_id
+
+
+def cluster_shadow_plain(origin, direction, dist, box_tab, frames, op_tab):
+    """Product of the rgba opacity of every hit with t in (0, dist), over
+    every real cluster. Returns (rgb [R,3], a [R])."""
+    r = origin.shape[0]
+    m = torch.ones((r, 4), dtype=torch.float32, device=origin.device)
+    for c, _ in _real_clusters(box_tab):
+        t, b1, b2 = _project(origin, direction, box_tab, frames, c)
+        valid = _inside(b1, b2) & (t > 0.0) & (t < dist[:, None])   # [R,ct]
+        fac = torch.where(valid[:, None, :], op_tab[c][None], 1.0)  # [R,4,ct]
+        m = m * fac.prod(dim=2)
+    return m[:, 0:3].contiguous(), m[:, 3].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(dev, **tensors):
+    """Raise unless every tensor is a contiguous float32/int32 tensor on the
+    CUDA device ``dev``."""
+    for name, (x, dtype) in tensors.items():
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name} must be on the CUDA device {dev}, "
+                             f"got {x.device}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tables(box_tab, frames, extra=()):
+    cp = box_tab.shape[1]
+    if box_tab.shape != (8, cp) or frames.shape != (cp, 4, 3 * CLUSTER_T):
+        raise ValueError(f"cluster tables disagree: box_tab {tuple(box_tab.shape)}"
+                         f", frames {tuple(frames.shape)}")
+    for name, x, shape in extra:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    return cp
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _map_ids(rid, order):
+    """Cluster-order ids -> original soup ids (-1 stays -1)."""
+    safe = torch.clamp(rid, 0, order.shape[0] - 1).long()
+    return torch.where(rid >= 0, order[safe].to(torch.int32),
+                       torch.full_like(rid, -1))
+
+
+def cluster_closest(origin, direction, near, far, box_tab, frames, order):
+    """Closest hit. Returns (t [R], tri_id [R] i32 in ORIGINAL order,
+    -1 = miss). CPU tensors take :func:`cluster_closest_plain`; CUDA
+    tensors launch the B1 kernel (``csrc/cluster_closest.cu``)."""
+    if origin.device.type == "cpu":
+        t, rid = cluster_closest_plain(origin, direction, near, far, box_tab,
+                                       frames)
+        return t, _map_ids(rid, order)
+    lib = _kernels.load()
+    dev = origin.device
+    r = origin.shape[0]
+    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
+           near=(near, torch.float32), far=(far, torch.float32),
+           box_tab=(box_tab, torch.float32), frames=(frames, torch.float32))
+    cp = _check_tables(box_tab, frames, (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("near", near, (r,)), ("far", far, (r,))))
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    rid = torch.empty(r, dtype=torch.int32, device=dev)
+    if r:
+        err = lib.rz_cluster_closest(
+            _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
+            _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), _stream())
+        if err != 0:
+            raise RuntimeError(f"cluster_closest kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        cluster_closest.launches += 1
+    return t, _map_ids(rid, order.to(dev))
+
+
+cluster_closest.launches = 0
+
+
+def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
+                   count, op_rgb, op_a):
+    """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
+    product of the live material opacity over every hit in (0, dist).
+    CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
+    B2 kernel (``csrc/cluster_shadow.cu``), which may stop a ray once its
+    alpha is below 1e-4. Forward only: the gradient replay is
+    ROADMAP A12."""
+    op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
+    if origin.device.type == "cpu":
+        return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
+                                    op_tab)
+    lib = _kernels.load()
+    dev = origin.device
+    r = origin.shape[0]
+    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
+           dist=(dist, torch.float32), box_tab=(box_tab, torch.float32),
+           frames=(frames, torch.float32), op_tab=(op_tab, torch.float32))
+    cp = _check_tables(box_tab, frames, (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("dist", dist, (r,)), ("op_tab", op_tab, (box_tab.shape[1], 4, CLUSTER_T))))
+    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    a = torch.empty(r, dtype=torch.float32, device=dev)
+    if r:
+        err = lib.rz_cluster_shadow(
+            _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
+            _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), _stream())
+        if err != 0:
+            raise RuntimeError(f"cluster_shadow kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        cluster_shadow.launches += 1
+    return rgb, a
+
+
+cluster_shadow.launches = 0

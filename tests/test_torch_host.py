@@ -1,0 +1,212 @@
+"""The port's host layer against the JAX package's.
+
+The port carries jax-free copies of the host model, the scene builders, the
+BVH and cluster-table builds and the soup branch of ``compile_world``; these
+tests pin the copies to the originals array for array.
+
+The JAX package's ``build_bvh`` prefers its C++ builder when that compiles;
+that builder is not bit-identical to the NumPy one it falls back to (see
+``test_native_bvh_builder_differs``), and the port runs the NumPy builder.
+The exact-equality tests therefore run the JAX side on its NumPy fallback.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import rayzath_tpu as rz  # noqa: E402
+from rayzath_tpu import native as rz_native  # noqa: E402
+from rayzath_tpu.models import device_scene as jds  # noqa: E402
+from rayzath_tpu.ops import bvh as jbvh  # noqa: E402
+from rayzath_tpu.ops import traverse_cluster as jtc  # noqa: E402
+
+import rayzath_tpu_torch as rt  # noqa: E402
+from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
+from rayzath_tpu_torch.ops import bvh as tbvh  # noqa: E402
+from rayzath_tpu_torch.ops import traverse_cluster as ttc  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def numpy_bvh(monkeypatch):
+    """Route the JAX package's build_bvh to its NumPy fallback."""
+    monkeypatch.setattr(rz_native, "bvh_build", lambda *a, **k: None)
+
+
+def jax_leaves(scene):
+    """{name: np.ndarray} of a JAX DeviceScene's array leaves + its statics."""
+    leaves, statics = {}, {}
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        if v is None:
+            continue
+        if isinstance(v, (bool, int, tuple)):
+            statics[f.name] = v
+        else:
+            leaves[f.name] = np.asarray(v)
+    return leaves, statics
+
+
+def assert_scene_equal(ts, leaves, statics):
+    for f in dataclasses.fields(tds.TorchScene):
+        a = getattr(ts, f.name)
+        if isinstance(a, int):
+            assert a == statics[f.name], f.name
+            continue
+        b = leaves[f.name]
+        assert a.shape == b.shape and a.numpy().dtype == b.dtype, f.name
+        assert np.array_equal(a.numpy(), b), f.name
+
+
+@pytest.mark.parametrize("name", ["cornell_box_nee", "multi_light",
+                                  "glass_and_fog"])
+def test_compile_world_leaves_match(name, numpy_bvh):
+    js = jds.compile_world(getattr(rz.scenes, name)(24, 24))
+    ts = tds.compile_world(getattr(rt.scenes, name)(24, 24))
+    leaves, statics = jax_leaves(js)
+    assert_scene_equal(ts, leaves, statics)
+    assert ts.n_clusters == js.n_clusters >= 1
+
+
+def test_scene_from_arrays_roundtrip(numpy_bvh):
+    js = jds.compile_world(rz.scenes.multi_light(24, 24))
+    leaves, statics = jax_leaves(js)
+    ts = tds.scene_from_arrays(leaves, statics)
+    assert_scene_equal(ts, leaves, statics)
+    # and back: the port scene's own arrays rebuild an equal scene
+    own = {f.name: getattr(ts, f.name).numpy()
+           for f in dataclasses.fields(ts)
+           if isinstance(getattr(ts, f.name), torch.Tensor)}
+    again = tds.scene_from_arrays(own, dataclasses.asdict(ts))
+    for k, v in own.items():
+        assert torch.equal(getattr(again, k), torch.as_tensor(v)), k
+
+
+def test_compile_camera_matches():
+    w = rt.scenes.glass_and_fog(40, 24)
+    tc = tds.compile_camera(w.cameras[0])
+    jc = jds.compile_camera(rz.scenes.glass_and_fog(40, 24).cameras[0])
+    for f in dataclasses.fields(tc):
+        a, b = getattr(tc, f.name), getattr(jc, f.name)
+        if isinstance(a, int):
+            assert a == b
+        else:
+            assert np.array_equal(a.numpy(), np.asarray(b)), f.name
+
+
+def test_import_is_jax_free():
+    code = ("import rayzath_tpu_torch, sys; "
+            "assert 'jax' not in sys.modules and 'flax' not in sys.modules; "
+            "import rayzath_tpu_torch.engine.integrator, "
+            "rayzath_tpu_torch.ops.traverse_cluster, "
+            "rayzath_tpu_torch.ops._kernels, rayzath_tpu_torch.utils.parity; "
+            "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
+                   timeout=300)
+
+
+def _cutout_world():
+    from rayzath_tpu_torch.models.texture import Texture
+    w = rt.World()
+    rgba = np.ones((8, 8, 4), np.float32)
+    tex = Texture(name="leaf", data=rgba)
+    w.textures.create(tex)
+    leaf = w.create_material("leaf", color=(1, 1, 1, 0.0))
+    leaf.texture = tex
+    quad = rt.scenes._quad("leaf", (-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1))
+    w.meshes.create(quad)
+    w.create_instance(name="leaf", mesh=quad, materials=[leaf])
+    return w
+
+
+@pytest.mark.parametrize("case", ["two_level", "instanced_auto", "maps",
+                                  "cutout"])
+def test_unported_features_raise(case):
+    if case == "two_level":
+        with pytest.raises(NotImplementedError, match="A11"):
+            tds.compile_world(rt.scenes.cornell_box(8, 8), two_level=True)
+    elif case == "instanced_auto":
+        with pytest.raises(NotImplementedError, match="A11"):
+            tds.compile_world(rt.scenes.instanced_field(8, 8, n=4))
+    elif case == "maps":
+        with pytest.raises(NotImplementedError, match="A9"):
+            tds.compile_world(rt.scenes.textured_room(8, 8))
+    else:
+        with pytest.raises(NotImplementedError, match="A10"):
+            tds.compile_world(_cutout_world())
+    static = {"two_level": "two_level", "instanced_auto": "two_level",
+              "maps": "has_maps", "cutout": "n_cutout"}[case]
+    with pytest.raises(NotImplementedError):
+        tds.scene_from_arrays({}, {static: 1})
+
+
+def test_unported_config_raises():
+    w = rt.scenes.cornell_box(8, 8)
+    with pytest.raises(NotImplementedError, match="A17"):
+        rt.Renderer(w, rt.RenderConfig(packet_traversal=False))
+    with pytest.raises(NotImplementedError, match="A4"):
+        rt.Renderer(w, rt.RenderConfig(brute_force_threshold=64))
+
+
+@pytest.mark.parametrize("n", [1, 37, 900])
+def test_bvh_numpy_copy_matches(n):
+    rng = np.random.default_rng(n)
+    lo = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.5, (n, 3)).astype(np.float32)
+    a = tbvh.build_bvh(lo, hi, leaf_size=8)
+    b = jbvh.build_bvh_numpy(lo, hi, leaf_size=8)
+    for f in dataclasses.fields(a):
+        assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+def test_native_bvh_builder_differs():
+    """Records a reference-side fault: the C++ builder accumulates the
+    centroid statistics in f64, the NumPy builder in f32, so their leaf
+    orders differ on the glass_and_fog soup (README claims bit-identity).
+    Skips where the C++ builder is not available."""
+    geo = jds._soup_geometry(rz.scenes.glass_and_fog(8, 8), 8, None)
+    n = geo["n_tri"]
+    v0, e1, e2 = geo["tri_v0"][:n], geo["tri_e1"][:n], geo["tri_e2"][:n]
+    lo, hi = jbvh.triangle_aabbs(v0, v0 + e1, v0 + e2)
+    out = rz_native.bvh_build(lo, hi, 128, jbvh.MAX_DEPTH)
+    if out is None:
+        pytest.skip("the C++ BVH builder is not available here")
+    assert not np.array_equal(out[5], tbvh.build_bvh(lo, hi, 128).order)
+
+
+def test_cluster_tables_match():
+    rng = np.random.default_rng(3)
+    v0 = rng.uniform(-4, 4, (700, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.35, 0.35, (700, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.35, 0.35, (700, 3)).astype(np.float32)
+    ours = ttc.build_cluster_tables(v0, e1, e2)
+    orig = rz_native.bvh_build
+    try:
+        rz_native.bvh_build = lambda *a, **k: None
+        ref = jtc.build_cluster_tables(v0, e1, e2)
+    finally:
+        rz_native.bvh_build = orig
+    for a, b in zip(ours, ref):
+        assert np.array_equal(a, b)
+
+
+def test_cluster_opacity_matches():
+    rng = np.random.default_rng(4)
+    v0 = rng.uniform(-4, 4, (300, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.35, 0.35, (300, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.35, 0.35, (300, 3)).astype(np.float32)
+    box, frames, order, base, count = ttc.build_cluster_tables(v0, e1, e2)
+    op_rgb = rng.uniform(0.2, 1.0, (300, 3)).astype(np.float32)
+    op_a = rng.uniform(0.2, 1.0, 300).astype(np.float32)
+    ours = ttc.cluster_opacity(*map(torch.as_tensor,
+                                    (op_rgb, op_a, order, base, count)))
+    ref = jtc.cluster_opacity(op_rgb, op_a, order, base, count)
+    assert np.array_equal(ours.numpy(), np.asarray(ref))
