@@ -12,18 +12,26 @@ Phases, each of which raises on failure (exit code != 0):
    multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
    bounce-like rays from the first hits (uniform-sphere directions from a
    numpy seed), in the order the integrator hands them over (32x32 tiles,
-   or the coherence sort for scenes of >= 16 clusters). Hit ids must be
-   equal except on rays an f64 Moller-Trumbore calls chaotic (at most 1e-4
-   of the rays), t to rtol 1e-5; shadow rgba to rtol 1e-5 / atol 1e-6 where
-   the plain alpha >= 1e-4, both below 1e-4 elsewhere. Median times of
-   kernel and plain with CUDA events.
-3. End to end: cornell_box_nee and multi_light at 64^2, depth 4, 4 passes,
-   on the card (kernels) and on the CPU (plain versions) with the same
-   numpy uniforms; sample counts equal, radiance as ``assert_images_match``.
+   or the coherence sort for scenes of >= 16 clusters); then B3
+   ``cluster_closest_inst`` and B4 ``cluster_shadow_inst`` the same way on
+   the two-level instanced_field (the plain versions on every 16th ray of
+   the integrator's order: all 262,144 would take ~20 s a call) and on
+   multi_light compiled two-level (all rays), B4 also with half the
+   materials at alpha 0.5. Hit ids (and B3 instance ids) must be equal
+   except on rays an f64 Moller-Trumbore calls chaotic (at most 1e-4 of the
+   rays), t to rtol 1e-5; shadow rgba to rtol 1e-5 / atol 1e-6 where the
+   plain alpha >= 1e-4, both below 1e-4 elsewhere. Median times of kernel
+   and plain with CUDA events.
+3. End to end: cornell_box_nee and multi_light at 64^2, and a two-level
+   instanced_field(n=4, resolution=16) at 64^2, depth 4, 4 passes, on the
+   card (kernels) and on the CPU (plain versions) with the same numpy
+   uniforms; sample counts equal, radiance as ``assert_images_match``.
 4. The slice at size: ``Renderer(device="cuda")`` renders cornell_box_nee
-   (32 passes), multi_light and mesh_heavy (8 passes) at 512^2, depth 8;
-   NaN-free, samples accumulated, image mean in (5, 220), and the launch
-   counters of both kernels (reset just before) at least one per pass.
+   (32 passes), multi_light, mesh_heavy and instanced_field (two-level by
+   the automatic choice; 8 passes each) at 512^2, depth 8; NaN-free,
+   samples accumulated, image mean in (5, 220), and the launch counters of
+   the path's two kernels (all four reset just before) at least one per
+   pass.
 
 The last lines of standard output are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -42,6 +50,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SCENES = ("cornell_box_nee", "multi_light", "mesh_heavy")
+INST_SCENES = (("instanced_field", 16), ("multi_light", 1))  # (scene, stride)
 RES = 512
 PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
 
@@ -143,6 +152,16 @@ def scene_rays(name: str, dev):
     v /= np.linalg.norm(v, axis=1, keepdims=True)
     d2 = torch.as_tensor(v, device=dev)
     return scene, (o, d), (o2.contiguous(), d2)
+
+
+def world_rays(world, dev):
+    """Camera rays (u = 0.5) of the world's first camera."""
+    import torch
+    from rayzath_tpu_torch.models.device_scene import compile_camera
+    from rayzath_tpu_torch.ops import camera as cam_ops
+    cam = compile_camera(world.cameras[0], dev)
+    return cam_ops.generate_rays(cam, cam_ops.pixel_grid(RES, RES, device=dev),
+                                 torch.full((RES * RES, 4), 0.5, device=dev))
 
 
 def check_closest(scene, o, d, near, far, label):
@@ -259,19 +278,187 @@ def phase_kernels(card: str, dev):
     return out
 
 
+def inst_scene_rays(name: str, dev):
+    """(two-level scene, camera rays, bounce-like rays): the bounce-like
+    rays leave from just before each camera ray's first hit (found by the
+    B3 kernel) in uniform-sphere directions from a numpy seed."""
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.models.device_scene import compile_world
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    world = rt.scenes.SCENES[name](RES, RES)
+    scene = compile_world(world, two_level=True, device=dev)
+    o, d = world_rays(world, dev)
+    r = RES * RES
+    t, tid, _ = tc.cluster_closest_inst(o, d, torch.zeros(r, device=dev),
+                                        torch.full((r,), 1e30, device=dev),
+                                        scene.ti_rows, scene.cl_obox, scene.cl_lw)
+    p = torch.where((tid >= 0)[:, None], o + d * (t * 0.9999)[:, None], o)
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    v = rng.normal(size=(r, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return scene, (o, d), (p.contiguous(), torch.as_tensor(v, device=dev))
+
+
+def inst_chaotic(scene, o, d, near, far):
+    """f64 chaos classification of rays against the expanded world-space
+    (instance, triangle) set, a few rays at a time (318k triangles on
+    instanced_field)."""
+    from rayzath_tpu_torch.utils.parity import closest_f64, expand_instances
+    tabs = [x.cpu().numpy() for x in (scene.ti_rows, scene.cl_obox,
+                                      scene.inst_fwd, scene.tri_v0,
+                                      scene.tri_e1, scene.tri_e2)]
+    v0, e1, e2, _, _ = expand_instances(*tabs)
+    return closest_f64(o, d, v0, e1, e2, near, far, chunk=4)[1]
+
+
+def check_closest_inst(scene, o, d, near, far, sub, label):
+    """B3 kernel on all rays vs plain on the rays ``sub``. Returns (max |dt|
+    on agreeing hits, kernel t, kernel ids)."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
+    t_k, tid_k, inst_k = tc.cluster_closest_inst(o, d, near, far, *tabs)
+    t_p, tid_p, inst_p = tc.cluster_closest_inst_plain(
+        o[sub], d[sub], near[sub], far[sub], *tabs)
+    torch.cuda.synchronize()
+    t_ks, tid_ks, inst_ks = t_k[sub], tid_k[sub], inst_k[sub]
+    diff = ((tid_ks != tid_p) | (inst_ks != inst_p)).cpu().numpy()
+    n_diff = int(diff.sum())
+    if n_diff:
+        chaotic = inst_chaotic(scene, o[sub].cpu().numpy()[diff],
+                               d[sub].cpu().numpy()[diff],
+                               near[sub].cpu().numpy()[diff],
+                               far[sub].cpu().numpy()[diff])
+        if not chaotic.all():
+            raise AssertionError(f"{label}: {int((~chaotic).sum())} non-chaotic "
+                                 "hit-id mismatches between kernel and plain")
+        if n_diff > 1e-4 * len(diff):
+            raise AssertionError(f"{label}: {n_diff} chaotic id mismatches "
+                                 f"exceed 1e-4 of {len(diff)} rays")
+    same = (tid_ks >= 0) & (tid_ks == tid_p) & (inst_ks == inst_p)
+    torch.testing.assert_close(t_ks[same], t_p[same], rtol=1e-5, atol=0)
+    err = float((t_ks[same] - t_p[same]).abs().max()) if bool(same.any()) else 0.0
+    print(f"  {label}: B3 hits {int((tid_k >= 0).sum())}/{len(tid_k)}, plain "
+          f"on {len(diff)} rays, id mismatches {n_diff} (all f64-chaotic), "
+          f"max |dt| {err:.3e}", flush=True)
+    return err, t_k, tid_k
+
+
+def check_shadow_inst(scene, o, d, dist, sub, mat_color, label):
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot)
+    rgb_k, a_k = tc.cluster_shadow_inst(o, d, dist, *tabs, scene.inst_slot_map,
+                                        mat_color)
+    op_tab = tc.instance_opacity(mat_color, scene.inst_slot_map)
+    rgb_p, a_p = tc.cluster_shadow_inst_plain(o[sub], d[sub], dist[sub],
+                                              *tabs, op_tab)
+    torch.cuda.synchronize()
+    rgb_k, a_k = rgb_k[sub], a_k[sub]
+    live = a_p >= 1e-4
+    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
+    if not bool((a_k[~live] < 1e-4).all()):
+        raise AssertionError(f"{label}: kernel alpha >= 1e-4 where plain < 1e-4")
+    err = 0.0
+    if bool(live.any()):
+        err = max(float((a_k[live] - a_p[live]).abs().max()),
+                  float((rgb_k[live] - rgb_p[live]).abs().max()))
+    part = int(((a_p > 0) & (a_p < 1)).sum())
+    print(f"  {label}: B4 unblocked {int(live.sum())}/{len(live)}, partial "
+          f"{part}, max |d rgba| {err:.3e}", flush=True)
+    return err, op_tab
+
+
+def phase_inst_kernels(card: str, dev):
+    """B3/B4 against their plain versions on two-level scenes."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.intersect import BIG
+    out = {"cluster_closest_inst": {"err": 0.0},
+           "cluster_shadow_inst": {"err": 0.0}}
+    for name, stride in INST_SCENES:
+        t0 = time.perf_counter()
+        scene, cam_set, bounce_set = inst_scene_rays(name, dev)
+        r = RES * RES
+        sub = torch.arange(0, r, stride, device=dev)
+        n_ray_rows = int((scene.ti_rows[:, tc.TI_NCL] > 0).sum())
+        print(f"{name} (two-level): {scene.n_triangles} object-space "
+              f"triangles, {n_ray_rows} instances, up to {scene.max_ncl} "
+              f"clusters per mesh, rays {r} x 2 sets, plain on {len(sub)}",
+              flush=True)
+        # half of the user materials translucent, for products on the card
+        mc_half = scene.mat_color.clone()
+        mc_half[2::2, 3] = 0.5
+        tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
+        timing = {}
+        for set_name, (o, d) in (("camera", cam_set), ("bounce", bounce_set)):
+            near = torch.zeros(r, device=dev)
+            far = torch.full((r,), 1e30, device=dev)
+            o, d, (near, far) = coherent_order(scene, o, d, (near, far))
+            e1, t_k, tid_k = check_closest_inst(scene, o, d, near, far, sub,
+                                                f"{name}/{set_name}")
+            big = torch.full((r,), BIG, device=dev)
+            dist_hit = torch.where(tid_k >= 0, t_k, big)
+            errs = [check_shadow_inst(scene, o, d, dist, sub, mc,
+                                      f"{name}/{set_name}/{label}")[0]
+                    for dist, mc, label in (
+                        (dist_hit, scene.mat_color, "dist=hit"),
+                        (big, scene.mat_color, "dist=BIG"),
+                        (big, mc_half, "dist=BIG,alpha=0.5"))]
+            out["cluster_closest_inst"]["err"] = max(
+                out["cluster_closest_inst"]["err"], e1)
+            out["cluster_shadow_inst"]["err"] = max(
+                out["cluster_shadow_inst"]["err"], *errs)
+            timing[set_name] = (o, d, near, far, big)
+        # times on the bounce-like set: the kernels on all rays and on the
+        # plain versions' subset, the plain versions on the subset
+        o, d, near, far, big = timing["bounce"]
+        op_tab = tc.instance_opacity(scene.mat_color, scene.inst_slot_map)
+        os_, ds_, ns_, fs_, bs_ = (x[sub].contiguous()
+                                   for x in (o, d, near, far, big))
+        k3 = cuda_ms(lambda: tc.cluster_closest_inst(o, d, near, far, *tabs), 20)
+        k3s = cuda_ms(lambda: tc.cluster_closest_inst(os_, ds_, ns_, fs_,
+                                                      *tabs), 20)
+        p3, n3 = plain_runs(lambda: tc.cluster_closest_inst_plain(
+            os_, ds_, ns_, fs_, *tabs))
+        shadow_args = (scene.cl_slot, scene.inst_slot_map, scene.mat_color)
+        k4 = cuda_ms(lambda: tc.cluster_shadow_inst(o, d, big, *tabs,
+                                                    *shadow_args), 20)
+        k4s = cuda_ms(lambda: tc.cluster_shadow_inst(os_, ds_, bs_, *tabs,
+                                                     *shadow_args), 20)
+        p4, n4 = plain_runs(lambda: tc.cluster_shadow_inst_plain(
+            os_, ds_, bs_, *tabs, scene.cl_slot, op_tab))
+        oc, dc, nc, fc, _ = timing["camera"]
+        kc = cuda_ms(lambda: tc.cluster_closest_inst(oc, dc, nc, fc, *tabs), 20)
+        print(f"  {name} times [{card}]: B3 kernel {k3:.3f} ms on {r} rays, "
+              f"{k3s:.3f} ms on {len(sub)}, plain {p3:.3f} ms on {len(sub)} "
+              f"(median of 20 / {n3}); B4 kernel {k4:.3f} ms on {r}, "
+              f"{k4s:.3f} ms on {len(sub)}, plain {p4:.3f} ms on {len(sub)} "
+              f"(median of 20 / {n4}); B3 on camera rays {kc:.3f} ms; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["cluster_closest_inst"][name] = (k3, p3, r, len(sub))
+        out["cluster_shadow_inst"][name] = (k4, p4, r, len(sub))
+        del scene, cam_set, bounce_set, timing
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end on the card against the CPU plain path
 # ---------------------------------------------------------------------------
 
-def render_passes(name, dev, res, passes, depth, seed):
+def render_passes(make_world, dev, res, passes, depth, seed, two_level=None):
     import numpy as np
     import torch
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.engine import integrator as I
     from rayzath_tpu_torch.engine.state import init_state
     from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
-    world = rt.scenes.SCENES[name](res, res)
-    scene = compile_world(world, device=dev)
+    world = make_world(res)
+    scene = compile_world(world, two_level=two_level, device=dev)
     cam = compile_camera(world.cameras[0], dev)
     cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=depth))
     ns = I.n_streams(cfg, scene)
@@ -285,12 +472,18 @@ def render_passes(name, dev, res, passes, depth, seed):
 
 
 def phase_end_to_end(dev):
+    import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.utils.parity import images_match
-    for name in ("cornell_box_nee", "multi_light"):
-        a_gpu = render_passes(name, dev, 64, 4, 4, seed=7)
-        a_cpu = render_passes(name, "cpu", 64, 4, 4, seed=7)
+    cases = [(name, lambda res, name=name: rt.scenes.SCENES[name](res, res),
+              None) for name in ("cornell_box_nee", "multi_light")]
+    cases.append(("instanced_field(n=4, resolution=16), two-level",
+                  lambda res: rt.scenes.instanced_field(res, res, n=4,
+                                                        resolution=16), True))
+    for label, make_world, two_level in cases:
+        a_gpu = render_passes(make_world, dev, 64, 4, 4, 7, two_level)
+        a_cpu = render_passes(make_world, "cpu", 64, 4, 4, 7, two_level)
         close = images_match(a_gpu, a_cpu)
-        print(f"{name}: 64^2 x 4 passes, CUDA kernels vs CPU plain: sample "
+        print(f"{label}: 64^2 x 4 passes, CUDA kernels vs CPU plain: sample "
               f"counts equal, {close:.4f} of pixels within 2e-3", flush=True)
 
 
@@ -302,9 +495,11 @@ def phase_slice(card: str, dev):
     import torch
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.ops import traverse_cluster as tc
-    launches = {"cluster_closest": 0, "cluster_shadow": 0}
+    wrappers = {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
+                "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst}
+    launches = {f.__name__: 0 for f in wrappers.values()}
     for name, rpp in (("cornell_box_nee", 32), ("multi_light", 8),
-                      ("mesh_heavy", 8)):
+                      ("mesh_heavy", 8), ("instanced_field", 8)):
         world = rt.scenes.SCENES[name](RES, RES)
         r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
                         device=dev)
@@ -312,17 +507,20 @@ def phase_slice(card: str, dev):
         r.render(rpp=1)                      # warm-up: compile_world + 1 pass
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        tc.cluster_closest.launches = 0
-        tc.cluster_shadow.launches = 0
+        for f in wrappers.values():
+            f.launches = 0
         t0 = time.perf_counter()
         r.render(rpp=rpp)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n1, n2 = tc.cluster_closest.launches, tc.cluster_shadow.launches
-        if n1 < rpp or n2 < rpp:
-            raise AssertionError(f"{name}: launches B1 {n1}, B2 {n2} < {rpp} passes")
-        launches["cluster_closest"] += n1
-        launches["cluster_shadow"] += n2
+        counts = {k: f.launches for k, f in wrappers.items()}
+        path = ("B3", "B4") if r.scene.two_level else ("B1", "B2")
+        if name == "instanced_field" and not r.scene.two_level:
+            raise AssertionError("instanced_field did not compile two-level")
+        if min(counts[k] for k in path) < rpp:
+            raise AssertionError(f"{name}: launches {counts} < {rpp} passes")
+        for k in path:
+            launches[wrappers[k].__name__] += counts[k]
         accum = r.views[id(world.cameras[0])].state.accum
         if bool(torch.isnan(accum).any()):
             raise AssertionError(f"{name}: NaN in accum")
@@ -332,9 +530,10 @@ def phase_slice(card: str, dev):
         if not 5.0 < mean < 220.0:
             raise AssertionError(f"{name}: image mean {mean} outside (5, 220)")
         mrays = rpp * RES * RES / dt / 1e6
+        shown = " ".join(f"{k} {counts[k]}" for k in path)
         print(f"{name}: {RES}^2 depth 8, {rpp} passes in {dt:.3f} s = "
-              f"{mrays:.3f} Mrays/s, warm-up {warm:.2f} s, launches B1 {n1} "
-              f"B2 {n2}, image mean {mean:.1f} [{card}]", flush=True)
+              f"{mrays:.3f} Mrays/s, warm-up {warm:.2f} s, launches {shown}, "
+              f"image mean {mean:.1f} [{card}]", flush=True)
         del r, world
         torch.cuda.empty_cache()
     return launches
@@ -365,6 +564,7 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     kernels = phase_kernels(card, dev)
+    kernels.update(phase_inst_kernels(card, dev))
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     t_phase = time.perf_counter()
@@ -375,16 +575,22 @@ def main() -> int:
     print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # times: B1/B2 on mesh_heavy, B3/B4 on instanced_field, bounce-like
+    # rays; "rays" / "plain_rays" say which ray set each time was taken on
     record = []
-    for name, src, line in (("cluster_closest", "cluster_closest.cu", 872),
-                            ("cluster_shadow", "cluster_shadow.cu", 975)):
-        k, p = kernels[name]["mesh_heavy"]
+    for name, line, scene in (("cluster_closest", 872, "mesh_heavy"),
+                              ("cluster_shadow", 975, "mesh_heavy"),
+                              ("cluster_closest_inst", 1503, "instanced_field"),
+                              ("cluster_shadow_inst", 1636, "instanced_field")):
+        k, p, *rays = kernels[name][scene]
+        n, n_plain = rays if rays else (RES * RES, RES * RES)
         record.append({
             "name": name, "route": "cuda",
-            "source": f"rayzath_tpu_torch/csrc/{src}",
+            "source": f"rayzath_tpu_torch/csrc/{name}.cu",
             "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
             "launches": launches[name], "max_abs_err": kernels[name]["err"],
-            "ms": k, "plain_ms": p})
+            "ms": k, "plain_ms": p, "scene": scene, "rays": n,
+            "plain_rays": n_plain})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,33 @@
-"""World -> device scene compilation (SoA torch tensors), soup path only.
+"""World -> device scene compilation (SoA torch tensors).
 
-Counterpart of the world-space soup branch of
-``rayzath_tpu/models/device_scene.py`` (``compile_world``,
-``_soup_geometry``, ``_pack_tri_rows``, ``_light_fields``,
+Counterpart of ``rayzath_tpu/models/device_scene.py`` (``compile_world``
+with its soup and two-level branches, ``_soup_geometry``,
+``_two_level_arrays``, ``_pack_tri_rows``, ``_light_fields``,
 ``compile_camera``). The whole scene is flattened on the host (NumPy) into
-SoA arrays: every instance's mesh is transformed into world space and
-concatenated into one triangle list carrying a global material id and an
-instance id, reordered by a leaf-8 BVH exactly as the JAX package does (so
-triangle ids agree between the packages), then split into the flat cluster
-tables of ``ops/traverse_cluster.py``. The arrays become tensors on one
-explicit device.
+SoA arrays, which become tensors on one explicit device:
 
-Not built here, because the soup render path does not read them: the XLA
+* **Soup:** every instance's mesh is transformed into world space and
+  concatenated into one triangle list carrying a global material id and an
+  instance id, reordered by a leaf-8 BVH exactly as the JAX package does
+  (so triangle ids agree between the packages), then split into the flat
+  cluster tables of ``ops/traverse_cluster.py``.
+* **Two-level:** each mesh keeps one object-space cluster table, shared by
+  all of its instances, and each instance gets a row with its world AABB,
+  world->object transform and cluster range (``build_instance_tables``).
+  ``tri_*`` and ``tri_pack`` then hold object-space per-mesh geometry in
+  device (cluster) order, with the mesh-local material slot in column 24;
+  the integrator moves a hit to world space through ``inst_fwd`` /
+  ``inst_nrm`` and resolves its material through ``inst_slot_map``.
+
+``compile_world`` picks the structure as the JAX package does; the fields
+of the structure not chosen hold small placeholders (:func:`placeholders`).
+
+Not built here, because the render path does not read them: the XLA
 skip-link tables (``aabb_links``, ``node_*``), the dense projection frames
 (``tri_pw``/``tri_pc``), the per-vertex normal/texcoord columns outside
-``tri_pack`` and the texture atlases. Not ported yet, and refused with
-``NotImplementedError``: the two-level instanced structure (ROADMAP A11),
+``tri_pack``, the texture atlases and the expanded (instance, triangle)
+lists ``exp_tri``/``exp_inst`` that only the shadow backward reads
+(ROADMAP A12). Not ported yet, and refused with ``NotImplementedError``:
 texture maps (A9) and texture-alpha cutout shadows (A10).
 """
 from __future__ import annotations
@@ -28,8 +40,10 @@ import numpy as np
 import torch
 
 from ..ops.bvh import build_bvh, triangle_aabbs, FlatBVH
-from ..ops.traverse_cluster import build_cluster_tables
-from ..utils.hostmath import normalize as nrm
+from ..ops.traverse_cluster import (build_cluster_tables,
+                                    build_instance_tables, cluster_slot_rows,
+                                    B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
+from ..utils.hostmath import normalize as nrm, transform_matrices
 from .material import Material
 from .texture import TextureMap
 from .world import World
@@ -41,14 +55,16 @@ NO_MAP = -1
 
 @dataclasses.dataclass
 class TorchScene:
-    # geometry (world space, BVH leaf order), padded to a bucketed n_tri_pad
+    # geometry (soup: world space, BVH leaf order; two-level: object space,
+    # device order), padded to a bucketed n_tri_pad
     tri_v0: torch.Tensor         # [F,3]
     tri_e1: torch.Tensor         # [F,3]
     tri_e2: torch.Tensor         # [F,3]
-    tri_mat: torch.Tensor        # [F] i32 global material id
-    tri_inst: torch.Tensor       # [F] i32 instance id (picking)
+    tri_mat: torch.Tensor        # [F] i32 global material id (soup)
+    tri_inst: torch.Tensor       # [F] i32 instance id (soup picking)
     # per-hit shading row: v0 0:3 | e1 3:6 | e2 6:9 | n0 9:12 | n1 12:15 |
-    # n2 15:18 | t0 18:20 | t1 20:22 | t2 22:24 | mat 24 | inst 25 | pad
+    # n2 15:18 | t0 18:20 | t1 20:22 | t2 22:24 | mat (soup) or mesh-local
+    # slot (two-level) 24 | inst (soup; -1 two-level) 25 | pad
     tri_pack: torch.Tensor       # [F,32] f32
 
     # materials SoA (0 = world/sky, 1 = default surface)
@@ -72,19 +88,32 @@ class TorchScene:
     dir_emission: torch.Tensor   # [D]
     dir_cos: torch.Tensor        # [D]
 
-    # flat cluster tables (ops/traverse_cluster.py)
+    # cluster tables (ops/traverse_cluster.py); two-level: cl_lw, cl_base
+    # and cl_count hold the shared per-mesh tables, cl_box and cl_order are
+    # placeholders
     cl_box: torch.Tensor         # [8,Cp] cluster AABB / base / count table
     cl_lw: torch.Tensor          # [Cp,4,384] cluster-local projection frames
     cl_order: torch.Tensor       # [F] i32 cluster order -> soup index
     cl_base: torch.Tensor        # [Cp] i32 first triangle (cluster order)
     cl_count: torch.Tensor       # [Cp] i32 triangle count
 
+    # two-level instance tables (placeholders on the soup path)
+    ti_rows: torch.Tensor        # [Ip,24] instance rows (AABB, inv, range, id)
+    cl_obox: torch.Tensor        # [Cm,8] object-space cluster rows
+    cl_slot: torch.Tensor        # [Cm,128] f32 per-cluster triangle slots
+    tri_slot: torch.Tensor       # [F] i32 mesh-local material slot
+    inst_fwd: torch.Tensor       # [I,12] object->world 3x4 (row-major)
+    inst_nrm: torch.Tensor       # [I,9] normal matrix 3x3 (row-major)
+    inst_slot_map: torch.Tensor  # [I,64] i32 material slot -> global id
+
     n_triangles: int = 0
     n_materials: int = 2
     n_spot_lights: int = 0
     n_direct_lights: int = 0
     n_instances: int = 0
-    n_clusters: int = 0          # REAL clusters (tables are 128-padded)
+    n_clusters: int = 0          # REAL clusters (soup; tables are 128-padded)
+    max_ncl: int = 0             # two-level: most real clusters of one mesh
+    two_level: bool = False
 
 
 @dataclasses.dataclass
@@ -119,7 +148,7 @@ def compile_camera(cam, device="cpu") -> TorchCamera:
 
 
 # ---------------------------------------------------------------------------
-# world compilation (host side copied from the JAX package's soup branch)
+# world compilation (host side copied from the JAX package)
 # ---------------------------------------------------------------------------
 
 def _pack_tri_rows(v0, e1, e2, n0, n1, n2, t0, t1, t2, mat_or_slot, inst):
@@ -204,15 +233,13 @@ def compile_world(world: World, leaf_size: int = 8,
                   cache: Optional[dict] = None,
                   device="cpu") -> TorchScene:
     """Flatten the host world into a TorchScene on ``device`` (see module
-    docstring). ``cache`` memoizes the geometry block by version, as in the
-    JAX package, so a materials-or-lights-only edit rebuilds only the cheap
-    binding tables."""
+    docstring). ``two_level``: False = world-space soup, True = shared
+    per-mesh object-space tables + instance rows, None = the JAX package's
+    automatic choice (:func:`_two_level_auto`). ``cache`` memoizes the
+    geometry blocks by version, as in the JAX package, so a
+    materials-or-lights-only edit rebuilds only the cheap binding tables."""
     if two_level is None:
         two_level = _two_level_auto(world)
-    if two_level:
-        raise NotImplementedError(
-            "two-level instanced scenes are not ported yet (ROADMAP A11, "
-            "kernels B3/B4)")
 
     materials: list[Material] = ([world.material, world.default_material]
                                  + list(world.materials))
@@ -231,33 +258,56 @@ def compile_world(world: World, leaf_size: int = 8,
         [[map_ref(m.texture), map_ref(m.normal_map), map_ref(m.metalness_map),
           map_ref(m.roughness_map), map_ref(m.emission_map)] for m in materials],
         np.int32)
+    common = dict(
+        mat_color=mat_color,
+        mat_metalness=np.array([m.metalness for m in materials], np.float32),
+        mat_roughness=np.array([m.roughness for m in materials], np.float32),
+        mat_emission=np.array([m.emission for m in materials], np.float32),
+        mat_ior=np.array([m.ior for m in materials], np.float32),
+        mat_scattering=np.array([m.scattering for m in materials], np.float32),
+        mat_maps=mat_maps, **_light_fields(world))
+    statics = dict(n_materials=len(materials),
+                   n_spot_lights=len(world.spot_lights),
+                   n_direct_lights=len(world.direct_lights),
+                   n_instances=len(world.instances))
+
+    if two_level:
+        # texture-alpha cutouts (the JAX _cutout_fields rule), then maps
+        for inst in world.instances:
+            mesh = inst.mesh
+            if mesh is None or mesh.triangle_count == 0:
+                continue
+            gmat = _slot_table(mat_index, inst)[np.clip(mesh.tri_mat, 0, 63)]
+            if _cutout(gmat, mat_color, mat_maps).any():
+                raise NotImplementedError(_CUTOUT_MSG)
+        if all_maps:
+            raise NotImplementedError(_MAPS_MSG)
+        geo = _two_level_arrays(world, mat_index, cache)
+        max_ncl = geo.pop("max_ncl")
+        n_tri = geo.pop("n_tri")
+        return scene_from_arrays(
+            dict(**geo, **common),
+            dict(statics, n_triangles=n_tri, n_clusters=0, max_ncl=max_ncl,
+                 two_level=True), device)
 
     geo = _soup_geometry(world, leaf_size, cache)
     n_tri = geo["n_tri"]
 
     # material binding: instance slot tables -> per-triangle global ids
-    slot_tables = np.full((max(len(world.instances), 1), 64),
+    slot_tables = np.full((max(len(world.instances), 1), SLOTS),
                           DEFAULT_MATERIAL_ID, np.int32)
     for inst_id, inst in enumerate(world.instances):
-        for s, mat in enumerate(inst.materials[:64]):
-            if mat is not None:
-                slot_tables[inst_id, s] = _resolve_mat(mat_index, mat,
-                                                       inst.name)
+        slot_tables[inst_id] = _slot_table(mat_index, inst)
     inst_rows = geo["inst_rows"]
     tri_mat = np.where(
         inst_rows >= 0,
         slot_tables[np.clip(inst_rows, 0, None), geo["slot_rows"]],
         DEFAULT_MATERIAL_ID).astype(np.int32)
 
-    # texture-alpha cutouts: a triangle whose material has a color texture
-    # AND alpha < 1 (JAX _cutout_from_soup)
-    tm = tri_mat[:n_tri]
-    if ((mat_maps[tm, 0] >= 0) & (mat_color[tm, 3] < 1.0 - 1e-6)).any():
-        raise NotImplementedError(
-            "texture-alpha cutout shadows are not ported yet (ROADMAP A10)")
+    if _cutout(tri_mat[:n_tri], mat_color, mat_maps).any():
+        raise NotImplementedError(_CUTOUT_MSG)
     if all_maps:
-        raise NotImplementedError(
-            "texture maps are not ported yet (ROADMAP A9)")
+        raise NotImplementedError(_MAPS_MSG)
 
     tri_pack = _pack_tri_rows(geo["tri_v0"], geo["tri_e1"], geo["tri_e2"],
                               geo["tri_n0"], geo["tri_n1"], geo["tri_n2"],
@@ -266,20 +316,232 @@ def compile_world(world: World, leaf_size: int = 8,
     arrays = dict(
         tri_v0=geo["tri_v0"], tri_e1=geo["tri_e1"], tri_e2=geo["tri_e2"],
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
-        mat_color=mat_color,
-        mat_metalness=np.array([m.metalness for m in materials], np.float32),
-        mat_roughness=np.array([m.roughness for m in materials], np.float32),
-        mat_emission=np.array([m.emission for m in materials], np.float32),
-        mat_ior=np.array([m.ior for m in materials], np.float32),
-        mat_scattering=np.array([m.scattering for m in materials], np.float32),
-        mat_maps=mat_maps,
-        **_light_fields(world), **geo["cl_fields"])
-    statics = dict(n_triangles=n_tri, n_materials=len(materials),
-                   n_spot_lights=len(world.spot_lights),
-                   n_direct_lights=len(world.direct_lights),
-                   n_instances=len(world.instances),
-                   n_clusters=geo["n_clusters"])
-    return scene_from_arrays(arrays, statics, device)
+        **common, **geo["cl_fields"])
+    return scene_from_arrays(
+        arrays, dict(statics, n_triangles=n_tri, n_clusters=geo["n_clusters"],
+                     max_ncl=0, two_level=False), device)
+
+
+_CUTOUT_MSG = "texture-alpha cutout shadows are not ported yet (ROADMAP A10)"
+_MAPS_MSG = "texture maps are not ported yet (ROADMAP A9)"
+
+
+def _slot_table(mat_index: dict, inst) -> np.ndarray:
+    """[SLOTS] i32 global material id of each of an instance's slots."""
+    table = np.full(SLOTS, DEFAULT_MATERIAL_ID, np.int32)
+    for s, mat in enumerate(inst.materials[:SLOTS]):
+        if mat is not None:
+            table[s] = _resolve_mat(mat_index, mat, inst.name)
+    return table
+
+
+def _cutout(gmat, mat_color, mat_maps):
+    """Texture-alpha cutout triangles (JAX ``_cutout_fields``): the resolved
+    material has a color texture AND alpha < 1."""
+    return (mat_maps[gmat, 0] >= 0) & (mat_color[gmat, 3] < 1.0 - 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# two-level structure (JAX _mesh_object_arrays .. _two_level_arrays)
+# ---------------------------------------------------------------------------
+
+def _mesh_object_arrays(mesh):
+    """Object-space SoA shading arrays for one mesh (original triangle
+    order): (v0, e1, e2, n0, n1, n2, t0, t1, t2, slot)."""
+    v = np.asarray(mesh.vertices, np.float32)
+    v0 = v[mesh.tri_v[:, 0]]
+    v1 = v[mesh.tri_v[:, 1]]
+    v2 = v[mesh.tri_v[:, 2]]
+    flat = nrm(np.cross(v1 - v0, v2 - v0)).astype(np.float32)
+    if len(mesh.normals):
+        on = nrm(np.asarray(mesh.normals, np.float32))
+
+        def vtx_normal(col):
+            idx = mesh.tri_n[:, col]
+            ok = idx >= 0
+            out = flat.copy()
+            out[ok] = on[idx[ok]]
+            return out
+        n0, n1, n2 = vtx_normal(0), vtx_normal(1), vtx_normal(2)
+    else:
+        n0 = n1 = n2 = flat
+    if len(mesh.texcrds):
+        def vtx_uv(col):
+            idx = mesh.tri_t[:, col]
+            ok = idx >= 0
+            out = np.zeros((len(idx), 2), np.float32)
+            out[ok] = np.asarray(mesh.texcrds, np.float32)[idx[ok]]
+            return out
+        t0, t1, t2 = vtx_uv(0), vtx_uv(1), vtx_uv(2)
+    else:
+        t0 = t1 = t2 = np.zeros((len(v0), 2), np.float32)
+    slot = np.clip(np.asarray(mesh.tri_mat, np.int64), 0, 63).astype(np.int32)
+    return v0, v1 - v0, v2 - v0, n0, n1, n2, t0, t1, t2, slot
+
+
+def _aabb_l2g(fwd, cmin, cmax):
+    """World AABBs of object-space boxes ([C,3] each) under a 3x4 transform:
+    per output axis, the sum of the per-input-axis min/max of
+    L_ij * {cmin_j, cmax_j} (exact for affine transforms, rounded in f32)."""
+    lin = fwd[:, :3]
+    m1 = cmin[:, None, :] * lin[None, :, :]
+    m2 = cmax[:, None, :] * lin[None, :, :]
+    lo = np.minimum(m1, m2).sum(-1) + fwd[:, 3]
+    hi = np.maximum(m1, m2).sum(-1) + fwd[:, 3]
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
+def _mesh_cluster_block(m, cache: Optional[dict]):
+    """Object-space cluster tables + cluster-ordered shading arrays of one
+    mesh, memoized in ``cache`` by (id, version), so a transform or material
+    edit reuses every untouched mesh's build. :func:`_two_level_arrays`
+    evicts the entries of meshes that are gone or changed."""
+    key = ("mesh_cl", id(m), getattr(m, "version", 0))
+    if cache is not None and key in cache:
+        return cache[key]
+    v0, e1, e2, n0, n1, n2, t0, t1, t2, slot = _mesh_object_arrays(m)
+    box_m, frames_m, o, base_m, count_m = build_cluster_tables(v0, e1, e2)
+    c = int((count_m > 0).sum())   # REAL clusters (tables are 128-padded)
+    value = dict(
+        arrays=tuple(a[o] for a in (v0, e1, e2, n0, n1, n2, t0, t1, t2)),
+        slot=slot[o], frames=frames_m, base=base_m, count=count_m,
+        cmin=box_m[B_MIN:B_MIN + 3, :c].T.copy(),
+        cmax=box_m[B_MAX:B_MAX + 3, :c].T.copy(),
+        obox6=box_m.T[:, :6].copy(),   # padded rows (inverted pad boxes)
+        ref=m)                         # pin identity: id() reuse cannot hit
+    if cache is not None:
+        cache[key] = value
+    return value
+
+
+def _two_level_arrays(world: World, mat_index: dict,
+                      cache: Optional[dict] = None) -> dict:
+    """Two-level geometry: the shared per-mesh object-space cluster tables
+    (concatenated, each mesh padded to a multiple of 128 rows), the
+    instance rows and the per-instance transforms and slot tables."""
+    meshes: list = []
+    mesh_pos: dict[int, int] = {}
+    valid: list = []
+    for gi, inst in enumerate(world.instances):
+        m = inst.mesh
+        if m is None or m.triangle_count == 0:
+            continue
+        if id(m) not in mesh_pos:
+            mesh_pos[id(m)] = len(meshes)
+            meshes.append(m)
+        valid.append((gi, inst))
+
+    arrays = [[] for _ in range(9)]
+    slots, frames_parts, base_parts, count_parts, obox_parts = [], [], [], [], []
+    mesh_box, mesh_cl0, mesh_tri_base = [], [], []
+    tri_base = cl_base_row = 0
+    for m in meshes:
+        blk = _mesh_cluster_block(m, cache)
+        for lst, arr in zip(arrays, blk["arrays"]):
+            lst.append(arr)
+        slots.append(blk["slot"])
+        frames_parts.append(blk["frames"])
+        base_parts.append(blk["base"] + tri_base)
+        count_parts.append(blk["count"])
+        obox_parts.append(blk["obox6"])
+        mesh_box.append((blk["cmin"], blk["cmax"]))
+        mesh_cl0.append(cl_base_row)
+        mesh_tri_base.append(tri_base)
+        cl_base_row += len(blk["base"])  # padded length: concat offsets
+        tri_base += len(blk["arrays"][0])
+    if cache is not None:
+        # evict the blocks of meshes that were removed or edited
+        live = {("mesh_cl", id(m), getattr(m, "version", 0)) for m in meshes}
+        for stale in [k for k in cache if isinstance(k, tuple)
+                      and k[0] == "mesh_cl" and k not in live]:
+            del cache[stale]
+
+    n_inst = max(len(world.instances), 1)
+    inst_fwd = np.tile(np.eye(3, 4, dtype=np.float32).reshape(1, 12), (n_inst, 1))
+    inst_nrm = np.tile(np.eye(3, dtype=np.float32).reshape(1, 9), (n_inst, 1))
+    inst_slot_map = np.full((n_inst, SLOTS), DEFAULT_MATERIAL_ID, np.int32)
+    i_min, i_max, i_inv, i_cl0, i_ncl, i_gid = ([] for _ in range(6))
+    for gi, inst in valid:
+        mi = mesh_pos[id(inst.mesh)]
+        fwd, inv, nmat = transform_matrices(inst.effective_transform())
+        inst_fwd[gi] = fwd.reshape(12)
+        inst_nrm[gi] = nmat.reshape(9)
+        inst_slot_map[gi] = _slot_table(mat_index, inst)
+        # world AABB of the instance = union of its transformed cluster boxes
+        wmin, wmax = _aabb_l2g(fwd, *mesh_box[mi])
+        i_min.append(wmin.min(0))
+        i_max.append(wmax.max(0))
+        i_inv.append(inv)
+        i_cl0.append(mesh_cl0[mi])
+        i_ncl.append(len(mesh_box[mi][0]))
+        i_gid.append(gi)
+
+    ti_rows = build_instance_tables(
+        np.asarray(i_min, np.float32).reshape(-1, 3),
+        np.asarray(i_max, np.float32).reshape(-1, 3),
+        np.asarray(i_inv, np.float32).reshape(-1, 3, 4),
+        np.asarray(i_cl0, np.int32), np.asarray(i_ncl, np.int32),
+        np.asarray(i_gid, np.int32))
+    if meshes:
+        cl_lw = np.concatenate(frames_parts)
+        cl_base = np.concatenate(base_parts)
+        cl_count = np.concatenate(count_parts)
+        cl_obox = np.zeros((len(cl_base), 8), np.float32)
+        cl_obox[:, :6] = np.concatenate(obox_parts)
+        cl_obox[:, B_BASE] = cl_base.astype(np.float32)
+        cl_obox[:, B_CNT] = cl_count.astype(np.float32)
+        cols = [np.concatenate(a) for a in arrays]
+        tri_slot = np.concatenate(slots)
+    else:
+        cl_lw = np.zeros((1, 4, 384), np.float32)
+        cl_base = np.zeros(1, np.int32)
+        cl_count = np.zeros(1, np.int32)
+        cl_obox = _empty_obox()
+        cols = [np.zeros((0, 3), np.float32)] * 6 + [np.zeros((0, 2), np.float32)] * 3
+        tri_slot = np.zeros(0, np.int32)
+
+    n_tri_pad = _bucket(tri_base)
+    fills = (1e30,) + (0.0,) * 8
+    cols = [_pad_rows(a, n_tri_pad, f) for a, f in zip(cols, fills)]
+    tri_slot = _pad_rows(tri_slot, n_tri_pad, 0)
+    return dict(
+        tri_v0=cols[0], tri_e1=cols[1], tri_e2=cols[2], tri_slot=tri_slot,
+        tri_pack=_pack_tri_rows(*cols, tri_slot,
+                                np.full(n_tri_pad, -1, np.int32)),
+        # soup fields the two-level path never reads (as in the JAX scene)
+        tri_mat=np.zeros(n_tri_pad, np.int32),
+        tri_inst=np.full(n_tri_pad, -1, np.int32),
+        cl_lw=cl_lw, cl_base=cl_base, cl_count=cl_count, ti_rows=ti_rows,
+        cl_obox=cl_obox, cl_slot=cluster_slot_rows(tri_slot, cl_base, cl_count),
+        inst_fwd=inst_fwd, inst_nrm=inst_nrm, inst_slot_map=inst_slot_map,
+        max_ncl=int(max(i_ncl)) if i_ncl else 0, n_tri=tri_base)
+
+
+def _empty_obox() -> np.ndarray:
+    obox = np.zeros((1, 8), np.float32)
+    obox[:, B_MIN:B_MIN + 3] = 3e38
+    obox[:, B_MAX:B_MAX + 3] = -3e38
+    return obox
+
+
+def placeholders(two_level: bool) -> dict:
+    """Small stand-ins for the fields that only the other structure reads:
+    on a two-level scene the soup's ``cl_box`` (all padding) and
+    ``cl_order``; on a soup scene the instance tables (no real row)."""
+    if two_level:
+        box = np.zeros((8, 128), np.float32)
+        box[B_MIN:B_MIN + 3] = 3e38
+        box[B_MAX:B_MAX + 3] = -3e38
+        return dict(cl_box=box, cl_order=np.zeros(1, np.int32))
+    return dict(
+        ti_rows=build_instance_tables(np.zeros((0, 3)), np.zeros((0, 3)),
+                                      np.zeros((0, 3, 4)), np.zeros(0),
+                                      np.zeros(0), np.zeros(0)),
+        cl_obox=_empty_obox(), cl_slot=np.zeros((1, 128), np.float32),
+        tri_slot=np.zeros(1, np.int32),
+        inst_fwd=np.eye(3, 4, dtype=np.float32).reshape(1, 12),
+        inst_nrm=np.eye(3, dtype=np.float32).reshape(1, 9),
+        inst_slot_map=np.full((1, SLOTS), DEFAULT_MATERIAL_ID, np.int32))
 
 
 def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
@@ -421,27 +683,29 @@ def _light_fields(world: World) -> dict:
 
 
 _STATICS = ("n_triangles", "n_materials", "n_spot_lights", "n_direct_lights",
-            "n_instances", "n_clusters")
+            "n_instances", "n_clusters", "max_ncl")
 
 
 def scene_from_arrays(leaves: dict, statics: dict, device="cpu") -> TorchScene:
     """Build a TorchScene from named NumPy arrays (for example the leaves of
     a JAX ``DeviceScene``, each converted with ``np.asarray``) and its static
-    counts. Extra leaves are ignored. Scenes with the unported features
-    (``two_level``, ``has_maps``, ``n_cutout``) raise NotImplementedError."""
-    if statics.get("two_level"):
-        raise NotImplementedError(
-            "two-level instanced scenes are not ported yet (ROADMAP A11)")
+    counts. Extra leaves are ignored; the fields that only the other
+    structure reads may be missing and take :func:`placeholders`. Scenes
+    with the unported features (``has_maps``, ``n_cutout``) raise
+    NotImplementedError."""
     if statics.get("has_maps"):
-        raise NotImplementedError("texture maps are not ported yet (ROADMAP A9)")
+        raise NotImplementedError(_MAPS_MSG)
     if statics.get("n_cutout"):
-        raise NotImplementedError(
-            "texture-alpha cutout shadows are not ported yet (ROADMAP A10)")
+        raise NotImplementedError(_CUTOUT_MSG)
+    two_level = bool(statics.get("two_level", False))
+    stand_in = placeholders(two_level)
     tensors = {}
     for f in dataclasses.fields(TorchScene):
-        if f.name in _STATICS:
+        if f.name in _STATICS or f.name == "two_level":
             continue
         a = leaves.get(f.name)
+        if a is None:
+            a = stand_in.get(f.name)
         if a is None:
             raise ValueError(f"scene leaf {f.name!r} is missing")
         a = np.asarray(a)
@@ -450,4 +714,5 @@ def scene_from_arrays(leaves: dict, statics: dict, device="cpu") -> TorchScene:
         elif a.dtype.kind in "iu":
             a = a.astype(np.int32)
         tensors[f.name] = torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return TorchScene(**tensors, **{k: int(statics[k]) for k in _STATICS})
+    return TorchScene(**tensors, **{k: int(statics[k]) for k in _STATICS},
+                      two_level=two_level)

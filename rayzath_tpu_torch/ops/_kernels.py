@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``rayzath_tpu_torch/csrc``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds) and loaded with
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C interface
+(no PyTorch headers, so the build takes seconds), loaded with
 ``ctypes``. The library lands in ``rayzath_tpu_torch/build/rz_kernels/``,
 inside the package in a checkout and in an installed copy alike (git ignores
 it), named by a hash of the sources and flags, so an edited source is
@@ -29,9 +30,9 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build" / "rz_kernels"
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH, "-fmad=false", "-prec-div=true",
+              "-prec-sqrt=true", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,14 @@ _SIGNATURES = {
     "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a, stream
     "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
+    # t, id, inst, stream
+    "rz_cluster_closest_inst": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                _P, _P],
+    # origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
+    # n_rays, ip, rgb, a, stream
+    "rz_cluster_shadow_inst": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                               _P, _P],
 }
 
 
@@ -66,25 +75,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"librz_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for every one, then raise if any
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.is_file():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, *ARCH, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

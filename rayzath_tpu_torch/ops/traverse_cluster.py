@@ -1,6 +1,7 @@
-"""Flat cluster traversal: closest hit (B1) and transmission shadow (B2).
+"""Cluster traversal: closest hit and transmission shadow, flat (B1, B2)
+and instanced (B3, B4).
 
-Counterpart of the soup half of ``rayzath_tpu/ops/traverse_cluster.py``.
+Counterpart of ``rayzath_tpu/ops/traverse_cluster.py``.
 The acceleration structure is the same flat table of triangle clusters (the
 leaves of an ordinary BVH build, at most 128 triangles each), built on the
 host by :func:`build_cluster_tables`:
@@ -15,13 +16,32 @@ host by :func:`build_cluster_tables`:
   ``t = o'_z / -d'_z`` (d'_z nudged by DET_EPS when tiny),
   ``b1 = o'_x + t d'_x`` and ``b2 = o'_y + t d'_y``.
 
-Each public entry point (``cluster_closest``, ``cluster_shadow``) takes the
-plain PyTorch version for a tensor on the CPU and launches the hand-written
-CUDA kernel (``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``) for a
+The instanced (two-level) variant keeps one such table per mesh, in object
+space, concatenated into one shared table (each mesh padded to a multiple
+of 128 rows), plus one row per instance, built by
+:func:`build_instance_tables`:
+
+* ``ti_rows [Ip, 24]``: world AABB min/max (``TI_MIN``/``TI_MAX``), the
+  world->object 3x4 matrix row-major (``TI_INV``), the mesh's first cluster
+  row and its real cluster count (``TI_CL0``/``TI_NCL``, 0 = padding row)
+  and the global instance index (``TI_ID``).
+* ``cl_obox [Cm, 8]``: per shared cluster the object-space AABB min/max,
+  first triangle (device order) and count, the ``box_tab`` rows as columns.
+* ``cl_slot [Cm, 128]``: the mesh-local material slot of each triangle.
+
+A ray visits an instance by moving into its object space,
+``o' = A o + a`` and ``d' = A d`` with d' left unnormalized, so that t stays
+the world t, and then walks that mesh's clusters.
+
+Each public entry point (``cluster_closest``, ``cluster_shadow``,
+``cluster_closest_inst``, ``cluster_shadow_inst``) takes the plain PyTorch
+version for a tensor on the CPU and launches the hand-written CUDA kernel
+(``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``,
+``csrc/cluster_closest_inst.cu``, ``csrc/cluster_shadow_inst.cu``) for a
 tensor on a CUDA device; any other device raises. Each counts its kernel
 launches in a ``launches`` attribute. The plain versions visit every real
-cluster with no culling; the kernels cull conservatively, so both return
-the same hits.
+cluster (of every real instance) with no culling; the kernels cull
+conservatively, so both return the same hits.
 """
 from __future__ import annotations
 
@@ -41,6 +61,16 @@ B_MIN = 0               # rows 0..2: cluster AABB min xyz
 B_MAX = 3               # rows 3..5: cluster AABB max xyz
 B_BASE = 6              # row 6: first triangle (reordered index)
 B_CNT = 7               # row 7: triangle count (0 = padding lane)
+
+# ti_rows layout ([Ip, TI_W] f32, one row per instance)
+TI_MIN = 0              # 0..2: world AABB min
+TI_MAX = 3              # 3..5: world AABB max
+TI_INV = 6              # 6..17: world->object 3x4 (row-major)
+TI_CL0 = 18             # first shared cluster row of the instance's mesh
+TI_NCL = 19             # real cluster count (0 = padding row)
+TI_ID = 20              # global instance index
+TI_W = 24
+SLOTS = 64              # material slots per instance
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +163,44 @@ def cluster_opacity(op_rgb, op_a, order, base, count,
     return vals.permute(0, 2, 1).contiguous()                        # [C,4,ct]
 
 
+def build_instance_tables(wmin, wmax, inv, cl0, ncl, inst_id):
+    """Host build of the instance rows: wmin/wmax [I,3] world AABBs,
+    inv [I,3,4] world->object, cl0/ncl [I] shared-cluster ranges,
+    inst_id [I] global instance indices. Returns ti_rows [Ip, TI_W] with
+    Ip = I rounded up to a multiple of 128 (at least 128); padding rows are
+    all zeros (ncl = 0). The JAX package also builds a lane-major box twin
+    for its ranking pass; the port's walk reads the rows only."""
+    i = len(cl0)
+    ip = max(128, -(-max(i, 1) // 128) * 128)
+    rows = np.zeros((ip, TI_W), np.float32)
+    if i:
+        rows[:i, TI_MIN:TI_MIN + 3] = wmin
+        rows[:i, TI_MAX:TI_MAX + 3] = wmax
+        rows[:i, TI_INV:TI_INV + 12] = np.asarray(inv).reshape(i, 12)
+        rows[:i, TI_CL0] = np.asarray(cl0).astype(np.float32)
+        rows[:i, TI_NCL] = np.asarray(ncl).astype(np.float32)
+        rows[:i, TI_ID] = np.asarray(inst_id).astype(np.float32)
+    return rows
+
+
+def cluster_slot_rows(tri_slot, cl_base, cl_count):
+    """[Cm, CLUSTER_T] f32 material slot of each triangle of each shared
+    cluster (device order). Padding slots keep slot 0 (they never hit)."""
+    lanes = np.arange(CLUSTER_T)[None, :]
+    idx = np.clip(cl_base[:, None] + lanes, 0, max(len(tri_slot) - 1, 0))
+    valid = lanes < cl_count[:, None]
+    return np.where(valid, tri_slot[idx], 0).astype(np.float32)
+
+
+def instance_opacity(mat_color, inst_slot_map):
+    """[I, 4, SLOTS] per-instance slot opacity (rgb, 1 - alpha), resolved
+    from the live material table on every call, so edits are never
+    stale."""
+    mc = mat_color[inst_slot_map.long()]                             # [I,64,4]
+    ops = torch.cat([mc[..., :3], 1.0 - mc[..., 3:4]], dim=-1)
+    return ops.permute(0, 2, 1).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (no culling)
 # ---------------------------------------------------------------------------
@@ -208,6 +276,89 @@ def cluster_shadow_plain(origin, direction, dist, box_tab, frames, op_tab):
     return m[:, 0:3].contiguous(), m[:, 3].contiguous()
 
 
+def _real_instances(ti_rows, cl_obox):
+    """[(row, gid, [(cluster, first triangle), ...])] of every non-padding
+    instance row, in table order, read once."""
+    rows = ti_rows[:, [TI_CL0, TI_NCL, TI_ID]].cpu()
+    base = cl_obox[:, B_BASE].cpu()
+    out = []
+    for k in torch.nonzero(rows[:, 1] > 0).flatten().tolist():
+        cl0, ncl = int(rows[k, 0]), int(rows[k, 1])
+        out.append((k, int(rows[k, 2]),
+                    [(s, int(base[s])) for s in range(cl0, cl0 + ncl)]))
+    return out
+
+
+def _object_rays(origin, direction, ti_rows, k):
+    """Rays in instance row ``k``'s object space: o' = A o + a, d' = A d
+    (d' unnormalized, so t stays the world t), in the kernels' order."""
+    a = ti_rows[k, TI_INV:TI_INV + 12]
+    ox, oy, oz = origin[:, 0], origin[:, 1], origin[:, 2]
+    dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
+    o = torch.stack([a[4 * i] * ox + a[4 * i + 1] * oy + a[4 * i + 2] * oz
+                     + a[4 * i + 3] for i in range(3)], dim=1)
+    d = torch.stack([a[4 * i] * dx + a[4 * i + 1] * dy + a[4 * i + 2] * dz
+                     for i in range(3)], dim=1)
+    return o, d
+
+
+def cluster_closest_inst_plain(origin, direction, near, far, ti_rows, cl_obox,
+                               frames):
+    """Two-level closest hit over every real instance and every cluster of
+    its mesh, in table order. Returns (t [R], tri_id [R] i32 in DEVICE
+    order, inst_id [R] i32 global instance index; -1 = miss). A ray with
+    far <= 0 returns t = -1. Ties follow :func:`cluster_closest_plain`: a
+    later cluster or instance must be strictly nearer."""
+    r = origin.shape[0]
+    dev = origin.device
+    ok = far > 0.0
+    best_t = torch.where(ok, torch.clamp(far, max=BIG),
+                         torch.full_like(far, -1.0))
+    best_id = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    lanes = torch.arange(CLUSTER_T, dtype=torch.int32, device=dev)
+    big = torch.full((), BIG, dtype=torch.float32, device=dev)
+    box = cl_obox.t()                                              # [8, Cm]
+    for k, gid, clusters in _real_instances(ti_rows, cl_obox):
+        o, d = _object_rays(origin, direction, ti_rows, k)
+        for s, base in clusters:
+            t, b1, b2 = _project(o, d, box, frames, s)
+            valid = (_inside(b1, b2) & (t > near[:, None])
+                     & (t < best_t[:, None]) & ok[:, None])
+            tm = torch.where(valid, t, big)
+            t_new = tm.amin(dim=1)
+            j = torch.where(tm == t_new[:, None], lanes,
+                            torch.full_like(lanes, CLUSTER_T)).amin(dim=1)
+            got = t_new < best_t
+            best_id = torch.where(got, base + j, best_id)
+            best_inst = torch.where(got, torch.full_like(best_inst, gid),
+                                    best_inst)
+            best_t = torch.where(got, t_new, best_t)
+    return best_t, best_id, best_inst
+
+
+def cluster_shadow_inst_plain(origin, direction, dist, ti_rows, cl_obox,
+                              frames, cl_slot, op_tab):
+    """Two-level transmission product: per ray, the product of the rgba
+    opacity ``op_tab[gid, :, cl_slot[s, j]]`` of every hit with t in
+    (0, dist), over every real instance and cluster. Returns (rgb [R,3],
+    a [R])."""
+    r = origin.shape[0]
+    m = torch.ones((r, 4), dtype=torch.float32, device=origin.device)
+    box = cl_obox.t()
+    slots = cl_slot.long()
+    for k, gid, clusters in _real_instances(ti_rows, cl_obox):
+        o, d = _object_rays(origin, direction, ti_rows, k)
+        opi = op_tab[gid]                                          # [4, 64]
+        for s, _ in clusters:
+            t, b1, b2 = _project(o, d, box, frames, s)
+            valid = _inside(b1, b2) & (t > 0.0) & (t < dist[:, None])
+            ops = opi[:, slots[s]]                                 # [4, ct]
+            fac = torch.where(valid[:, None, :], ops[None], 1.0)
+            m = m * fac.prod(dim=2)
+    return m[:, 0:3].contiguous(), m[:, 3].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -225,14 +376,18 @@ def _check(dev, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_shapes(extra):
+    for name, x, shape in extra:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+
+
 def _check_tables(box_tab, frames, extra=()):
     cp = box_tab.shape[1]
     if box_tab.shape != (8, cp) or frames.shape != (cp, 4, 3 * CLUSTER_T):
         raise ValueError(f"cluster tables disagree: box_tab {tuple(box_tab.shape)}"
                          f", frames {tuple(frames.shape)}")
-    for name, x, shape in extra:
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    _check_shapes(extra)
     return cp
 
 
@@ -319,3 +474,92 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
 
 
 cluster_shadow.launches = 0
+
+
+def _check_inst_tables(ti_rows, cl_obox, frames, extra=()):
+    ip, cm = ti_rows.shape[0], cl_obox.shape[0]
+    if (ti_rows.shape != (ip, TI_W) or ip % 128 or cl_obox.shape != (cm, 8)
+            or frames.shape != (cm, 4, 3 * CLUSTER_T)):
+        raise ValueError(f"instance tables disagree: ti_rows "
+                         f"{tuple(ti_rows.shape)}, cl_obox {tuple(cl_obox.shape)}"
+                         f", frames {tuple(frames.shape)}")
+    _check_shapes(extra)
+    return ip
+
+
+def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
+                         frames):
+    """Two-level closest hit. Returns (t [R], tri_id [R] i32 in DEVICE
+    order, i.e. the order of ``tri_pack``, and inst_id [R] i32; -1 = miss).
+    CPU tensors take :func:`cluster_closest_inst_plain`; CUDA tensors launch
+    the B3 kernel (``csrc/cluster_closest_inst.cu``)."""
+    if origin.device.type == "cpu":
+        return cluster_closest_inst_plain(origin, direction, near, far,
+                                          ti_rows, cl_obox, frames)
+    lib = _kernels.load()
+    dev = origin.device
+    r = origin.shape[0]
+    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
+           near=(near, torch.float32), far=(far, torch.float32),
+           ti_rows=(ti_rows, torch.float32), cl_obox=(cl_obox, torch.float32),
+           frames=(frames, torch.float32))
+    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("near", near, (r,)), ("far", far, (r,))))
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    tid = torch.empty(r, dtype=torch.int32, device=dev)
+    inst = torch.empty(r, dtype=torch.int32, device=dev)
+    if r:
+        err = lib.rz_cluster_closest_inst(
+            _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
+            _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
+            _ptr(tid), _ptr(inst), _stream())
+        if err != 0:
+            raise RuntimeError(f"cluster_closest_inst kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        cluster_closest_inst.launches += 1
+    return t, tid, inst
+
+
+cluster_closest_inst.launches = 0
+
+
+def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
+                        cl_slot, inst_slot_map, mat_color):
+    """Two-level transmission-filtered visibility: (mask_rgb [R,3],
+    mask_a [R]), the product of the live material opacity, resolved through
+    each instance's slot table (:func:`instance_opacity`), over every hit in
+    (0, dist). CPU tensors take :func:`cluster_shadow_inst_plain`; CUDA
+    tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), which
+    may stop a ray once its alpha is below 1e-4. Forward only: the gradient
+    replay is ROADMAP A12."""
+    op_tab = instance_opacity(mat_color, inst_slot_map)
+    if origin.device.type == "cpu":
+        return cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
+                                         cl_obox, frames, cl_slot, op_tab)
+    lib = _kernels.load()
+    dev = origin.device
+    r = origin.shape[0]
+    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
+           dist=(dist, torch.float32), ti_rows=(ti_rows, torch.float32),
+           cl_obox=(cl_obox, torch.float32), frames=(frames, torch.float32),
+           cl_slot=(cl_slot, torch.float32), op_tab=(op_tab, torch.float32))
+    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("dist", dist, (r,)), ("cl_slot", cl_slot, (cl_obox.shape[0], CLUSTER_T)),
+        ("op_tab", op_tab, (op_tab.shape[0], 4, SLOTS))))
+    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    a = torch.empty(r, dtype=torch.float32, device=dev)
+    if r:
+        err = lib.rz_cluster_shadow_inst(
+            _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
+            _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
+            _ptr(rgb), _ptr(a), _stream())
+        if err != 0:
+            raise RuntimeError(f"cluster_shadow_inst kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        cluster_shadow_inst.launches += 1
+    return rgb, a
+
+
+cluster_shadow_inst.launches = 0

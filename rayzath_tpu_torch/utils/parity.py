@@ -5,15 +5,20 @@
   decide either way (the rule of ``tests/test_oracle_parity.py:207-221``:
   the winner near a barycentric edge, a near-tie with the runner-up, or a
   near-miss candidate close to the winning t).
+* :func:`expand_instances`: the world-space (instance, triangle) list of a
+  two-level scene in f64, the f64 reference's input for the instanced
+  kernels.
 * :func:`images_match`: the image comparison of
   ``tests/test_oracle_parity.py`` ``assert_images_match``: exact sample
   counts, a bulk of pixels at fp noise, and a bounded outlier fraction.
 
-Used by the tests and by ``chip_smoke.py``; imports numpy only.
+Used by the tests and by ``chip_smoke.py``; computes in numpy.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.traverse_cluster import B_BASE, B_CNT, TI_CL0, TI_NCL, TI_ID
 
 EPS_B = 1e-4
 
@@ -79,6 +84,30 @@ def closest_f64(o, d, v0, e1, e2, near=None, far=None, chunk=256):
         chaotic[sl] = ((hit & ((margin < EPS_B) | near_tie))
                        | band.any(1) | window.any(1))
     return tid, chaotic
+
+
+def expand_instances(ti_rows, cl_obox, inst_fwd, tri_v0, tri_e1, tri_e2):
+    """World-space triangles of every (real instance, triangle of its mesh)
+    pair, in the instanced walk's order, transformed in f64 by the
+    instance's object->world rows. Returns (v0, e1, e2 [K,3] f64, tri [K]
+    device-order triangle id, inst [K] global instance index)."""
+    rows, obox = np.asarray(ti_rows), np.asarray(cl_obox)
+    fwd = np.asarray(inst_fwd, np.float64)
+    v0s, e1s, e2s, tris, insts = [], [], [], [], []
+    for k in np.nonzero(rows[:, TI_NCL] > 0)[0]:
+        cl0, ncl, gid = (int(rows[k, c]) for c in (TI_CL0, TI_NCL, TI_ID))
+        tri = np.concatenate([
+            np.arange(int(obox[s, B_BASE]), int(obox[s, B_BASE] + obox[s, B_CNT]))
+            for s in range(cl0, cl0 + ncl)])
+        a = fwd[gid].reshape(3, 4)
+        v0s.append(np.asarray(tri_v0, np.float64)[tri] @ a[:, :3].T + a[:, 3])
+        e1s.append(np.asarray(tri_e1, np.float64)[tri] @ a[:, :3].T)
+        e2s.append(np.asarray(tri_e2, np.float64)[tri] @ a[:, :3].T)
+        tris.append(tri)
+        insts.append(np.full(len(tri), gid))
+    return (np.concatenate(v0s), np.concatenate(e1s), np.concatenate(e2s),
+            np.concatenate(tris).astype(np.int32),
+            np.concatenate(insts).astype(np.int32))
 
 
 def images_match(a, b, tol=2e-3, frac=0.995):

@@ -6,9 +6,10 @@ jax; ``tests/conftest.py`` imports jax, so there run it as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Rules (as in chip_smoke.py phase 2): B1 ids equal the plain version's except
-on f64-chaotic rays, t to rtol 1e-5; B2 rgba to rtol 1e-5 / atol 1e-6 where
-the plain alpha >= 1e-4, and both below 1e-4 elsewhere.
+Rules (as in chip_smoke.py phase 2): B1 and B3 ids (and B3 instance ids)
+equal the plain version's except on f64-chaotic rays, t to rtol 1e-5; B2
+and B4 rgba to rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, and
+both below 1e-4 elsewhere.
 """
 import numpy as np
 import pytest
@@ -18,9 +19,53 @@ import rayzath_tpu_torch as rt
 from rayzath_tpu_torch.models import device_scene as tds
 from rayzath_tpu_torch.ops import camera as cam_ops
 from rayzath_tpu_torch.ops import traverse_cluster as tc
-from rayzath_tpu_torch.utils.parity import closest_f64, images_match
+from rayzath_tpu_torch.models.mesh import Mesh
+from rayzath_tpu_torch.utils.hostmath import Transform
+from rayzath_tpu_torch.utils.parity import (closest_f64, expand_instances,
+                                            images_match)
 
 torch.set_num_threads(2)
+
+
+def stacked_world(case, World, Mesh, Transform):
+    """128 layers of the same translucent white material (alpha 0.01, so
+    each passes 0.99 of the light), 1.0 apart along z, each an 8x8 grid of
+    quads 0.1 wide: "instances" = 128 instances of one one-quad mesh
+    (Ip = 128), "clusters" = one instance of one mesh whose 128 layers are
+    its 128 clusters. Built from the given package's classes, so the JAX
+    package and the port get the same world."""
+    cells = 1 if case == "instances" else 8
+    g = np.linspace(-0.05, 0.05, cells + 1)
+    xx, yy = np.meshgrid(g, g, indexing="ij")
+    grid = np.stack([xx.ravel(), yy.ravel(), np.zeros(xx.size)], 1)
+    quads = [(i * (cells + 1) + j, (i + 1) * (cells + 1) + j,
+              (i + 1) * (cells + 1) + j + 1, i * (cells + 1) + j + 1)
+             for i in range(cells) for j in range(cells)]
+    tris = np.asarray([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))])
+    layers = 1 if case == "instances" else 128
+    verts = np.concatenate([grid + (0.0, 0.0, k) for k in range(layers)])
+    tri_v = np.concatenate([tris + k * len(grid) for k in range(layers)])
+    w = World()
+    veil = w.create_material("veil", color=(1.0, 1.0, 1.0, 0.01))
+    mesh = w.meshes.create(Mesh("layers", vertices=verts.astype(np.float32),
+                                tri_v=tri_v.astype(np.int32)))
+    for k in range(128 // layers):
+        w.create_instance(name=f"layer {k}", mesh=mesh, materials=[veil],
+                          transform=Transform(position=(0.0, 0.0, float(k))))
+    return w
+
+
+def stack_rays(case):
+    """128 shadow rays straight through the stack of ``stacked_world``, each
+    well inside one triangle of its layer's grid: every row of the 128-row
+    table is feasible for the block."""
+    cells = 1 if case == "instances" else 8
+    ij = np.random.default_rng(4).integers(0, cells, (128, 2))
+    cw = 0.1 / cells
+    xy = -0.05 + (ij + (0.7, 0.3)) * cw
+    o = np.concatenate([xy, np.full((128, 1), -1.0)], 1).astype(np.float32)
+    d = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (128, 1))
+    return o, d, np.full(128, 1000.0, np.float32)
 
 
 @pytest.fixture
@@ -158,6 +203,106 @@ def test_render_cuda_matches_cpu(cuda, name):
         cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
         ns = I.n_streams(cfg, scene)
         rng = np.random.default_rng(11)
+        st = init_state(32, 32, dev)
+        for _ in range(4):
+            u = torch.as_tensor(rng.random((32 * 32, ns), dtype=np.float32),
+                                device=dev)
+            st = I.bounce_step(scene, cam, cfg, st, u=u)
+        out.append(st.accum.cpu().numpy())
+    images_match(out[0], out[1])
+
+
+def _two_level_world(name, res):
+    if name == "instanced_field":
+        return rt.scenes.instanced_field(res, res, n=3, resolution=12)
+    return rt.scenes.SCENES[name](res, res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["instanced_field", "multi_light"])
+def test_inst_kernels_match_plain(cuda, name):
+    """B3/B4 against their plain versions on two-level scenes: camera rays
+    and bounce-like rays."""
+    world = _two_level_world(name, 8)
+    scene = tds.compile_world(world, two_level=True, device=cuda)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    res = 128
+    r = res * res
+    o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res, device=cuda),
+                                 torch.full((r, 4), 0.5, device=cuda))
+    near = torch.zeros(r, device=cuda)
+    far = torch.full((r,), 1e30, device=cuda)
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
+    t, _, _ = tc.cluster_closest_inst_plain(o, d, near, far, *tabs)
+    p = torch.where((t > 0)[:, None] & (t < 1e30)[:, None],
+                    o + d * (t * 0.999)[:, None], o)
+    v = np.random.default_rng(res).normal(size=(r, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    op_tab = tc.instance_opacity(scene.mat_color, scene.inst_slot_map)
+    for o, d in ((o, d), (p.contiguous(), torch.as_tensor(v, device=cuda))):
+        before = tc.cluster_closest_inst.launches
+        t_k, tid_k, inst_k = tc.cluster_closest_inst(o, d, near, far, *tabs)
+        assert tc.cluster_closest_inst.launches == before + 1
+        t_p, tid_p, inst_p = tc.cluster_closest_inst_plain(o, d, near, far, *tabs)
+        torch.cuda.synchronize()
+        diff = ((tid_k != tid_p) | (inst_k != inst_p)).cpu().numpy()
+        if diff.any():
+            v0, e1, e2, _, _ = expand_instances(
+                *(x.cpu().numpy() for x in (scene.ti_rows, scene.cl_obox,
+                                            scene.inst_fwd, scene.tri_v0,
+                                            scene.tri_e1, scene.tri_e2)))
+            _, chaotic = closest_f64(o.cpu().numpy()[diff],
+                                     d.cpu().numpy()[diff], v0, e1, e2)
+            assert chaotic.all() and diff.mean() <= 1e-4
+        same = (tid_k >= 0) & (tid_k == tid_p) & (inst_k == inst_p)
+        assert int(same.sum()) > r // 10
+        torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5, atol=0)
+
+        for dist in (torch.where(tid_k >= 0, t_k, torch.full_like(t_k, 3e38)),
+                     torch.full_like(t_k, 3e38)):
+            rgb_k, a_k = tc.cluster_shadow_inst(
+                o, d, dist, *tabs, scene.cl_slot, scene.inst_slot_map,
+                scene.mat_color)
+            rgb_p, a_p = tc.cluster_shadow_inst_plain(o, d, dist, *tabs,
+                                                      scene.cl_slot, op_tab)
+            live = a_p >= 1e-4
+            torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5,
+                                       atol=1e-6)
+            assert bool((a_k[~live] < 1e-4).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["instances", "clusters"])
+def test_inst_shadow_takes_every_factor_of_128_rows(cuda, case):
+    """The B4 kernel walks every row of a 128-row table whose rows are all
+    feasible for the block (the JAX ranked loops drop the last one, ROADMAP
+    C): alpha is the analytic 0.99^128."""
+    scene = tds.compile_world(stacked_world(case, rt.World, Mesh, Transform),
+                              two_level=True, device=cuda)
+    o, d, dist = (torch.as_tensor(x, device=cuda) for x in stack_rays(case))
+    rgb, a = tc.cluster_shadow_inst(o, d, dist, scene.ti_rows, scene.cl_obox,
+                                    scene.cl_lw, scene.cl_slot,
+                                    scene.inst_slot_map, scene.mat_color)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(a.cpu().numpy(), 0.99 ** 128, rtol=1e-5)
+    np.testing.assert_allclose(rgb.cpu().numpy(), 1.0, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_render_two_level_cuda_matches_cpu(cuda):
+    """A two-level scene through bounce_step on the card (B3/B4) and on the
+    CPU (plain versions) with the same uniforms gives the same image."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        world = _two_level_world("instanced_field", 32)
+        scene = tds.compile_world(world, two_level=True, device=dev)
+        cam = tds.compile_camera(world.cameras[0], dev)
+        cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+        ns = I.n_streams(cfg, scene)
+        rng = np.random.default_rng(12)
         st = init_state(32, 32, dev)
         for _ in range(4):
             u = torch.as_tensor(rng.random((32 * 32, ns), dtype=np.float32),

@@ -55,10 +55,17 @@ def jax_leaves(scene):
 
 
 def assert_scene_equal(ts, leaves, statics):
+    """Every field of the port scene equals the JAX leaf or static of the
+    same name; a field the JAX scene leaves out (None) must be one of the
+    port's placeholders for the other structure."""
+    stand_in = tds.placeholders(ts.two_level)
     for f in dataclasses.fields(tds.TorchScene):
         a = getattr(ts, f.name)
         if isinstance(a, int):
             assert a == statics[f.name], f.name
+            continue
+        if f.name not in leaves:
+            assert np.array_equal(a.numpy(), stand_in[f.name]), f.name
             continue
         b = leaves[f.name]
         assert a.shape == b.shape and a.numpy().dtype == b.dtype, f.name
@@ -105,8 +112,14 @@ def test_import_is_jax_free():
     code = ("import rayzath_tpu_torch, sys; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules; "
             "import rayzath_tpu_torch.engine.integrator, "
+            "rayzath_tpu_torch.engine.renderer, "
+            "rayzath_tpu_torch.models.device_scene, "
             "rayzath_tpu_torch.ops.traverse_cluster, "
             "rayzath_tpu_torch.ops._kernels, rayzath_tpu_torch.utils.parity; "
+            "from rayzath_tpu_torch.ops.traverse_cluster import "
+            "cluster_closest_inst, cluster_shadow_inst, instance_opacity; "
+            "from rayzath_tpu_torch.models.device_scene import "
+            "_two_level_arrays; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
@@ -127,25 +140,20 @@ def _cutout_world():
     return w
 
 
-@pytest.mark.parametrize("case", ["two_level", "instanced_auto", "maps",
-                                  "cutout"])
+@pytest.mark.parametrize("case", ["two_level_maps", "two_level_cutout",
+                                  "maps", "cutout"])
 def test_unported_features_raise(case):
-    if case == "two_level":
-        with pytest.raises(NotImplementedError, match="A11"):
-            tds.compile_world(rt.scenes.cornell_box(8, 8), two_level=True)
-    elif case == "instanced_auto":
-        with pytest.raises(NotImplementedError, match="A11"):
-            tds.compile_world(rt.scenes.instanced_field(8, 8, n=4))
-    elif case == "maps":
+    """Maps (A9) and cutouts (A10) raise on both structures."""
+    two_level = case.startswith("two_level")
+    if case.endswith("maps"):
         with pytest.raises(NotImplementedError, match="A9"):
-            tds.compile_world(rt.scenes.textured_room(8, 8))
+            tds.compile_world(rt.scenes.textured_room(8, 8), two_level=two_level)
     else:
         with pytest.raises(NotImplementedError, match="A10"):
-            tds.compile_world(_cutout_world())
-    static = {"two_level": "two_level", "instanced_auto": "two_level",
-              "maps": "has_maps", "cutout": "n_cutout"}[case]
+            tds.compile_world(_cutout_world(), two_level=two_level)
+    static = "has_maps" if case.endswith("maps") else "n_cutout"
     with pytest.raises(NotImplementedError):
-        tds.scene_from_arrays({}, {static: 1})
+        tds.scene_from_arrays({}, {static: 1, "two_level": two_level})
 
 
 def test_unported_config_raises():

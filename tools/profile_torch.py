@@ -5,8 +5,8 @@ render, ``--repeats`` timed renders of the scene's pass count (wall clock,
 each ending in ``torch.cuda.synchronize``), then one ``torch.profiler``
 trace of ``--profile-passes`` passes. From the trace it prints the wall time,
 the device's busy time, the idle share, the busy time by group (B1 closest
-kernel, B2 shadow kernel, ray sort, everything else) and the top device
-kernels.
+kernel, B2 shadow kernel, B3/B4 their instanced twins, ray sort, everything
+else) and the top device kernels.
 
 Busy time is the union of the device-side intervals (kernels, memcpy,
 memset). The host-side ``aten::*`` rows of ``key_averages()`` carry the
@@ -36,9 +36,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import rayzath_tpu_torch as rt
 
-PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8}
+PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8,
+          "instanced_field": 8}
 GROUPS = (("B1", ("closest_kernel",)),
           ("B2", ("shadow_kernel",)),
+          ("B3", ("closest_inst_kernel",)),
+          ("B4", ("shadow_inst_kernel",)),
           ("ray sort", ("topk", "TopK", "Sort", "sort")))
 
 
