@@ -22,16 +22,37 @@ Phases, each of which raises on failure (exit code != 0):
    rays), t to rtol 1e-5; shadow rgba to rtol 1e-5 / atol 1e-6 where the
    plain alpha >= 1e-4, both below 1e-4 elsewhere. Median times of kernel
    and plain with CUDA events.
-3. End to end: cornell_box_nee and multi_light at 64^2, and a two-level
-   instanced_field(n=4, resolution=16) at 64^2, depth 4, 4 passes, on the
-   card (kernels) and on the CPU (plain versions) with the same numpy
-   uniforms; sample counts equal, radiance as ``assert_images_match``.
+   Backward: B2's and B4's ``torch.autograd.Function`` (kernel forward,
+   dense replay backward) against autograd through their plain twins on
+   the card, for every input, on ``lit_world`` (tests/test_gradients.py) at
+   64^2 bounce-like rays with half the materials at alpha 0.55 (B2) and on
+   a two-level instanced_field(n=3, resolution=12) likewise (B4): the
+   opacity (``mat_color``) gradient to rtol 1e-3 of its max |g|; the rays,
+   the distance and the triangles get exactly zero from both (the product
+   is piecewise constant in geometry). Cotangents are zero on rays whose
+   plain alpha is below 1e-4 (the kernels stop there) or that an f64
+   Moller-Trumbore calls chaotic. Then device times of the plain torch
+   pieces of this slice at 512^2: the texture fetch, the cutout pass and
+   B2's backward on textured_room.
+3. End to end: cornell_box_nee and multi_light at 64^2, a two-level
+   instanced_field(n=4, resolution=16), textured_room and the cutout world
+   (each on both structures) at 64^2, depth 4, 4 passes, on the card
+   (kernels) and on the CPU (plain versions) with the same numpy uniforms;
+   sample counts equal, radiance as ``assert_images_match`` (frac 0.98 for
+   textured_room, the JAX suite's own tolerance for its normal-mapped
+   glossy bounces, ``tests/test_oracle_parity.py:85``).
 4. The slice at size: ``Renderer(device="cuda")`` renders cornell_box_nee
-   (32 passes), multi_light, mesh_heavy and instanced_field (two-level by
-   the automatic choice; 8 passes each) at 512^2, depth 8; NaN-free,
-   samples accumulated, image mean in (5, 220), and the launch counters of
-   the path's two kernels (all four reset just before) at least one per
-   pass.
+   (32 passes), multi_light, mesh_heavy, instanced_field (two-level by the
+   automatic choice), textured_room and the cutout world (8 passes each) at
+   512^2, depth 8; NaN-free, samples accumulated, image mean in (5, 220),
+   and the launch counters of the path's two kernels (all four reset just
+   before) at least one per pass.
+5. Training: ``parallel.train.training_step`` on textured_room(512, 512),
+   depth 3, 4 passes per step, remat, 3 steps at lr 0.01 against the same
+   scene with the panel's emission halved (with 2 passes the panel never
+   enters the image: pass 0 traces the initial placeholder rays, pass 1 the
+   camera's first hits); the loss finite and descending, the atlas update
+   finite and non-zero; seconds per step and peak device memory.
 
 The last lines of standard output are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -53,6 +74,7 @@ SCENES = ("cornell_box_nee", "multi_light", "mesh_heavy")
 INST_SCENES = (("instanced_field", 16), ("multi_light", 1))  # (scene, stride)
 RES = 512
 PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
+BACKWARD_RTOL = 1e-3         # B2/B4 backward against the plain twins' autograd
 
 
 def fail(msg: str) -> int:
@@ -447,6 +469,192 @@ def phase_inst_kernels(card: str, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, backward: B2/B4 autograd.Functions against their plain twins
+# ---------------------------------------------------------------------------
+
+def translucent_half(world):
+    """Every other user material at alpha 0.55."""
+    import numpy as np
+    for m in list(world.materials)[::2]:
+        m.color = np.asarray([*m.color[:3], 0.55], np.float32)
+    return world
+
+
+def bounce_rays(scene, world, dev, res, seed):
+    """Bounce-like rays: from just before each camera ray's first hit
+    (plain twin), in uniform-sphere directions from a numpy seed."""
+    import numpy as np
+    import torch
+    from rayzath_tpu_torch.models.device_scene import compile_camera
+    from rayzath_tpu_torch.ops import camera as cam_ops
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    cam = compile_camera(world.cameras[0], dev)
+    r = res * res
+    o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res, device=dev),
+                                 torch.full((r, 4), 0.5, device=dev))
+    near, far = torch.zeros(r, device=dev), torch.full((r,), 1e30, device=dev)
+    if scene.two_level:
+        t = tc.cluster_closest_inst_plain(o, d, near, far, scene.ti_rows,
+                                          scene.cl_obox, scene.cl_lw)[0]
+    else:
+        t = tc.cluster_closest_plain(o, d, near, far, scene.cl_box, scene.cl_lw)[0]
+    hit = (t > 0) & (t < 1e30)
+    p = torch.where(hit[:, None], o + d * (t * 0.9999)[:, None], o)
+    v = np.random.default_rng(seed).normal(size=(r, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return p.contiguous(), torch.as_tensor(v, device=dev)
+
+
+def _op(scene, mc):
+    mat = mc[scene.tri_mat.long()]
+    return mat[:, :3], 1.0 - mat[:, 3]
+
+
+def shadow_fn(scene, leaves):
+    """The shadow Function (B2, or B4 on a two-level scene) on fresh
+    autograd leaves made from ``leaves`` = (origin, direction, dist,
+    tri_v0, tri_e1, tri_e2, mat_color). Returns (rgb, a) and the leaves."""
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+    o, d, dist, v0, e1, e2, mc = xs
+    if scene.two_level:
+        out = tc.cluster_shadow_inst(
+            o, d, dist, scene.ti_rows, scene.cl_obox, scene.cl_lw,
+            scene.cl_slot, scene.inst_slot_map, mc, tris=(v0, e1, e2),
+            expanded=(scene.tri_slot, scene.exp_tri, scene.exp_inst,
+                      scene.inst_fwd))
+    else:
+        out = tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                                scene.cl_order, scene.cl_base, scene.cl_count,
+                                *_op(scene, mc), tris=(v0, e1, e2))
+    return out, xs
+
+
+def shadow_plain(scene, leaves):
+    """The plain twin on fresh autograd leaves made from ``leaves`` =
+    (origin, direction, dist, mat_color), its opacity table built
+    differentiably. Returns (rgb, a) and the leaves."""
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    ys = [x.detach().clone().requires_grad_(True) for x in leaves]
+    o, d, dist, mc = ys
+    if scene.two_level:
+        out = tc.cluster_shadow_inst_plain(
+            o, d, dist, scene.ti_rows, scene.cl_obox, scene.cl_lw,
+            scene.cl_slot, tc.instance_opacity(mc, scene.inst_slot_map))
+    else:
+        out = tc.cluster_shadow_plain(
+            o, d, dist, scene.cl_box, scene.cl_lw,
+            tc.cluster_opacity(*_op(scene, mc), scene.cl_order, scene.cl_base,
+                               scene.cl_count))
+    return out, ys
+
+
+def check_backward(label, scene, o, d, dev):
+    """Max relative error of the Function's gradients against autograd
+    through the plain twin, over every input (see the module docstring)."""
+    import numpy as np
+    import torch
+    from rayzath_tpu_torch.utils.parity import closest_f64, expand_instances
+    r = o.shape[0]
+    dist = torch.full((r,), 3e38, device=dev)
+    fn, xs = shadow_fn(scene, (o, d, dist, scene.tri_v0, scene.tri_e1,
+                               scene.tri_e2, scene.mat_color))
+    plain, ys = shadow_plain(scene, (o, d, dist, scene.mat_color))
+    tabs = [x.cpu().numpy() for x in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
+    if scene.two_level:
+        tabs = expand_instances(*(x.cpu().numpy() for x in (
+            scene.ti_rows, scene.cl_obox, scene.inst_fwd)), *tabs)[:3]
+    else:
+        tabs = [x[:scene.n_triangles] for x in tabs]
+    _, chaotic = closest_f64(o.cpu().numpy(), d.cpu().numpy(), *tabs)
+    keep = (plain[1] >= 1e-4) & ~torch.as_tensor(chaotic, device=dev)
+    rng = np.random.default_rng(17)
+    g = (torch.as_tensor(rng.normal(size=(r, 3)).astype(np.float32), device=dev)
+         * keep[:, None],
+         torch.as_tensor(rng.normal(size=r).astype(np.float32), device=dev) * keep)
+    for a, b in zip(fn, plain):
+        torch.testing.assert_close(a[keep].detach(), b[keep].detach(),
+                                   rtol=1e-5, atol=1e-6)
+    got = torch.autograd.grad(fn, xs, g, allow_unused=True, materialize_grads=True)
+    ref = torch.autograd.grad(plain, ys, g, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    ref_mc = ref[3]
+    err = float((got[6] - ref_mc).abs().max() / ref_mc.abs().max())
+    zero = max(float(x.abs().max()) for x in (*got[:6], *ref[:3]))
+    if not err <= BACKWARD_RTOL:
+        raise AssertionError(f"{label}: mat_color gradient max rel err {err:.3e} "
+                             f"> {BACKWARD_RTOL}")
+    if zero != 0.0:
+        raise AssertionError(f"{label}: a ray or triangle gradient is {zero}, "
+                             "not 0")
+    part = int(((plain[1] > 0) & (plain[1] < 1)).sum())
+    print(f"  {label}: backward on {r} rays ({part} partial products, "
+          f"{int(keep.sum())} with a cotangent): mat_color max rel err "
+          f"{err:.3e} (rtol {BACKWARD_RTOL}); rays, dist and triangles 0",
+          flush=True)
+    return err
+
+
+def phase_backward(card: str, dev):
+    """B2/B4 backwards against the plain twins, then times of the plain
+    pieces of this slice at 512^2."""
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.models.device_scene import compile_world
+    from rayzath_tpu_torch.ops import texture as tex_ops
+    from rayzath_tpu_torch.utils import check_worlds
+    out = {}
+    world = translucent_half(check_worlds.lit_world(64))
+    scene = compile_world(world, device=dev)
+    out["cluster_shadow"] = check_backward(
+        "lit_world 64^2 (B2)", scene, *bounce_rays(scene, world, dev, 64, 21), dev)
+    world = translucent_half(rt.scenes.instanced_field(64, 64, n=3, resolution=12))
+    scene = compile_world(world, two_level=True, differentiable=True, device=dev)
+    out["cluster_shadow_inst"] = check_backward(
+        "instanced_field(n=3, resolution=12) two-level 64^2 (B4)", scene,
+        *bounce_rays(scene, world, dev, 64, 22), dev)
+
+    # device times of the slice's plain torch pieces at 512^2
+    r = RES * RES
+    rng = np.random.default_rng(23)
+    world = rt.scenes.textured_room(RES, RES)
+    scene = compile_world(world, device=dev)
+    o, d = bounce_rays(scene, world, dev, RES, 24)
+    uv = torch.as_tensor(rng.uniform(-1, 2, (r, 2)).astype(np.float32), device=dev)
+    tex_id = torch.zeros(r, dtype=torch.int32, device=dev)
+    t_fetch = cuda_ms(lambda: tex_ops.fetch_scene(scene, tex_id, uv, atlas=0), 20)
+    dist = torch.full((r,), 3e38, device=dev)
+    leaves = (o, d, dist, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.mat_color)
+    g = (torch.ones(r, 3, device=dev), torch.ones(r, device=dev))
+
+    def fwd():
+        return shadow_fn(scene, leaves)[0]
+
+    def fwd_bwd():
+        fn, xs = shadow_fn(scene, leaves)
+        torch.autograd.grad(fn, xs[6], g)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_fwd = cuda_ms(fwd, 5)
+    t_bwd = cuda_ms(fwd_bwd, 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cworld = check_worlds.cutout_world(RES)
+    cscene = compile_world(cworld, device=dev)
+    co, cd = bounce_rays(cscene, cworld, dev, RES, 25)
+    t_cut = cuda_ms(lambda: I.texture_shadow_factor(cscene, co, cd, dist), 20)
+    print(f"  plain pieces at {RES}^2 [{card}]: texture fetch (color atlas) "
+          f"{t_fetch:.3f} ms; cutout pass ({cscene.n_cutout} cutouts) "
+          f"{t_cut:.3f} ms; B2 Function forward (kernel) {t_fwd:.3f} ms, "
+          f"forward + backward (dense replay over {scene.tri_v0.shape[0]} "
+          f"triangles) {t_bwd:.3f} ms, peak {peak:.2f} GiB", flush=True)
+    out["times"] = dict(fetch_ms=t_fetch, cutout_ms=t_cut, b2_fwd_ms=t_fwd,
+                        b2_fwd_bwd_ms=t_bwd)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: end to end on the card against the CPU plain path
 # ---------------------------------------------------------------------------
 
@@ -473,18 +681,28 @@ def render_passes(make_world, dev, res, passes, depth, seed, two_level=None):
 
 def phase_end_to_end(dev):
     import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.utils import check_worlds
     from rayzath_tpu_torch.utils.parity import images_match
     cases = [(name, lambda res, name=name: rt.scenes.SCENES[name](res, res),
-              None) for name in ("cornell_box_nee", "multi_light")]
+              None, 0.995) for name in ("cornell_box_nee", "multi_light")]
     cases.append(("instanced_field(n=4, resolution=16), two-level",
                   lambda res: rt.scenes.instanced_field(res, res, n=4,
-                                                        resolution=16), True))
-    for label, make_world, two_level in cases:
+                                                        resolution=16), True,
+                  0.995))
+    for two_level in (False, True):
+        shape = "two-level" if two_level else "soup"
+        cases.append((f"textured_room, {shape}",
+                      lambda res: rt.scenes.textured_room(res, res), two_level,
+                      0.98))
+        cases.append((f"cutout world, {shape}", check_worlds.cutout_world,
+                      two_level, 0.995))
+    for label, make_world, two_level, frac in cases:
         a_gpu = render_passes(make_world, dev, 64, 4, 4, 7, two_level)
         a_cpu = render_passes(make_world, "cpu", 64, 4, 4, 7, two_level)
-        close = images_match(a_gpu, a_cpu)
+        close = images_match(a_gpu, a_cpu, frac=frac)
         print(f"{label}: 64^2 x 4 passes, CUDA kernels vs CPU plain: sample "
-              f"counts equal, {close:.4f} of pixels within 2e-3", flush=True)
+              f"counts equal, {close:.4f} of pixels within 2e-3 (frac "
+              f"{frac})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -497,10 +715,13 @@ def phase_slice(card: str, dev):
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     wrappers = {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
                 "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst}
+    from rayzath_tpu_torch.utils import check_worlds
     launches = {f.__name__: 0 for f in wrappers.values()}
     for name, rpp in (("cornell_box_nee", 32), ("multi_light", 8),
-                      ("mesh_heavy", 8), ("instanced_field", 8)):
-        world = rt.scenes.SCENES[name](RES, RES)
+                      ("mesh_heavy", 8), ("instanced_field", 8),
+                      ("textured_room", 8), ("cutout world", 8)):
+        world = (check_worlds.cutout_world(RES) if name == "cutout world"
+                 else rt.scenes.SCENES[name](RES, RES))
         r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
                         device=dev)
         t0 = time.perf_counter()
@@ -517,6 +738,10 @@ def phase_slice(card: str, dev):
         path = ("B3", "B4") if r.scene.two_level else ("B1", "B2")
         if name == "instanced_field" and not r.scene.two_level:
             raise AssertionError("instanced_field did not compile two-level")
+        if name == "textured_room" and r.scene.map_kinds_used != (True,) * 5:
+            raise AssertionError("textured_room does not use every map kind")
+        if name == "cutout world" and r.scene.n_cutout != 2:
+            raise AssertionError("the cutout world has no cutout set")
         if min(counts[k] for k in path) < rpp:
             raise AssertionError(f"{name}: launches {counts} < {rpp} passes")
         for k in path:
@@ -537,6 +762,60 @@ def phase_slice(card: str, dev):
         del r, world
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+def phase_train(card: str, dev):
+    import dataclasses
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine.integrator import render_steps_preserve
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    from rayzath_tpu_torch.parallel.train import training_step
+    world = rt.scenes.textured_room(RES, RES)
+    scene = compile_world(world, device=dev)
+    cam = compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=3))
+    passes, lr, seed = 4, 0.01, 11
+    panel = [m.name for m in world.materials].index("panel") + 2
+    emission = scene.mat_emission.clone()
+    emission[panel] *= 0.5
+    with torch.no_grad():
+        st = render_steps_preserve(dataclasses.replace(scene, mat_emission=emission),
+                                   cam, cfg, init_state(RES, RES, dev), seed, passes)
+    target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    s = scene
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s_new, _, loss = training_step(s, cam, cfg, init_state(RES, RES, dev),
+                                       seed, target, lr, passes, remat=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step = s_new.color_atlas - s.color_atlas
+        if not bool(torch.isfinite(s_new.color_atlas).all()):
+            raise AssertionError("training: non-finite atlas after a step")
+        if not float(step.abs().max()) > 0.0:
+            raise AssertionError("training: the atlas gradient is zero")
+        losses.append(float(loss))
+        s = s_new
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"training: loss not finite {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: loss did not descend {losses}")
+    print(f"training_step on textured_room {RES}^2, depth 3, {passes} passes per "
+          f"step, remat, lr {lr}: losses {[f'{x:.6f}' for x in losses]}, "
+          f"seconds per step {[f'{x:.3f}' for x in times]}, peak device memory "
+          f"{peak:.2f} GiB, panel emission {float(scene.mat_emission[panel]):.4f}"
+          f" -> {float(s.mat_emission[panel]):.4f} [{card}]", flush=True)
+    return dict(losses=losses, seconds=times, peak_gib=peak)
 
 
 def main() -> int:
@@ -565,8 +844,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
-    print(f"phase 2 (kernel vs plain) {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+    backward = phase_backward(card, dev)
+    print(f"phase 2 (kernel vs plain, backward) "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
     phase_end_to_end(dev)
     print(f"phase 3 (end to end) {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -574,6 +854,9 @@ def main() -> int:
     launches = phase_slice(card, dev)
     print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    t_phase = time.perf_counter()
+    phase_train(card, dev)
+    print(f"phase 5 (training) {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # times: B1/B2 on mesh_heavy, B3/B4 on instanced_field, bounce-like
     # rays; "rays" / "plain_rays" say which ray set each time was taken on
@@ -591,6 +874,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": kernels[name]["err"],
             "ms": k, "plain_ms": p, "scene": scene, "rays": n,
             "plain_rays": n_plain})
+        if name in backward:
+            record[-1].update(backward_max_rel_err=backward[name],
+                              backward_rtol=BACKWARD_RTOL)
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -119,8 +119,9 @@ class Renderer:
         for cam in cameras:
             cv = self.view(cam)
             t0 = time.perf_counter()
-            cv.state = render_steps(scene, cv.device_camera, self.config,
-                                    cv.state, self.seed, n)
+            with torch.no_grad():       # serving records no autograd graph
+                cv.state = render_steps(scene, cv.device_camera, self.config,
+                                        cv.state, self.seed, n)
             if block and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.time_table.set("trace", (time.perf_counter() - t0) * 1e3)

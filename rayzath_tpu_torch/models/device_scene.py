@@ -22,13 +22,22 @@ SoA arrays, which become tensors on one explicit device:
 ``compile_world`` picks the structure as the JAX package does; the fields
 of the structure not chosen hold small placeholders (:func:`placeholders`).
 
-Not built here, because the render path does not read them: the XLA
-skip-link tables (``aabb_links``, ``node_*``), the dense projection frames
-(``tri_pw``/``tri_pc``), the per-vertex normal/texcoord columns outside
-``tri_pack``, the texture atlases and the expanded (instance, triangle)
-lists ``exp_tri``/``exp_inst`` that only the shadow backward reads
-(ROADMAP A12). Not ported yet, and refused with ``NotImplementedError``:
-texture maps (A9) and texture-alpha cutout shadows (A10).
+Both structures also get the texture atlases and per-map tables (all maps
+shelf-packed into one RGBA and one scalar atlas, with the 2x2 block tables
+of ``ops/texture.py``) and the texture-alpha "cutout" set: the world-space
+triangles whose material has a color texture and alpha < 1, whose texture
+term the integrator's dense cutout pass multiplies into the shadow
+kernels' constant opacity. With ``differentiable=True`` a two-level scene
+also gets the expanded (instance, triangle) lists ``exp_tri``/``exp_inst``
+that only the B4 backward reads (317,954 rows on ``instanced_field``, so
+the serve path never builds them).
+
+Not built, because no path of the port reads them: the XLA skip-link
+tables (``aabb_links``, ``node_*``), the dense projection frames
+(``tri_pw``/``tri_pc``; the shadow backwards build theirs from the
+triangles), the per-vertex normal/texcoord columns outside ``tri_pack``
+and the cutouts' raw geometry (``cut_v0``/``cut_e1``/``cut_e2``, read only
+by the JAX package's NumPy oracle).
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ import numpy as np
 import torch
 
 from ..ops.bvh import build_bvh, triangle_aabbs, FlatBVH
+from ..ops.intersect import triangle_frames
+from ..ops.texture import block_indices
 from ..ops.traverse_cluster import (build_cluster_tables,
                                     build_instance_tables, cluster_slot_rows,
                                     B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
@@ -106,6 +117,27 @@ class TorchScene:
     inst_nrm: torch.Tensor       # [I,9] normal matrix 3x3 (row-major)
     inst_slot_map: torch.Tensor  # [I,64] i32 material slot -> global id
 
+    # texture atlases + per-map tables (an 8x8 zero atlas when no map)
+    color_atlas: torch.Tensor    # [Hc,Wc,4]
+    scalar_atlas: torch.Tensor   # [Hs,Ws]
+    map_rect: torch.Tensor       # [K,4] i32: y0, x0, h, w
+    map_flags: torch.Tensor      # [K,3] i32: filter, address, atlas (0 color)
+    map_uv: torch.Tensor         # [K,5]: scale_x, scale_y, rotation, tx, ty
+    col_blk_idx: torch.Tensor    # [Hc*Wc,4] i32 2x2 block texel indices
+    sc_blk_idx: torch.Tensor     # [Hs*Ws,4] i32
+
+    # texture-alpha cutout set, world space (None when n_cutout == 0)
+    cut_pw: Optional[torch.Tensor] = None    # [3,3C] projection frames
+    cut_pc: Optional[torch.Tensor] = None    # [3C]
+    cut_t0: Optional[torch.Tensor] = None    # [C,2] texcrds
+    cut_t1: Optional[torch.Tensor] = None
+    cut_t2: Optional[torch.Tensor] = None
+    cut_map: Optional[torch.Tensor] = None   # [C] i32 texture map id
+    # expanded (instance, triangle) lists of a two-level scene, for the B4
+    # backward (None unless compiled with differentiable=True)
+    exp_tri: Optional[torch.Tensor] = None   # [K] i32 device-order triangle
+    exp_inst: Optional[torch.Tensor] = None  # [K] i32 global instance
+
     n_triangles: int = 0
     n_materials: int = 2
     n_spot_lights: int = 0
@@ -113,7 +145,12 @@ class TorchScene:
     n_instances: int = 0
     n_clusters: int = 0          # REAL clusters (soup; tables are 128-padded)
     max_ncl: int = 0             # two-level: most real clusters of one mesh
+    n_cutout: int = 0
     two_level: bool = False
+    has_maps: bool = False       # any map in the world (even an unused one)
+    # which of (texture, normal, metalness, roughness, emission) a material
+    # references: the integrator skips the fetches of absent kinds
+    map_kinds_used: tuple = (False,) * 5
 
 
 @dataclasses.dataclass
@@ -231,22 +268,25 @@ def _two_level_auto(world: World) -> bool:
 def compile_world(world: World, leaf_size: int = 8,
                   two_level: Optional[bool] = None,
                   cache: Optional[dict] = None,
-                  device="cpu") -> TorchScene:
+                  device="cpu", differentiable: bool = False) -> TorchScene:
     """Flatten the host world into a TorchScene on ``device`` (see module
     docstring). ``two_level``: False = world-space soup, True = shared
     per-mesh object-space tables + instance rows, None = the JAX package's
     automatic choice (:func:`_two_level_auto`). ``cache`` memoizes the
-    geometry blocks by version, as in the JAX package, so a
-    materials-or-lights-only edit rebuilds only the cheap binding tables."""
+    geometry blocks and the atlases by version, as in the JAX package, so a
+    materials-or-lights-only edit rebuilds only the cheap binding tables.
+    ``differentiable`` builds what only the gradient path reads (a
+    two-level scene's ``exp_tri``/``exp_inst``)."""
     if two_level is None:
         two_level = _two_level_auto(world)
 
     materials: list[Material] = ([world.material, world.default_material]
                                  + list(world.materials))
     mat_index = {id(m): i for i, m in enumerate(materials)}
-    all_maps: list[TextureMap] = (
-        list(world.textures) + list(world.normal_maps)
-        + list(world.metalness_maps) + list(world.roughness_maps)
+    # map ids: color maps (textures, normal maps) then scalar maps
+    color_maps: list[TextureMap] = list(world.textures) + list(world.normal_maps)
+    all_maps: list[TextureMap] = color_maps + (
+        list(world.metalness_maps) + list(world.roughness_maps)
         + list(world.emission_maps))
     map_id = {id(m): i for i, m in enumerate(all_maps)}
 
@@ -265,30 +305,25 @@ def compile_world(world: World, leaf_size: int = 8,
         mat_emission=np.array([m.emission for m in materials], np.float32),
         mat_ior=np.array([m.ior for m in materials], np.float32),
         mat_scattering=np.array([m.scattering for m in materials], np.float32),
-        mat_maps=mat_maps, **_light_fields(world))
+        mat_maps=mat_maps, **_light_fields(world),
+        **_atlas_fields(all_maps, len(color_maps), cache))
     statics = dict(n_materials=len(materials),
                    n_spot_lights=len(world.spot_lights),
                    n_direct_lights=len(world.direct_lights),
-                   n_instances=len(world.instances))
+                   n_instances=len(world.instances),
+                   has_maps=len(all_maps) > 0,
+                   map_kinds_used=tuple(bool((mat_maps[:, k] >= 0).any())
+                                        for k in range(5)))
 
     if two_level:
-        # texture-alpha cutouts (the JAX _cutout_fields rule), then maps
-        for inst in world.instances:
-            mesh = inst.mesh
-            if mesh is None or mesh.triangle_count == 0:
-                continue
-            gmat = _slot_table(mat_index, inst)[np.clip(mesh.tri_mat, 0, 63)]
-            if _cutout(gmat, mat_color, mat_maps).any():
-                raise NotImplementedError(_CUTOUT_MSG)
-        if all_maps:
-            raise NotImplementedError(_MAPS_MSG)
-        geo = _two_level_arrays(world, mat_index, cache)
+        cut = _cutout_fields(world, mat_index, mat_color, mat_maps)
+        geo = _two_level_arrays(world, mat_index, cache, differentiable)
         max_ncl = geo.pop("max_ncl")
         n_tri = geo.pop("n_tri")
         return scene_from_arrays(
-            dict(**geo, **common),
+            dict(**geo, **common, **cut),
             dict(statics, n_triangles=n_tri, n_clusters=0, max_ncl=max_ncl,
-                 two_level=True), device)
+                 n_cutout=len(cut.get("cut_map", ())), two_level=True), device)
 
     geo = _soup_geometry(world, leaf_size, cache)
     n_tri = geo["n_tri"]
@@ -304,26 +339,143 @@ def compile_world(world: World, leaf_size: int = 8,
         slot_tables[np.clip(inst_rows, 0, None), geo["slot_rows"]],
         DEFAULT_MATERIAL_ID).astype(np.int32)
 
-    if _cutout(tri_mat[:n_tri], mat_color, mat_maps).any():
-        raise NotImplementedError(_CUTOUT_MSG)
-    if all_maps:
-        raise NotImplementedError(_MAPS_MSG)
-
     tri_pack = _pack_tri_rows(geo["tri_v0"], geo["tri_e1"], geo["tri_e2"],
                               geo["tri_n0"], geo["tri_n1"], geo["tri_n2"],
                               geo["tri_t0"], geo["tri_t1"], geo["tri_t2"],
                               tri_mat, inst_rows)
+    cut = _cutout_from_soup(geo, tri_mat, mat_color, mat_maps)
     arrays = dict(
         tri_v0=geo["tri_v0"], tri_e1=geo["tri_e1"], tri_e2=geo["tri_e2"],
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
-        **common, **geo["cl_fields"])
+        **common, **geo["cl_fields"], **cut)
     return scene_from_arrays(
         arrays, dict(statics, n_triangles=n_tri, n_clusters=geo["n_clusters"],
-                     max_ncl=0, two_level=False), device)
+                     max_ncl=0, n_cutout=len(cut.get("cut_map", ())),
+                     two_level=False), device)
 
 
-_CUTOUT_MSG = "texture-alpha cutout shadows are not ported yet (ROADMAP A10)"
-_MAPS_MSG = "texture maps are not ported yet (ROADMAP A9)"
+# ---------------------------------------------------------------------------
+# texture atlases and cutouts (JAX _pack_shelf, _atlas_fields,
+# _cutout_from_soup, _cutout_fields)
+# ---------------------------------------------------------------------------
+
+def _pack_shelf(maps: list, channels: int):
+    """Shelf-pack maps into one atlas, tallest first. Returns (atlas
+    [H, W, channels], rects [K, 4] i32 y0, x0, h, w in the maps' order)."""
+    if not maps:
+        return np.zeros((8, 8, channels), np.float32), np.zeros((0, 4), np.int32)
+    atlas_w = 1 << int(np.ceil(np.log2(max(max(m.width for m in maps), 8))))
+    rows: list[dict] = []
+    rects = []
+    y_cursor = 0
+    for m in sorted(range(len(maps)), key=lambda i: -maps[i].height):
+        tex = maps[m]
+        for row in rows:
+            if row["x"] + tex.width <= atlas_w and tex.height <= row["h"]:
+                rects.append((m, row["y"], row["x"], tex.height, tex.width))
+                row["x"] += tex.width
+                break
+        else:
+            rows.append({"y": y_cursor, "x": tex.width, "h": tex.height})
+            rects.append((m, y_cursor, 0, tex.height, tex.width))
+            y_cursor += tex.height
+    atlas = np.zeros((max(y_cursor, 8), atlas_w, channels), np.float32)
+    out = np.zeros((len(maps), 4), np.int32)
+    for m, y0, x0, h, w in rects:
+        atlas[y0:y0 + h, x0:x0 + w, :] = maps[m].data[:, :, :channels]
+        out[m] = (y0, x0, h, w)
+    return atlas, out
+
+
+def _atlas_fields(all_maps: list, n_color: int, cache: Optional[dict]) -> dict:
+    """Atlases (cached by map identity and version), per-map tables and the
+    2x2 block tables of both atlases."""
+    key = ("atlas", tuple((id(m), getattr(m, "version", 0)) for m in all_maps))
+    if cache is not None and key in cache:
+        color_atlas, color_rects, scalar_atlas, scalar_rects = cache[key]["v"]
+    else:
+        color_atlas, color_rects = _pack_shelf(all_maps[:n_color], 4)
+        scalar3, scalar_rects = _pack_shelf(all_maps[n_color:], 1)
+        scalar_atlas = scalar3[:, :, 0]
+        if cache is not None:
+            for stale in [k for k in cache
+                          if isinstance(k, tuple) and k[0] == "atlas"]:
+                del cache[stale]
+            cache[key] = {"v": (color_atlas, color_rects, scalar_atlas,
+                                scalar_rects), "refs": list(all_maps)}
+    k = max(len(all_maps), 1)
+    map_rect = np.zeros((k, 4), np.int32)
+    map_flags = np.zeros((k, 3), np.int32)
+    map_uv = np.zeros((k, 5), np.float32)
+    map_uv[:, 0:2] = 1.0
+    for i, m in enumerate(all_maps):
+        in_color = i < n_color
+        map_rect[i] = color_rects[i] if in_color else scalar_rects[i - n_color]
+        map_flags[i] = (m.filter_mode, m.address_mode, 0 if in_color else 1)
+        map_uv[i] = (m.scale[0], m.scale[1], m.rotation, m.translation[0],
+                     m.translation[1])
+    return dict(
+        color_atlas=color_atlas, scalar_atlas=scalar_atlas, map_rect=map_rect,
+        map_flags=map_flags, map_uv=map_uv,
+        col_blk_idx=block_indices(color_rects, *color_atlas.shape[:2]),
+        sc_blk_idx=block_indices(scalar_rects, *scalar_atlas.shape))
+
+
+def _cutout(gmat, mat_color, mat_maps):
+    """Texture-alpha cutout triangles: the resolved material has a color
+    texture AND alpha < 1 (when alpha = 1 the constant part already blocks
+    the ray; reference cuda_material.cuh:86-95)."""
+    return (mat_maps[gmat, 0] >= 0) & (mat_color[gmat, 3] < 1.0 - 1e-6)
+
+
+def _cut_arrays(v0, e1, e2, t0, t1, t2, maps) -> dict:
+    pw, pc = triangle_frames(v0, e1, e2)
+    return dict(cut_pw=pw, cut_pc=pc, cut_t0=t0, cut_t1=t1, cut_t2=t2,
+                cut_map=np.asarray(maps).astype(np.int32))
+
+
+def _cutout_from_soup(geo: dict, tri_mat, mat_color, mat_maps) -> dict:
+    """The cutout set of a soup scene, taken from the (cached) world-space
+    soup in its BVH order; {} when there is none."""
+    n = geo["n_tri"]
+    tm = tri_mat[:n]
+    sel = _cutout(tm, mat_color, mat_maps)
+    if not sel.any():
+        return {}
+    return _cut_arrays(*(geo[k][:n][sel] for k in ("tri_v0", "tri_e1", "tri_e2",
+                                                   "tri_t0", "tri_t1", "tri_t2")),
+                       mat_maps[tm[sel], 0])
+
+
+def _cutout_fields(world: World, mat_index, mat_color, mat_maps) -> dict:
+    """The world-space cutout set of a two-level scene, instance by
+    instance in world order; {} when there is none."""
+    parts = [[] for _ in range(7)]
+    for inst in world.instances:
+        mesh = inst.mesh
+        if mesh is None or mesh.triangle_count == 0:
+            continue
+        gmat = _slot_table(mat_index, inst)[np.clip(mesh.tri_mat, 0, 63)]
+        sel = _cutout(gmat, mat_color, mat_maps)
+        if not sel.any():
+            continue
+        wv = inst.effective_transform().points_l2g(mesh.vertices).astype(np.float32)
+        tv = mesh.tri_v[sel]
+        tt = mesh.tri_t[sel]
+        if len(mesh.texcrds):   # a missing texcoord (-1) reads (0, 0)
+            uv = np.concatenate([mesh.texcrds.astype(np.float32),
+                                 np.zeros((1, 2), np.float32)])
+        else:
+            uv = np.zeros((1, 2), np.float32)
+            tt = np.full_like(tt, -1)
+        v0 = wv[tv[:, 0]]
+        for lst, a in zip(parts, (v0, wv[tv[:, 1]] - v0, wv[tv[:, 2]] - v0,
+                                  uv[tt[:, 0]], uv[tt[:, 1]], uv[tt[:, 2]],
+                                  mat_maps[gmat[sel], 0])):
+            lst.append(a)
+    if not parts[0]:
+        return {}
+    return _cut_arrays(*(np.concatenate(p) for p in parts))
 
 
 def _slot_table(mat_index: dict, inst) -> np.ndarray:
@@ -333,12 +485,6 @@ def _slot_table(mat_index: dict, inst) -> np.ndarray:
         if mat is not None:
             table[s] = _resolve_mat(mat_index, mat, inst.name)
     return table
-
-
-def _cutout(gmat, mat_color, mat_maps):
-    """Texture-alpha cutout triangles (JAX ``_cutout_fields``): the resolved
-    material has a color texture AND alpha < 1."""
-    return (mat_maps[gmat, 0] >= 0) & (mat_color[gmat, 3] < 1.0 - 1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -415,10 +561,14 @@ def _mesh_cluster_block(m, cache: Optional[dict]):
 
 
 def _two_level_arrays(world: World, mat_index: dict,
-                      cache: Optional[dict] = None) -> dict:
+                      cache: Optional[dict] = None,
+                      expanded: bool = False) -> dict:
     """Two-level geometry: the shared per-mesh object-space cluster tables
     (concatenated, each mesh padded to a multiple of 128 rows), the
-    instance rows and the per-instance transforms and slot tables."""
+    instance rows and the per-instance transforms and slot tables; with
+    ``expanded``, also the (instance, triangle) lists of every live
+    instance in world order (``exp_tri`` device-order triangle, ``exp_inst``
+    global instance)."""
     meshes: list = []
     mesh_pos: dict[int, int] = {}
     valid: list = []
@@ -461,8 +611,13 @@ def _two_level_arrays(world: World, mat_index: dict,
     inst_nrm = np.tile(np.eye(3, dtype=np.float32).reshape(1, 9), (n_inst, 1))
     inst_slot_map = np.full((n_inst, SLOTS), DEFAULT_MATERIAL_ID, np.int32)
     i_min, i_max, i_inv, i_cl0, i_ncl, i_gid = ([] for _ in range(6))
+    exp_tri, exp_inst = [], []
     for gi, inst in valid:
         mi = mesh_pos[id(inst.mesh)]
+        if expanded:
+            ntri = inst.mesh.triangle_count
+            exp_tri.append(np.arange(ntri, dtype=np.int32) + mesh_tri_base[mi])
+            exp_inst.append(np.full(ntri, gi, np.int32))
         fwd, inv, nmat = transform_matrices(inst.effective_transform())
         inst_fwd[gi] = fwd.reshape(12)
         inst_nrm[gi] = nmat.reshape(9)
@@ -514,7 +669,10 @@ def _two_level_arrays(world: World, mat_index: dict,
         cl_lw=cl_lw, cl_base=cl_base, cl_count=cl_count, ti_rows=ti_rows,
         cl_obox=cl_obox, cl_slot=cluster_slot_rows(tri_slot, cl_base, cl_count),
         inst_fwd=inst_fwd, inst_nrm=inst_nrm, inst_slot_map=inst_slot_map,
-        max_ncl=int(max(i_ncl)) if i_ncl else 0, n_tri=tri_base)
+        max_ncl=int(max(i_ncl)) if i_ncl else 0, n_tri=tri_base,
+        **(dict(exp_tri=np.concatenate(exp_tri) if exp_tri else np.zeros(1, np.int32),
+                exp_inst=np.concatenate(exp_inst) if exp_inst else np.zeros(1, np.int32))
+           if expanded else {}))
 
 
 def _empty_obox() -> np.ndarray:
@@ -683,30 +841,29 @@ def _light_fields(world: World) -> dict:
 
 
 _STATICS = ("n_triangles", "n_materials", "n_spot_lights", "n_direct_lights",
-            "n_instances", "n_clusters", "max_ncl")
+            "n_instances", "n_clusters", "max_ncl", "n_cutout")
+_FLAGS = ("two_level", "has_maps")
 
 
 def scene_from_arrays(leaves: dict, statics: dict, device="cpu") -> TorchScene:
     """Build a TorchScene from named NumPy arrays (for example the leaves of
     a JAX ``DeviceScene``, each converted with ``np.asarray``) and its static
-    counts. Extra leaves are ignored; the fields that only the other
-    structure reads may be missing and take :func:`placeholders`. Scenes
-    with the unported features (``has_maps``, ``n_cutout``) raise
-    NotImplementedError."""
-    if statics.get("has_maps"):
-        raise NotImplementedError(_MAPS_MSG)
-    if statics.get("n_cutout"):
-        raise NotImplementedError(_CUTOUT_MSG)
+    counts and flags. Extra leaves are ignored; the fields that only the
+    other structure reads may be missing and take :func:`placeholders`, and
+    the optional fields (the cutout set, the expanded lists) stay None when
+    missing."""
     two_level = bool(statics.get("two_level", False))
     stand_in = placeholders(two_level)
     tensors = {}
     for f in dataclasses.fields(TorchScene):
-        if f.name in _STATICS or f.name == "two_level":
+        if f.name in _STATICS or f.name in _FLAGS or f.name == "map_kinds_used":
             continue
         a = leaves.get(f.name)
         if a is None:
             a = stand_in.get(f.name)
         if a is None:
+            if f.default is None:
+                continue
             raise ValueError(f"scene leaf {f.name!r} is missing")
         a = np.asarray(a)
         if a.dtype.kind == "f":
@@ -714,5 +871,8 @@ def scene_from_arrays(leaves: dict, statics: dict, device="cpu") -> TorchScene:
         elif a.dtype.kind in "iu":
             a = a.astype(np.int32)
         tensors[f.name] = torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return TorchScene(**tensors, **{k: int(statics[k]) for k in _STATICS},
-                      two_level=two_level)
+    return TorchScene(
+        **tensors, **{k: int(statics.get(k, 0)) for k in _STATICS},
+        two_level=two_level, has_maps=bool(statics.get("has_maps", False)),
+        map_kinds_used=tuple(bool(x) for x in
+                             statics.get("map_kinds_used", (False,) * 5)))

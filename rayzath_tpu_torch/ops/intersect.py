@@ -1,19 +1,26 @@
-"""Per-ray Moller-Trumbore refine and the host projection-frame build.
+"""Per-ray Moller-Trumbore refine, projection frames and the dense shadow
+replay.
 
-Counterpart of the parts of ``rayzath_tpu/ops/intersect.py`` that the soup
-render path runs. Numerical semantics follow the reference device
-intersector (RayZath/cuda_render_parts.cuh:1023-1083): the determinant is
-nudged by +1e-7 when |det| < 1e-7, and ``external`` (front face) is det > 0.
+Counterpart of ``rayzath_tpu/ops/intersect.py`` (all but the dense closest
+hit ``project_closest``, ROADMAP A4). Numerical semantics follow the
+reference device intersector (RayZath/cuda_render_parts.cuh:1023-1083): the
+determinant is nudged by +1e-7 when |det| < 1e-7, and ``external`` (front
+face) is det > 0.
 
 ``triangle_frames`` is the host (NumPy) precompute of the unit-triangle
 projection frames that the cluster tables hold: per triangle
 M = inv([e1 e2 n]) (n = e1 x e2) and c = -M v0, so that a world point p maps
 to M p + c, whose (x, y) are the barycentrics (b1, b2) and whose z vanishes
-on the triangle plane.
+on the triangle plane. ``triangle_frames_torch`` builds the same frames
+differentiably, and ``project_shadow`` runs the dense shadow test on them:
+the path the B2/B4 backwards replay (ops/traverse_cluster.py) and the
+texture cutout pass (engine/integrator.py) project through.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.utils.checkpoint
 
 from .vec import dot, cross
 
@@ -44,6 +51,83 @@ def triangle_frames(v0: np.ndarray, e1, e2):
     w = np.concatenate([m[:, 0, :], m[:, 1, :], m[:, 2, :]], axis=0).T  # [3,3F]
     cc = np.concatenate([c[:, 0], c[:, 1], c[:, 2]], axis=0)            # [3F]
     return w.astype(np.float32), cc.astype(np.float32)
+
+
+def triangle_frames_torch(v0, e1, e2):
+    """Differentiable twin of :func:`triangle_frames` on [F,3] tensors (the
+    JAX package's ``_frames_jnp``): the frames the shadow backwards replay
+    through. The 3x3 inverse is written out by cofactors, elementwise in
+    IEEE float32 (no matrix unit, no TF32). Degenerate rows get the
+    never-hit frame; ``det`` only selects them and carries no gradient."""
+    n = cross(e1, e2)
+    # columns e1, e2, n: rows of the inverse are (c2 x c3, c3 x c1, c1 x c2) / det
+    r0, r1, r2 = cross(e2, n), cross(n, e1), cross(e1, e2)
+    det = dot(e1, r0)
+    ok = (det.detach().abs() > 1e-30)[:, None]
+    one = torch.ones((), dtype=v0.dtype, device=v0.device)
+    inv_det = 1.0 / torch.where(ok[:, 0], det, one)
+    zero = torch.zeros((), dtype=v0.dtype, device=v0.device)
+    m = [torch.where(ok, r * inv_det[:, None], zero) for r in (r0, r1, r2)]
+    fill = (-1.0, -1.0, 1.0)
+    c = [torch.where(ok[:, 0], -dot(mi, v0), torch.full_like(det, f))
+         for mi, f in zip(m, fill)]
+    w = torch.cat([m[0], m[1], m[2]], dim=0).t()                # [3, 3F]
+    return w, torch.cat(c, dim=0)                               # [3F]
+
+
+def _project_terms(origin, direction, w, c):
+    """Projection of rays [R,3] onto triangle frames (w [3, 3F], c [3F]),
+    written out elementwise in IEEE float32 (the JAX package uses
+    precision=HIGHEST matmuls). Returns (t, b1, b2, dz), each [R, F]."""
+    f = w.shape[1] // 3
+    ol = (origin[:, 0:1] * w[0] + origin[:, 1:2] * w[1]
+          + origin[:, 2:3] * w[2] + c)
+    dl = direction[:, 0:1] * w[0] + direction[:, 1:2] * w[1] + direction[:, 2:3] * w[2]
+    ox, oy, oz = ol[:, :f], ol[:, f:2 * f], ol[:, 2 * f:]
+    dx, dy, dz = dl[:, :f], dl[:, f:2 * f], dl[:, 2 * f:]
+    dz = dz + (dz.abs() < DET_EPS).to(dz.dtype) * DET_EPS
+    t = -oz / dz
+    return t, ox + t * dx, oy + t * dy, dz
+
+
+def _shadow_block(origin, direction, dist, w, c, op):
+    """Product over one chunk of triangles of the rgba opacity ``op``
+    [chunk, 4] of every hit with t in (0, dist). Returns [R, 4]."""
+    t, b1, b2, _ = _project_terms(origin, direction, w, c)
+    valid = ((b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+             & (t > 0.0) & (t < dist[:, None]))                  # [R, chunk]
+    return torch.where(valid[:, :, None], op[None], 1.0).prod(dim=1)
+
+
+def project_shadow(origin, direction, dist, tri_w, tri_c, op_rgb, op_a,
+                   chunk: int = 512):
+    """Dense transmission-filtered shadow test through projection frames
+    (reference anyIntersection, cuda_instance.cuh:92-164): the product of
+    the opacity color over every intersection in (0, dist), over every
+    triangle. Returns (rgb [R,3], a [R]).
+
+    This is the replay the shadow backwards run through. Under autograd each
+    chunk is one ``torch.utils.checkpoint``, so the backward recomputes one
+    chunk's [R, chunk] terms at a time; the running product across chunks is
+    plain multiplication, whose backward needs no division (opaque factors
+    are exactly 0)."""
+    f = tri_w.shape[1] // 3
+    w3 = tri_w.reshape(3, 3, f)
+    c3 = tri_c.reshape(3, f)
+    op = torch.cat([op_rgb, op_a[:, None]], dim=1)
+    m = torch.ones((origin.shape[0], 4), dtype=origin.dtype, device=origin.device)
+    grad = torch.is_grad_enabled()
+    for i0 in range(0, f, chunk):
+        sl = slice(i0, min(i0 + chunk, f))
+        args = (origin, direction, dist, w3[:, :, sl].reshape(3, -1),
+                c3[:, sl].reshape(-1), op[sl])
+        if grad:
+            blk = torch.utils.checkpoint.checkpoint(_shadow_block, *args,
+                                                    use_reentrant=False)
+        else:
+            blk = _shadow_block(*args)
+        m = m * blk
+    return m[:, :3], m[:, 3]
 
 
 def refine_tri(origin, direction, v0, e1, e2):

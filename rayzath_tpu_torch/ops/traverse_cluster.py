@@ -42,17 +42,25 @@ tensor on a CUDA device; any other device raises. Each counts its kernel
 launches in a ``launches`` attribute. The plain versions visit every real
 cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
+
+The closest-hit entries return discrete hits and carry no gradient. The
+shadow entries are ``torch.autograd.Function``s when an input requires
+grad: the forward is the kernel (or the plain version on the CPU), the
+backward replays the shadow test densely through ``ops/intersect.py``
+``project_shadow``, as the JAX package's custom_vjp rules do.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import _kernels
 from .bvh import build_bvh, triangle_aabbs
-from .intersect import BIG, DET_EPS, triangle_frames
+from .intersect import (BIG, DET_EPS, project_shadow, triangle_frames,
+                        triangle_frames_torch)
 
 CLUSTER_T = 128         # triangles per cluster
 
@@ -439,14 +447,108 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order):
 cluster_closest.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# backward: dense replay (the JAX package's custom_vjp rules)
+# ---------------------------------------------------------------------------
+
+class _ShadowReplay(torch.autograd.Function):
+    """Forward: ``run()``, the kernel or its plain version, on ``xs``.
+    Backward: the VJP of ``replay(*xs)``, the dense differentiable shadow
+    test over the same inputs (path replay: the transmission product does
+    not depend on the order of its factors, so the gradient is exact
+    wherever the kernel's alpha < 1e-4 stop has not cut the product, and
+    beyond it the light term is ~0 either way)."""
+
+    @staticmethod
+    def forward(ctx, run, replay, *xs):
+        ctx.replay = replay
+        ctx.save_for_backward(*xs)
+        return run()
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_a):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+            outs = [(y, g) for y, g in zip(ctx.replay(*xs), (g_rgb, g_a))
+                    if y.requires_grad]
+            if not outs:
+                # the product is piecewise constant in the rays and the
+                # triangles: only the opacities carry a gradient
+                return (None,) * (2 + len(need))
+            wrt = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad([y for y, _ in outs], wrt,
+                                             [g for _, g in outs],
+                                             allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None for n in need)
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _soup_replay(origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a):
+    """B2's replay (JAX ``_make_cluster_shadow`` bwd): the dense shadow test
+    over every soup triangle, frames built differentiably."""
+    w, c = triangle_frames_torch(tri_v0, tri_e1, tri_e2)
+    return project_shadow(origin, direction, dist, w, c, op_rgb, op_a,
+                          chunk=_replay_chunk(origin.shape[0], tri_v0.shape[0]))
+
+
+def _inst_replay(tri_slot, exp_tri, exp_inst, inst_fwd, inst_slot_map,
+                 origin, direction, dist, tri_v0, tri_e1, tri_e2, mat_color):
+    """B4's replay (JAX ``_make_cluster_shadow_inst`` bwd): the dense shadow
+    test over the expanded (instance, triangle) set, each triangle moved to
+    world space by its instance's object->world rows and its opacity
+    resolved through the instance's slot table."""
+    tri, inst = exp_tri.long(), exp_inst.long()
+    a = inst_fwd[inst].reshape(-1, 3, 4)
+    lin = a[:, :, :3]
+
+    def l2g(v):
+        v = v[tri]
+        return (lin[:, :, 0] * v[:, 0:1] + lin[:, :, 1] * v[:, 1:2]
+                + lin[:, :, 2] * v[:, 2:3])
+
+    w, c = triangle_frames_torch(l2g(tri_v0) + a[:, :, 3], l2g(tri_e1),
+                                 l2g(tri_e2))
+    mc = mat_color[inst_slot_map[inst, tri_slot[tri].long()].long()]
+    return project_shadow(origin, direction, dist, w, c, mc[:, :3],
+                          1.0 - mc[:, 3],
+                          chunk=_replay_chunk(origin.shape[0], tri.shape[0]))
+
+
+def _replay_chunk(r: int, f: int) -> int:
+    """Triangles per checkpointed replay chunk: 512 as in the JAX package,
+    fewer for wide wavefronts so that one chunk's [R, chunk] terms stay near
+    2^25 elements (128 at 512^2 rays)."""
+    return max(1, min(512, f, max(32, 2 ** 25 // max(r, 1))))
+
+
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
-                   count, op_rgb, op_a):
+                   count, op_rgb, op_a, *, tris=None):
     """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
     product of the live material opacity over every hit in (0, dist).
     CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
     B2 kernel (``csrc/cluster_shadow.cu``), which may stop a ray once its
-    alpha is below 1e-4. Forward only: the gradient replay is
-    ROADMAP A12."""
+    alpha is below 1e-4.
+
+    Differentiable when grad mode is on and an input requires grad: the
+    backward replays the test densely (:func:`_soup_replay`) over ``tris``
+    = (tri_v0, tri_e1, tri_e2), the soup triangles in the order of
+    ``op_rgb`` / ``op_a``. Only the opacities get a non-zero gradient: the
+    product is piecewise constant in the rays and the triangles, which only
+    decide which factors enter (as in the JAX package)."""
+    if tris is not None and _needs_grad(origin, direction, *tris, op_rgb, op_a):
+        return _ShadowReplay.apply(
+            lambda: cluster_shadow(origin.detach(), direction.detach(),
+                                   dist.detach(), box_tab, frames, order, base,
+                                   count, op_rgb.detach(), op_a.detach()),
+            _soup_replay, origin, direction, dist, *tris, op_rgb, op_a)
+    if _needs_grad(origin, direction, op_rgb, op_a):
+        raise ValueError("cluster_shadow needs tris=(tri_v0, tri_e1, tri_e2) "
+                         "to differentiate")
     op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
     if origin.device.type == "cpu":
         return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
@@ -525,14 +627,36 @@ cluster_closest_inst.launches = 0
 
 
 def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
-                        cl_slot, inst_slot_map, mat_color):
+                        cl_slot, inst_slot_map, mat_color, *, tris=None,
+                        expanded=None):
     """Two-level transmission-filtered visibility: (mask_rgb [R,3],
     mask_a [R]), the product of the live material opacity, resolved through
     each instance's slot table (:func:`instance_opacity`), over every hit in
     (0, dist). CPU tensors take :func:`cluster_shadow_inst_plain`; CUDA
     tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), which
-    may stop a ray once its alpha is below 1e-4. Forward only: the gradient
-    replay is ROADMAP A12."""
+    may stop a ray once its alpha is below 1e-4.
+
+    Differentiable when grad mode is on and an input requires grad: the
+    backward replays the test densely over the expanded (instance,
+    triangle) set (:func:`_inst_replay`), from ``tris`` = (tri_v0, tri_e1,
+    tri_e2) in object space and device order and ``expanded`` = (tri_slot,
+    exp_tri, exp_inst, inst_fwd); as for :func:`cluster_shadow`, only
+    ``mat_color`` gets a non-zero gradient."""
+    if tris is not None and _needs_grad(origin, direction, *tris, mat_color):
+        if expanded is None:
+            raise ValueError("cluster_shadow_inst needs expanded=(tri_slot, "
+                             "exp_tri, exp_inst, inst_fwd) to differentiate; "
+                             "compile the world with differentiable=True")
+        replay = functools.partial(_inst_replay, *expanded, inst_slot_map)
+        return _ShadowReplay.apply(
+            lambda: cluster_shadow_inst(origin.detach(), direction.detach(),
+                                        dist.detach(), ti_rows, cl_obox,
+                                        frames, cl_slot, inst_slot_map,
+                                        mat_color.detach()),
+            replay, origin, direction, dist, *tris, mat_color)
+    if _needs_grad(origin, direction, mat_color):
+        raise ValueError("cluster_shadow_inst needs tris= and expanded= to "
+                         "differentiate")
     op_tab = instance_opacity(mat_color, inst_slot_map)
     if origin.device.type == "cpu":
         return cluster_shadow_inst_plain(origin, direction, dist, ti_rows,

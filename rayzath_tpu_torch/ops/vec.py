@@ -97,9 +97,8 @@ def sample_disk(r1, r2, vn, radius):
 
 
 #: Temperature of the sigmoid-relaxed total-internal-reflection indicator.
-#: It shapes only the gradient of the fresnel term, which this forward-only
-#: slice does not take (ROADMAP A12); the forward value below is computed
-#: the same way as in the JAX package so that both round alike.
+#: It shapes only the gradient of the fresnel term (the ior estimator of
+#: parallel/train.py); the forward value is the hard branch.
 TIR_TAU = 0.05
 
 
@@ -109,9 +108,11 @@ def fresnel_specular_ratio(vn, vi, n1, n2):
     Returns (fresnel, ratio, refr_b) where the refracted direction is
     ``vi * ratio + vn * refr_b`` (reference fresnelSpecularRatio,
     cuda_render_parts.cuh:1335-1355). Total internal reflection -> fresnel = 1.
-    The value is the JAX package's straight-through form
-    ``f_relaxed + (f_hard - f_relaxed)``, whose forward value is the hard
-    branch up to the rounding of that sum.
+    Straight-through, as in the JAX package: the value is
+    ``f_relaxed + detach(f_hard - f_relaxed)``, the hard branch up to the
+    rounding of that sum, and the gradient is that of the sigmoid-relaxed
+    blend ``lerp(F, 1, sigmoid((sin2_t - 1) / TIR_TAU))``, which sees the
+    total-internal-reflection boundary.
     """
     ratio = n1 / torch.clamp(n2, min=EPS)
     cosi = dot(vi, vn).abs()
@@ -124,6 +125,6 @@ def fresnel_specular_ratio(vn, vi, n1, n2):
     f_hard = torch.where(tir, torch.ones_like(f_fresnel), f_fresnel)
     w_tir = torch.sigmoid((sin2_t - 1.0) / TIR_TAU)
     f_relaxed = f_fresnel + (1.0 - f_fresnel) * w_tir
-    f = f_relaxed + (f_hard - f_relaxed)
+    f = f_relaxed + (f_hard - f_relaxed).detach()
     refr_b = ratio * cosi - cost
     return f, ratio, refr_b

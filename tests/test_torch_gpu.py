@@ -9,7 +9,9 @@ jax; ``tests/conftest.py`` imports jax, so there run it as
 Rules (as in chip_smoke.py phase 2): B1 and B3 ids (and B3 instance ids)
 equal the plain version's except on f64-chaotic rays, t to rtol 1e-5; B2
 and B4 rgba to rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, and
-both below 1e-4 elsewhere.
+both below 1e-4 elsewhere; the B2/B4 backwards to rtol 1e-3 of the max
+|g| of autograd through the plain versions; the texture fetch on the card
+to 1e-6 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -310,3 +312,100 @@ def test_render_two_level_cuda_matches_cpu(cuda):
             st = I.bounce_step(scene, cam, cfg, st, u=u)
         out.append(st.accum.cpu().numpy())
     images_match(out[0], out[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotate", [False, True])
+def test_fetch_cuda_matches_cpu(cuda, rotate):
+    """The texture fetch on the card against the same call on the CPU, both
+    atlases, every filter and address mode: to 1e-6 absolute with
+    unrotated UV transforms; with rotations to 1e-5, since CUDA's cos and
+    sin may differ from the CPU's in the last bit and the texel coordinate
+    scales that by the map width (measured: 2.6e-6)."""
+    from rayzath_tpu_torch.ops import texture as ttex
+    rng = np.random.default_rng(6)
+    col = rng.uniform(0, 1, (16, 16, 4)).astype(np.float32)
+    sc = rng.uniform(0, 1, (8, 16)).astype(np.float32)
+    rects = np.array([[1, 2, 7, 5]] * 4 + [[9, 3, 4, 9]] * 4 + [[0, 0, 6, 6]] * 4
+                     + [[2, 7, 3, 8]] * 4, np.int32)
+    flags = np.array([(f, a, k) for k in (0, 1) for f in (0, 1) for a in range(4)],
+                     np.int32)
+    uvp = np.column_stack([rng.uniform(0.5, 2, 16), rng.uniform(0.5, 2, 16),
+                           rng.uniform(-1, 1, 16) * rotate, rng.uniform(-0.5, 0.5, 16),
+                           rng.uniform(-0.5, 0.5, 16)]).astype(np.float32)
+    uv = rng.uniform(-2.5, 2.5, (20000, 2)).astype(np.float32)
+    for atlas, table in ((0, col), (1, sc)):
+        ids = np.nonzero(flags[:, 2] == atlas)[0]
+        blk = ttex.block_indices(rects[ids], *table.shape[:2])
+        map_id = rng.choice(ids, len(uv)).astype(np.int32)
+        args = (table, blk, rects, flags, uvp, map_id, uv)
+        cpu = ttex.fetch(*map(torch.as_tensor, args))
+        gpu = ttex.fetch(*(torch.as_tensor(x, device=cuda) for x in args))
+        torch.testing.assert_close(gpu.cpu(), cpu, rtol=0,
+                                   atol=1e-5 if rotate else 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["b2", "b4"])
+def test_shadow_backward_matches_plain_twin(cuda, kind):
+    """The B2/B4 autograd.Functions on the card (kernel forward, dense
+    replay backward) against autograd through the plain twins on the card:
+    rgba to the forward rules, the gradients of rays and opacities to rtol
+    1e-3 of their max |g| (rays whose alpha is below 1e-4 get no
+    cotangent: the kernel stops there). Half the materials are translucent."""
+    rng = np.random.default_rng(13)
+    if kind == "b2":
+        world = rt.scenes.multi_light(8, 8)
+        for m in list(world.materials)[::2]:
+            m.color = np.asarray([*m.color[:3], 0.55], np.float32)
+        scene = tds.compile_world(world, device=cuda)
+    else:
+        world = _two_level_world("instanced_field", 8)
+        for m in list(world.materials)[::2]:
+            m.color = np.asarray([*m.color[:3], 0.55], np.float32)
+        scene = tds.compile_world(world, two_level=True, differentiable=True,
+                                  device=cuda)
+    rays = _rays(scene, world, cuda, 64) if kind == "b2" else None
+    if kind == "b4":
+        cam = tds.compile_camera(world.cameras[0], cuda)
+        o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(64, 64, device=cuda),
+                                     torch.full((4096, 4), 0.5, device=cuda))
+        v = rng.normal(size=(4096, 3)).astype(np.float32)
+        rays = [(o + d * 2.0, torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True),
+                                              device=cuda))]
+    o, d = rays[-1]
+    r = o.shape[0]
+    dist = torch.full((r,), 3e38, device=cuda)
+    tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    mc = scene.mat_color.clone().requires_grad_(True)
+    mc_p = scene.mat_color.clone().requires_grad_(True)
+    if kind == "b2":
+        def op(m):
+            mat = m[scene.tri_mat.long()]
+            return mat[:, :3], 1.0 - mat[:, 3]
+        fn = tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                               scene.cl_order, scene.cl_base, scene.cl_count,
+                               *op(mc), tris=tris)
+        plain = tc.cluster_shadow_plain(
+            o, d, dist, scene.cl_box, scene.cl_lw,
+            tc.cluster_opacity(*op(mc_p), scene.cl_order, scene.cl_base,
+                               scene.cl_count))
+    else:
+        tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot,
+                scene.inst_slot_map)
+        fn = tc.cluster_shadow_inst(o, d, dist, *tabs, mc, tris=tris,
+                                    expanded=(scene.tri_slot, scene.exp_tri,
+                                              scene.exp_inst, scene.inst_fwd))
+        plain = tc.cluster_shadow_inst_plain(
+            o, d, dist, *tabs[:4], tc.instance_opacity(mc_p, scene.inst_slot_map))
+    live = plain[1] >= 1e-4
+    assert int(((plain[1] > 0) & (plain[1] < 1)).sum()) > 100
+    for a, b in zip(fn, plain):
+        torch.testing.assert_close(a[live].detach(), b[live].detach(),
+                                   rtol=1e-5, atol=1e-6)
+    g = (torch.randn(r, 3, device=cuda) * live[:, None],
+         torch.randn(r, device=cuda) * live)
+    got, = torch.autograd.grad(fn, mc, g)
+    ref, = torch.autograd.grad(plain, mc_p, g)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-3, err

@@ -57,11 +57,16 @@ def jax_leaves(scene):
 def assert_scene_equal(ts, leaves, statics):
     """Every field of the port scene equals the JAX leaf or static of the
     same name; a field the JAX scene leaves out (None) must be one of the
-    port's placeholders for the other structure."""
+    port's placeholders for the other structure, or None in the port too.
+    The expanded lists ``exp_tri``/``exp_inst`` may be None in the port,
+    which builds them only for ``differentiable=True``."""
     stand_in = tds.placeholders(ts.two_level)
     for f in dataclasses.fields(tds.TorchScene):
         a = getattr(ts, f.name)
-        if isinstance(a, int):
+        if a is None:
+            assert f.name not in leaves or f.name in ("exp_tri", "exp_inst"), f.name
+            continue
+        if isinstance(a, (int, tuple)):
             assert a == statics[f.name], f.name
             continue
         if f.name not in leaves:
@@ -120,40 +125,41 @@ def test_import_is_jax_free():
             "cluster_closest_inst, cluster_shadow_inst, instance_opacity; "
             "from rayzath_tpu_torch.models.device_scene import "
             "_two_level_arrays; "
+            "import rayzath_tpu_torch.ops.texture, rayzath_tpu_torch.ops.intersect, "
+            "rayzath_tpu_torch.parallel.train, rayzath_tpu_torch.utils.check_worlds; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
                    timeout=300)
 
 
-def _cutout_world():
-    from rayzath_tpu_torch.models.texture import Texture
-    w = rt.World()
-    rgba = np.ones((8, 8, 4), np.float32)
-    tex = Texture(name="leaf", data=rgba)
-    w.textures.create(tex)
-    leaf = w.create_material("leaf", color=(1, 1, 1, 0.0))
-    leaf.texture = tex
-    quad = rt.scenes._quad("leaf", (-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1))
-    w.meshes.create(quad)
-    w.create_instance(name="leaf", mesh=quad, materials=[leaf])
-    return w
-
-
 @pytest.mark.parametrize("case", ["two_level_maps", "two_level_cutout",
                                   "maps", "cutout"])
-def test_unported_features_raise(case):
-    """Maps (A9) and cutouts (A10) raise on both structures."""
+def test_map_and_cutout_worlds_compile_like_jax(case, numpy_bvh):
+    """Texture maps and texture-alpha cutouts on both structures: every
+    array of the port scene, among them the atlases, the map tables, the
+    block tables, the cutout set and (two-level) the expanded lists, equals
+    the JAX scene's."""
+    from test_torch_textures import cutout_world
     two_level = case.startswith("two_level")
     if case.endswith("maps"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tds.compile_world(rt.scenes.textured_room(8, 8), two_level=two_level)
+        def make(pkg):
+            return pkg.scenes.textured_room(8, 8)
     else:
-        with pytest.raises(NotImplementedError, match="A10"):
-            tds.compile_world(_cutout_world(), two_level=two_level)
-    static = "has_maps" if case.endswith("maps") else "n_cutout"
-    with pytest.raises(NotImplementedError):
-        tds.scene_from_arrays({}, {static: 1, "two_level": two_level})
+        def make(pkg):
+            return cutout_world(pkg, 8)
+    js = jds.compile_world(make(rz), two_level=two_level)
+    ts = tds.compile_world(make(rt), two_level=two_level, differentiable=True)
+    leaves, statics = jax_leaves(js)
+    assert_scene_equal(ts, leaves, statics)
+    assert ts.two_level == two_level and ts.has_maps
+    if case.endswith("maps"):
+        assert ts.map_kinds_used == (True,) * 5 and ts.n_cutout == 0
+    else:
+        assert ts.n_cutout == 2 and ts.cut_pw.shape == (3, 6)
+    if two_level:
+        assert ts.exp_tri is not None and np.array_equal(
+            ts.exp_tri.numpy(), leaves["exp_tri"])
 
 
 def test_unported_config_raises():

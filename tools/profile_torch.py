@@ -6,7 +6,8 @@ each ending in ``torch.cuda.synchronize``), then one ``torch.profiler``
 trace of ``--profile-passes`` passes. From the trace it prints the wall time,
 the device's busy time, the idle share, the busy time by group (B1 closest
 kernel, B2 shadow kernel, B3/B4 their instanced twins, ray sort, everything
-else) and the top device kernels.
+else) and the top device kernels. ``cutout_world`` is the texture-alpha
+cutout scene of ``rayzath_tpu_torch/utils/check_worlds.py``.
 
 Busy time is the union of the device-side intervals (kernels, memcpy,
 memset). The host-side ``aten::*`` rows of ``key_averages()`` carry the
@@ -35,9 +36,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import rayzath_tpu_torch as rt
+from rayzath_tpu_torch.utils.check_worlds import cutout_world
 
 PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8,
-          "instanced_field": 8}
+          "instanced_field": 8, "textured_room": 8, "cutout_world": 8}
+WORLDS = dict(rt.scenes.SCENES, cutout_world=lambda w, h: cutout_world(w))
 GROUPS = (("B1", ("closest_kernel",)),
           ("B2", ("shadow_kernel",)),
           ("B3", ("closest_inst_kernel",)),
@@ -82,7 +85,7 @@ def sync(dev):
 
 def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
                   top: int) -> dict:
-    world = rt.scenes.SCENES[name](res, res)
+    world = WORLDS[name](res, res)
     r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
                     device=dev)
     r.render(rpp=4)
