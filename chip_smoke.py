@@ -17,11 +17,24 @@ Phases, each of which raises on failure (exit code != 0):
    the two-level instanced_field (the plain versions on every 16th ray of
    the integrator's order: all 262,144 would take ~20 s a call) and on
    multi_light compiled two-level (all rays), B4 also with half the
-   materials at alpha 0.5. Hit ids (and B3 instance ids) must be equal
-   except on rays an f64 Moller-Trumbore calls chaotic (at most 1e-4 of the
-   rays), t to rtol 1e-5; shadow rgba to rtol 1e-5 / atol 1e-6 where the
-   plain alpha >= 1e-4, both below 1e-4 elsewhere. Median times of kernel
-   and plain with CUDA events.
+   materials at alpha 0.5. B1 and B3 t, ids (and B3 instance ids) must
+   equal the plain versions' bit for bit; shadow rgba to rtol 1e-5 / atol
+   1e-6 where the plain alpha >= 1e-4, both below 1e-4 elsewhere. Median
+   times of kernel and plain with CUDA events. On each timed (bounce-like)
+   set: the needed visits per ray (the pairs of ray and (instance,) cluster
+   whose exact slab interval meets [near, t_final], or for shadow
+   (0, the first opaque hit or dist)), the visits per ray B1/B3 made (their
+   optional visit counter, off the main path; at most twice the needed, or
+   the phase fails), and each kernel's bound:
+   max(bytes / 3.35 TB/s, operations / 67 TFLOP/s), the bytes being each
+   input read once (rays, needed frame blocks, box and instance rows,
+   opacity rows) and each output written once, the operations the needed
+   triangle tests at 49 f32 operations each (plus 33 per needed instance
+   for the object transform). Then B1 and B3 bit for bit on the tables of
+   ``utils/check_tables.py``: exact ties across cluster and instance rows
+   (also with near < 0 on every other ray), and walks of several windows
+   of rows; and B1 on mesh_massive, whose
+   table takes two windows (the plain version on every 64th ray).
    Backward: B2's and B4's ``torch.autograd.Function`` (kernel forward,
    dense replay backward) against autograd through their plain twins on
    the card, for every input, on ``lit_world`` (tests/test_gradients.py) at
@@ -75,6 +88,10 @@ INST_SCENES = (("instanced_field", 16), ("multi_light", 1))  # (scene, stride)
 RES = 512
 PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
 BACKWARD_RTOL = 1e-3         # B2/B4 backward against the plain twins' autograd
+# B1/B3 cluster tests per ray at most this many times the needed visits: a
+# walk without the front-to-back order and its stop also tests clusters
+# behind the hits
+MADE_PER_NEEDED = 2.0
 
 
 def fail(msg: str) -> int:
@@ -120,6 +137,30 @@ def plain_runs(fn) -> tuple[float, int]:
     first = cuda_ms(fn, 1)
     runs = int(max(3, min(20, PLAIN_BUDGET_MS // max(first, 1e-3))))
     return cuda_ms(fn, runs), runs
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel call's work
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_S = 3.35e12        # H100 SXM HBM3, published peak
+F32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
+FRAME_BYTES = 4 * 3 * 128 * 4   # one cluster's frame block (rz_cluster.cuh)
+# f32 operations of one ray-triangle test, counted from rz_cluster.cuh
+# `project` and its caller: six dot products (3 x (3 mul + 3 add) +
+# 3 x (3 mul + 2 add) = 33), the DET_EPS nudge (abs, compare, add: 3), the
+# negation and the division (2), b1 and b2 (2 mul + 2 add: 4), the inside
+# test (4 compares + 1 add: 5) and the caller's two t compares (2).
+TEST_OPS = 49
+# f32 operations of `to_object`: o' 3 x (3 mul + 3 add), d' 3 x (3 mul + 2 add)
+TO_OBJECT_OPS = 33
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the f32 rate, and which of the two it is."""
+    tb, to = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -186,40 +227,27 @@ def world_rays(world, dev):
                                  torch.full((RES * RES, 4), 0.5, device=dev))
 
 
-def check_closest(scene, o, d, near, far, label):
-    """B1 kernel vs plain on one ray set. Returns (max |dt| on agreeing
-    hits, kernel t, kernel ids in cluster order)."""
+def assert_bits(label, got, ref):
+    """Raise unless every pair of tensors is equal bit for bit."""
+    import torch
+    for name, a, b in zip(("t", "id", "instance"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {int((a != b).sum())} of {len(a)} "
+                                 f"{name} differ from the plain version")
+
+
+def check_closest(box_tab, frames, order, o, d, near, far, label):
+    """B1 kernel vs plain on one ray set, ids and t bit for bit. Returns
+    the kernel's t and ids (original order)."""
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
-    from rayzath_tpu_torch.utils.parity import closest_f64
-    t_k, tid_k = tc.cluster_closest(o, d, near, far, scene.cl_box, scene.cl_lw,
-                                    scene.cl_order)
-    t_p, rid_p = tc.cluster_closest_plain(o, d, near, far, scene.cl_box,
-                                          scene.cl_lw)
-    tid_p = tc._map_ids(rid_p, scene.cl_order)
+    t_k, tid_k = tc.cluster_closest(o, d, near, far, box_tab, frames, order)
+    t_p, rid_p = tc.cluster_closest_plain(o, d, near, far, box_tab, frames)
     torch.cuda.synchronize()
-    diff = (tid_k != tid_p).cpu().numpy()
-    n_diff = int(diff.sum())
-    if n_diff:
-        nt = scene.n_triangles
-        _, chaotic = closest_f64(o.cpu().numpy()[diff], d.cpu().numpy()[diff],
-                                 scene.tri_v0[:nt].cpu().numpy(),
-                                 scene.tri_e1[:nt].cpu().numpy(),
-                                 scene.tri_e2[:nt].cpu().numpy(),
-                                 near.cpu().numpy()[diff], far.cpu().numpy()[diff])
-        if not chaotic.all():
-            raise AssertionError(f"{label}: {int((~chaotic).sum())} non-chaotic "
-                                 "hit-id mismatches between kernel and plain")
-        if n_diff > 1e-4 * len(diff):
-            raise AssertionError(f"{label}: {n_diff} chaotic id mismatches "
-                                 f"exceed 1e-4 of {len(diff)} rays")
-    same = (tid_k >= 0) & (tid_k == tid_p)
-    torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5, atol=0)
-    err = float((t_k[same] - t_p[same]).abs().max()) if bool(same.any()) else 0.0
-    print(f"  {label}: B1 hits {int((tid_k >= 0).sum())}/{len(diff)}, "
-          f"id mismatches {n_diff} (all f64-chaotic), max |dt| {err:.3e}",
-          flush=True)
-    return err, t_k, tid_k
+    assert_bits(label, (t_k, tid_k), (t_p, tc._map_ids(rid_p, order)))
+    print(f"  {label}: B1 hits {int((tid_k >= 0).sum())}/{len(tid_k)}, ids and "
+          "t bit for bit", flush=True)
+    return t_k, tid_k
 
 
 def check_shadow(scene, o, d, dist, label):
@@ -249,14 +277,42 @@ def check_shadow(scene, o, d, dist, label):
     return err, op_rgb, op_a, op_tab
 
 
+def visits_made(fn, r: int):
+    """(cluster tests per ray, staged clusters per block) of one closest-hit
+    kernel call ``fn(visits)`` with the visit counter (off the main path)."""
+    import torch
+    blocks = -(-r // 128)
+    visits = torch.zeros(r + blocks, dtype=torch.int32, device="cuda")
+    fn(visits)
+    torch.cuda.synchronize()
+    return (float(visits[:r].sum()) / r, float(visits[r:].sum()) / blocks)
+
+
+def check_made(label, made: float, needed: float) -> None:
+    """Raise when a closest-hit walk made more than MADE_PER_NEEDED times the
+    needed visits per ray."""
+    if made > MADE_PER_NEEDED * needed:
+        raise AssertionError(f"{label}: {made:.3f} cluster tests per ray, more "
+                             f"than {MADE_PER_NEEDED} x the {needed:.3f} needed")
+
+
+def opaque_stop(t, hit, a_factor, big):
+    """Per ray, where a shadow walk with dist = BIG may stop: the nearest
+    hit when it is opaque (its 1 - alpha factor is 0), else BIG."""
+    import torch
+    return torch.where(hit & (a_factor == 0.0), t, big)
+
+
 def phase_kernels(card: str, dev):
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.ops.intersect import BIG
+    from rayzath_tpu_torch.utils.check_tables import needed_soup
     out = {"cluster_closest": {"err": 0.0}, "cluster_shadow": {"err": 0.0}}
     for name in SCENES:
         t0 = time.perf_counter()
         scene, cam_set, bounce_set = scene_rays(name, dev)
+        tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
         r = RES * RES
         print(f"{name}: {scene.n_triangles} triangles, {scene.n_clusters} "
               f"clusters, rays {r} x 2 sets", flush=True)
@@ -265,20 +321,19 @@ def phase_kernels(card: str, dev):
             near = torch.zeros(r, device=dev)
             far = torch.full((r,), 1e30, device=dev)
             o, d, (near, far) = coherent_order(scene, o, d, (near, far))
-            e1, t_k, tid_k = check_closest(scene, o, d, near, far,
-                                           f"{name}/{set_name}")
+            t_k, tid_k = check_closest(*tabs, o, d, near, far,
+                                       f"{name}/{set_name}")
             big = torch.full((r,), BIG, device=dev)
             dist_hit = torch.where(tid_k >= 0, t_k, big)
             e2, op_rgb, op_a, op_tab = check_shadow(
                 scene, o, d, dist_hit, f"{name}/{set_name}/dist=hit")
             e3, *_ = check_shadow(scene, o, d, big, f"{name}/{set_name}/dist=BIG")
-            out["cluster_closest"]["err"] = max(out["cluster_closest"]["err"], e1)
             out["cluster_shadow"]["err"] = max(out["cluster_shadow"]["err"], e2, e3)
-            timing[set_name] = (o, d, near, far, big, op_rgb, op_a, op_tab)
+            timing[set_name] = (o, d, near, far, big, op_rgb, op_a, op_tab,
+                                t_k, tid_k)
         # times on the bounce-like set: the wavefront of every later bounce
-        o, d, near, far, big, op_rgb, op_a, op_tab = timing["bounce"]
-        k1 = cuda_ms(lambda: tc.cluster_closest(o, d, near, far, scene.cl_box,
-                                                scene.cl_lw, scene.cl_order), 20)
+        o, d, near, far, big, op_rgb, op_a, op_tab, t_k, tid_k = timing["bounce"]
+        k1 = cuda_ms(lambda: tc.cluster_closest(o, d, near, far, *tabs), 20)
         p1, n1 = plain_runs(lambda: tc.cluster_closest_plain(
             o, d, near, far, scene.cl_box, scene.cl_lw))
         k2 = cuda_ms(lambda: tc.cluster_shadow(
@@ -287,14 +342,34 @@ def phase_kernels(card: str, dev):
         p2, n2 = plain_runs(lambda: tc.cluster_shadow_plain(
             o, d, big, scene.cl_box, scene.cl_lw, op_tab))
         oc, dc, nc, fc, *_ = timing["camera"]
-        kc = cuda_ms(lambda: tc.cluster_closest(oc, dc, nc, fc, scene.cl_box,
-                                                scene.cl_lw, scene.cl_order), 20)
+        kc = cuda_ms(lambda: tc.cluster_closest(oc, dc, nc, fc, *tabs), 20)
+        # visits made against needed visits, and the bounds
+        made, staged = visits_made(lambda v: tc.cluster_closest(
+            o, d, near, far, *tabs, visits=v), r)
+        pairs1, tests1, rows1, real = needed_soup(o, d, near, t_k, scene.cl_box)
+        check_made(f"{name}/bounce B1", made, pairs1 / r)
+        hit = tid_k >= 0
+        stop = opaque_stop(t_k, hit, op_a[torch.clamp(tid_k, min=0).long()], big)
+        pairs2, tests2, rows2, _ = needed_soup(o, d, torch.zeros_like(near),
+                                               stop, scene.cl_box)
+        b1 = bound(r * (32 + 8) + rows1 * FRAME_BYTES + real * 32,
+                   tests1 * TEST_OPS)
+        b2 = bound(r * (28 + 16) + rows2 * (FRAME_BYTES + 2048) + real * 32,
+                   tests2 * TEST_OPS)
         print(f"  {name} times [{card}]: B1 kernel {k1:.3f} ms vs plain "
-              f"{p1:.3f} ms (median of 20 / {n1}); B2 kernel {k2:.3f} ms vs "
-              f"plain {p2:.3f} ms (median of 20 / {n2}); B1 on camera rays "
-              f"{kc:.3f} ms; phase {time.perf_counter() - t0:.1f} s", flush=True)
-        out["cluster_closest"][name] = (k1, p1)
-        out["cluster_shadow"][name] = (k2, p2)
+              f"{p1:.3f} ms (median of 20 / {n1}), bound {b1[0]:.4f} ms "
+              f"({b1[1]}), visits per ray {made:.3f} made / {pairs1 / r:.3f} "
+              f"needed, {staged:.2f} clusters staged per block; B2 kernel "
+              f"{k2:.3f} ms vs plain {p2:.3f} ms (median of 20 / {n2}), bound "
+              f"{b2[0]:.4f} ms ({b2[1]}), {pairs2 / r:.3f} needed visits per "
+              f"ray; B1 on camera rays {kc:.3f} ms; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["cluster_closest"][name] = dict(
+            ms=k1, plain_ms=p1, rays=r, plain_rays=r, bound=b1,
+            needed_visits_per_ray=pairs1 / r, visits_per_ray=made)
+        out["cluster_shadow"][name] = dict(
+            ms=k2, plain_ms=p2, rays=r, plain_rays=r, bound=b2,
+            needed_visits_per_ray=pairs2 / r)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
     return out
@@ -323,49 +398,20 @@ def inst_scene_rays(name: str, dev):
     return scene, (o, d), (p.contiguous(), torch.as_tensor(v, device=dev))
 
 
-def inst_chaotic(scene, o, d, near, far):
-    """f64 chaos classification of rays against the expanded world-space
-    (instance, triangle) set, a few rays at a time (318k triangles on
-    instanced_field)."""
-    from rayzath_tpu_torch.utils.parity import closest_f64, expand_instances
-    tabs = [x.cpu().numpy() for x in (scene.ti_rows, scene.cl_obox,
-                                      scene.inst_fwd, scene.tri_v0,
-                                      scene.tri_e1, scene.tri_e2)]
-    v0, e1, e2, _, _ = expand_instances(*tabs)
-    return closest_f64(o, d, v0, e1, e2, near, far, chunk=4)[1]
-
-
-def check_closest_inst(scene, o, d, near, far, sub, label):
-    """B3 kernel on all rays vs plain on the rays ``sub``. Returns (max |dt|
-    on agreeing hits, kernel t, kernel ids)."""
+def check_closest_inst(tabs, o, d, near, far, sub, label):
+    """B3 kernel on all rays vs plain on the rays ``sub``, t, ids and
+    instance ids bit for bit. Returns the kernel's (t, ids, instance
+    ids)."""
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
-    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
-    t_k, tid_k, inst_k = tc.cluster_closest_inst(o, d, near, far, *tabs)
-    t_p, tid_p, inst_p = tc.cluster_closest_inst_plain(
-        o[sub], d[sub], near[sub], far[sub], *tabs)
+    got = tc.cluster_closest_inst(o, d, near, far, *tabs)
+    ref = tc.cluster_closest_inst_plain(o[sub], d[sub], near[sub], far[sub],
+                                        *tabs)
     torch.cuda.synchronize()
-    t_ks, tid_ks, inst_ks = t_k[sub], tid_k[sub], inst_k[sub]
-    diff = ((tid_ks != tid_p) | (inst_ks != inst_p)).cpu().numpy()
-    n_diff = int(diff.sum())
-    if n_diff:
-        chaotic = inst_chaotic(scene, o[sub].cpu().numpy()[diff],
-                               d[sub].cpu().numpy()[diff],
-                               near[sub].cpu().numpy()[diff],
-                               far[sub].cpu().numpy()[diff])
-        if not chaotic.all():
-            raise AssertionError(f"{label}: {int((~chaotic).sum())} non-chaotic "
-                                 "hit-id mismatches between kernel and plain")
-        if n_diff > 1e-4 * len(diff):
-            raise AssertionError(f"{label}: {n_diff} chaotic id mismatches "
-                                 f"exceed 1e-4 of {len(diff)} rays")
-    same = (tid_ks >= 0) & (tid_ks == tid_p) & (inst_ks == inst_p)
-    torch.testing.assert_close(t_ks[same], t_p[same], rtol=1e-5, atol=0)
-    err = float((t_ks[same] - t_p[same]).abs().max()) if bool(same.any()) else 0.0
-    print(f"  {label}: B3 hits {int((tid_k >= 0).sum())}/{len(tid_k)}, plain "
-          f"on {len(diff)} rays, id mismatches {n_diff} (all f64-chaotic), "
-          f"max |dt| {err:.3e}", flush=True)
-    return err, t_k, tid_k
+    assert_bits(label, [x[sub] for x in got], ref)
+    print(f"  {label}: B3 hits {int((got[1] >= 0).sum())}/{len(got[1])}, plain "
+          f"on {len(ref[1])} rays, t, ids and instances bit for bit", flush=True)
+    return got
 
 
 def check_shadow_inst(scene, o, d, dist, sub, mat_color, label):
@@ -399,6 +445,7 @@ def phase_inst_kernels(card: str, dev):
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.ops.intersect import BIG
+    from rayzath_tpu_torch.utils.check_tables import needed_inst
     out = {"cluster_closest_inst": {"err": 0.0},
            "cluster_shadow_inst": {"err": 0.0}}
     for name, stride in INST_SCENES:
@@ -420,8 +467,8 @@ def phase_inst_kernels(card: str, dev):
             near = torch.zeros(r, device=dev)
             far = torch.full((r,), 1e30, device=dev)
             o, d, (near, far) = coherent_order(scene, o, d, (near, far))
-            e1, t_k, tid_k = check_closest_inst(scene, o, d, near, far, sub,
-                                                f"{name}/{set_name}")
+            t_k, tid_k, inst_k = check_closest_inst(
+                tabs, o, d, near, far, sub, f"{name}/{set_name}")
             big = torch.full((r,), BIG, device=dev)
             dist_hit = torch.where(tid_k >= 0, t_k, big)
             errs = [check_shadow_inst(scene, o, d, dist, sub, mc,
@@ -430,14 +477,12 @@ def phase_inst_kernels(card: str, dev):
                         (dist_hit, scene.mat_color, "dist=hit"),
                         (big, scene.mat_color, "dist=BIG"),
                         (big, mc_half, "dist=BIG,alpha=0.5"))]
-            out["cluster_closest_inst"]["err"] = max(
-                out["cluster_closest_inst"]["err"], e1)
             out["cluster_shadow_inst"]["err"] = max(
                 out["cluster_shadow_inst"]["err"], *errs)
-            timing[set_name] = (o, d, near, far, big)
+            timing[set_name] = (o, d, near, far, big, t_k, tid_k, inst_k)
         # times on the bounce-like set: the kernels on all rays and on the
         # plain versions' subset, the plain versions on the subset
-        o, d, near, far, big = timing["bounce"]
+        o, d, near, far, big, t_k, tid_k, inst_k = timing["bounce"]
         op_tab = tc.instance_opacity(scene.mat_color, scene.inst_slot_map)
         os_, ds_, ns_, fs_, bs_ = (x[sub].contiguous()
                                    for x in (o, d, near, far, big))
@@ -453,19 +498,141 @@ def phase_inst_kernels(card: str, dev):
                                                      *shadow_args), 20)
         p4, n4 = plain_runs(lambda: tc.cluster_shadow_inst_plain(
             os_, ds_, bs_, *tabs, scene.cl_slot, op_tab))
-        oc, dc, nc, fc, _ = timing["camera"]
+        oc, dc, nc, fc, *_ = timing["camera"]
         kc = cuda_ms(lambda: tc.cluster_closest_inst(oc, dc, nc, fc, *tabs), 20)
+        # visits made against needed visits, and the bounds
+        made, staged = visits_made(lambda v: tc.cluster_closest_inst(
+            o, d, near, far, *tabs, visits=v), r)
+        pairs3, tests3, ipairs3, cl3, in3, real = needed_inst(
+            o, d, near, t_k, scene.ti_rows, scene.cl_obox)
+        check_made(f"{name}/bounce B3", made, pairs3 / r)
+        hit = tid_k >= 0
+        a_factor = op_tab[torch.clamp(inst_k, min=0).long(), 3,
+                          scene.tri_slot[torch.clamp(tid_k, min=0).long()].long()]
+        stop = opaque_stop(t_k, hit, a_factor, big)
+        pairs4, tests4, ipairs4, cl4, in4, _ = needed_inst(
+            o, d, torch.zeros_like(near), stop, scene.ti_rows, scene.cl_obox)
+        b3 = bound(r * (32 + 12) + cl3 * (FRAME_BYTES + 32) + real * 96,
+                   tests3 * TEST_OPS + ipairs3 * TO_OBJECT_OPS)
+        b4 = bound(r * (28 + 16) + cl4 * (FRAME_BYTES + 32 + 512) + real * 96
+                   + in4 * 4 * 64 * 4, tests4 * TEST_OPS + ipairs4 * TO_OBJECT_OPS)
         print(f"  {name} times [{card}]: B3 kernel {k3:.3f} ms on {r} rays, "
               f"{k3s:.3f} ms on {len(sub)}, plain {p3:.3f} ms on {len(sub)} "
-              f"(median of 20 / {n3}); B4 kernel {k4:.3f} ms on {r}, "
-              f"{k4s:.3f} ms on {len(sub)}, plain {p4:.3f} ms on {len(sub)} "
-              f"(median of 20 / {n4}); B3 on camera rays {kc:.3f} ms; phase "
+              f"(median of 20 / {n3}), bound {b3[0]:.4f} ms ({b3[1]}), "
+              f"visits per ray {made:.3f} made / {pairs3 / r:.3f} needed "
+              f"(instances {ipairs3 / r:.3f} needed), {staged:.2f} clusters "
+              f"staged per block; B4 kernel {k4:.3f} ms on {r}, {k4s:.3f} ms "
+              f"on {len(sub)}, plain {p4:.3f} ms on {len(sub)} (median of 20 / "
+              f"{n4}), bound {b4[0]:.4f} ms ({b4[1]}), {pairs4 / r:.3f} needed "
+              f"visits per ray; B3 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        out["cluster_closest_inst"][name] = (k3, p3, r, len(sub))
-        out["cluster_shadow_inst"][name] = (k4, p4, r, len(sub))
+        out["cluster_closest_inst"][name] = dict(
+            ms=k3, plain_ms=p3, rays=r, plain_rays=len(sub), bound=b3,
+            needed_visits_per_ray=pairs3 / r, visits_per_ray=made)
+        out["cluster_shadow_inst"][name] = dict(
+            ms=k4, plain_ms=p4, rays=r, plain_rays=len(sub), bound=b4,
+            needed_visits_per_ray=pairs4 / r)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
     return out
+
+
+def phase_tables(dev):
+    """B1 and B3 on the tables of ``utils/check_tables.py``: exact ties
+    across cluster rows and instance rows (the later row entered first),
+    the same with near < 0 on every other ray (blocks that walk in table
+    order), and walks of several windows of rows; t and ids bit for bit."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils import check_tables as ct
+
+    def rays(tabs, r, seed, behind):
+        o, d = ct.aimed_rays(tabs["v0"], tabs["e1"], tabs["e2"], r, seed)
+        near = torch.zeros(r, device=dev)
+        if behind:
+            near[::2] = -3.0
+        return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+                near, torch.full((r,), 1e30, device=dev))
+
+    for label, make, r, behind in (
+            ("tie table", ct.tie_tables, 16384, False),
+            ("tie table, near < 0", ct.tie_tables, 16384, True),
+            ("window table", ct.window_tables, 8192, False)):
+        tabs = make()
+        box, frames, order = (torch.as_tensor(tabs[k], device=dev)
+                              for k in ("box_tab", "frames", "order"))
+        ray_set = rays(tabs, r, 31, behind)
+        check_closest(box, frames, order, *ray_set,
+                      f"{label} ({tabs['real_rows']} cluster rows)")
+        made, staged = visits_made(lambda v: tc.cluster_closest(
+            *ray_set, box, frames, order, visits=v), r)
+        print(f"    visits per ray {made:.3f}, clusters staged per block "
+              f"{staged:.2f}", flush=True)
+    for label, make, r, behind in (
+            ("tie instance table", ct.tie_instance_tables, 16384, False),
+            ("tie instance table, near < 0", ct.tie_instance_tables, 16384,
+             True),
+            ("window instance table", ct.window_instance_tables, 8192, False)):
+        tabs = make()
+        inst_tabs = tuple(torch.as_tensor(tabs[k], device=dev)
+                          for k in ("ti_rows", "cl_obox", "frames"))
+        ray_set = rays(tabs, r, 32, behind)
+        check_closest_inst(inst_tabs, *ray_set, torch.arange(r, device=dev),
+                           f"{label} ({inst_tabs[1].shape[0]} clusters)")
+        made, staged = visits_made(lambda v: tc.cluster_closest_inst(
+            *ray_set, *inst_tabs, visits=v), r)
+        print(f"    visits per ray {made:.3f}, clusters staged per block "
+              f"{staged:.2f}", flush=True)
+
+
+def phase_massive(card: str, dev):
+    """B1 on mesh_massive, whose cluster table is larger than one ranked
+    window: camera rays and bounce-like rays from their first hits (found
+    by the kernel), in the integrator's order; bit for bit against the
+    plain version on every 64th ray (all of them would take ~30 s a
+    call), timed, with the visits made per ray."""
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.models.device_scene import compile_world
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    t0 = time.perf_counter()
+    world = rt.scenes.mesh_massive(RES, RES)
+    scene = compile_world(world, device=dev)
+    tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
+    r = RES * RES
+    real = int((scene.cl_box[tc.B_CNT] > 0).sum())
+    print(f"mesh_massive: {scene.n_triangles} triangles, {real} clusters, "
+          f"compiled in {time.perf_counter() - t0:.1f} s", flush=True)
+    o, d = world_rays(world, dev)
+    near = torch.zeros(r, device=dev)
+    far = torch.full((r,), 1e30, device=dev)
+    t = tc.cluster_closest(o, d, near, far, *tabs)[0]
+    p = torch.where(((t > 0) & (t < 1e30))[:, None],
+                    o + d * (t * 0.9999)[:, None], o)
+    v = np.random.default_rng(29).normal(size=(r, 3))
+    v = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+    sub = torch.arange(0, r, 64, device=dev)
+    for set_name, (o_s, d_s) in (("camera", (o, d)),
+                                 ("bounce", (p.contiguous(),
+                                             torch.as_tensor(v, device=dev)))):
+        o_s, d_s, (n_s, f_s) = coherent_order(scene, o_s, d_s, (near, far))
+        got = tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs)
+        t_p, rid_p = tc.cluster_closest_plain(o_s[sub], d_s[sub], n_s[sub],
+                                              f_s[sub], scene.cl_box,
+                                              scene.cl_lw)
+        torch.cuda.synchronize()
+        assert_bits(f"mesh_massive/{set_name}", [x[sub] for x in got],
+                    (t_p, tc._map_ids(rid_p, scene.cl_order)))
+        ms = cuda_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs), 10)
+        made, staged = visits_made(lambda v: tc.cluster_closest(
+            o_s, d_s, n_s, f_s, *tabs, visits=v), r)
+        print(f"  mesh_massive/{set_name}: B1 hits {int((got[1] >= 0).sum())}"
+              f"/{r}, plain on {len(sub)} rays bit for bit; {ms:.3f} ms "
+              f"[{card}], visits per ray {made:.3f}, clusters staged per "
+              f"block {staged:.2f}", flush=True)
+    del scene, world
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -844,6 +1011,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
+    phase_tables(dev)
+    phase_massive(card, dev)
     backward = phase_backward(card, dev)
     print(f"phase 2 (kernel vs plain, backward) "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -859,21 +1028,25 @@ def main() -> int:
     print(f"phase 5 (training) {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # times: B1/B2 on mesh_heavy, B3/B4 on instanced_field, bounce-like
-    # rays; "rays" / "plain_rays" say which ray set each time was taken on
+    # rays; "rays" / "plain_rays" say which ray set each time was taken on;
+    # the bound and the needed visits are this run's on the same rays
     record = []
     for name, line, scene in (("cluster_closest", 872, "mesh_heavy"),
                               ("cluster_shadow", 975, "mesh_heavy"),
                               ("cluster_closest_inst", 1503, "instanced_field"),
                               ("cluster_shadow_inst", 1636, "instanced_field")):
-        k, p, *rays = kernels[name][scene]
-        n, n_plain = rays if rays else (RES * RES, RES * RES)
+        m = kernels[name][scene]
         record.append({
             "name": name, "route": "cuda",
             "source": f"rayzath_tpu_torch/csrc/{name}.cu",
             "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
             "launches": launches[name], "max_abs_err": kernels[name]["err"],
-            "ms": k, "plain_ms": p, "scene": scene, "rays": n,
-            "plain_rays": n_plain})
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1], "library_ms": None, "scene": scene,
+            "rays": m["rays"], "plain_rays": m["plain_rays"],
+            "needed_visits_per_ray": m["needed_visits_per_ray"]})
+        if "visits_per_ray" in m:
+            record[-1]["visits_per_ray"] = m["visits_per_ray"]
         if name in backward:
             record[-1].update(backward_max_rel_err=backward[name],
                               backward_rtol=BACKWARD_RTOL)

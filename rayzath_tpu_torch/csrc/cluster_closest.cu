@@ -1,37 +1,65 @@
-// B1: closest-hit traversal of the flat cluster table, one thread per ray.
+// B1: closest-hit traversal of the flat cluster table, ranked front to back
+// per block of 128 rays (one ray's walk state per thread).
 //
 // Replaces the TPU kernel rayzath_tpu/ops/traverse_cluster.py
 // `_closest_kernel` (launched by `_cluster_closest_impl`, entry point
 // `cluster_closest`). What it computes is the same: per ray, the nearest
-// triangle with t in (near, min(far, BIG)), the lowest id on a tie inside a
-// cluster, -1 for a miss or for a ray with far <= 0; ids are in cluster
-// order (box_tab row 6 + slot) and the wrapper maps them through `order`.
-// What the TPU kernel needed for its matrix unit and its memories is left
-// out: bf16 limbs, [8,128] relayouts, SMEM/VMEM staging and DMA streaming,
-// the tiny/ranked size classes and the visit-order rank pass.
+// triangle with t in (near, min(far, BIG)), -1 for a miss or for a ray with
+// far <= 0; ids are in cluster order (box_tab row 6 + slot) and the wrapper
+// maps them through `order`. Ties resolve as in the plain version's table
+// order, whatever order the walk takes: a hit replaces the best when it is
+// nearer, or equally near with a smaller (cluster row, slot). What the TPU
+// kernel needed for its matrix unit and memories is left out: bf16 limbs,
+// [8,128] relayouts, bf16-rounded rank distances, SMEM/VMEM staging, the
+// tiny/ranked size classes and the occupancy clip.
 //
-// What bounds it on the H100: each visited cluster costs one 6 KB frame
-// block (1536 f32, read from L2: mesh_heavy's 4.5 MB of frames fit in the
-// 50 MB L2) against 128 ray-triangle tests of ~40 f32 operations each per
-// ray that needs the cluster (six 3- or 4-term dot products, one IEEE
-// division, two multiply-adds, four compares). With a whole block of rays
-// in a cluster that is ~100 operations per frame byte, so the walk is
-// bound by issue rate and by warp divergence, not by memory; with few rays
-// per cluster it is bound by the per-visit barrier and load latency.
+// What bounds it on the H100: the needed work is, per ray, the clusters
+// whose slab interval meets [near, t_final], each 128 ray-triangle tests of
+// 49 f32 operations (`project` and its compares), against one 6 KB frame
+// block per cluster some ray needs. On mesh_heavy's 262,144 bounce-like
+// rays that is ~1.5 clusters per ray: 0.026 ms of operations at the 67
+// TFLOP/s f32 peak, more than the bytes (rays in, hits out, frames once).
+// Built with -fmad=false, every multiply and add issues on its own, so the
+// ALU reaches at most half that peak. What kept the first port from it:
+// a walk of every row in table order (a block barrier per row), a warp
+// that ran the full 128-test loop for the few of its rays that needed a
+// cluster, and frame copies that no test overlapped.
 //
-// What the design does about it: 128 rays per block walk the table in
-// order; each thread slab-tests its ray against the cluster box with its
-// current window (near, best_t), `__syncthreads_or` skips a cluster no ray
-// of the block needs, otherwise the block stages the cluster's frames in
-// shared memory once (every thread then reads the same word: a broadcast)
-// and only the threads that need the cluster run its triangles. The
-// caller orders rays for coherence (32x32 image tiles or the coherence
-// sort), so a block's rays tend to need the same clusters. One code path
-// covers every table size. Front-to-back ranking, wgmma/TMA tiles and CUDA
-// graphs are later work.
+// What the design does about it, per block of 128 coherence-ordered rays
+// (the walk is in rz_cluster.cuh):
+// - Rank: the block reduces its active rays to origin and direction
+//   bounds; the threads take the cluster rows in turn and bound each row's
+//   entry distance from below by interval arithmetic (the TPU kernel's
+//   `_axis_interval` / `_cluster_dists`, in f32 with the box widened by
+//   GATE_PAD and the bound rounded down); rows no ray can enter before the
+//   block's largest best_t drop out, and the rest are sorted by
+//   (bound, row), bitonic in shared memory. (The block-min of the rays'
+//   exact slab entries ranks tighter but costs every thread a slab test
+//   and a warp reduction per row: on an H100 it ran mesh_heavy's bounce
+//   rays in 1.24 ms where this rank runs them in 0.65 ms; PERF.md.)
+// - Walk in rank order, 32 candidates per block vote: each thread marks
+//   the candidates its ray still needs (its exact slab at its current
+//   best_t) and votes whether the batch's nearest bound is within reach;
+//   when no ray's vote holds the block stops, since every later candidate
+//   is farther. One barrier per batch replaces the barrier per table row.
+// - Cooperative tests: a visited cluster's needing rays are dealt to the
+//   warps, one ray per warp at a time, one triangle slot per lane, and a
+//   64-bit (t, slot) minimum across the warp; the ray's own thread takes
+//   the result. Lanes no longer idle through another ray's 128 tests.
+// - Double-buffered frames: while one cluster is tested, the next marked
+//   cluster's frames stream into the other shared buffer with 16-byte
+//   cp.async copies; the barrier that publishes them also retires the
+//   buffer just tested.
+// - Tables larger than RANK_MAX rows are ranked and walked in consecutive
+//   windows of rows; the tie key keeps the result exact across windows.
+// The gate keeps `tmin <= best_t` with equality and a GATE_PAD slack
+// (rz_cluster.cuh gate_t), so a tied cluster is still visited. The rank
+// bounds entries at t >= 0 only: a block with a ray of near < 0 (a camera
+// whose near is negative) walks its rows in table order without the stop,
+// still exact.
 //
 // Built with -fmad=false (see rz_cluster.cuh): the projection rounds like
-// the plain PyTorch version.
+// the plain PyTorch version, so every t is the plain version's bits.
 #include "rz_cluster.cuh"
 
 namespace {
@@ -45,8 +73,10 @@ closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ far_in,
                const float* __restrict__ box,
                const float* __restrict__ frames, int n_rays, int cp,
-               float* __restrict__ t_out, int* __restrict__ id_out) {
-  __shared__ float fr[FRAME_FLOATS];
+               int list_rows, float* __restrict__ t_out,
+               int* __restrict__ id_out, int* __restrict__ visits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Shared sh = shared_layout(smem);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
@@ -63,57 +93,91 @@ closest_kernel(const float* __restrict__ origin,
   }
   const bool active = in_range && far > 0.0f;
   float best_t = active ? fminf(far, BIG) : -1.0f;
+  unsigned best_key = 0;  // (row, slot) of the best hit; 0 also for none
   int best_id = -1;
+  int n_tests = 0;
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  Walk w{0, 0};
+  int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
-  for (int c = 0; c < cp; ++c) {
-    const float cnt = box[7 * cp + c];
-    if (cnt <= 0.0f) continue;  // padding lane: the same for every thread
-    bool need = false;
-    if (active) {
-      float tmin, tmax;
-      slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
-      need = (tmax >= near) && (tmin <= tmax) && (tmin <= best_t);
+  auto need = [&](int c) {
+    float tmin, tmax;
+    slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
+  };
+  auto cur_best = [&]() { return best_t; };
+  auto center = [&](int c, float* ctr) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      ctr[a] = (box[a * cp + c] + box[(3 + a) * cp + c]) * 0.5f;
+    return (int)box[7 * cp + c];
+  };
+  auto apply = [&](int c, u64 hit) {
+    ++n_tests;
+    if (hit == NO_CAND) return;
+    const float t = ord_float((unsigned)(hit >> 32));
+    const int j = (int)(unsigned)hit;
+    const unsigned key = (unsigned)c * CT + j;
+    if (t < best_t || (t == best_t && key < best_key)) {
+      best_t = t;
+      best_key = key;
+      best_id = (int)box[6 * cp + c] + j;
     }
-    // also the barrier that retires the previous cluster's shared frames
-    if (!__syncthreads_or(need)) continue;
-    const float* src = frames + (size_t)c * FRAME_FLOATS;
-    for (int k = threadIdx.x; k < FRAME_FLOATS; k += THREADS) fr[k] = src[k];
-    __syncthreads();
-    if (need) {
-      float px, py, pz;
-      local_origin(box, cp, c, ox, oy, oz, px, py, pz);
-      const int base = (int)box[6 * cp + c];
-      const int n = (int)cnt;
-      for (int j = 0; j < n; ++j) {
-        bool inside;
-        const float t = project(fr, j, px, py, pz, dx, dy, dz, inside);
-        if (inside && t > near && t < best_t) {
-          best_t = t;
-          best_id = base + j;
-        }
-      }
+  };
+  auto row_box = [&](int c, float* lo, float* hi) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = box[a * cp + c];
+      hi[a] = box[(3 + a) * cp + c];
+    }
+    return box[7 * cp + c] > 0.0f;
+  };
+  const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+  store_ray(sh, o, d, near);
+
+  if (__syncthreads_or(active)) {
+    for (int w0 = 0; w0 < cp; w0 += list_rows) {
+      const int n = min(list_rows, cp - w0);
+      const Bounds b = block_bounds(sh, active, o, d, near, best_t);
+      const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
+      walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
+                    cur_best, center, apply);
     }
   }
   if (in_range) {
     t_out[ray] = best_t;
     id_out[ray] = best_id;
+    if (visits) visits[ray] = n_tests;
   }
 }
 
 }  // namespace
 
+// visits: null on the render path; else int[n_rays + blocks] that receives
+// each ray's cluster tests and each block's staged clusters.
 extern "C" int rz_cluster_closest(const float* origin, const float* direction,
                                   const float* near, const float* far,
                                   const float* box_tab, const float* frames,
                                   int n_rays, int cp, float* t_out,
-                                  int* id_out, void* stream) {
+                                  int* id_out, int* visits, void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  closest_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      origin, direction, near, far, box_tab, frames, n_rays, cp, t_out,
-      id_out);
+  const int list_rows = rank_rows_for(cp);
+  const size_t smem = ranked_smem(list_rows);
+  cudaError_t err = allow_smem(closest_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  closest_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      origin, direction, near, far, box_tab, frames, n_rays, cp, list_rows,
+      t_out, id_out, visits);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a ranked closest-hit launch over table_rows
+// rows: B1's cluster rows (instanced = 0), or B3's instance rows plus one
+// window of a mesh's clusters (instanced = 1).
+extern "C" int rz_ranked_smem(int table_rows, int instanced) {
+  return (int)rz::ranked_smem(rz::rank_rows_for(table_rows) +
+                              (instanced ? rz::CL_WINDOW : 0));
 }
 
 extern "C" const char* rz_error_string(int code) {

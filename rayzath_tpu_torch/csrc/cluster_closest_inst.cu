@@ -1,5 +1,6 @@
-// B3: closest-hit traversal of the instanced (two-level) cluster tables, one
-// thread per ray.
+// B3: closest-hit traversal of the instanced (two-level) cluster tables,
+// ranked front to back per block of 128 rays at both levels (one ray's walk
+// state per thread).
 //
 // Replaces the TPU kernel rayzath_tpu/ops/traverse_cluster.py
 // `_closest_kernel_inst` (launched by `_cluster_closest_inst_impl`, entry
@@ -10,30 +11,44 @@
 // stays the world t) against the shared clusters of k's mesh. It returns
 // t, the triangle id in device order (cl_obox column 6 + slot, the order
 // of tri_pack: no further mapping) and the global instance index (ti_rows
-// column 20, not the row). Ties: the lowest slot inside a cluster; a later
-// cluster or instance must be strictly nearer. Left out, as TPU
-// workarounds: the instance and cluster rank passes, the ranked/direct
-// split at MINI_RANK_MIN, bf16 limbs, SMEM/VMEM staging and HBM streaming.
+// column 20, not the row). Left out, as TPU workarounds: the bf16-rounded
+// rank distances and their MXU scatter, the ranked/direct split at
+// MINI_RANK_MIN, bf16 limbs, SMEM/VMEM staging and HBM streaming.
 //
-// What bounds it on the H100: as B1, each visited (instance, cluster) pair
-// costs one 6 KB frame block read from L2 (instanced_field's shared mesh
-// has 24 clusters, 147 KB of frames for all 145 instances) against 128
-// ray-triangle tests of ~40 f32 operations per ray that needs the cluster,
-// plus 18 operations per ray to enter an instance. A ray meets up to
-// |instances| x |clusters per mesh| pairs, so the walk is bound by issue
-// rate, divergence and the per-visit barriers, not by memory.
+// What bounds it on the H100: as B1, the needed work is per ray the
+// (instance, cluster) pairs whose slab intervals meet [near, t_final], each
+// 128 ray-triangle tests of 49 f32 operations, plus 33 operations per
+// needed instance to move the ray into object space (`to_object`); the
+// bytes are the rays and hits, the instance rows and one 6 KB frame block
+// per needed cluster (instanced_field's shared mesh has 24 clusters). On
+// instanced_field's 262,144 bounce-like rays that is ~1.15 cluster tests
+// per ray, 0.018 ms of operations at the 67 TFLOP/s f32 peak; with
+// -fmad=false the ALU reaches at most half of it. The first port walked
+// every instance row in table order with a barrier per row and per
+// cluster, and tested each ray on its own thread.
 //
-// What the design does about it: 128 rays per block walk the instance
-// rows in table order. Each thread slab-tests its ray against the
-// instance's world AABB with its current window (near, best_t), and
-// `__syncthreads_or` skips an instance that no ray of the block needs. A
-// visiting thread moves its ray into object space once, then the block
-// walks the mesh's clusters with the same gate against the object-space
-// boxes; frames are staged in shared memory once per visited cluster and
-// the triangles are tested from the cluster-local origin, exactly as B1.
-// Both gates are widened (rz_cluster.cuh GATE_PAD), so they can only add
-// visits. Rays arrive coherence-sorted or in image tiles. One code path
-// serves every cluster count per mesh.
+// What the design does about it, per block of 128 coherence-ordered rays,
+// the B1 design (rz_cluster.cuh) at both levels:
+// - Rank the instance rows by the interval bound of the block's world rays
+//   against their world AABBs, sort by (bound, row), and walk them in rank
+//   order, 32 per block vote, stopping when no ray can still be improved.
+// - In a visited instance, each ray that needs it moves into object space
+//   once (`to_object`) and publishes that ray for the cooperative tests. A
+//   mesh of more than SWEEP_MAX (8) clusters has its clusters ranked the
+//   same way by the bounds of the object-space rays (instanced_field's
+//   sphere has 24); a smaller mesh is swept in table order, as the TPU
+//   reference does at max_ncl <= 8. The cluster walk stages frames
+//   double-buffered with cp.async and tests each needing ray with a whole
+//   warp, one triangle slot per lane.
+// - Instance tables larger than RANK_MAX rows, and meshes of more than
+//   CL_WINDOW (512) clusters, are ranked and walked in consecutive windows
+//   of rows.
+// Ties resolve as the plain version's table order, whatever the walk's
+// order: a hit replaces the best when it is nearer, or equally near with a
+// smaller (instance row, cluster row, slot). Both gates are widened
+// (GATE_PAD on the boxes, gate_t on best_t), so they can only add visits.
+// As in B1, a block with a ray of near < 0 walks both levels in table
+// order without the stop.
 //
 // Built with -fmad=false (see rz_cluster.cuh): the object transform and
 // the projection round like the plain PyTorch version.
@@ -51,9 +66,13 @@ closest_inst_kernel(const float* __restrict__ origin,
                     const float* __restrict__ ti_rows,
                     const float* __restrict__ cl_obox,
                     const float* __restrict__ frames, int n_rays, int ip,
-                    float* __restrict__ t_out, int* __restrict__ id_out,
-                    int* __restrict__ inst_out) {
-  __shared__ float fr[FRAME_FLOATS];
+                    int list_i, int list_c, float* __restrict__ t_out,
+                    int* __restrict__ id_out, int* __restrict__ inst_out,
+                    int* __restrict__ visits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Shared sh = shared_layout(smem);
+  u64* keys_i = sh.keys;
+  u64* keys_c = sh.keys + list_i;
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
@@ -70,80 +89,132 @@ closest_inst_kernel(const float* __restrict__ origin,
   }
   const bool active = in_range && far > 0.0f;
   float best_t = active ? fminf(far, BIG) : -1.0f;
+  u64 best_key = 0;  // (instance row, cluster row, slot); 0 also for none
   int best_id = -1;
   int best_inst = -1;
+  int n_tests = 0;
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  Walk w{0, 0};
+  int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
-  for (int k = 0; k < ip; ++k) {
+  auto cur_best = [&]() { return best_t; };
+  auto ineed = [&](int k) {
     const float* row = ti_rows + (size_t)k * TI_W;
-    const int ncl = (int)row[TI_NCL];
-    if (ncl <= 0) continue;  // padding row: the same for every thread
-    bool need = false;
-    if (active) {
-      float tmin, tmax;
-      slab_wide(row + TI_MIN, row + TI_MAX, ox, oy, oz, ix, iy, iz, tmin,
-                tmax);
-      need = (tmax >= near) && (tmin <= tmax) && (tmin <= best_t);
-    }
-    if (!__syncthreads_or(need)) continue;
-    float o[3], d[3];
-    to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+    float tmin, tmax;
+    slab_wide(row + TI_MIN, row + TI_MAX, ox, oy, oz, ix, iy, iz, tmin,
+              tmax);
+    return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
+  };
+
+  // One instance visit, block-uniform: the rays that need instance row k
+  // walk its mesh's clusters in object space.
+  auto visit_inst = [&](int k) {
+    const float* row = ti_rows + (size_t)k * TI_W;
+    const bool in_k = active && ineed(k);
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+    if (in_k) to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
     const float ixl = safe_inv(d[0]), iyl = safe_inv(d[1]),
                 izl = safe_inv(d[2]);
     const int cl0 = (int)row[TI_CL0];
+    const int ncl = (int)row[TI_NCL];
     const int gid = (int)row[TI_ID];
-    for (int s = cl0; s < cl0 + ncl; ++s) {
+    auto cneed = [&](int s) {
       const float* cb = cl_obox + (size_t)s * OBOX_W;
-      bool cneed = false;
-      if (need) {
-        float tmin, tmax;
-        slab_wide(cb, cb + 3, o[0], o[1], o[2], ixl, iyl, izl, tmin, tmax);
-        cneed = (tmax >= near) && (tmin <= tmax) && (tmin <= best_t);
+      float tmin, tmax;
+      slab_wide(cb, cb + 3, o[0], o[1], o[2], ixl, iyl, izl, tmin, tmax);
+      return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
+    };
+    auto center = [&](int s, float* ctr) {
+      const float* cb = cl_obox + (size_t)s * OBOX_W;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) ctr[a] = (cb[a] + cb[3 + a]) * 0.5f;
+      return (int)cb[7];
+    };
+    auto apply = [&](int s, u64 hit) {
+      ++n_tests;
+      if (hit == NO_CAND) return;
+      const float t = ord_float((unsigned)(hit >> 32));
+      const int j = (int)(unsigned)hit;
+      const u64 key = ((u64)k << 32) | ((unsigned)s * CT + j);
+      if (t < best_t || (t == best_t && key < best_key)) {
+        best_t = t;
+        best_key = key;
+        best_id = (int)cl_obox[(size_t)s * OBOX_W + 6] + j;
+        best_inst = gid;
       }
-      // also the barrier that retires the previous cluster's shared frames
-      if (!__syncthreads_or(cneed)) continue;
-      const float* src = frames + (size_t)s * FRAME_FLOATS;
-      for (int q = threadIdx.x; q < FRAME_FLOATS; q += THREADS) fr[q] = src[q];
-      __syncthreads();
-      if (cneed) {
-        const float px = o[0] - (cb[0] + cb[3]) * 0.5f;
-        const float py = o[1] - (cb[1] + cb[4]) * 0.5f;
-        const float pz = o[2] - (cb[2] + cb[5]) * 0.5f;
-        const int base = (int)cb[6];
-        const int n = (int)cb[7];
-        for (int j = 0; j < n; ++j) {
-          bool inside;
-          const float t = project(fr, j, px, py, pz, d[0], d[1], d[2], inside);
-          if (inside && t > near && t < best_t) {
-            best_t = t;
-            best_id = base + j;
-            best_inst = gid;
-          }
-        }
+    };
+    store_ray(sh, o, d, near);  // read after the window's first barrier
+    auto cluster_box = [&](int s, float* lo, float* hi) {
+      const float* cb = cl_obox + (size_t)s * OBOX_W;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = cb[a];
+        hi[a] = cb[3 + a];
       }
+      return true;
+    };
+    for (int s0 = 0; s0 < ncl; s0 += list_c) {
+      const int n = min(list_c, ncl - s0);
+      int nf;
+      if (ncl <= SWEEP_MAX) {
+        nf = sweep_window(keys_c, cl0 + s0, n);
+      } else {
+        const Bounds b = block_bounds(sh, in_k, o, d, near, best_t);
+        nf = rank_window(sh, keys_c, cl0 + s0, n, b, cluster_box);
+      }
+      walk_clusters(sh, w, keys_c, nf, in_k, frames, block_visits, cneed,
+                    cur_best, center, apply);
+    }
+  };
+
+  auto instance_box = [&](int k, float* lo, float* hi) {
+    const float* row = ti_rows + (size_t)k * TI_W;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = row[TI_MIN + a];
+      hi[a] = row[TI_MAX + a];
+    }
+    return row[TI_NCL] > 0.0f;
+  };
+  const float wo[3] = {ox, oy, oz}, wd[3] = {dx, dy, dz};
+  if (__syncthreads_or(active)) {
+    for (int k0 = 0; k0 < ip; k0 += list_i) {
+      const int n = min(list_i, ip - k0);
+      const Bounds b = block_bounds(sh, active, wo, wd, near, best_t);
+      const int nf = rank_window(sh, keys_i, k0, n, b, instance_box);
+      walk_rows(sh, w, keys_i, nf, active, ineed, cur_best, visit_inst);
     }
   }
   if (in_range) {
     t_out[ray] = best_t;
     id_out[ray] = best_id;
     inst_out[ray] = best_inst;
+    if (visits) visits[ray] = n_tests;
   }
 }
 
 }  // namespace
 
+// visits: null on the render path; else int[n_rays + blocks] that receives
+// each ray's (instance, cluster) tests and each block's staged clusters.
 extern "C" int rz_cluster_closest_inst(const float* origin,
                                        const float* direction,
                                        const float* near, const float* far,
                                        const float* ti_rows,
                                        const float* cl_obox,
                                        const float* frames, int n_rays,
-                                       int ip, float* t_out, int* id_out,
-                                       int* inst_out, void* stream) {
+                                       int ip, float* t_out,
+                                       int* id_out, int* inst_out,
+                                       int* visits, void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  closest_inst_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const int list_i = rank_rows_for(ip);
+  const int list_c = CL_WINDOW;
+  const size_t smem = ranked_smem(list_i + list_c);
+  cudaError_t err = allow_smem(closest_inst_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  closest_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
-      t_out, id_out, inst_out);
+      list_i, list_c, t_out, id_out, inst_out, visits);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,19 @@
 // Numerics: the library is built with -fmad=false, so every product and
 // sum below rounds on its own, in the order written, exactly like the plain
 // PyTorch versions in ops/traverse_cluster.py; division is IEEE.
+//
+// The second half of this header is the ranked front-to-back walk of the
+// closest-hit kernels (B1, B3): a block ranks the candidate rows of a table
+// window by a lower bound of the entry distance of its rays (interval
+// arithmetic on the block's origin and direction bounds), sorts them by
+// (bound, row) in shared memory, and walks them in batches of 32 with one
+// block vote per batch, staging each visited cluster's frames into one of
+// two shared buffers with cp.async while the previous cluster is tested.
+// A visited cluster's tests are shared out: each ray that needs it is
+// tested by a whole warp, one triangle slot per lane.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace rz {
@@ -140,6 +151,469 @@ __device__ __forceinline__ float project(const float* fr, int j, float px,
   const float b2 = oly + t * dly;
   inside = (b1 >= 0.0f) & (b1 <= 1.0f) & (b2 >= 0.0f) & (b1 + b2 <= 1.0f);
   return t;
+}
+
+// ---------------------------------------------------------------------------
+// ranked front-to-back walk (closest hit)
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long u64;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int BATCH = 32;            // candidates per block vote (one mask bit each)
+constexpr int RANK_MAX = 4096;       // table rows per ranked window (8 B each)
+constexpr int SWEEP_MAX = 8;         // B3: meshes of <= 8 clusters are swept in order
+constexpr int CL_WINDOW = 512;       // B3: cluster rows per ranked window of one mesh
+constexpr u64 NO_CAND = ~0ull;       // empty slot of a candidate list
+constexpr int FRAME_BYTES = FRAME_FLOATS * 4;
+
+// The closest-hit gate's t limit: a box is entered no later than best_t,
+// widened by GATE_PAD of |best_t|. The slack only adds visits; it keeps a
+// cluster whose hit ties best_t within rounding of the slab's entry (a flat
+// box, a shared edge) from being skipped when a ranked walk reached the
+// tied hit of a later row first.
+__device__ __forceinline__ float gate_t(float best_t) {
+  return best_t + GATE_PAD * fabsf(best_t);
+}
+
+// Float bits mapped so that unsigned order is numeric order, and back.
+__device__ __forceinline__ unsigned ord_bits(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float ord_float(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A candidate is (entry distance, table row) in one 64-bit sort key.
+__device__ __forceinline__ u64 cand_key(float pd, int row) {
+  return ((u64)ord_bits(pd) << 32) | (unsigned)row;
+}
+__device__ __forceinline__ int cand_row(u64 key) { return (int)(unsigned)key; }
+__device__ __forceinline__ float cand_pd(u64 key) {
+  return ord_float((unsigned)(key >> 32));
+}
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = BATCH;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Shared memory of a block: two frame buffers, the vote words, the
+// feasible-candidate counter, the block's rays and their per-visit results
+// for the cooperative tests, then the candidate lists (8 B per row).
+struct Shared {
+  float* ring;          // [2][FRAME_FLOATS]
+  unsigned* votes;      // [2][2 * WARPS]: per warp the batch mask and the go vote
+  int* count;           // [1]
+  unsigned* mask;       // [WARPS]: the rays that test the visited cluster
+  float* rays;          // [7][THREADS]: origin xyz, direction xyz, near
+  u64* res;             // [THREADS]: each tested ray's (t, slot) key
+  float* scratch;       // [16][WARPS]: per-warp partials of block_bounds
+  u64* keys;            // candidate lists
+};
+
+constexpr int OFF_VOTES = 2 * FRAME_BYTES;
+constexpr int OFF_COUNT = OFF_VOTES + 2 * 2 * WARPS * 4;
+constexpr int OFF_MASK = OFF_COUNT + 16;
+constexpr int OFF_RAYS = OFF_MASK + 16;
+constexpr int OFF_RES = OFF_RAYS + 7 * THREADS * 4;
+constexpr int OFF_SCRATCH = OFF_RES + THREADS * 8;
+constexpr int SHARED_HEAD = OFF_SCRATCH + 16 * WARPS * 4;
+
+__device__ __forceinline__ Shared shared_layout(unsigned char* smem) {
+  Shared s;
+  s.ring = reinterpret_cast<float*>(smem);
+  s.votes = reinterpret_cast<unsigned*>(smem + OFF_VOTES);
+  s.count = reinterpret_cast<int*>(smem + OFF_COUNT);
+  s.mask = reinterpret_cast<unsigned*>(smem + OFF_MASK);
+  s.rays = reinterpret_cast<float*>(smem + OFF_RAYS);
+  s.res = reinterpret_cast<u64*>(smem + OFF_RES);
+  s.scratch = reinterpret_cast<float*>(smem + OFF_SCRATCH);
+  s.keys = reinterpret_cast<u64*>(smem + SHARED_HEAD);
+  return s;
+}
+
+// This thread's ray into its slot of the block's rays (origin and direction
+// in the space the clusters are tested in). Read after the next barrier.
+__device__ __forceinline__ void store_ray(const Shared& sh, const float* o,
+                                          const float* d, float near) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    sh.rays[a * THREADS + threadIdx.x] = o[a];
+    sh.rays[(3 + a) * THREADS + threadIdx.x] = d[a];
+  }
+  sh.rays[6 * THREADS + threadIdx.x] = near;
+}
+
+// Per-thread walk state that every block-uniform step keeps in step.
+struct Walk {
+  int ring_next;   // frame buffer the next staged cluster goes into
+  int vote_par;    // which half of the vote words the next vote uses
+};
+
+// The block's rays as boxes, for the rank: the bounds of the active rays'
+// origins and directions, their smallest near (nlo), and cap = the largest
+// gate_t(best_t) (-inf when no ray is active).
+struct Bounds {
+  float olo[3], ohi[3], dlo[3], dhi[3], nlo, cap;
+};
+
+constexpr int N_BOUNDS = 14;  // minima that block_bounds reduces
+
+// block_bounds of the rays (o, d, near) whose thread has active set: 14
+// minima (maxima as minima of negations), per warp with shuffles, then
+// across the warps through shared scratch. Every thread calls it; two
+// barriers.
+__device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
+                                               const float* o, const float* d,
+                                               float near, float best_t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v[N_BOUNDS];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    v[a] = active ? o[a] : INFINITY;
+    v[3 + a] = active ? -o[a] : INFINITY;
+    v[6 + a] = active ? d[a] : INFINITY;
+    v[9 + a] = active ? -d[a] : INFINITY;
+  }
+  v[12] = active ? -best_t : INFINITY;
+  v[13] = active ? near : INFINITY;
+#pragma unroll
+  for (int i = 0; i < N_BOUNDS; ++i)
+    for (int s = 16; s > 0; s >>= 1)
+      v[i] = fminf(v[i], __shfl_xor_sync(FULL, v[i], s));
+  __syncthreads();  // the previous call's readers are done with the scratch
+  if (lane == 0)
+    for (int i = 0; i < N_BOUNDS; ++i) sh.scratch[i * WARPS + warp] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N_BOUNDS; ++i) {
+    v[i] = sh.scratch[i * WARPS];
+    for (int k = 1; k < WARPS; ++k) v[i] = fminf(v[i], sh.scratch[i * WARPS + k]);
+  }
+  Bounds b;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.olo[a] = v[a];
+    b.ohi[a] = -v[3 + a];
+    b.dlo[a] = v[6 + a];
+    b.dhi[a] = -v[9 + a];
+  }
+  b.nlo = v[13];
+  b.cap = v[12] == INFINITY ? -INFINITY : gate_t(-v[12]);
+  return b;
+}
+
+// Conservative lower bound of the distance t >= 0 at which some ray of the
+// block (origin in [olo, ohi], direction in [dlo, dhi]) can enter the box
+// lo..hi widened by GATE_PAD, as slab_wide widens it: per axis, the t-range
+// in which some d of the range reaches some offset of [lo - ohi, hi - olo]
+// (the TPU kernel's _axis_interval), the ranges intersected, and the lower
+// end rounded down by 2^-20 (the upper one up) against f32 rounding.
+// INFINITY when no ray of the block can enter it by the block's cap. The
+// bound covers t >= 0 only, so a block with a ray of near < 0 (whose hits
+// behind its origin count) gets -INFINITY for every row: it walks the
+// window in table order without the stop, and the per-ray gate and the tie
+// key keep its result exact.
+__device__ __forceinline__ float entry_bound(const Bounds& b, const float* lo,
+                                             const float* hi) {
+  if (b.nlo < 0.0f) return -INFINITY;
+  float tl = 0.0f, th = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float pad = GATE_PAD * (fabsf(lo[a]) + fabsf(hi[a]));
+    const float vl = (lo[a] - pad) - b.ohi[a];
+    const float vh = (hi[a] + pad) - b.olo[a];
+    const float dl = b.dlo[a], dh = b.dhi[a];
+    float l, h;
+    if (dl > 0.0f) {          // every direction positive on this axis
+      l = vl / dh;
+      h = vh / dl;
+    } else if (dh < 0.0f) {   // every direction negative
+      l = vh / dl;
+      h = vl / dh;
+    } else {                  // the range spans 0: only a one-sided miss
+      l = vl > 0.0f ? vl / fmaxf(dh, 1e-30f)
+                    : (vh < 0.0f ? vh / fminf(dl, -1e-30f) : 0.0f);
+      h = ((vl > 0.0f && dh <= 0.0f) || (vh < 0.0f && dl >= 0.0f))
+              ? -1.0f : INFINITY;
+    }
+    tl = fmaxf(tl, l);
+    th = fminf(th, h);
+  }
+  tl = tl * (1.0f - 1.0f / 1048576.0f);
+  th = th > 0.0f ? th * (1.0f + 1.0f / 1048576.0f) : th;
+  return (tl <= th && tl <= b.cap) ? tl : INFINITY;
+}
+
+// Sort keys[0 .. n) ascending, n a power of two >= 32: warp 0 with shuffles
+// for n == 32, else a block-wide bitonic network. Ends with a barrier.
+__device__ __forceinline__ void sort_keys(u64* keys, int n) {
+  if (n == BATCH) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      u64 v = keys[lane];
+      for (int size = 2; size <= 32; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const u64 o = __shfl_xor_sync(FULL, v, stride);
+          const bool up = (lane & size) == 0;
+          const bool lower = (lane & stride) == 0;
+          v = (lower == up) ? (v < o ? v : o) : (v < o ? o : v);
+        }
+      }
+      keys[lane] = v;
+    }
+    __syncthreads();
+    return;
+  }
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += THREADS) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const u64 a = keys[i], b = keys[j];
+        if ((a > b) == ((i & size) == 0)) {
+          keys[i] = b;
+          keys[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Rank rows r0 .. r0+n-1 by entry_bound against the block's bounds b:
+// threads take the rows in turn, row_box(row, lo, hi) gives a row's box
+// (false: a padding row), the feasible rows become (bound, row) keys and
+// the rest NO_CAND; then sort. Returns the number of feasible candidates,
+// which lead the sorted list.
+template <class RowBox>
+__device__ __forceinline__ int rank_window(const Shared& sh, u64* keys, int r0,
+                                           int n, const Bounds& b,
+                                           RowBox row_box) {
+  const int np2 = pow2_at_least(n);
+  __syncthreads();  // the previous list's readers are done with it
+  if (threadIdx.x == 0) *sh.count = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int i = threadIdx.x; i < np2; i += THREADS) {
+    u64 key = NO_CAND;
+    float lo[3], hi[3];
+    if (i < n && row_box(r0 + i, lo, hi)) {
+      const float pd = entry_bound(b, lo, hi);
+      if (pd != INFINITY) {
+        key = cand_key(pd, r0 + i);
+        ++mine;
+      }
+    }
+    keys[i] = key;
+  }
+  if (mine) atomicAdd(sh.count, mine);
+  __syncthreads();
+  sort_keys(keys, np2);
+  return *sh.count;
+}
+
+// A sweep in table order: rows r0 .. r0+n-1 (n <= BATCH) with entry -inf,
+// so that the walk's stop vote never ends it.
+__device__ __forceinline__ int sweep_window(u64* keys, int r0, int n) {
+  __syncthreads();
+  if ((int)threadIdx.x < n) keys[threadIdx.x] = cand_key(-INFINITY, r0 + threadIdx.x);
+  __syncthreads();
+  return n;
+}
+
+// Copy one cluster's 6 KB frame block into shared memory with 16-byte
+// cp.async copies (three per thread) as one commit group.
+__device__ __forceinline__ void stage_frames(float* dst,
+                                             const float* __restrict__ src) {
+  for (int q = threadIdx.x; q < FRAME_FLOATS / 4; q += THREADS)
+    __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
+  __pipeline_commit();
+}
+
+// Block vote on the batch of candidates keys[k0 .. k0 + m), m = min(BATCH,
+// n - k0): each active thread votes go when the batch's first entry is
+// within its gate (gate_t(best_t())) and then marks the candidates its ray
+// still needs (need(row)); the block ORs both, in one barrier. Returns the
+// block's go (false: no ray can still be improved, since every later entry
+// is farther) and the marked candidates in todo.
+template <class Need, class BestT>
+__device__ __forceinline__ bool vote_batch(const Shared& sh, Walk& w,
+                                           const u64* keys, int k0, int n,
+                                           bool active, Need need,
+                                           BestT best_t, unsigned& todo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = min(BATCH, n - k0);
+  unsigned mask = 0;
+  bool go = false;
+  if (active) {
+    go = cand_pd(keys[k0]) <= gate_t(best_t());
+    if (go) {
+      for (int i = 0; i < m; ++i)
+        if (need(cand_row(keys[k0 + i]))) mask |= 1u << i;
+    }
+  }
+  mask = __reduce_or_sync(FULL, mask);
+  const unsigned g = __any_sync(FULL, go) ? 1u : 0u;
+  unsigned* v = sh.votes + w.vote_par * 2 * WARPS;
+  if (lane == 0) {
+    v[warp] = mask;
+    v[WARPS + warp] = g;
+  }
+  __syncthreads();
+  todo = 0;
+  unsigned bg = 0;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) {
+    todo |= v[i];
+    bg |= v[WARPS + i];
+  }
+  w.vote_par ^= 1;
+  return bg != 0;
+}
+
+// One ray's tests against the staged cluster, by one warp: lane l takes
+// slots l, l + 32, l + 64, l + 96; the warp keeps the smallest
+// (t, slot) key of the hits with t > near (NO_CAND: none) in res[r]. The
+// cluster-local origin is o - ctr, as local_origin forms it.
+__device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
+                                         const float* ctr, int cnt, int r) {
+  const int lane = threadIdx.x & 31;
+  const float* R = sh.rays;
+  const float px = R[0 * THREADS + r] - ctr[0];
+  const float py = R[1 * THREADS + r] - ctr[1];
+  const float pz = R[2 * THREADS + r] - ctr[2];
+  const float dx = R[3 * THREADS + r], dy = R[4 * THREADS + r];
+  const float dz = R[5 * THREADS + r], near = R[6 * THREADS + r];
+  u64 best = NO_CAND;
+#pragma unroll
+  for (int q = 0; q < CT / 32; ++q) {
+    const int j = lane + 32 * q;
+    if (j < cnt) {
+      bool inside;
+      const float t = project(fr, j, px, py, pz, dx, dy, dz, inside);
+      if (inside && t > near) {
+        const u64 key = ((u64)ord_bits(t) << 32) | (unsigned)j;
+        best = key < best ? key : best;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const u64 o = __shfl_xor_sync(FULL, best, s);
+    best = o < best ? o : best;
+  }
+  if (lane == 0) sh.res[r] = best;
+}
+
+// The cooperative tests of one visit: the rays marked in mask[] are dealt
+// to the warps in turn (the i-th marked ray to warp i % WARPS).
+__device__ __forceinline__ void test_rays(const Shared& sh, const float* fr,
+                                          const float* ctr, int cnt) {
+  const int warp = threadIdx.x >> 5;
+  int i = 0;
+#pragma unroll
+  for (int wq = 0; wq < WARPS; ++wq) {
+    unsigned m = sh.mask[wq];
+    while (m) {
+      const int b = __ffs(m) - 1;
+      m &= m - 1;
+      if ((i++ % WARPS) == warp) test_ray(sh, fr, ctr, cnt, wq * 32 + b);
+    }
+  }
+}
+
+// Walk the candidates keys[0 .. n) in rank order, a batch of 32 per block
+// vote (vote_batch), until the vote stops the block. The block visits each
+// marked candidate in order: its frames were
+// staged during the previous visit (the first of a batch is staged on the
+// spot); the rays that need it (need(row) at their current best_t) publish
+// a mask, one barrier makes frames and mask visible and retires the other
+// buffer, the warps test the marked rays cooperatively (test_rays, against
+// the rays' slots of store_ray and the box centre center(row, ctr)), and
+// after a second barrier each marked thread takes its result with
+// apply(row, key). Every thread calls this with the same n and list
+// (block-uniform).
+template <class Need, class BestT, class Center, class Apply>
+__device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
+                                              const u64* keys, int n,
+                                              bool active,
+                                              const float* __restrict__ frames,
+                                              int* block_visits, Need need,
+                                              BestT best_t, Center center,
+                                              Apply apply) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k0 = 0; k0 < n; k0 += BATCH) {
+    unsigned todo;
+    if (!vote_batch(sh, w, keys, k0, n, active, need, best_t, todo)) return;
+    if (todo == 0) continue;
+    int row = cand_row(keys[k0 + __ffs(todo) - 1]);
+    stage_frames(sh.ring + w.ring_next * FRAME_FLOATS,
+                 frames + (size_t)row * FRAME_FLOATS);
+    while (todo) {
+      todo &= todo - 1;
+      const int cur = row;
+      const bool mine = active && need(cur);
+      const unsigned ballot = __ballot_sync(FULL, mine);
+      if (lane == 0) sh.mask[warp] = ballot;
+      const float* fr = sh.ring + w.ring_next * FRAME_FLOATS;
+      __pipeline_wait_prior(0);
+      __syncthreads();  // frames and mask visible; the other buffer is done
+      w.ring_next ^= 1;
+      if (todo) {
+        row = cand_row(keys[k0 + __ffs(todo) - 1]);
+        stage_frames(sh.ring + w.ring_next * FRAME_FLOATS,
+                     frames + (size_t)row * FRAME_FLOATS);
+      }
+      if (block_visits != nullptr && threadIdx.x == 0) ++*block_visits;
+      float ctr[3];
+      const int cnt = center(cur, ctr);
+      test_rays(sh, fr, ctr, cnt);
+      __syncthreads();  // results visible
+      if (mine) apply(cur, sh.res[threadIdx.x]);
+    }
+  }
+}
+
+// Walk the candidates keys[0 .. n) of the instance level (B3) in rank
+// order, batches and stop vote as walk_clusters; visit(row) runs the
+// instance's whole cluster walk, block-uniformly.
+template <class Need, class BestT, class Visit>
+__device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
+                                          const u64* keys, int n, bool active,
+                                          Need need, BestT best_t,
+                                          Visit visit) {
+  for (int k0 = 0; k0 < n; k0 += BATCH) {
+    unsigned todo;
+    if (!vote_batch(sh, w, keys, k0, n, active, need, best_t, todo)) return;
+    while (todo) {
+      const int i = __ffs(todo) - 1;
+      todo &= todo - 1;
+      visit(cand_row(keys[k0 + i]));
+    }
+  }
+}
+
+// Host: dynamic shared memory of a ranked kernel with list rows in all.
+inline size_t ranked_smem(int list_rows) {
+  return (size_t)SHARED_HEAD + (size_t)list_rows * sizeof(u64);
+}
+
+inline int rank_rows_for(int table_rows) {
+  int p = BATCH;
+  while (p < table_rows && p < RANK_MAX) p <<= 1;
+  return p;
+}
+
+// Host: launch-side opt-in above the default 48 KB of shared memory.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace rz

@@ -4,7 +4,9 @@ Counterpart of ``rayzath_tpu/engine/renderer.py`` (the reference render
 orchestration, cuda_engine_core.cu:32-128 + cuda_engine_renderer.cu:73-262):
 the world is re-flattened into a TorchScene whenever its content version
 changes, each camera keeps its own progressive RenderState, and a render
-cycle runs ``rpp`` bounce passes. Everything lives on ``device``.
+cycle runs ``rpp`` bounce passes. Everything lives on ``device``: the
+card by default, the CPU's plain versions with ``device="cpu"``
+(``utils/device.py``).
 
 Not ported yet: the temporal reprojection that the JAX renderer runs when a
 camera with ``temporal_blend > 0`` moves (ROADMAP A13) raises
@@ -21,6 +23,7 @@ import torch
 from ..models.device_scene import (TorchScene, TorchCamera, compile_world,
                                    compile_camera)
 from ..models.world import World
+from ..utils.device import DEFAULT, resolve
 from ..utils.timing import TimeTable
 from ..ops.tonemap import final_color, to_u8
 from .config import RenderConfig
@@ -63,12 +66,12 @@ class CameraView:
 
 class Renderer:
     def __init__(self, world: World, config: Optional[RenderConfig] = None,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device=DEFAULT):
         self.world = world
         self.config = config or RenderConfig()
         check_config(self.config)
         self.seed = int(seed)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.scene: Optional[TorchScene] = None
         self._scene_version = -1
         self._compile_cache: dict = {}

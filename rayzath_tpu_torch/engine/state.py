@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT, resolve
+
 BIG = 3.402823466e38
 PATH_LIMIT = 255  # reference TracingState::sm_path_limit (cuda_camera.cuh:18)
 WORLD_MATERIAL_ID = 0
@@ -45,10 +47,11 @@ class RenderState:
         return dataclasses.replace(self, **kw)
 
 
-def init_state(width: int, height: int, device="cpu") -> RenderState:
+def init_state(width: int, height: int, device=DEFAULT) -> RenderState:
     """Fresh state: paths are 'terminated' so the first bounce regenerates
     camera rays for every pixel (regeneration-in-place, reference
     cuda_render_kernel.cu:50-65)."""
+    device = resolve(device)
     r = width * height
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -69,10 +72,11 @@ def init_state(width: int, height: int, device="cpu") -> RenderState:
         pass_idx=0, width=width, height=height)
 
 
-def state_from_arrays(arrays: dict, device="cpu") -> RenderState:
+def state_from_arrays(arrays: dict, device=DEFAULT) -> RenderState:
     """RenderState from named NumPy arrays with the checkpoint keys (for
     example the leaves of a JAX ``RenderState``, each ``np.asarray``-ed,
     plus ``pass_idx``, ``width`` and ``height``)."""
+    device = resolve(device)
     tensors = {}
     for k in _ARRAYS:
         if k == "score" and arrays.get(k) is None:
@@ -94,7 +98,8 @@ def save_state(path: str, state: RenderState) -> None:
     )
 
 
-def load_state(path: str, device="cpu") -> RenderState:
+def load_state(path: str, device=DEFAULT) -> RenderState:
+    device = resolve(device)
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     return state_from_arrays(arrays, device)

@@ -54,6 +54,7 @@ from ..ops.texture import block_indices
 from ..ops.traverse_cluster import (build_cluster_tables,
                                     build_instance_tables, cluster_slot_rows,
                                     B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
+from ..utils.device import DEFAULT, resolve
 from ..utils.hostmath import normalize as nrm, transform_matrices
 from .material import Material
 from .texture import TextureMap
@@ -170,7 +171,8 @@ def _f32(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def compile_camera(cam, device="cpu") -> TorchCamera:
+def compile_camera(cam, device=DEFAULT) -> TorchCamera:
+    device = resolve(device)
     return TorchCamera(
         position=_f32(cam.position, device),
         rot=_f32(cam.coord_system(), device),
@@ -268,7 +270,7 @@ def _two_level_auto(world: World) -> bool:
 def compile_world(world: World, leaf_size: int = 8,
                   two_level: Optional[bool] = None,
                   cache: Optional[dict] = None,
-                  device="cpu", differentiable: bool = False) -> TorchScene:
+                  device=DEFAULT, differentiable: bool = False) -> TorchScene:
     """Flatten the host world into a TorchScene on ``device`` (see module
     docstring). ``two_level``: False = world-space soup, True = shared
     per-mesh object-space tables + instance rows, None = the JAX package's
@@ -277,6 +279,7 @@ def compile_world(world: World, leaf_size: int = 8,
     materials-or-lights-only edit rebuilds only the cheap binding tables.
     ``differentiable`` builds what only the gradient path reads (a
     two-level scene's ``exp_tri``/``exp_inst``)."""
+    device = resolve(device)
     if two_level is None:
         two_level = _two_level_auto(world)
 
@@ -845,13 +848,15 @@ _STATICS = ("n_triangles", "n_materials", "n_spot_lights", "n_direct_lights",
 _FLAGS = ("two_level", "has_maps")
 
 
-def scene_from_arrays(leaves: dict, statics: dict, device="cpu") -> TorchScene:
+def scene_from_arrays(leaves: dict, statics: dict,
+                      device=DEFAULT) -> TorchScene:
     """Build a TorchScene from named NumPy arrays (for example the leaves of
     a JAX ``DeviceScene``, each converted with ``np.asarray``) and its static
     counts and flags. Extra leaves are ignored; the fields that only the
     other structure reads may be missing and take :func:`placeholders`, and
     the optional fields (the cutout set, the expanded lists) stay None when
     missing."""
+    device = resolve(device)
     two_level = bool(statics.get("two_level", False))
     stand_in = placeholders(two_level)
     tensors = {}

@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,18 +38,21 @@ NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH, "-fmad=false", "-prec-div=true",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id, stream
-    "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id,
+    # visits (null: not counted), stream
+    "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a, stream
     "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
-    # t, id, inst, stream
+    # t, id, inst, visits (null: not counted), stream
     "rz_cluster_closest_inst": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                                _P, _P],
+                                _P, _P, _P],
     # origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
     # n_rays, ip, rgb, a, stream
     "rz_cluster_shadow_inst": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                _P, _P],
+    # table rows, instanced -> bytes of dynamic shared memory of B1 / B3
+    "rz_ranked_smem": [_I, _I],
 }
 
 
@@ -65,6 +69,19 @@ def _nvcc() -> str:
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+@functools.cache
+def header_constant(name: str, header: str = "rz_cluster.cuh") -> int | float:
+    """The value of ``constexpr int|float <name> = <literal>;`` in a kernel
+    header, so that host code and tests read the kernels' sizes from the
+    one place that sets them. Raises when the header has no such line."""
+    text = (CSRC / header).read_text()
+    m = re.search(rf"constexpr\s+(int|float)\s+{name}\s*=\s*([-+0-9.eE]+)f?\s*;",
+                  text)
+    if m is None:
+        raise KeyError(f"{header} has no constexpr {name}")
+    return int(m.group(2)) if m.group(1) == "int" else float(m.group(2))
 
 
 def library_path() -> Path:

@@ -63,6 +63,7 @@ from .intersect import (BIG, DET_EPS, project_shadow, triangle_frames,
                         triangle_frames_torch)
 
 CLUSTER_T = 128         # triangles per cluster
+KERNEL_BLOCK = 128      # rays per block of the CUDA kernels
 
 # box_tab row layout ([8, Cp] f32, clusters on columns)
 B_MIN = 0               # rows 0..2: cluster AABB min xyz
@@ -407,6 +408,45 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _aligned(**tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the frames
+    are staged with 16-byte cp.async copies)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+@functools.cache
+def _smem_optin(index: int) -> int:
+    """Bytes of shared memory one block may opt in to on CUDA device
+    ``index``."""
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def _ranked_smem(lib, dev, rows: int, instanced: bool) -> int:
+    """Dynamic shared memory of a ranked closest-hit launch over ``rows``
+    table rows (B1's clusters, or B3's instances plus one mesh window), as
+    the kernel asks for it; raises when the device cannot give it."""
+    need = lib.rz_ranked_smem(rows, int(instanced))
+    have = _smem_optin(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    if need > have:
+        raise ValueError(f"the ranked walk needs {need} bytes of shared memory "
+                         f"per block; {dev} gives at most {have}")
+    return need
+
+
+def _visit_buffer(visits, dev, r):
+    """Pointer to the optional visit counter: None, or an int32 CUDA tensor
+    of R + ceil(R / 128) entries that receives each ray's cluster tests and
+    each block's staged clusters."""
+    if visits is None:
+        return ctypes.c_void_p(None)
+    _check(dev, visits=(visits, torch.int32))
+    _check_shapes([("visits", visits, (r + -(-r // KERNEL_BLOCK),))])
+    return _ptr(visits)
+
+
 def _map_ids(rid, order):
     """Cluster-order ids -> original soup ids (-1 stays -1)."""
     safe = torch.clamp(rid, 0, order.shape[0] - 1).long()
@@ -414,10 +454,16 @@ def _map_ids(rid, order):
                        torch.full_like(rid, -1))
 
 
-def cluster_closest(origin, direction, near, far, box_tab, frames, order):
+def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
+                    visits=None):
     """Closest hit. Returns (t [R], tri_id [R] i32 in ORIGINAL order,
     -1 = miss). CPU tensors take :func:`cluster_closest_plain`; CUDA
-    tensors launch the B1 kernel (``csrc/cluster_closest.cu``)."""
+    tensors launch the B1 kernel (``csrc/cluster_closest.cu``), a ranked
+    front-to-back walk per block of 128 rays (a block with a ray of
+    near < 0 walks in table order instead). ``visits`` (CUDA only, off
+    the render path): an int32 tensor of R + ceil(R / 128) entries that
+    receives each ray's cluster tests, then each block's staged
+    clusters."""
     if origin.device.type == "cpu":
         t, rid = cluster_closest_plain(origin, direction, near, far, box_tab,
                                        frames)
@@ -431,12 +477,16 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order):
     cp = _check_tables(box_tab, frames, (
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("near", near, (r,)), ("far", far, (r,))))
+    _aligned(frames=frames)
+    _ranked_smem(lib, dev, cp, instanced=False)
+    counts = _visit_buffer(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
         err = lib.rz_cluster_closest(
             _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
-            _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), _stream())
+            _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), counts,
+            _stream())
         if err != 0:
             raise RuntimeError(f"cluster_closest kernel launch failed: "
                                f"{_kernels.error_string(err)}")
@@ -590,11 +640,14 @@ def _check_inst_tables(ti_rows, cl_obox, frames, extra=()):
 
 
 def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
-                         frames):
+                         frames, *, visits=None):
     """Two-level closest hit. Returns (t [R], tri_id [R] i32 in DEVICE
     order, i.e. the order of ``tri_pack``, and inst_id [R] i32; -1 = miss).
     CPU tensors take :func:`cluster_closest_inst_plain`; CUDA tensors launch
-    the B3 kernel (``csrc/cluster_closest_inst.cu``)."""
+    the B3 kernel (``csrc/cluster_closest_inst.cu``), a ranked front-to-back
+    walk of the instances and of each visited mesh's clusters per block of
+    128 rays (near < 0 as for :func:`cluster_closest`). ``visits`` as for
+    :func:`cluster_closest`, counting (instance, cluster) tests."""
     if origin.device.type == "cpu":
         return cluster_closest_inst_plain(origin, direction, near, far,
                                           ti_rows, cl_obox, frames)
@@ -608,6 +661,9 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     ip = _check_inst_tables(ti_rows, cl_obox, frames, (
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("near", near, (r,)), ("far", far, (r,))))
+    _aligned(frames=frames)
+    _ranked_smem(lib, dev, ip, instanced=True)
+    counts = _visit_buffer(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     tid = torch.empty(r, dtype=torch.int32, device=dev)
     inst = torch.empty(r, dtype=torch.int32, device=dev)
@@ -615,7 +671,7 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
         err = lib.rz_cluster_closest_inst(
             _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
             _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
-            _ptr(tid), _ptr(inst), _stream())
+            _ptr(tid), _ptr(inst), counts, _stream())
         if err != 0:
             raise RuntimeError(f"cluster_closest_inst kernel launch failed: "
                                f"{_kernels.error_string(err)}")

@@ -1,0 +1,306 @@
+"""Cluster tables built to test the ranked closest-hit walks (B1, B3)
+against their plain versions, for ``chip_smoke.py`` and the port's tests.
+
+* :func:`tie_tables`: every cluster of a random soup twice, as rows
+  ``[0, m)`` and ``[m, 2m)`` with the same frames. The second copy's boxes
+  are grown on every side with the float32 centre ``(lo + hi) * 0.5`` kept
+  bit for bit, so each duplicated triangle gives the same t in both rows
+  while the later row's box is entered first: a front-to-back walk meets
+  the later row first and must still return the earlier row's hit, as the
+  plain version's table order does.
+* :func:`tie_instance_tables`: the same doubled table as one mesh, under
+  three instances: the identity, the identity again with a grown world box
+  (exact ties across instance rows, the later one entered first) and a
+  translated copy.
+* :func:`window_tables` / :func:`window_instance_tables`: a soup's clusters
+  tiled with shifted boxes into more rows than the kernels rank at once
+  (``RANK_WINDOW`` cluster rows for B1, ``MESH_WINDOW`` clusters of one mesh
+  for B3), so their walks take several windows.
+
+Each returns NumPy arrays and the world-space triangles (``v0``, ``e1``,
+``e2``, in the order of the ids the tables report) to aim rays at.
+
+:func:`needed_soup` / :func:`needed_inst` count the visits a walk needs
+(the ray and (instance,) cluster pairs whose exact slab interval meets
+[t0, t1]), for the bounds and the made-against-needed checks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import _kernels
+from ..ops import traverse_cluster as tc
+from ..ops.traverse_cluster import (B_BASE, B_CNT, B_MAX, B_MIN,
+                                    build_cluster_tables,
+                                    build_instance_tables)
+
+RANK_WINDOW = _kernels.header_constant("RANK_MAX")     # B1 rows per window
+MESH_WINDOW = _kernels.header_constant("CL_WINDOW")    # B3 clusters per window
+_F = np.float32
+
+
+def soup(n: int, seed: int, spread: float = 4.0, size: float = 0.35):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-spread, spread, (n, 3)).astype(_F)
+    e1 = rng.uniform(-size, size, (n, 3)).astype(_F)
+    e2 = rng.uniform(-size, size, (n, 3)).astype(_F)
+    return v0, e1, e2
+
+
+def aimed_rays(v0, e1, e2, r: int, seed: int, spread: float = 6.0):
+    """Random origins; every other ray aimed at a random point inside a
+    random triangle, so that most of them hit."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-spread, spread, (r, 3)).astype(_F)
+    d = rng.normal(size=(r, 3)).astype(_F)
+    k = rng.integers(0, len(v0), r // 2)
+    b = rng.uniform(0.05, 0.45, (r // 2, 2)).astype(_F)
+    d[: r // 2] = v0[k] + b[:, :1] * e1[k] + b[:, 1:] * e2[k] - o[: r // 2]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def wall_rays(v0, e1, e2, r: int):
+    """Rays that each hit one of the first triangles from 0.5 before it,
+    all along (1, 1, 1): on a :func:`window_tables` grid the clusters
+    behind the hits on their lines outnumber the needed ones, so a walk
+    without the front-to-back stop tests several times the needed
+    clusters."""
+    k = np.arange(r) % len(v0)
+    a = np.asarray([[1, 1, 1]], _F) / np.sqrt(_F(3))
+    p = v0[k] + _F(0.25) * e1[k] + _F(0.25) * e2[k]
+    return (p - _F(0.5) * a).astype(_F), np.tile(a, (r, 1)).astype(_F)
+
+
+def grow_centred(lo, hi):
+    """Boxes grown by a power of two on every side, per element the
+    smallest of 2^-2 .. 2^10 that keeps the float32 centre
+    ``(lo + hi) * 0.5`` bit for bit (an element with none keeps its
+    bounds)."""
+    lo, hi = lo.astype(_F), hi.astype(_F)
+    ctr = (lo + hi) * _F(0.5)
+    out_lo, out_hi = lo.copy(), hi.copy()
+    todo = np.ones(lo.shape, bool)
+    for k in range(-2, 11):
+        e = _F(2.0 ** k)
+        a, b = lo - e, hi + e
+        ok = todo & ((a + b) * _F(0.5) == ctr)
+        out_lo[ok], out_hi[ok] = a[ok], b[ok]
+        todo &= ~ok
+    return out_lo, out_hi
+
+
+def _padded(rows: int):
+    """Empty soup tables of ``rows`` rows rounded up to 128: padding boxes no
+    slab reaches and never-hit frames, as ``build_cluster_tables`` pads."""
+    cp = max(128, -(-rows // 128) * 128)
+    box = np.zeros((8, cp), _F)
+    box[B_MIN:B_MIN + 3] = 3e38
+    box[B_MAX:B_MAX + 3] = -3e38
+    frames = np.zeros((cp, 4, 384), _F)
+    frames[:, 3, 0:128] = -1.0
+    frames[:, 3, 128:256] = -1.0
+    frames[:, 3, 256:384] = 1.0
+    return box, frames
+
+
+def _copies(box, frames, m: int, t: int, shifts, grow_from: int = -1):
+    """Rows of ``len(shifts)`` copies of the first ``m`` clusters, copy i
+    moved by ``shifts[i]`` and its ids offset by ``i * t``; copies from
+    ``grow_from`` on get :func:`grow_centred` boxes."""
+    n = len(shifts)
+    out_box, out_frames = _padded(n * m)
+    for i, s in enumerate(np.asarray(shifts, _F)):
+        rows = slice(i * m, (i + 1) * m)
+        lo = box[B_MIN:B_MIN + 3, :m] + s[:, None]
+        hi = box[B_MAX:B_MAX + 3, :m] + s[:, None]
+        if 0 <= grow_from <= i:
+            lo, hi = grow_centred(lo, hi)
+        out_box[B_MIN:B_MIN + 3, rows] = lo
+        out_box[B_MAX:B_MAX + 3, rows] = hi
+        out_box[B_BASE, rows] = box[B_BASE, :m] + _F(i * t)
+        out_box[B_CNT, rows] = box[B_CNT, :m]
+        out_frames[rows] = frames[:m]
+    return out_box, out_frames
+
+
+def _soup_tables(n: int, seed: int):
+    v0, e1, e2 = soup(n, seed)
+    box, frames, order, _, count = build_cluster_tables(v0, e1, e2)
+    return v0, e1, e2, box, frames, order, int((count > 0).sum())
+
+
+def _tiled(v0, e1, e2, order, shifts):
+    """World-space triangles and the cluster-order -> original id map of the
+    copies (copy i's triangles are originals i*T .. (i+1)*T - 1)."""
+    t = len(v0)
+    s = np.asarray(shifts, _F)
+    return dict(v0=np.concatenate([v0 + si for si in s]),
+                e1=np.tile(e1, (len(s), 1)), e2=np.tile(e2, (len(s), 1)),
+                order=np.concatenate([order + i * t for i in range(len(s))])
+                .astype(np.int32))
+
+
+def tie_tables(n: int = 1200, seed: int = 7) -> dict:
+    """Flat tables (box_tab, frames, order) of a soup's clusters twice, the
+    second copy's boxes grown (see the module docstring)."""
+    v0, e1, e2, box, frames, order, m = _soup_tables(n, seed)
+    shifts = np.zeros((2, 3), _F)
+    out = _tiled(v0, e1, e2, order, shifts)
+    out["box_tab"], out["frames"] = _copies(box, frames, m, len(v0), shifts,
+                                            grow_from=1)
+    out["real_rows"] = 2 * m
+    return out
+
+
+def window_tables(rows: int = 2 * RANK_WINDOW + 1, n: int = 300,
+                  seed: int = 8) -> dict:
+    """Flat tables of at least ``rows`` real cluster rows: a soup's
+    clusters tiled along a 3-D grid of shifts 10 apart."""
+    v0, e1, e2, box, frames, order, m = _soup_tables(n, seed)
+    k = -(-rows // m)
+    side = int(np.ceil(k ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+    shifts = (grid.reshape(-1, 3)[:k] * 10.0 - 5.0 * side).astype(_F)
+    out = _tiled(v0, e1, e2, order, shifts)
+    out["box_tab"], out["frames"] = _copies(box, frames, m, len(v0), shifts)
+    out["real_rows"] = k * m
+    return out
+
+
+def _mesh(flat: dict):
+    """Shared-cluster rows (cl_obox [Cm, 8], frames) of a flat table's real
+    rows: one mesh whose triangle ids are its cluster-order ids."""
+    rows = flat["real_rows"]
+    return (np.ascontiguousarray(flat["box_tab"][:, :rows].T),
+            np.ascontiguousarray(flat["frames"][:rows]))
+
+
+def _instances(cl_obox, moves, grow):
+    """ti_rows of one instance per (translation, grow) of the mesh, all of
+    its clusters, global ids 0, 1, ...; a grown instance's world box is
+    twice the mesh box around the same centre."""
+    lo = cl_obox[:, 0:3].min(0)
+    hi = cl_obox[:, 3:6].max(0)
+    wmin, wmax, inv = [], [], []
+    for mv, g in zip(np.asarray(moves, _F), grow):
+        a, b = lo + mv, hi + mv
+        if g:
+            c, h = (a + b) * 0.5, (b - a)
+            a, b = c - h, c + h
+        wmin.append(a)
+        wmax.append(b)
+        inv.append(np.concatenate([np.eye(3, dtype=_F), -mv[:, None]], 1))
+    i = len(moves)
+    return build_instance_tables(np.asarray(wmin, _F), np.asarray(wmax, _F),
+                                 np.asarray(inv, _F), np.zeros(i, np.int32),
+                                 np.full(i, len(cl_obox), np.int32),
+                                 np.arange(i, dtype=np.int32))
+
+
+def _expanded(flat: dict, moves):
+    """World-space triangles of every instance in instance order, each in
+    device (cluster) order: instance k's triangle id j is row k * F + j."""
+    v0, e1, e2 = (flat[x][flat["order"]] for x in ("v0", "e1", "e2"))
+    mv = np.asarray(moves, _F)
+    return dict(v0=np.concatenate([v0 + s for s in mv]),
+                e1=np.tile(e1, (len(mv), 1)), e2=np.tile(e2, (len(mv), 1)))
+
+
+def tie_instance_tables(n: int = 1200, seed: int = 7) -> dict:
+    """Instanced tables (ti_rows, cl_obox, frames): the doubled soup of
+    :func:`tie_tables` as one mesh under three instances (see the module
+    docstring)."""
+    flat = tie_tables(n, seed)
+    cl_obox, frames = _mesh(flat)
+    moves = [(0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (3.0, -2.0, 1.0)]
+    out = _expanded(flat, moves)
+    out.update(ti_rows=_instances(cl_obox, moves, (False, True, False)),
+               cl_obox=cl_obox, frames=frames)
+    return out
+
+
+def window_instance_tables(rows: int = MESH_WINDOW + 100, n: int = 300,
+                           seed: int = 9) -> dict:
+    """Instanced tables of one mesh of at least ``rows`` clusters (tiled as
+    :func:`window_tables`) under two instances."""
+    flat = window_tables(rows, n, seed)
+    cl_obox, frames = _mesh(flat)
+    moves = [(0.0, 0.0, 0.0), (1.5, 0.5, -1.0)]
+    out = _expanded(flat, moves)
+    out.update(ti_rows=_instances(cl_obox, moves, (False, False)),
+               cl_obox=cl_obox, frames=frames)
+    return out
+
+
+def _safe_inv(v):
+    """The kernels' safe_inv: 1 / v with |v| raised to at least 1e-12."""
+    small = v.abs() < 1e-12
+    return 1.0 / torch.where(small, torch.where(v < 0, -1e-12, 1e-12), v)
+
+
+def _slab(lo, hi, o, inv):
+    """Exact slab (tmin, tmax) [n, m] of rays (o, inv) [n, 3] against the
+    boxes lo, hi [m, 3]."""
+    t1 = (lo[None] - o[:, None]) * inv[:, None]
+    t2 = (hi[None] - o[:, None]) * inv[:, None]
+    return torch.minimum(t1, t2).amax(2), torch.maximum(t1, t2).amin(2)
+
+
+def _needed(o, inv, t0, t1, lo, hi, cnt, chunk_pairs=1 << 24):
+    """Pairs of rays and boxes whose exact slab interval meets [t0, t1]:
+    (pairs, triangle tests = pairs x the box's triangle count, the boxes
+    some ray needs)."""
+    step = max(1, chunk_pairs // max(1, len(lo)))
+    pairs, tests = 0, 0.0
+    rows = torch.zeros(len(lo), dtype=torch.bool, device=o.device)
+    for a in range(0, len(o), step):
+        tmin, tmax = _slab(lo, hi, o[a:a + step], inv[a:a + step])
+        need = ((tmax >= t0[a:a + step, None]) & (tmin <= tmax)
+                & (tmin <= t1[a:a + step, None]))
+        pairs += int(need.sum())
+        tests += float(need.float().sum(0) @ cnt)
+        rows |= need.any(0)
+    return pairs, tests, rows
+
+
+def needed_soup(o, d, t0, t1, box_tab):
+    """Needed visits of a soup walk (B1, B2): (ray, cluster) pairs whose
+    exact slab interval meets [t0, t1]. Returns (pairs, triangle tests,
+    clusters needed by some ray, real cluster rows)."""
+    real = (box_tab[B_CNT] > 0).nonzero().flatten()
+    lo = box_tab[B_MIN:B_MIN + 3, real].t()
+    hi = box_tab[B_MAX:B_MAX + 3, real].t()
+    pairs, tests, rows = _needed(o, _safe_inv(d), t0, t1, lo, hi,
+                                 box_tab[B_CNT, real])
+    return pairs, tests, int(rows.sum()), len(real)
+
+
+def needed_inst(o, d, t0, t1, ti_rows, cl_obox):
+    """Needed visits of a two-level walk (B3, B4): (ray, instance, cluster)
+    triples whose exact world-box interval and object-space cluster
+    interval both meet [t0, t1]. Returns (cluster pairs, triangle tests,
+    instance pairs, shared clusters needed, instances needed, real
+    instance rows)."""
+    inv = _safe_inv(d)
+    rows = ti_rows[:, [tc.TI_CL0, tc.TI_NCL]].cpu()
+    real = (rows[:, 1] > 0).nonzero().flatten().tolist()
+    pairs, tests, inst_pairs, insts = 0, 0.0, 0, 0
+    clusters = torch.zeros(cl_obox.shape[0], dtype=torch.bool, device=o.device)
+    for k in real:
+        tmin, tmax = _slab(ti_rows[k, 0:3][None], ti_rows[k, 3:6][None], o, inv)
+        ok = ((tmax[:, 0] >= t0) & (tmin[:, 0] <= tmax[:, 0])
+              & (tmin[:, 0] <= t1)).nonzero().flatten()
+        if not len(ok):
+            continue
+        inst_pairs += len(ok)
+        insts += 1
+        oo, dd = tc._object_rays(o[ok], d[ok], ti_rows, k)
+        s = slice(int(rows[k, 0]), int(rows[k, 0] + rows[k, 1]))
+        p, t, need = _needed(oo, _safe_inv(dd), t0[ok], t1[ok],
+                             cl_obox[s, 0:3], cl_obox[s, 3:6], cl_obox[s, 7])
+        pairs += p
+        tests += t
+        clusters[s] |= need
+    return pairs, tests, inst_pairs, int(clusters.sum()), insts, len(real)

@@ -7,7 +7,10 @@ jax; ``tests/conftest.py`` imports jax, so there run it as
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Rules (as in chip_smoke.py phase 2): B1 and B3 ids (and B3 instance ids)
-equal the plain version's except on f64-chaotic rays, t to rtol 1e-5; B2
+equal the plain version's except on f64-chaotic rays, t to rtol 1e-5, and
+bit for bit on the tables of ``utils/check_tables.py`` (exact ties across
+rows, walks of several windows, near < 0), where B1 must also test at
+most twice the needed clusters per ray on rays that hit a near wall; B2
 and B4 rgba to rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, and
 both below 1e-4 elsewhere; the B2/B4 backwards to rtol 1e-3 of the max
 |g| of autograd through the plain versions; the texture fetch on the card
@@ -22,6 +25,7 @@ from rayzath_tpu_torch.models import device_scene as tds
 from rayzath_tpu_torch.ops import camera as cam_ops
 from rayzath_tpu_torch.ops import traverse_cluster as tc
 from rayzath_tpu_torch.models.mesh import Mesh
+from rayzath_tpu_torch.utils import check_tables as ct
 from rayzath_tpu_torch.utils.hostmath import Transform
 from rayzath_tpu_torch.utils.parity import (closest_f64, expand_instances,
                                             images_match)
@@ -409,3 +413,96 @@ def test_shadow_backward_matches_plain_twin(cuda, kind):
     ref, = torch.autograd.grad(plain, mc_p, g)
     err = float((got - ref).abs().max() / ref.abs().max())
     assert err <= 1e-3, err
+
+
+def _table_tensors(tabs, keys, dev):
+    return [torch.as_tensor(tabs[k], device=dev) for k in keys]
+
+
+def _aimed_rays(tabs, r, seed, dev):
+    o, d = ct.aimed_rays(tabs["v0"], tabs["e1"], tabs["e2"], r, seed)
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            torch.zeros(r, device=dev), torch.full((r,), 1e30, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "windows", "stop", "negative_near"])
+def test_ranked_b1_matches_plain_bit_for_bit(cuda, case):
+    """B1's ranked walk on the tie table (every hit ties exactly in two
+    cluster rows, the later row entered first), on a table of more than
+    two windows of rows, on rays that hit a near wall with five times as
+    many clusters behind the hits on their lines ("stop": the walk tests
+    at most twice the needed clusters per ray and stages under a quarter
+    of the rows per block, as the model in test_torch_ranked_walk.py
+    does), and on the tie table with near < 0 on every other ray: ids and
+    t equal the plain version's bit for bit."""
+    tabs = {"windows": ct.window_tables,
+            "stop": lambda: ct.window_tables(rows=200, n=300, seed=8)}.get(
+                case, ct.tie_tables)()
+    box, frames, order = _table_tensors(tabs, ("box_tab", "frames", "order"),
+                                        cuda)
+    if case == "windows":
+        assert tabs["real_rows"] > 2 * ct.RANK_WINDOW
+    r = 4096
+    o, d, near, far = _aimed_rays(tabs, r, 5, cuda)
+    if case == "stop":
+        o, d = (torch.as_tensor(x, device=cuda)
+                for x in ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r))
+    if case == "negative_near":
+        near[::2] = -3.0
+    visits = torch.zeros(r + r // 128, dtype=torch.int32, device=cuda)
+    t_k, tid_k = tc.cluster_closest(o, d, near, far, box, frames, order,
+                                    visits=visits)
+    t_p, rid_p = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    tid_p = tc._map_ids(rid_p, order)
+    torch.cuda.synchronize()
+    assert torch.equal(tid_k, tid_p), int((tid_k != tid_p).sum())
+    assert torch.equal(t_k, t_p), int((t_k != t_p).sum())
+    assert int((tid_k >= 0).sum()) > r // 3
+    if case == "ties":      # the earlier copy wins every tie
+        assert bool((rid_p[rid_p >= 0] < int(box[tc.B_BASE,
+                                                 tabs["real_rows"] // 2])).all())
+    if case == "negative_near":
+        assert bool((t_p[tid_p >= 0] < 0).any())    # a hit behind an origin
+    assert int(visits[:r].sum()) > 0
+    assert 0 < int(visits[r:].max()) <= tabs["real_rows"]
+    if case == "stop":
+        needed = ct.needed_soup(o, d, near, t_p, box)[0]
+        on_line = ct.needed_soup(o, d, near, far, box)[0]
+        assert on_line >= 3 * needed > 0, (on_line, needed)
+        assert int(visits[:r].sum()) <= 2 * needed, (int(visits[:r].sum()), needed)
+        assert float(visits[r:].float().mean()) < tabs["real_rows"] / 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "windows", "negative_near"])
+def test_ranked_b3_matches_plain_bit_for_bit(cuda, case):
+    """B3's ranked walk on the tie tables (exact ties across instance rows
+    and cluster rows, the later row entered first), on a mesh of more
+    clusters than one window, and on the tie tables with near < 0 on every
+    other ray: t, ids and instance ids equal the plain version's bit for
+    bit."""
+    tabs = (ct.window_instance_tables() if case == "windows"
+            else ct.tie_instance_tables())
+    ti, obox, frames = _table_tensors(tabs, ("ti_rows", "cl_obox", "frames"),
+                                      cuda)
+    if case == "windows":
+        assert obox.shape[0] > ct.MESH_WINDOW
+    r = 4096
+    o, d, near, far = _aimed_rays(tabs, r, 6, cuda)
+    if case == "negative_near":
+        near[::2] = -3.0
+    visits = torch.zeros(r + r // 128, dtype=torch.int32, device=cuda)
+    got = tc.cluster_closest_inst(o, d, near, far, ti, obox, frames,
+                                  visits=visits)
+    ref = tc.cluster_closest_inst_plain(o, d, near, far, ti, obox, frames)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), int((a != b).sum())
+    hit = ref[1] >= 0
+    assert int(hit.sum()) > r // 3
+    if case == "ties":      # instance row 0 wins its ties with row 1
+        assert bool((ref[2][hit] != 1).all())
+    if case == "negative_near":
+        assert bool((ref[0][hit] < 0).any())        # a hit behind an origin
+    assert int(visits[:r].sum()) > 0 and int(visits[r:].max()) > 0

@@ -126,14 +126,14 @@ def both_grads(make_world, n_steps, max_depth, seed, target=0.1,
 
     jl, jg = jax.value_and_grad(loss_fn)(params)
     ts = port_scene(scene)
-    tcam = tds.compile_camera(make_world(rt).cameras[0])
+    tcam = tds.compile_camera(make_world(rt).cameras[0], device="cpu")
     ns = jint.n_streams(cfg, scene)
     us = [torch.as_tensor(np.array(jint.pass_uniforms(
         jax.random.fold_in(key, p), 0, h_, w_, ns))) for p in range(n_steps)]
     leaves = {k: getattr(ts, k).detach().requires_grad_(True) for k in DIFF_PARAMS}
     tl, _ = ttrain.image_loss(dataclasses.replace(ts, **leaves), tcam,
                               rt.RenderConfig(tracing=rt.Tracing(max_depth=max_depth)),
-                              init_state(w_, h_), 0, torch.as_tensor(tgt),
+                              init_state(w_, h_, device="cpu"), 0, torch.as_tensor(tgt),
                               n_steps, u=us)
     tg = torch.autograd.grad(tl, list(leaves.values()), allow_unused=True)
     tg = {k: (np.zeros(v.shape, np.float32) if g is None else g.numpy())

@@ -32,9 +32,10 @@ from test_torch_gradients import (assert_grads_match, both_grads,  # noqa: E402
 def setup(make_world, max_depth, **compile_kw):
     w = make_world(rt)
     cam = w.cameras[0]
-    return (tds.compile_world(w, **compile_kw), tds.compile_camera(cam),
+    return (tds.compile_world(w, device="cpu", **compile_kw),
+            tds.compile_camera(cam, device="cpu"),
             rt.RenderConfig(tracing=rt.Tracing(max_depth=max_depth)),
-            init_state(cam.width, cam.height), (cam.height, cam.width))
+            init_state(cam.width, cam.height, device="cpu"), (cam.height, cam.width))
 
 
 def grad_and_fd(scene, cam, cfg, state, seed, target, n, param, idx, eps):
@@ -210,7 +211,7 @@ def test_serve_path_records_no_graph():
     """Renderer.render keeps no autograd graph, even for a scene whose
     parameters require grad."""
     world = rt.scenes.textured_room(16, 16)
-    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)))
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)), device="cpu")
     r.update_scene()
     r.scene.mat_color.requires_grad_(True)
     r.render(rpp=2)

@@ -81,7 +81,7 @@ def assert_scene_equal(ts, leaves, statics):
                                   "glass_and_fog"])
 def test_compile_world_leaves_match(name, numpy_bvh):
     js = jds.compile_world(getattr(rz.scenes, name)(24, 24))
-    ts = tds.compile_world(getattr(rt.scenes, name)(24, 24))
+    ts = tds.compile_world(getattr(rt.scenes, name)(24, 24), device="cpu")
     leaves, statics = jax_leaves(js)
     assert_scene_equal(ts, leaves, statics)
     assert ts.n_clusters == js.n_clusters >= 1
@@ -90,20 +90,20 @@ def test_compile_world_leaves_match(name, numpy_bvh):
 def test_scene_from_arrays_roundtrip(numpy_bvh):
     js = jds.compile_world(rz.scenes.multi_light(24, 24))
     leaves, statics = jax_leaves(js)
-    ts = tds.scene_from_arrays(leaves, statics)
+    ts = tds.scene_from_arrays(leaves, statics, device="cpu")
     assert_scene_equal(ts, leaves, statics)
     # and back: the port scene's own arrays rebuild an equal scene
     own = {f.name: getattr(ts, f.name).numpy()
            for f in dataclasses.fields(ts)
            if isinstance(getattr(ts, f.name), torch.Tensor)}
-    again = tds.scene_from_arrays(own, dataclasses.asdict(ts))
+    again = tds.scene_from_arrays(own, dataclasses.asdict(ts), device="cpu")
     for k, v in own.items():
         assert torch.equal(getattr(again, k), torch.as_tensor(v)), k
 
 
 def test_compile_camera_matches():
     w = rt.scenes.glass_and_fog(40, 24)
-    tc = tds.compile_camera(w.cameras[0])
+    tc = tds.compile_camera(w.cameras[0], device="cpu")
     jc = jds.compile_camera(rz.scenes.glass_and_fog(40, 24).cameras[0])
     for f in dataclasses.fields(tc):
         a, b = getattr(tc, f.name), getattr(jc, f.name)
@@ -149,7 +149,7 @@ def test_map_and_cutout_worlds_compile_like_jax(case, numpy_bvh):
         def make(pkg):
             return cutout_world(pkg, 8)
     js = jds.compile_world(make(rz), two_level=two_level)
-    ts = tds.compile_world(make(rt), two_level=two_level, differentiable=True)
+    ts = tds.compile_world(make(rt), two_level=two_level, differentiable=True, device="cpu")
     leaves, statics = jax_leaves(js)
     assert_scene_equal(ts, leaves, statics)
     assert ts.two_level == two_level and ts.has_maps
@@ -165,9 +165,9 @@ def test_map_and_cutout_worlds_compile_like_jax(case, numpy_bvh):
 def test_unported_config_raises():
     w = rt.scenes.cornell_box(8, 8)
     with pytest.raises(NotImplementedError, match="A17"):
-        rt.Renderer(w, rt.RenderConfig(packet_traversal=False))
+        rt.Renderer(w, rt.RenderConfig(packet_traversal=False), device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
-        rt.Renderer(w, rt.RenderConfig(brute_force_threshold=64))
+        rt.Renderer(w, rt.RenderConfig(brute_force_threshold=64), device="cpu")
 
 
 @pytest.mark.parametrize("n", [1, 37, 900])
@@ -224,3 +224,36 @@ def test_cluster_opacity_matches():
                                     (op_rgb, op_a, order, base, count)))
     ref = jtc.cluster_opacity(op_rgb, op_a, order, base, count)
     assert np.array_equal(ours.numpy(), np.asarray(ref))
+
+
+def _entry_points():
+    from rayzath_tpu_torch.engine import state as tstate
+    world = rt.scenes.cornell_box(8, 8)
+    return {
+        "Renderer": (rt.Renderer, lambda: rt.Renderer(world)),
+        "compile_world": (tds.compile_world, lambda: tds.compile_world(world)),
+        "compile_camera": (tds.compile_camera,
+                           lambda: tds.compile_camera(world.cameras[0])),
+        "scene_from_arrays": (tds.scene_from_arrays,
+                              lambda: tds.scene_from_arrays({}, {})),
+        "init_state": (tstate.init_state, lambda: tstate.init_state(4, 4)),
+        "state_from_arrays": (tstate.state_from_arrays,
+                              lambda: tstate.state_from_arrays({})),
+        "load_state": (tstate.load_state,
+                       lambda: tstate.load_state("missing.npz")),
+    }
+
+
+@pytest.mark.parametrize("name", ["Renderer", "compile_world", "compile_camera",
+                                  "scene_from_arrays", "init_state",
+                                  "state_from_arrays", "load_state"])
+def test_entry_points_default_to_cuda(name):
+    """Every public entry point defaults to the card; without one the
+    default raises a RuntimeError naming the device, with no CPU fallback."""
+    import inspect
+    fn, call = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="'cuda' requested, but no CUDA device"):
+        call()

@@ -96,7 +96,7 @@ def test_fresnel_matches():
 def _cameras(w, h):
     world_j = rz.scenes.glass_and_fog(w, h)
     world_t = rt.scenes.glass_and_fog(w, h)
-    return (tds.compile_camera(world_t.cameras[0]),
+    return (tds.compile_camera(world_t.cameras[0], device="cpu"),
             jds.compile_camera(world_j.cameras[0]))
 
 
@@ -198,7 +198,7 @@ def test_sort_unsort_identity():
 
 
 def test_init_state_matches():
-    ours = tstate.init_state(12, 8)
+    ours = tstate.init_state(12, 8, device="cpu")
     ref = jstate.init_state(12, 8)
     for f in dataclasses.fields(ours):
         a, b = getattr(ours, f.name), getattr(ref, f.name)
@@ -211,13 +211,13 @@ def test_init_state_matches():
 
 def test_state_save_load_roundtrip(tmp_path):
     rng = np.random.default_rng(18)
-    st = tstate.init_state(6, 4)
+    st = tstate.init_state(6, 4, device="cpu")
     st = st.replace(accum=torch.as_tensor(rng.uniform(0, 1, (4, 6, 4)).astype(np.float32)),
                     path_depth=torch.as_tensor(rng.integers(0, 9, 24).astype(np.int32)),
                     pass_idx=5)
     p = str(tmp_path / "ck.npz")
     tstate.save_state(p, st)
-    back = tstate.load_state(p)
+    back = tstate.load_state(p, device="cpu")
     for f in dataclasses.fields(st):
         a, b = getattr(st, f.name), getattr(back, f.name)
         if isinstance(a, torch.Tensor):

@@ -1,0 +1,427 @@
+"""A CPU model of the ranked front-to-back walk of the closest-hit kernels
+B1 (``csrc/cluster_closest.cu``) and B3 (``csrc/cluster_closest_inst.cu``),
+held to their plain versions bit for bit.
+
+The CUDA kernels cannot run here, so this file models their block walk in
+torch, step for step, on blocks of 128 rays: the rank (each row's lower
+bound of the entry distance by interval arithmetic on the block's origin
+and direction bounds), the sort by (bound, row), the walk in
+batches of 32 with the block's stop vote, the per-ray gate at every visit,
+the windows of table rows, and the tie key that makes the result
+independent of the walk's order. The model's ids and t must equal
+``cluster_closest_plain`` / ``cluster_closest_inst_plain`` bit for bit on
+mesh_heavy-like and instanced_field-like rays, on tables whose duplicated
+triangles tie exactly across cluster rows and instance rows with the later
+row entered first, and with a window small enough that the walk takes
+three or more windows. The kernels themselves meet the same tables on the
+card in tests/test_torch_gpu.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import rayzath_tpu_torch as rt  # noqa: E402
+from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
+from rayzath_tpu_torch.ops import camera as cam_ops  # noqa: E402
+from rayzath_tpu_torch.ops import traverse_cluster as tc  # noqa: E402
+from rayzath_tpu_torch.ops._kernels import header_constant  # noqa: E402
+from rayzath_tpu_torch.utils import check_tables as ct  # noqa: E402
+
+THREADS = header_constant("THREADS")        # rays per block
+BATCH = header_constant("BATCH")            # candidates per block vote
+SWEEP_MAX = header_constant("SWEEP_MAX")    # B3: smaller meshes are swept
+GATE_PAD = np.float32(header_constant("GATE_PAD"))
+BIG = np.float32(header_constant("BIG"))
+
+
+def safe_inv(v):
+    s = torch.where(v.abs() < 1e-12,
+                    torch.where(v < 0, torch.full_like(v, -1e-12),
+                                torch.full_like(v, 1e-12)), v)
+    return 1.0 / s
+
+
+def gate_t(best_t):
+    return best_t + GATE_PAD * best_t.abs()
+
+
+def slab(lo, hi, o, inv, pad=False):
+    """(tmin, tmax) [B] of rays (o, inv) [B, 3] against one box, as the
+    kernels' ``slab`` (or ``slab_wide`` with ``pad``) computes them."""
+    lo, hi = lo[None], hi[None]
+    if pad:
+        p = GATE_PAD * (lo.abs() + hi.abs())
+        lo, hi = lo - p, hi + p
+    t1, t2 = (lo - o) * inv, (hi - o) * inv
+    return (torch.minimum(t1, t2).amax(1), torch.maximum(t1, t2).amin(1))
+
+
+class Block:
+    """The per-ray state of one block: best t, tie key and ids."""
+
+    def __init__(self, near, far):
+        self.near = near
+        self.active = far > 0
+        self.best_t = torch.where(self.active, torch.clamp(far, max=BIG),
+                                  torch.full_like(far, -1.0))
+        self.best_key = torch.zeros(len(far), dtype=torch.int64)
+        self.best_id = torch.full((len(far),), -1, dtype=torch.int32)
+        self.best_inst = torch.full((len(far),), -1, dtype=torch.int32)
+        self.tests = torch.zeros(len(far), dtype=torch.int32)
+
+    def gate(self, tmin, tmax, rays):
+        return (rays & (tmax >= self.near) & (tmin <= tmax)
+                & (tmin <= gate_t(self.best_t)))
+
+    def take(self, t, b1, b2, rays, key0, base, gid=-1):
+        """Hits of one cluster's 128 slots for the rays ``rays``: nearest
+        first, the lowest slot on a tie inside the cluster, and across rows
+        the smaller key on an exact tie with the best so far."""
+        lanes = torch.arange(t.shape[1])
+        ok = tc._inside(b1, b2) & (t > self.near[:, None]) & rays[:, None]
+        tm = torch.where(ok, t, torch.full_like(t, float("inf")))
+        t_new = tm.amin(1)
+        j = torch.where(tm == t_new[:, None], lanes, t.shape[1]).amin(1)
+        key = key0 + j
+        got = (ok.any(1) & ((t_new < self.best_t)
+                            | ((t_new == self.best_t) & (key < self.best_key))))
+        self.best_t = torch.where(got, t_new, self.best_t)
+        self.best_key = torch.where(got, key, self.best_key)
+        self.best_id = torch.where(got, (base + j).to(torch.int32), self.best_id)
+        self.best_inst = torch.where(got, torch.full_like(self.best_inst, gid),
+                                     self.best_inst)
+        self.tests += rays.to(torch.int32)
+
+
+F32 = torch.float32
+ROUND = 1.0 / 1048576.0
+
+
+def bounds(o, d, rays, near, best_t):
+    """The block's rays as boxes (``block_bounds``): origin and direction
+    bounds of the rays ``rays``, their smallest near and cap = gate_t of
+    their largest best_t; None when no ray is active."""
+    if not bool(rays.any()):
+        return None
+    return (o[rays].amin(0), o[rays].amax(0), d[rays].amin(0),
+            d[rays].amax(0), near[rays].min(), gate_t(best_t[rays].max()))
+
+
+def entry_bound(b, lo, hi):
+    """``entry_bound``: a lower bound of the entry distance t >= 0 of the
+    block's rays into the box lo..hi widened by GATE_PAD, rounded down by
+    2^-20; inf when no ray can enter it by the cap; -inf for every box when
+    a ray's near is negative (the bound covers t >= 0 only, so the block
+    walks in table order). f32 throughout."""
+    olo, ohi, dlo, dhi, nlo, cap = b
+    if nlo < 0:
+        return -float("inf")
+    tl, th = torch.zeros((), dtype=F32), torch.tensor(float("inf"))
+    one = torch.ones((), dtype=F32)
+    for a in range(3):
+        pad = GATE_PAD * (lo[a].abs() + hi[a].abs())
+        vl, vh = (lo[a] - pad) - ohi[a], (hi[a] + pad) - olo[a]
+        dl, dh = dlo[a], dhi[a]
+        if dl > 0:
+            lv, hv = vl / dh, vh / dl
+        elif dh < 0:
+            lv, hv = vh / dl, vl / dh
+        else:
+            lv = (vl / torch.clamp(dh, min=1e-30) if vl > 0 else
+                  vh / torch.clamp(dl, max=-1e-30) if vh < 0 else 0 * one)
+            empty = (vl > 0 and dh <= 0) or (vh < 0 and dl >= 0)
+            hv = -one if empty else torch.tensor(float("inf"))
+        tl, th = torch.maximum(tl, lv), torch.minimum(th, hv)
+    tl = tl * (1.0 - ROUND)
+    th = th * (1.0 + ROUND) if th > 0 else th
+    return float(tl) if (tl <= th and tl <= cap) else float("inf")
+
+
+def rank(rows, row_box, b):
+    """Sorted (bound, row) of the feasible rows: ``rank_window``."""
+    if b is None:
+        return []
+    out = []
+    for row in rows:
+        lo, hi = row_box(row)
+        pd = entry_bound(b, lo, hi)
+        if pd != float("inf"):
+            out.append((pd, row))
+    return sorted(out)
+
+
+def walk(cands, blk, rays, need, visit):
+    """Walk ranked candidates in batches of BATCH: stop when no ray's
+    (current) gate reaches the batch's first entry; visit every candidate
+    some ray of the block needs, in order. Returns the visits."""
+    visits = 0
+    for k0 in range(0, len(cands), BATCH):
+        batch = cands[k0:k0 + BATCH]
+        go = rays & (torch.tensor(batch[0][0], dtype=torch.float32)
+                     <= gate_t(blk.best_t))
+        if not bool(go.any()):
+            break
+        todo = [row for _, row in batch if bool((go & need(row)).any())]
+        for row in todo:
+            visit(row)
+            visits += 1
+    return visits
+
+
+def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW):
+    """B1's walk, block by block. Returns (t, cluster-order id, block
+    visits, cluster tests per ray)."""
+    cp = box_tab.shape[1]
+    lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
+    cnt = box_tab[tc.B_CNT]
+    t_out, id_out, tests, visits = [], [], [], 0
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = Block(near[sl], far[sl])
+
+        def need(c):
+            return blk.gate(*slab(lo[c], hi[c], ob, inv), blk.active)
+
+        def visit(c):
+            t, b1, b2 = tc._project(ob, db, box_tab, frames, c)
+            blk.take(t, b1, b2, need(c), c * 128, int(box_tab[tc.B_BASE, c]))
+
+        if bool(blk.active.any()):
+            for w0 in range(0, cp, window):
+                rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
+                b = bounds(ob, db, blk.active, blk.near, blk.best_t)
+                visits += walk(rank(rows, lambda c: (lo[c], hi[c]), b), blk,
+                               blk.active, need, visit)
+        t_out.append(blk.best_t)
+        id_out.append(blk.best_id)
+        tests.append(blk.tests)
+    return torch.cat(t_out), torch.cat(id_out), visits, torch.cat(tests)
+
+
+def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
+                       window=ct.RANK_WINDOW, mesh_window=ct.MESH_WINDOW):
+    """B3's walk, block by block: instances ranked, each visited mesh's
+    clusters ranked (more than SWEEP_MAX) or swept. Returns (t, id, inst,
+    block visits)."""
+    box = cl_obox.t().contiguous()
+    t_out, id_out, inst_out, visits = [], [], [], 0
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = Block(near[sl], far[sl])
+        n_visits = [0]
+
+        def ineed(k):
+            row = ti_rows[k]
+            return blk.gate(*slab(row[0:3], row[3:6], ob, inv, pad=True),
+                            blk.active)
+
+        def visit_inst(k):
+            row = ti_rows[k]
+            in_k = ineed(k)
+            oo, dd = tc._object_rays(ob, db, ti_rows, k)
+            invl = safe_inv(dd)
+            cl0, ncl, gid = (int(row[tc.TI_CL0]), int(row[tc.TI_NCL]),
+                             int(row[tc.TI_ID]))
+
+            def cneed(s):
+                return blk.gate(*slab(cl_obox[s, 0:3], cl_obox[s, 3:6], oo,
+                                      invl, pad=True), in_k)
+
+            def cvisit(s):
+                t, b1, b2 = tc._project(oo, dd, box, frames, s)
+                blk.take(t, b1, b2, cneed(s), (k << 32) + s * 128,
+                         int(cl_obox[s, tc.B_BASE]), gid)
+
+            for s0 in range(cl0, cl0 + ncl, mesh_window):
+                rows = list(range(s0, min(cl0 + ncl, s0 + mesh_window)))
+                if ncl <= SWEEP_MAX:
+                    cands = [(-float("inf"), s) for s in rows]
+                else:
+                    cands = rank(rows, lambda s: (cl_obox[s, 0:3],
+                                                  cl_obox[s, 3:6]),
+                                 bounds(oo, dd, in_k, blk.near, blk.best_t))
+                n_visits[0] += walk(cands, blk, in_k, cneed, cvisit)
+
+        if bool(blk.active.any()):
+            ip = ti_rows.shape[0]
+            for w0 in range(0, ip, window):
+                rows = [k for k in range(w0, min(ip, w0 + window))
+                        if ti_rows[k, tc.TI_NCL] > 0]
+                b = bounds(ob, db, blk.active, blk.near, blk.best_t)
+                walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
+                          b), blk, blk.active, ineed, visit_inst)
+        visits += n_visits[0]
+        t_out.append(blk.best_t)
+        id_out.append(blk.best_id)
+        inst_out.append(blk.best_inst)
+    return torch.cat(t_out), torch.cat(id_out), torch.cat(inst_out), visits
+
+
+def _bounce(o, d, t, hit, seed):
+    p = torch.where(hit[:, None], o + d * (t * 0.999)[:, None], o)
+    v = np.random.default_rng(seed).normal(size=(len(o), 3)).astype(np.float32)
+    return p.contiguous(), torch.as_tensor(v / np.linalg.norm(v, axis=1,
+                                                              keepdims=True))
+
+
+def scene_rays(scene, world, res, seed):
+    """Camera rays (u = 0.5) and bounce-like rays from their first hits."""
+    cam = tds.compile_camera(world.cameras[0], device="cpu")
+    r = res * res
+    o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res),
+                                 torch.full((r, 4), 0.5))
+    near, far = torch.zeros(r), torch.full((r,), 1e30)
+    if scene.two_level:
+        t = tc.cluster_closest_inst_plain(o, d, near, far, scene.ti_rows,
+                                          scene.cl_obox, scene.cl_lw)[0]
+    else:
+        t = tc.cluster_closest_plain(o, d, near, far, scene.cl_box,
+                                     scene.cl_lw)[0]
+    return [(o, d), _bounce(o, d, t, (t > 0) & (t < 1e30), seed)], near, far
+
+
+def assert_bits(got, ref):
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), int((a != b).sum())
+
+
+@pytest.mark.parametrize("window", [ct.RANK_WINDOW, 8])
+def test_model_b1_matches_plain_on_mesh_heavy_like_rays(window):
+    world = rt.scenes.mesh_heavy(24, 24, resolution=40)
+    scene = tds.compile_world(world, device="cpu")
+    real = int((scene.cl_box[tc.B_CNT] > 0).sum())
+    assert real > 2 * 8, real             # window 8: three or more windows
+    sets, near, far = scene_rays(scene, world, 24, seed=3)
+    for o, d in sets:
+        *got, visits, _ = model_closest(o, d, near, far, scene.cl_box,
+                                        scene.cl_lw, window)
+        assert_bits(got, tc.cluster_closest_plain(o, d, near, far,
+                                                  scene.cl_box, scene.cl_lw))
+        assert int((got[1] >= 0).sum()) > len(o) // 4
+        assert 0 < visits < real * -(-len(o) // THREADS)   # the walk culls
+
+
+@pytest.mark.parametrize("resolution", [8, 48])
+def test_model_b3_matches_plain_on_instanced_field_like_rays(resolution):
+    """resolution 8: one cluster per ball (swept); 48: 24 (ranked)."""
+    world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
+    scene = tds.compile_world(world, two_level=True, device="cpu")
+    assert (scene.max_ncl > SWEEP_MAX) == (resolution == 48)
+    sets, near, far = scene_rays(scene, world, 16, seed=4)
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
+    for o, d in sets:
+        *got, visits = model_closest_inst(o, d, near, far, *tabs)
+        assert_bits(got, tc.cluster_closest_inst_plain(o, d, near, far, *tabs))
+        assert int((got[1] >= 0).sum()) > len(o) // 4 and visits > 0
+
+
+def _table_rays(tabs, r, seed):
+    o, d = (torch.as_tensor(x) for x in ct.aimed_rays(tabs["v0"], tabs["e1"],
+                                                       tabs["e2"], r, seed))
+    return o, d, torch.zeros(r), torch.full((r,), 1e30)
+
+
+@pytest.mark.parametrize("window", [ct.RANK_WINDOW, 8])
+def test_model_b1_ties_across_rows(window):
+    """Every hit ties exactly in rows c and c + m; the grown later row is
+    entered first, and the earlier row must win, as in table order."""
+    tabs = ct.tie_tables()
+    box, frames = (torch.as_tensor(tabs[k]) for k in ("box_tab", "frames"))
+    o, d, near, far = _table_rays(tabs, 384, seed=5)
+    m = tabs["real_rows"] // 2
+    if window == 8:
+        assert 2 * m > 2 * 8              # three or more windows
+    got_t, got_id, *_ = model_closest(o, d, near, far, box, frames, window)
+    ref = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    assert_bits((got_t, got_id), ref)
+    hit = ref[1] >= 0
+    assert int(hit.sum()) > 150
+    first = box[tc.B_BASE, m].item()      # copy B's ids start here
+    assert bool((ref[1][hit] < first).all())          # copy A wins every tie
+    # for a one-ray block copy B's entry bound is never the farther of the
+    # two, and mostly the nearer: the walk meets copy B first
+    one = torch.ones(1, dtype=torch.bool)
+    pd = dict((c, e) for e, c in rank(
+        range(2 * m), lambda c: (box[0:3, c], box[3:6, c]),
+        bounds(o[:1], d[:1], one, near[:1], far[:1])))
+    both = [c for c in range(m) if c in pd]
+    assert all(pd[c + m] <= pd[c] for c in both)
+    assert 2 * sum(pd[c + m] < pd[c] for c in both) > len(both) > 0
+
+
+def test_model_b3_ties_across_instances_and_clusters():
+    tabs = ct.tie_instance_tables()
+    ti, obox, frames = (torch.as_tensor(tabs[k])
+                        for k in ("ti_rows", "cl_obox", "frames"))
+    o, d, near, far = _table_rays(tabs, 384, seed=6)
+    got = model_closest_inst(o, d, near, far, ti, obox, frames)[:3]
+    ref = tc.cluster_closest_inst_plain(o, d, near, far, ti, obox, frames)
+    assert_bits(got, ref)
+    hit = ref[1] >= 0
+    assert int(hit.sum()) > 150
+    assert bool((ref[2][hit] != 1).all())      # instance row 0 wins its ties
+
+
+def test_model_b3_mesh_windows():
+    """A mesh of more clusters than a window: with 16-cluster windows the
+    mesh walk takes three or more windows; the result stays exact."""
+    tabs = ct.tie_instance_tables()
+    ti, obox, frames = (torch.as_tensor(tabs[k])
+                        for k in ("ti_rows", "cl_obox", "frames"))
+    assert obox.shape[0] > 2 * 8
+    o, d, near, far = _table_rays(tabs, 256, seed=7)
+    got = model_closest_inst(o, d, near, far, ti, obox, frames, window=128,
+                             mesh_window=8)[:3]
+    assert_bits(got, tc.cluster_closest_inst_plain(o, d, near, far, ti, obox,
+                                                   frames))
+
+
+def test_model_stops_early():
+    """The stop vote ends a block's walk: rays that all hit a near wall
+    along (1, 1, 1) test only the clusters they need, though their lines
+    cross five times as many, and their blocks stage a fraction of the
+    rows (tests/test_torch_gpu.py holds B1 to the same bar)."""
+    tabs = ct.window_tables(rows=200, n=300, seed=8)
+    box, frames = (torch.as_tensor(tabs[k]) for k in ("box_tab", "frames"))
+    r = 512
+    o, d = (torch.as_tensor(x) for x in ct.wall_rays(tabs["v0"], tabs["e1"],
+                                                     tabs["e2"], r))
+    near, far = torch.zeros(r), torch.full((r,), 1e30)
+    got_t, got_id, visits, tests = model_closest(o, d, near, far, box, frames)
+    ref = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    assert_bits((got_t, got_id), ref)
+    needed = ct.needed_soup(o, d, near, ref[0], box)[0]
+    on_line = ct.needed_soup(o, d, near, far, box)[0]
+    assert on_line >= 3 * needed > 0, (on_line, needed)
+    assert int(tests.sum()) <= 2 * needed, (int(tests.sum()), needed)
+    assert visits < tabs["real_rows"] // 4 * (r // THREADS), visits
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b3"])
+def test_model_matches_plain_with_negative_near(kernel):
+    """near < 0 on every other ray (hits behind the origin count): the
+    rank's bound covers t >= 0 only, so such blocks walk in table order,
+    and the result stays the plain version's on the tie tables."""
+    if kernel == "b1":
+        tabs = ct.tie_tables()
+        keys = ("box_tab", "frames")
+    else:
+        tabs = ct.tie_instance_tables()
+        keys = ("ti_rows", "cl_obox", "frames")
+    o, d, near, far = _table_rays(tabs, 256, seed=9)
+    near[::2] = -3.0
+    tabs_t = [torch.as_tensor(tabs[k]) for k in keys]
+    if kernel == "b1":
+        got = model_closest(o, d, near, far, *tabs_t)[:2]
+        ref = tc.cluster_closest_plain(o, d, near, far, *tabs_t)
+    else:
+        got = model_closest_inst(o, d, near, far, *tabs_t)[:3]
+        ref = tc.cluster_closest_inst_plain(o, d, near, far, *tabs_t)
+    assert_bits(got, ref)
+    assert bool((ref[0][(ref[1] >= 0)] < 0).any())     # a hit behind an origin

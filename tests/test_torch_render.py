@@ -42,7 +42,7 @@ def port_scene(scene):
             statics[f.name] = v
         else:
             leaves[f.name] = np.asarray(v)
-    return tds.scene_from_arrays(leaves, statics)
+    return tds.scene_from_arrays(leaves, statics, device="cpu")
 
 
 def run_both(name, n_passes=4, max_depth=4, res=RES, seed=3, on_pass=None):
@@ -52,12 +52,12 @@ def run_both(name, n_passes=4, max_depth=4, res=RES, seed=3, on_pass=None):
     scene = compile_world(world)
     cam = compile_camera(world.cameras[0])
     tscene = port_scene(scene)
-    tcam = tds.compile_camera(getattr(rt.scenes, name)(res, res).cameras[0])
+    tcam = tds.compile_camera(getattr(rt.scenes, name)(res, res).cameras[0], device="cpu")
     key = jax.random.key(seed)
     ns = jint.n_streams(cfg, scene)
     assert tint.n_streams(tcfg, tscene) == ns
     js = jstate.init_state(res, res)
-    ts = tstate.init_state(res, res)
+    ts = tstate.init_state(res, res, device="cpu")
     for p in range(n_passes):
         k = jax.random.fold_in(key, p)
         u = jint.pass_uniforms(k, 0, res, res, ns)
@@ -134,10 +134,10 @@ def test_pick_matches_jax():
                            jax.random.key(1), 2)
     arrays = {f.name: np.array(getattr(js, f.name))
               for f in dataclasses.fields(js)}
-    ts = tstate.state_from_arrays(arrays)
+    ts = tstate.state_from_arrays(arrays, device="cpu")
     assert ts.pass_idx == 2 and torch.equal(ts.accum, torch.as_tensor(arrays["accum"]))
     tscene = port_scene(scene)
-    tcam = tds.compile_camera(rt.scenes.teapot_like(res, res).cameras[0])
+    tcam = tds.compile_camera(rt.scenes.teapot_like(res, res).cameras[0], device="cpu")
     tcfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
     picks = []
     for y in range(2, res, 5):
@@ -154,7 +154,7 @@ def test_ray_sort_does_not_change_the_image():
     out = []
     for sort in (True, False):
         r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=4),
-                                               ray_sort=sort), seed=5)
+                                               ray_sort=sort), seed=5, device="cpu")
         r.render(rpp=3)
         out.append(r.views[id(world.cameras[0])].state.accum)
     assert torch.equal(out[0], out[1])
@@ -180,13 +180,13 @@ def test_renderer_cpu_image():
 def test_resume_reproduces_render(tmp_path):
     world = rt.scenes.multi_light(24, 24)
     cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
-    full = rt.Renderer(world, cfg, seed=9)
+    full = rt.Renderer(world, cfg, seed=9, device="cpu")
     full.render(rpp=4)
-    half = rt.Renderer(world, cfg, seed=9)
+    half = rt.Renderer(world, cfg, seed=9, device="cpu")
     half.render(rpp=2)
     p = str(tmp_path / "half.npz")
     half.save_checkpoint(p)
-    resumed = rt.Renderer(world, cfg, seed=9)
+    resumed = rt.Renderer(world, cfg, seed=9, device="cpu")
     resumed.load_checkpoint(p)
     resumed.render(rpp=2)
     cam = world.cameras[0]
@@ -204,7 +204,7 @@ def test_checkpoint_crosses_packages(tmp_path):
     cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=4))
 
     tworld = rt.scenes.cornell_box_nee(res, res)
-    tr = rt.Renderer(tworld, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)))
+    tr = rt.Renderer(tworld, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)), device="cpu")
     tr.render(rpp=2)
     p1 = str(tmp_path / "port.npz")
     tr.save_checkpoint(p1)
@@ -217,7 +217,7 @@ def test_checkpoint_crosses_packages(tmp_path):
 
     p2 = str(tmp_path / "jax.npz")
     jstate.save_state(p2, js)
-    tr2 = rt.Renderer(tworld, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)))
+    tr2 = rt.Renderer(tworld, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)), device="cpu")
     tr2.load_checkpoint(p2)
     cv = tr2.views[id(tworld.cameras[0])]
     assert cv.pass_count == 4
@@ -229,7 +229,7 @@ def test_checkpoint_crosses_packages(tmp_path):
 
 def test_camera_move_with_temporal_blend_raises():
     world = rt.scenes.cornell_box_nee(16, 16)
-    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)))
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)), device="cpu")
     r.render(rpp=1)
     cam = world.cameras[0]
     cam.look_at((0.1, 0.0, 1.0))

@@ -185,7 +185,7 @@ def test_backward_matches_plain_twin_autograd(kind):
     else:
         tw = translucent(WORLDS["field_ranked"](__import__("rayzath_tpu_torch"), 16))
         from rayzath_tpu_torch.models import device_scene as tds
-        ts = tds.compile_world(tw, two_level=True, differentiable=True)
+        ts = tds.compile_world(tw, two_level=True, differentiable=True, device="cpu")
         o, d = sample_rays(ts, tw, seed=4)
         r = len(o)
         dist = torch.full((r,), 30.0)

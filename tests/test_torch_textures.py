@@ -160,15 +160,15 @@ def test_atlas_cache_follows_map_versions():
     repacks them."""
     world = rt.scenes.textured_room(8, 8)
     cache = {}
-    first = tds.compile_world(world, cache=cache)
+    first = tds.compile_world(world, cache=cache, device="cpu")
     (key, entry), = [(k, v) for k, v in cache.items() if k[0] == "atlas"]
     world.materials[0].roughness = 0.5
-    tds.compile_world(world, cache=cache)
+    tds.compile_world(world, cache=cache, device="cpu")
     assert cache[key] is entry
     tex = world.textures[0]
     tex.data = np.zeros_like(tex.data)
     tex.touch()
-    again = tds.compile_world(world, cache=cache)
+    again = tds.compile_world(world, cache=cache, device="cpu")
     assert key not in cache and len([k for k in cache if k[0] == "atlas"]) == 1
     assert float(again.color_atlas.abs().sum()) < float(first.color_atlas.abs().sum())
 
@@ -215,11 +215,11 @@ def run_both(make_world, two_level, n_passes, max_depth, res=24, seed=3,
     tscene = port_scene(scene)
     assert tscene.has_maps == scene.has_maps
     assert tscene.map_kinds_used == scene.map_kinds_used
-    tcam = tds.compile_camera(make_world(rt, res).cameras[0])
+    tcam = tds.compile_camera(make_world(rt, res).cameras[0], device="cpu")
     key = jax.random.key(seed)
     ns = jint.n_streams(cfg, scene)
     js = jstate.init_state(res, res)
-    ts = tstate.init_state(res, res)
+    ts = tstate.init_state(res, res, device="cpu")
     if pin:
         if two_level:
             tabs = [x.numpy() for x in (tscene.ti_rows, tscene.cl_obox,
@@ -274,7 +274,7 @@ def test_texture_alpha_shadow_not_solid():
     shadowed floor under opaque texels (the JAX suite's
     ``test_texture_alpha_shadow_not_solid``)."""
     world = cutout_world(rt, 48)
-    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)))
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)), device="cpu")
     r.render(rpp=8)
     assert r.scene.n_cutout == 2
     img = r.views[id(world.cameras[0])].state.accum[..., :3].sum(-1).numpy()

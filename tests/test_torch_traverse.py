@@ -185,8 +185,8 @@ def test_hit_ids_pinned_teapot():
     """The f64 hit-id pin of test_oracle_parity.py, run against the port's
     closest hit on the teapot_like camera rays at 64^2."""
     w = rt.scenes.teapot_like(64, 64)
-    scene = tds.compile_world(w)
-    cam = tds.compile_camera(w.cameras[0])
+    scene = tds.compile_world(w, device="cpu")
+    cam = tds.compile_camera(w.cameras[0], device="cpu")
     from rayzath_tpu_torch.ops.camera import pixel_grid as tpix, generate_rays as tgen
     r = 64 * 64
     o, d = tgen(cam, tpix(64, 64), torch.full((r, 4), 0.5))

@@ -74,13 +74,13 @@ def both_scenes(case, res=16, shade=False):
     if shade:
         translucent(jw), translucent(tw)
     return (jds.compile_world(jw, two_level=True),
-            tds.compile_world(tw, two_level=True), tw)
+            tds.compile_world(tw, two_level=True, device="cpu"), tw)
 
 
 def sample_rays(ts, world, res=16, seed=0):
     """Camera rays (u = 0.5) plus as many rays from random origins aimed at
     random points of random expanded triangles."""
-    cam = tds.compile_camera(world.cameras[0])
+    cam = tds.compile_camera(world.cameras[0], device="cpu")
     from rayzath_tpu_torch.ops.camera import generate_rays, pixel_grid
     o, d = generate_rays(cam, pixel_grid(res, res), torch.full((res * res, 4), 0.5))
     v0, e1, e2, _, _ = expand_instances(ts.ti_rows, ts.cl_obox, ts.inst_fwd,
@@ -184,12 +184,12 @@ def run_both_two_level(case, n_passes=4, max_depth=4, res=24, seed=3):
     cam = jds.compile_camera(world.cameras[0])
     tscene = port_scene(scene)
     assert tscene.two_level and tscene.max_ncl == scene.max_ncl
-    tcam = tds.compile_camera(WORLDS[case](rt, res).cameras[0])
+    tcam = tds.compile_camera(WORLDS[case](rt, res).cameras[0], device="cpu")
     key = jax.random.key(seed)
     ns = jint.n_streams(cfg, scene)
     assert tint.n_streams(tcfg, tscene) == ns
     js = jstate.init_state(res, res)
-    ts = tstate.init_state(res, res)
+    ts = tstate.init_state(res, res, device="cpu")
     for p in range(n_passes):
         k = jax.random.fold_in(key, p)
         u = jint.pass_uniforms(k, 0, res, res, ns)
@@ -213,7 +213,7 @@ def test_two_level_render_matches_soup():
     out = []
     for two_level in (True, False):
         r = rt.Renderer(world, rt.RenderConfig(
-            tracing=rt.Tracing(max_depth=3), two_level=two_level), seed=7)
+            tracing=rt.Tracing(max_depth=3), two_level=two_level), seed=7, device="cpu")
         r.render(rpp=3)
         assert r.scene.two_level == two_level
         out.append(r.views[id(world.cameras[0])].state.accum.numpy())
@@ -233,10 +233,10 @@ def test_pick_matches_jax_two_level(numpy_bvh):
                            jax.random.key(1), 2)
     arrays = {f.name: np.array(getattr(js, f.name))
               for f in dataclasses.fields(js)}
-    ts = tstate.state_from_arrays(arrays)
+    ts = tstate.state_from_arrays(arrays, device="cpu")
     tscene = port_scene(scene)
     tcam = tds.compile_camera(rt.scenes.instanced_field(res, res, n=3,
-                                                        resolution=8).cameras[0])
+                                                        resolution=8).cameras[0], device="cpu")
     tcfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
     picks = []
     for y in range(2, res, 5):
@@ -254,11 +254,11 @@ def test_moving_one_instance_only_moves_it():
     shared mesh cluster frames or the object-space geometry."""
     world = rt.scenes.instanced_field(16, 16, n=3, resolution=8)
     cache = {}
-    a = tds.compile_world(world, two_level=True, cache=cache)
+    a = tds.compile_world(world, two_level=True, cache=cache, device="cpu")
     ball = next(i for i in world.instances if i.name.startswith("ball"))
     ball.transform = Transform(position=(0.5, 0.9, -0.5),
                                scale=ball.transform.scale)
-    b = tds.compile_world(world, two_level=True, cache=cache)
+    b = tds.compile_world(world, two_level=True, cache=cache, device="cpu")
     assert torch.equal(a.cl_lw, b.cl_lw) and torch.equal(a.tri_v0, b.tri_v0)
     assert torch.equal(a.cl_obox, b.cl_obox)
     changed = (a.ti_rows != b.ti_rows).any(dim=1).nonzero().flatten().tolist()
@@ -273,10 +273,10 @@ def test_removed_mesh_evicts_its_cache_entry():
     def mesh_keys():
         return {k[1] for k in cache if isinstance(k, tuple) and k[0] == "mesh_cl"}
 
-    tds.compile_world(world, two_level=True, cache=cache)
+    tds.compile_world(world, two_level=True, cache=cache, device="cpu")
     assert id(plane) in mesh_keys() and len(mesh_keys()) == 2
     world.meshes.destroy(plane)
-    s = tds.compile_world(world, two_level=True, cache=cache)
+    s = tds.compile_world(world, two_level=True, cache=cache, device="cpu")
     assert id(plane) not in mesh_keys() and len(mesh_keys()) == 1
     assert int((s.ti_rows[:, ttc.TI_NCL] > 0).sum()) == 9     # the balls
 
@@ -294,7 +294,7 @@ def test_128_row_stack_takes_every_factor(case, numpy_bvh, record_property):
     of exactly 128 clusters it misses one (0.99^127 ~ 0.279)."""
     o, d, dist = stack_rays(case)
     ts = tds.compile_world(stacked_world(case, rt.World, Mesh, Transform),
-                           two_level=True)
+                           two_level=True, device="cpu")
     rows = int((ts.ti_rows[:, ttc.TI_NCL] > 0).sum())
     assert (rows, ts.max_ncl) == ((128, 1) if case == "instances" else (1, 128))
     rgb, a = ttc.cluster_shadow_inst(*_t(o, d, dist), ts.ti_rows, ts.cl_obox,
@@ -320,7 +320,7 @@ def test_cpu_inst_wrappers_launch_nothing():
     before = (ttc.cluster_closest_inst.launches, ttc.cluster_shadow_inst.launches)
     o, d, dist = stack_rays("instances")
     ts = tds.compile_world(stacked_world("instances", rt.World, Mesh, Transform),
-                           two_level=True)
+                           two_level=True, device="cpu")
     ttc.cluster_closest_inst(*_t(o, d, np.zeros(128, np.float32), dist),
                              ts.ti_rows, ts.cl_obox, ts.cl_lw)
     ttc.cluster_shadow_inst(*_t(o, d, dist), ts.ti_rows, ts.cl_obox, ts.cl_lw,

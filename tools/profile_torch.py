@@ -19,28 +19,37 @@ those kernels twice; only device-side events are read here.
 ``--device cpu`` at a small ``--res`` runs the same code without a card; the
 trace then holds no device events. The last line per scene is one JSON
 object with the numbers above.
+
+``--parent DIR`` then times the closest-hit kernels of two trees on the same
+card in turns (parent, change, change, parent): DIR holds another checkout
+of the repository (``git archive <commit> | tar -x -C DIR``), and each turn
+is one process that imports ``rayzath_tpu_torch`` from its tree, builds that
+tree's kernels, and prints the median ms of 20 launches of B1 on
+mesh_heavy's, B3 on instanced_field's and B3 on two-level multi_light's
+bounce-like rays (``chip_smoke.py`` phase 2's rays, in the integrator's
+order) as one JSON line:
+
+    python3 tools/profile_torch.py --scenes "" --parent build/parent
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNS = 20        # timed launches per kernel in a --parent turn
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import rayzath_tpu_torch as rt
-from rayzath_tpu_torch.utils.check_worlds import cutout_world
-
 PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8,
           "instanced_field": 8, "textured_room": 8, "cutout_world": 8}
-WORLDS = dict(rt.scenes.SCENES, cutout_world=lambda w, h: cutout_world(w))
 GROUPS = (("B1", ("closest_kernel",)),
           ("B2", ("shadow_kernel",)),
           ("B3", ("closest_inst_kernel",)),
@@ -83,9 +92,106 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def make_world(name: str, res: int):
+    import rayzath_tpu_torch as rt
+    if name == "cutout_world":
+        from rayzath_tpu_torch.utils.check_worlds import cutout_world
+        return cutout_world(res)
+    return rt.scenes.SCENES[name](res, res)
+
+
+def cuda_ms(fn, runs: int) -> float:
+    """Median milliseconds of ``fn()`` over ``runs`` launches (CUDA events,
+    after one warm-up call)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def closest_times(res: int) -> dict:
+    """Median ms of B1 on mesh_heavy's, of B3 on instanced_field's and of B3
+    on two-level multi_light's (whose meshes have at most 8 clusters)
+    bounce-like rays at ``res``^2: from just before each camera ray's first
+    hit, in uniform-sphere directions from a numpy seed, in the order the
+    integrator hands them to the kernels. Uses the ``rayzath_tpu_torch``
+    found first on ``sys.path`` and only the API every tree since the
+    two-level port has."""
+    import numpy as np
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.models.device_scene import compile_camera, compile_world
+    from rayzath_tpu_torch.ops import camera as cam_ops
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    dev = torch.device("cuda")
+    cfg = rt.RenderConfig()
+    out = {"package": os.path.dirname(os.path.abspath(rt.__file__))}
+    for key, name, two_level in (("b1", "mesh_heavy", None),
+                                 ("b3", "instanced_field", None),
+                                 ("b3_small", "multi_light", True)):
+        world = rt.scenes.SCENES[name](res, res)
+        scene = compile_world(world, two_level=two_level, device=dev)
+        cam = compile_camera(world.cameras[0], dev)
+        r = res * res
+        if scene.two_level:
+            fn, tabs = tc.cluster_closest_inst, (scene.ti_rows, scene.cl_obox,
+                                                 scene.cl_lw)
+        else:
+            fn, tabs = tc.cluster_closest, (scene.cl_box, scene.cl_lw,
+                                            scene.cl_order)
+        o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res, device=dev),
+                                     torch.full((r, 4), 0.5, device=dev))
+        near = torch.zeros(r, device=dev)
+        far = torch.full((r,), 1e30, device=dev)
+        t = fn(o, d, near, far, *tabs)[0]
+        hit = (t > 0) & (t < 1e30)
+        p = torch.where(hit[:, None], o + d * (t * 0.9999)[:, None], o)
+        v = np.random.default_rng(sum(map(ord, name))).normal(size=(r, 3))
+        v = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+        handed = []
+        I._run_coherent(cfg, (res, res), p.contiguous(),
+                        torch.as_tensor(v, device=dev), (near, far),
+                        lambda *rays: handed.append(rays) or rays,
+                        sort=I._sort_traversal(cfg, scene))
+        o, d, near, far = handed[0]
+        out[f"{key}_ms"] = cuda_ms(lambda: fn(o, d, near, far, *tabs), RUNS)
+        out[f"{key}_scene"] = name
+        t, tid = fn(o, d, near, far, *tabs)[:2]
+        # equal sums in two trees: the same hits (a cheap cross-tree check)
+        out[f"{key}_sums"] = [float(t.double().sum()), int(tid.long().sum())]
+    return out
+
+
+def parent_turns(parent: str, res: int) -> list:
+    """B1/B3 times of the parent tree and this one, in turns (parent,
+    change, change, parent), one process per turn."""
+    recs = []
+    for label, root in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        p = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--closest-times",
+             "--root", os.path.abspath(root), "--res", str(res)],
+            capture_output=True, text=True, timeout=900)
+        if p.returncode != 0:
+            raise RuntimeError(f"{label} turn failed ({p.returncode}):\n"
+                               f"{p.stderr[-4000:]}")
+        rec = dict(json.loads(p.stdout.strip().splitlines()[-1]), tree=label)
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
+
+
 def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
                   top: int) -> dict:
-    world = WORLDS[name](res, res)
+    import rayzath_tpu_torch as rt
+    world = make_world(name, res)
     r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
                     device=dev)
     r.render(rpp=4)
@@ -148,13 +254,28 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-passes", type=int, default=4)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout: time its B1/B3 against this one's")
+    ap.add_argument("--closest-times", action="store_true",
+                    help="one --parent turn: B1/B3 times of the --root tree")
+    ap.add_argument("--root", default=ROOT)
     args = ap.parse_args(argv)
+    sys.path.insert(0, args.root)
+    if args.closest_times:
+        with torch.no_grad():
+            print(json.dumps(closest_times(args.res)), flush=True)
+        return 0
     dev = torch.device(args.device)
     print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
     with torch.no_grad():
-        for name in args.scenes.split(","):
+        for name in filter(None, args.scenes.split(",")):
             profile_scene(name, dev, args.res, args.repeats,
                           args.profile_passes, args.top)
+    if args.parent:
+        recs = parent_turns(args.parent, args.res)
+        for key in ("b1_ms", "b3_ms", "b3_small_ms"):
+            print(f"{key} parent / change / change / parent [{card_line()}]: "
+                  + ", ".join(f"{r[key]:.3f}" for r in recs), flush=True)
     return 0
 
 
