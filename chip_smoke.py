@@ -16,16 +16,16 @@ Phases, each of which raises on failure (exit code != 0):
    ``cluster_closest_inst`` and B4 ``cluster_shadow_inst`` the same way on
    the two-level instanced_field (the plain versions on every 16th ray of
    the integrator's order: all 262,144 would take ~20 s a call) and on
-   multi_light compiled two-level (all rays), B4 also with half the
+   multi_light compiled two-level (all rays); B2 and B4 also with half the
    materials at alpha 0.5. B1 and B3 t, ids (and B3 instance ids) must
    equal the plain versions' bit for bit; shadow rgba to rtol 1e-5 / atol
    1e-6 where the plain alpha >= 1e-4, both below 1e-4 elsewhere. Median
    times of kernel and plain with CUDA events. On each timed (bounce-like)
    set: the needed visits per ray (the pairs of ray and (instance,) cluster
    whose exact slab interval meets [near, t_final], or for shadow
-   (0, the first opaque hit or dist)), the visits per ray B1/B3 made (their
-   optional visit counter, off the main path; at most twice the needed, or
-   the phase fails), and each kernel's bound:
+   (0, the first opaque hit or dist)), the visits per ray each kernel made
+   (its optional visit counter, off the main path; at most twice the
+   needed, or the phase fails), and each kernel's bound:
    max(bytes / 3.35 TB/s, operations / 67 TFLOP/s), the bytes being each
    input read once (rays, needed frame blocks, box and instance rows,
    opacity rows) and each output written once, the operations the needed
@@ -33,8 +33,11 @@ Phases, each of which raises on failure (exit code != 0):
    for the object transform). Then B1 and B3 bit for bit on the tables of
    ``utils/check_tables.py``: exact ties across cluster and instance rows
    (also with near < 0 on every other ray), and walks of several windows
-   of rows; and B1 on mesh_massive, whose
-   table takes two windows (the plain version on every 64th ray).
+   of rows; B2 and B4 with dist = BIG on those window tables with
+   translucent opacities, and on opaque walls hit by rays along (1, 1, 1)
+   whose lines cross five times the needed clusters (at most twice the
+   needed visits); and B1 and B2 on mesh_massive, whose table takes two
+   windows (the plain versions on every 64th ray).
    Backward: B2's and B4's ``torch.autograd.Function`` (kernel forward,
    dense replay backward) against autograd through their plain twins on
    the card, for every input, on ``lit_world`` (tests/test_gradients.py) at
@@ -88,9 +91,9 @@ INST_SCENES = (("instanced_field", 16), ("multi_light", 1))  # (scene, stride)
 RES = 512
 PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
 BACKWARD_RTOL = 1e-3         # B2/B4 backward against the plain twins' autograd
-# B1/B3 cluster tests per ray at most this many times the needed visits: a
-# walk without the front-to-back order and its stop also tests clusters
-# behind the hits
+# cluster tests per ray at most this many times the needed visits: a walk
+# without the front-to-back order and its stop also tests clusters behind
+# the (opaque) hits
 MADE_PER_NEEDED = 2.0
 
 
@@ -250,10 +253,28 @@ def check_closest(box_tab, frames, order, o, d, near, far, label):
     return t_k, tid_k
 
 
-def check_shadow(scene, o, d, dist, label):
+def shadow_gate(label, got, ref) -> float:
+    """Raise unless the shadow rgba ``got`` meets the plain ``ref`` under the
+    forward gate (rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, both
+    below 1e-4 elsewhere). Returns the max abs error on the unblocked rays."""
+    import torch
+    (rgb_k, a_k), (rgb_p, a_p) = got, ref
+    live = a_p >= 1e-4
+    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
+    if not bool((a_k[~live] < 1e-4).all()):
+        raise AssertionError(f"{label}: kernel alpha >= 1e-4 where plain < 1e-4")
+    if not bool(live.any()):
+        return 0.0
+    return max(float((a_k[live] - a_p[live]).abs().max()),
+               float((rgb_k[live] - rgb_p[live]).abs().max()))
+
+
+def check_shadow(scene, o, d, dist, label, mat_color=None):
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
-    mat = scene.mat_color[scene.tri_mat.long()]
+    mc = scene.mat_color if mat_color is None else mat_color
+    mat = mc[scene.tri_mat.long()]
     op_rgb, op_a = mat[:, :3].contiguous(), (1.0 - mat[:, 3]).contiguous()
     rgb_k, a_k = tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
                                    scene.cl_order, scene.cl_base,
@@ -263,23 +284,16 @@ def check_shadow(scene, o, d, dist, label):
     rgb_p, a_p = tc.cluster_shadow_plain(o, d, dist, scene.cl_box,
                                          scene.cl_lw, op_tab)
     torch.cuda.synchronize()
-    live = a_p >= 1e-4
-    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
-    if not bool((a_k[~live] < 1e-4).all()):
-        raise AssertionError(f"{label}: kernel alpha >= 1e-4 where plain < 1e-4")
-    err = 0.0
-    if bool(live.any()):
-        err = max(float((a_k[live] - a_p[live]).abs().max()),
-                  float((rgb_k[live] - rgb_p[live]).abs().max()))
-    print(f"  {label}: B2 unblocked {int(live.sum())}/{len(live)}, "
-          f"max |d rgba| {err:.3e}", flush=True)
+    err = shadow_gate(label, (rgb_k, a_k), (rgb_p, a_p))
+    part = int(((a_p > 0) & (a_p < 1)).sum())
+    print(f"  {label}: B2 unblocked {int((a_p >= 1e-4).sum())}/{len(a_p)}, "
+          f"partial {part}, max |d rgba| {err:.3e}", flush=True)
     return err, op_rgb, op_a, op_tab
 
 
 def visits_made(fn, r: int):
-    """(cluster tests per ray, staged clusters per block) of one closest-hit
-    kernel call ``fn(visits)`` with the visit counter (off the main path)."""
+    """(cluster tests per ray, staged clusters per block) of one kernel call
+    ``fn(visits)`` with the visit counter (off the main path)."""
     import torch
     blocks = -(-r // 128)
     visits = torch.zeros(r + blocks, dtype=torch.int32, device="cuda")
@@ -289,11 +303,19 @@ def visits_made(fn, r: int):
 
 
 def check_made(label, made: float, needed: float) -> None:
-    """Raise when a closest-hit walk made more than MADE_PER_NEEDED times the
-    needed visits per ray."""
+    """Raise when a walk made more than MADE_PER_NEEDED times the needed
+    visits per ray."""
     if made > MADE_PER_NEEDED * needed:
         raise AssertionError(f"{label}: {made:.3f} cluster tests per ray, more "
                              f"than {MADE_PER_NEEDED} x the {needed:.3f} needed")
+
+
+def half_translucent(mat_color):
+    """Every other material from index 2 at alpha 0.5, for products over
+    translucent hits on the card."""
+    mc = mat_color.clone()
+    mc[2::2, 3] = 0.5
+    return mc
 
 
 def opaque_stop(t, hit, a_factor, big):
@@ -328,17 +350,22 @@ def phase_kernels(card: str, dev):
             e2, op_rgb, op_a, op_tab = check_shadow(
                 scene, o, d, dist_hit, f"{name}/{set_name}/dist=hit")
             e3, *_ = check_shadow(scene, o, d, big, f"{name}/{set_name}/dist=BIG")
-            out["cluster_shadow"]["err"] = max(out["cluster_shadow"]["err"], e2, e3)
+            e4, *_ = check_shadow(scene, o, d, big,
+                                  f"{name}/{set_name}/dist=BIG,alpha=0.5",
+                                  half_translucent(scene.mat_color))
+            out["cluster_shadow"]["err"] = max(out["cluster_shadow"]["err"], e2,
+                                               e3, e4)
             timing[set_name] = (o, d, near, far, big, op_rgb, op_a, op_tab,
                                 t_k, tid_k)
         # times on the bounce-like set: the wavefront of every later bounce
         o, d, near, far, big, op_rgb, op_a, op_tab, t_k, tid_k = timing["bounce"]
+        # the kernels first, before the plain versions' seconds of load
         k1 = cuda_ms(lambda: tc.cluster_closest(o, d, near, far, *tabs), 20)
-        p1, n1 = plain_runs(lambda: tc.cluster_closest_plain(
-            o, d, near, far, scene.cl_box, scene.cl_lw))
         k2 = cuda_ms(lambda: tc.cluster_shadow(
             o, d, big, scene.cl_box, scene.cl_lw, scene.cl_order,
             scene.cl_base, scene.cl_count, op_rgb, op_a), 20)
+        p1, n1 = plain_runs(lambda: tc.cluster_closest_plain(
+            o, d, near, far, scene.cl_box, scene.cl_lw))
         p2, n2 = plain_runs(lambda: tc.cluster_shadow_plain(
             o, d, big, scene.cl_box, scene.cl_lw, op_tab))
         oc, dc, nc, fc, *_ = timing["camera"]
@@ -352,6 +379,10 @@ def phase_kernels(card: str, dev):
         stop = opaque_stop(t_k, hit, op_a[torch.clamp(tid_k, min=0).long()], big)
         pairs2, tests2, rows2, _ = needed_soup(o, d, torch.zeros_like(near),
                                                stop, scene.cl_box)
+        made2, staged2 = visits_made(lambda v: tc.cluster_shadow(
+            o, d, big, scene.cl_box, scene.cl_lw, scene.cl_order,
+            scene.cl_base, scene.cl_count, op_rgb, op_a, visits=v), r)
+        check_made(f"{name}/bounce B2", made2, pairs2 / r)
         b1 = bound(r * (32 + 8) + rows1 * FRAME_BYTES + real * 32,
                    tests1 * TEST_OPS)
         b2 = bound(r * (28 + 16) + rows2 * (FRAME_BYTES + 2048) + real * 32,
@@ -361,15 +392,16 @@ def phase_kernels(card: str, dev):
               f"({b1[1]}), visits per ray {made:.3f} made / {pairs1 / r:.3f} "
               f"needed, {staged:.2f} clusters staged per block; B2 kernel "
               f"{k2:.3f} ms vs plain {p2:.3f} ms (median of 20 / {n2}), bound "
-              f"{b2[0]:.4f} ms ({b2[1]}), {pairs2 / r:.3f} needed visits per "
-              f"ray; B1 on camera rays {kc:.3f} ms; phase "
+              f"{b2[0]:.4f} ms ({b2[1]}), visits per ray {made2:.3f} made / "
+              f"{pairs2 / r:.3f} needed, {staged2:.2f} clusters staged per "
+              f"block; B1 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["cluster_closest"][name] = dict(
             ms=k1, plain_ms=p1, rays=r, plain_rays=r, bound=b1,
             needed_visits_per_ray=pairs1 / r, visits_per_ray=made)
         out["cluster_shadow"][name] = dict(
             ms=k2, plain_ms=p2, rays=r, plain_rays=r, bound=b2,
-            needed_visits_per_ray=pairs2 / r)
+            needed_visits_per_ray=pairs2 / r, visits_per_ray=made2)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
     return out
@@ -424,19 +456,10 @@ def check_shadow_inst(scene, o, d, dist, sub, mat_color, label):
     rgb_p, a_p = tc.cluster_shadow_inst_plain(o[sub], d[sub], dist[sub],
                                               *tabs, op_tab)
     torch.cuda.synchronize()
-    rgb_k, a_k = rgb_k[sub], a_k[sub]
-    live = a_p >= 1e-4
-    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
-    if not bool((a_k[~live] < 1e-4).all()):
-        raise AssertionError(f"{label}: kernel alpha >= 1e-4 where plain < 1e-4")
-    err = 0.0
-    if bool(live.any()):
-        err = max(float((a_k[live] - a_p[live]).abs().max()),
-                  float((rgb_k[live] - rgb_p[live]).abs().max()))
+    err = shadow_gate(label, (rgb_k[sub], a_k[sub]), (rgb_p, a_p))
     part = int(((a_p > 0) & (a_p < 1)).sum())
-    print(f"  {label}: B4 unblocked {int(live.sum())}/{len(live)}, partial "
-          f"{part}, max |d rgba| {err:.3e}", flush=True)
+    print(f"  {label}: B4 unblocked {int((a_p >= 1e-4).sum())}/{len(a_p)}, "
+          f"partial {part}, max |d rgba| {err:.3e}", flush=True)
     return err, op_tab
 
 
@@ -458,9 +481,7 @@ def phase_inst_kernels(card: str, dev):
               f"triangles, {n_ray_rows} instances, up to {scene.max_ncl} "
               f"clusters per mesh, rays {r} x 2 sets, plain on {len(sub)}",
               flush=True)
-        # half of the user materials translucent, for products on the card
-        mc_half = scene.mat_color.clone()
-        mc_half[2::2, 3] = 0.5
+        mc_half = half_translucent(scene.mat_color)
         tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
         timing = {}
         for set_name, (o, d) in (("camera", cam_set), ("bounce", bounce_set)):
@@ -489,13 +510,13 @@ def phase_inst_kernels(card: str, dev):
         k3 = cuda_ms(lambda: tc.cluster_closest_inst(o, d, near, far, *tabs), 20)
         k3s = cuda_ms(lambda: tc.cluster_closest_inst(os_, ds_, ns_, fs_,
                                                       *tabs), 20)
-        p3, n3 = plain_runs(lambda: tc.cluster_closest_inst_plain(
-            os_, ds_, ns_, fs_, *tabs))
         shadow_args = (scene.cl_slot, scene.inst_slot_map, scene.mat_color)
         k4 = cuda_ms(lambda: tc.cluster_shadow_inst(o, d, big, *tabs,
                                                     *shadow_args), 20)
         k4s = cuda_ms(lambda: tc.cluster_shadow_inst(os_, ds_, bs_, *tabs,
                                                      *shadow_args), 20)
+        p3, n3 = plain_runs(lambda: tc.cluster_closest_inst_plain(
+            os_, ds_, ns_, fs_, *tabs))
         p4, n4 = plain_runs(lambda: tc.cluster_shadow_inst_plain(
             os_, ds_, bs_, *tabs, scene.cl_slot, op_tab))
         oc, dc, nc, fc, *_ = timing["camera"]
@@ -512,6 +533,9 @@ def phase_inst_kernels(card: str, dev):
         stop = opaque_stop(t_k, hit, a_factor, big)
         pairs4, tests4, ipairs4, cl4, in4, _ = needed_inst(
             o, d, torch.zeros_like(near), stop, scene.ti_rows, scene.cl_obox)
+        made4, staged4 = visits_made(lambda v: tc.cluster_shadow_inst(
+            o, d, big, *tabs, *shadow_args, visits=v), r)
+        check_made(f"{name}/bounce B4", made4, pairs4 / r)
         b3 = bound(r * (32 + 12) + cl3 * (FRAME_BYTES + 32) + real * 96,
                    tests3 * TEST_OPS + ipairs3 * TO_OBJECT_OPS)
         b4 = bound(r * (28 + 16) + cl4 * (FRAME_BYTES + 32 + 512) + real * 96
@@ -523,15 +547,16 @@ def phase_inst_kernels(card: str, dev):
               f"(instances {ipairs3 / r:.3f} needed), {staged:.2f} clusters "
               f"staged per block; B4 kernel {k4:.3f} ms on {r}, {k4s:.3f} ms "
               f"on {len(sub)}, plain {p4:.3f} ms on {len(sub)} (median of 20 / "
-              f"{n4}), bound {b4[0]:.4f} ms ({b4[1]}), {pairs4 / r:.3f} needed "
-              f"visits per ray; B3 on camera rays {kc:.3f} ms; phase "
+              f"{n4}), bound {b4[0]:.4f} ms ({b4[1]}), visits per ray "
+              f"{made4:.3f} made / {pairs4 / r:.3f} needed, {staged4:.2f} "
+              f"clusters staged per block; B3 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["cluster_closest_inst"][name] = dict(
             ms=k3, plain_ms=p3, rays=r, plain_rays=len(sub), bound=b3,
             needed_visits_per_ray=pairs3 / r, visits_per_ray=made)
         out["cluster_shadow_inst"][name] = dict(
             ms=k4, plain_ms=p4, rays=r, plain_rays=len(sub), bound=b4,
-            needed_visits_per_ray=pairs4 / r)
+            needed_visits_per_ray=pairs4 / r, visits_per_ray=made4)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
     return out
@@ -585,17 +610,96 @@ def phase_tables(dev):
               f"{staged:.2f}", flush=True)
 
 
+def phase_shadow_tables(dev):
+    """B2 and B4 on the tables of ``utils/check_tables.py`` with dist = BIG:
+    translucent opacities on tables of several windows (B2: three windows
+    of cluster rows; B4: a mesh of more clusters than one window), and
+    opaque walls hit by rays along (1, 1, 1) whose lines cross five times
+    the needed clusters, where a walk may make at most MADE_PER_NEEDED
+    times the needed visits; rgba to the forward gate."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils import check_tables as ct
+
+    def as_dev(tabs, keys):
+        return [torch.as_tensor(tabs[k], device=dev) for k in keys]
+
+    for case in ("window", "wall"):
+        r = 8192
+        big = torch.full((r,), 3.4e38, device=dev)
+        zero = torch.zeros(r, device=dev)
+        far = torch.full((r,), 1e30, device=dev)
+        # B2
+        tabs = (ct.window_tables() if case == "window"
+                else ct.window_tables(rows=200, n=300, seed=8))
+        box, frames, order = as_dev(tabs, ("box_tab", "frames", "order"))
+        op = {k: torch.as_tensor(v, device=dev)
+              for k, v in ct.soup_opacity(tabs, seed=33).items()}
+        if case == "wall":
+            op["op_a"].zero_()
+        o, d = (torch.as_tensor(x, device=dev) for x in (
+            ct.aimed_rays(tabs["v0"], tabs["e1"], tabs["e2"], r, 33)
+            if case == "window" else
+            ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r)))
+        args = (box, frames, order, op["base"], op["count"], op["op_rgb"],
+                op["op_a"])
+        ref = tc.cluster_shadow_plain(o, d, big, box, frames, tc.cluster_opacity(
+            op["op_rgb"], op["op_a"], order, op["base"], op["count"]))
+        label = f"{case} table ({tabs['real_rows']} cluster rows), B2"
+        err = shadow_gate(label, tc.cluster_shadow(o, d, big, *args), ref)
+        made, staged = visits_made(lambda v: tc.cluster_shadow(
+            o, d, big, *args, visits=v), r)
+        t = tc.cluster_closest_plain(o, d, zero, far, box, frames)[0]
+        needed = ct.needed_soup(o, d, zero, t, box)[0] / r
+        if case == "wall":
+            check_made(label, made, needed)
+        part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
+        print(f"  {label}: partial {part}/{r}, max |d rgba| {err:.3e}, visits "
+              f"per ray {made:.3f} made / {needed:.3f} needed to the first hit, "
+              f"{staged:.2f} clusters staged per block", flush=True)
+        # B4
+        tabs = (ct.window_instance_tables() if case == "window"
+                else ct.window_instance_tables(rows=200, n=300, seed=9))
+        ti, obox, frames = as_dev(tabs, ("ti_rows", "cl_obox", "frames"))
+        mats = {k: torch.as_tensor(v, device=dev) for k, v in
+                ct.instance_materials(tabs, seed=34, alpha=(
+                    (0.05, 0.5) if case == "window" else (1.0, 1.0))).items()}
+        o, d = (torch.as_tensor(x, device=dev) for x in (
+            ct.aimed_rays(tabs["v0"], tabs["e1"], tabs["e2"], r, 34)
+            if case == "window" else
+            ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r)))
+        args = (ti, obox, frames, mats["cl_slot"], mats["inst_slot_map"],
+                mats["mat_color"])
+        ref = tc.cluster_shadow_inst_plain(
+            o, d, big, ti, obox, frames, mats["cl_slot"],
+            tc.instance_opacity(mats["mat_color"], mats["inst_slot_map"]))
+        label = f"{case} instance table ({obox.shape[0]} clusters), B4"
+        err = shadow_gate(label, tc.cluster_shadow_inst(o, d, big, *args), ref)
+        made, staged = visits_made(lambda v: tc.cluster_shadow_inst(
+            o, d, big, *args, visits=v), r)
+        t = tc.cluster_closest_inst_plain(o, d, zero, far, ti, obox, frames)[0]
+        needed = ct.needed_inst(o, d, zero, t, ti, obox)[0] / r
+        if case == "wall":
+            check_made(label, made, needed)
+        part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
+        print(f"  {label}: partial {part}/{r}, max |d rgba| {err:.3e}, visits "
+              f"per ray {made:.3f} made / {needed:.3f} needed to the first hit, "
+              f"{staged:.2f} clusters staged per block", flush=True)
+
+
 def phase_massive(card: str, dev):
-    """B1 on mesh_massive, whose cluster table is larger than one ranked
-    window: camera rays and bounce-like rays from their first hits (found
-    by the kernel), in the integrator's order; bit for bit against the
-    plain version on every 64th ray (all of them would take ~30 s a
-    call), timed, with the visits made per ray."""
+    """B1 and B2 on mesh_massive, whose cluster table is larger than one
+    ranked window: camera rays and bounce-like rays from their first hits
+    (found by the kernel), in the integrator's order; B1 bit for bit and B2
+    (dist = BIG, the scene's opacities and half of them at alpha 0.5) to
+    the forward gate, against the plain versions on every 64th ray (all of
+    them would take ~30 s a call), timed, with the visits made per ray."""
     import numpy as np
     import torch
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.models.device_scene import compile_world
     from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.intersect import BIG
     t0 = time.perf_counter()
     world = rt.scenes.mesh_massive(RES, RES)
     scene = compile_world(world, device=dev)
@@ -631,6 +735,30 @@ def phase_massive(card: str, dev):
               f"/{r}, plain on {len(sub)} rays bit for bit; {ms:.3f} ms "
               f"[{card}], visits per ray {made:.3f}, clusters staged per "
               f"block {staged:.2f}", flush=True)
+        big = torch.full((r,), BIG, device=dev)
+        for label, mc in (("", scene.mat_color),
+                          (",alpha=0.5", half_translucent(scene.mat_color))):
+            mat = mc[scene.tri_mat.long()]
+            op = (mat[:, :3].contiguous(), (1.0 - mat[:, 3]).contiguous())
+            shadow = (scene.cl_box, scene.cl_lw, scene.cl_order, scene.cl_base,
+                      scene.cl_count, *op)
+            got = tc.cluster_shadow(o_s, d_s, big, *shadow)
+            ref = tc.cluster_shadow_plain(
+                o_s[sub], d_s[sub], big[sub], scene.cl_box, scene.cl_lw,
+                tc.cluster_opacity(*op, scene.cl_order, scene.cl_base,
+                                   scene.cl_count))
+            torch.cuda.synchronize()
+            err = shadow_gate(f"mesh_massive/{set_name}/dist=BIG{label} B2",
+                              [x[sub] for x in got], ref)
+            ms = cuda_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow), 10)
+            made, staged = visits_made(lambda v: tc.cluster_shadow(
+                o_s, d_s, big, *shadow, visits=v), r)
+            part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
+            print(f"  mesh_massive/{set_name}/dist=BIG{label}: B2 partial "
+                  f"{part}/{len(sub)} on the plain's rays, max |d rgba| "
+                  f"{err:.3e}; {ms:.3f} ms [{card}], visits per ray "
+                  f"{made:.3f}, clusters staged per block {staged:.2f}",
+                  flush=True)
     del scene, world
     torch.cuda.empty_cache()
 
@@ -1012,6 +1140,7 @@ def main() -> int:
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
     phase_tables(dev)
+    phase_shadow_tables(dev)
     phase_massive(card, dev)
     backward = phase_backward(card, dev)
     print(f"phase 2 (kernel vs plain, backward) "

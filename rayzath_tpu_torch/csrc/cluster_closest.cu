@@ -112,8 +112,9 @@ closest_kernel(const float* __restrict__ origin,
       ctr[a] = (box[a * cp + c] + box[(3 + a) * cp + c]) * 0.5f;
     return (int)box[7 * cp + c];
   };
-  auto apply = [&](int c, u64 hit) {
+  auto apply = [&](int c) {
     ++n_tests;
+    const u64 hit = sh.res[threadIdx.x];
     if (hit == NO_CAND) return;
     const float t = ord_float((unsigned)(hit >> 32));
     const int j = (int)(unsigned)hit;
@@ -141,7 +142,7 @@ closest_kernel(const float* __restrict__ origin,
       const Bounds b = block_bounds(sh, active, o, d, near, best_t);
       const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
       walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
-                    cur_best, center, apply);
+                    cur_best, center, NoSide{}, ClosestTest{sh}, apply);
     }
   }
   if (in_range) {
@@ -163,7 +164,7 @@ extern "C" int rz_cluster_closest(const float* origin, const float* direction,
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_rows = rank_rows_for(cp);
-  const size_t smem = ranked_smem(list_rows);
+  const size_t smem = kernel_smem(1, cp);
   cudaError_t err = allow_smem(closest_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   closest_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
@@ -172,12 +173,10 @@ extern "C" int rz_cluster_closest(const float* origin, const float* direction,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a ranked closest-hit launch over table_rows
-// rows: B1's cluster rows (instanced = 0), or B3's instance rows plus one
-// window of a mesh's clusters (instanced = 1).
-extern "C" int rz_ranked_smem(int table_rows, int instanced) {
-  return (int)rz::ranked_smem(rz::rank_rows_for(table_rows) +
-                              (instanced ? rz::CL_WINDOW : 0));
+// Dynamic shared memory of a launch of kernel B<kernel> (1-4) over
+// table_rows rows: B1's and B2's cluster rows, B3's and B4's instance rows.
+extern "C" int rz_ranked_smem(int table_rows, int kernel) {
+  return (int)rz::kernel_smem(kernel, table_rows);
 }
 
 extern "C" const char* rz_error_string(int code) {

@@ -130,8 +130,9 @@ closest_inst_kernel(const float* __restrict__ origin,
       for (int a = 0; a < 3; ++a) ctr[a] = (cb[a] + cb[3 + a]) * 0.5f;
       return (int)cb[7];
     };
-    auto apply = [&](int s, u64 hit) {
+    auto apply = [&](int s) {
       ++n_tests;
+      const u64 hit = sh.res[threadIdx.x];
       if (hit == NO_CAND) return;
       const float t = ord_float((unsigned)(hit >> 32));
       const int j = (int)(unsigned)hit;
@@ -163,7 +164,7 @@ closest_inst_kernel(const float* __restrict__ origin,
         nf = rank_window(sh, keys_c, cl0 + s0, n, b, cluster_box);
       }
       walk_clusters(sh, w, keys_c, nf, in_k, frames, block_visits, cneed,
-                    cur_best, center, apply);
+                    cur_best, center, NoSide{}, ClosestTest{sh}, apply);
     }
   };
 
@@ -210,7 +211,7 @@ extern "C" int rz_cluster_closest_inst(const float* origin,
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_i = rank_rows_for(ip);
   const int list_c = CL_WINDOW;
-  const size_t smem = ranked_smem(list_i + list_c);
+  const size_t smem = kernel_smem(3, ip);
   cudaError_t err = allow_smem(closest_inst_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   closest_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(

@@ -1,29 +1,52 @@
-// B2: transmission-filtered shadow traversal of the flat cluster table, one
-// thread per ray.
+// B2: transmission-filtered shadow traversal of the flat cluster table,
+// ranked front to back per block of 128 rays (one ray's product per
+// thread).
 //
 // Replaces the TPU kernel rayzath_tpu/ops/traverse_cluster.py
 // `_shadow_kernel` (launched by `_cluster_shadow_impl`, entry point
 // `cluster_shadow`). What it computes is the same: per ray, the product of
 // the rgba opacity (op_tab, rebuilt from the live materials by the wrapper)
-// over every triangle hit with t in (0, dist); a ray stops visiting
-// clusters once its alpha is below 1e-4 (the reference's any-hit early
-// out, cuda_bvh.cuh:172-232). Left out: bf16 limbs, the one-hot matrix
-// transposes of the opacity rows, [8,128] relayouts, SMEM/VMEM staging and
-// DMA streaming, and the tiny/ranked size classes. The gradient replay of
-// the JAX custom_vjp is not part of this forward kernel.
+// over every triangle hit with t in (0, dist), one product per cluster
+// folded into the ray's running product; a ray is blocked, and visits no
+// more clusters, once its alpha is below ALPHA_STOP (1e-4; the reference's
+// any-hit early out, cuda_bvh.cuh:172-232). Left out, as TPU workarounds:
+// bf16 limbs, the one-hot matrix transposes of the opacity rows, [8,128]
+// relayouts, bf16-rounded rank distances, SMEM/VMEM staging and DMA
+// streaming, the tiny/ranked size classes and `_clamp_c`. The gradient
+// replay of the JAX custom_vjp is not part of this forward kernel.
 //
-// What bounds it on the H100: each visited cluster costs one 6 KB frame
-// block plus a 2 KB opacity block (read from L2) against 128 ray-triangle
-// tests of ~40 f32 operations each per ray that needs the cluster, and up
-// to four multiplies per hit. As in B1 a full block of rays makes it
-// issue-bound; incoherent shadow rays (every NEE sample of a bounce
-// wavefront) make it bound by per-visit barriers and divergence.
+// What bounds it on the H100: per ray, the clusters whose slab interval
+// meets (0, dist) up to the first opaque hit, each 128 ray-triangle tests
+// of 49 f32 operations, against one 6 KB frame block and one 2 KB opacity
+// block per cluster some ray needs. On mesh_heavy's 262,144 bounce-like
+// rays with dist = BIG that is ~1.5 clusters per ray, the same set as B1's:
+// 0.026 ms of operations at the 67 TFLOP/s f32 peak, more than the bytes.
+// With -fmad=false the ALU reaches at most half that peak. The first port
+// walked every row in table order with a barrier per row, tested each ray
+// on its own thread and copied frames and opacities synchronously.
 //
-// What the design does about it: the B1 structure (block-wide skip with
-// `__syncthreads_or`, frames and opacity staged once per visit in shared
-// memory, a per-ray slab gate with the window (0, dist)), and a ray whose
-// alpha has fallen below the cut stops asking for clusters, so blocks of
-// blocked rays end their walk early. Rays arrive tiled or coherence-sorted.
+// What the design does about it, per block of 128 coherence-ordered rays:
+// B1's walk (rz_cluster.cuh), with the product in place of the minimum.
+// - Rank the cluster rows by the interval bound of the block's live rays'
+//   entry (t >= 0), capped at the largest live dist, sort by (bound, row),
+//   and walk them in batches of 32 under the block vote: a ray votes while
+//   it is live and its dist reaches the batch's nearest bound, and marks the
+//   candidates its exact slab gate (tmax >= 0, tmin <= tmax, tmin <= dist)
+//   still needs. A blocked ray's reach is -1, so it votes no more, and the
+//   block stops when no live ray can reach the next candidate (the TPU
+//   kernel's `stop_s`). Front to back meets the opaque hits first: a ray of
+//   an opaque scene is blocked after the clusters before its first hit.
+// - Cooperative products: each needing ray of a visited cluster is tested
+//   by a whole warp, a slot per lane; each lane multiplies the factors of
+//   its hits, the warp multiplies the lanes' products by shuffles, and the
+//   ray's own thread takes m = m * product, one multiply per channel.
+// - Double-buffered staging: the next marked cluster's frames and opacity
+//   block stream into the other shared buffers as one cp.async group while
+//   the current one is tested.
+// - Tables larger than RANK_MAX rows are ranked and walked in consecutive
+//   windows of rows. A product needs no tie key: every hit in (0, dist)
+//   counts, whatever the order. The order moves only rounding, and the
+//   alpha stop only where the plain product is below ALPHA_STOP too.
 //
 // Built with -fmad=false (see rz_cluster.cuh).
 #include "rz_cluster.cuh"
@@ -32,8 +55,6 @@ namespace {
 
 using namespace rz;
 
-constexpr float ALPHA_STOP = 1e-4f;
-
 __global__ void __launch_bounds__(THREADS)
 shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ direction,
@@ -41,9 +62,10 @@ shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ box,
               const float* __restrict__ frames,
               const float* __restrict__ op_tab, int n_rays, int cp,
-              float* __restrict__ rgb_out, float* __restrict__ a_out) {
-  __shared__ float fr[FRAME_FLOATS];
-  __shared__ float op[4 * CT];
+              int list_rows, float* __restrict__ rgb_out,
+              float* __restrict__ a_out, int* __restrict__ visits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Shared sh = shared_layout(smem, B2_SIDE);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
@@ -59,38 +81,61 @@ shadow_kernel(const float* __restrict__ origin,
   }
   const bool active = in_range && dist > 0.0f;
   float mr = 1.0f, mg = 1.0f, mb = 1.0f, ma = 1.0f;
+  int n_tests = 0;
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  Walk w{0, 0};
+  int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
-  for (int c = 0; c < cp; ++c) {
-    const float cnt = box[7 * cp + c];
-    if (cnt <= 0.0f) continue;  // padding lane: the same for every thread
-    bool need = false;
-    if (active && ma >= ALPHA_STOP) {
-      float tmin, tmax;
-      slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
-      need = (tmax >= 0.0f) && (tmin <= tmax) && (tmin <= dist);
+  auto live = [&]() { return active && ma >= ALPHA_STOP; };
+  auto reach = [&]() { return live() ? dist : -1.0f; };
+  auto need = [&](int c) {
+    if (!live()) return false;
+    float tmin, tmax;
+    slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    return (tmax >= 0.0f) && (tmin <= tmax) && (tmin <= dist);
+  };
+  auto center = [&](int c, float* ctr) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      ctr[a] = (box[a * cp + c] + box[(3 + a) * cp + c]) * 0.5f;
+    return (int)box[7 * cp + c];
+  };
+  auto side = [&](int buf, int c) {
+    stage_rows(sh.side + buf * B2_SIDE, op_tab + (size_t)c * B2_SIDE, B2_SIDE);
+  };
+  auto test = [&](const float* fr, int buf, const float* ctr, int cnt, int r) {
+    const float* op = sh.side + buf * B2_SIDE;
+    shadow_test_ray(sh, fr, ctr, cnt, r, [&](int j, float* f) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[k] = op[k * CT + j];
+    });
+  };
+  auto apply = [&](int) {
+    ++n_tests;
+    const float4 p = sh.prod[threadIdx.x];
+    mr = mr * p.x;
+    mg = mg * p.y;
+    mb = mb * p.z;
+    ma = ma * p.w;
+  };
+  auto row_box = [&](int c, float* lo, float* hi) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = box[a * cp + c];
+      hi[a] = box[(3 + a) * cp + c];
     }
-    // also the barrier that retires the previous cluster's shared tables
-    if (!__syncthreads_or(need)) continue;
-    const float* src = frames + (size_t)c * FRAME_FLOATS;
-    for (int k = threadIdx.x; k < FRAME_FLOATS; k += THREADS) fr[k] = src[k];
-    const float* osrc = op_tab + (size_t)c * 4 * CT;
-    for (int k = threadIdx.x; k < 4 * CT; k += THREADS) op[k] = osrc[k];
-    __syncthreads();
-    if (need) {
-      float px, py, pz;
-      local_origin(box, cp, c, ox, oy, oz, px, py, pz);
-      const int n = (int)cnt;
-      for (int j = 0; j < n; ++j) {
-        bool inside;
-        const float t = project(fr, j, px, py, pz, dx, dy, dz, inside);
-        if (inside && t > 0.0f && t < dist) {
-          mr = mr * op[0 * CT + j];
-          mg = mg * op[1 * CT + j];
-          mb = mb * op[2 * CT + j];
-          ma = ma * op[3 * CT + j];
-        }
-      }
+    return box[7 * cp + c] > 0.0f;
+  };
+  const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+  store_ray(sh, o, d, dist);
+
+  if (__syncthreads_or(active)) {
+    for (int w0 = 0; w0 < cp; w0 += list_rows) {
+      const int n = min(list_rows, cp - w0);
+      const Bounds b = block_bounds(sh, live(), o, d, 0.0f, dist);
+      const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
+      walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
+                    reach, center, side, test, apply);
     }
   }
   if (in_range) {
@@ -98,20 +143,27 @@ shadow_kernel(const float* __restrict__ origin,
     rgb_out[3 * ray + 1] = mg;
     rgb_out[3 * ray + 2] = mb;
     a_out[ray] = ma;
+    if (visits) visits[ray] = n_tests;
   }
 }
 
 }  // namespace
 
+// visits: null on the render path; else int[n_rays + blocks] that receives
+// each ray's cluster tests and each block's staged clusters.
 extern "C" int rz_cluster_shadow(const float* origin, const float* direction,
                                  const float* dist, const float* box_tab,
                                  const float* frames, const float* op_tab,
                                  int n_rays, int cp, float* rgb_out,
-                                 float* a_out, void* stream) {
+                                 float* a_out, int* visits, void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  shadow_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb_out,
-      a_out);
+  const int list_rows = rank_rows_for(cp);
+  const size_t smem = kernel_smem(2, cp);
+  cudaError_t err = allow_smem(shadow_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  shadow_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, list_rows,
+      rgb_out, a_out, visits);
   return (int)cudaGetLastError();
 }

@@ -24,15 +24,17 @@
 // sum below rounds on its own, in the order written, exactly like the plain
 // PyTorch versions in ops/traverse_cluster.py; division is IEEE.
 //
-// The second half of this header is the ranked front-to-back walk of the
-// closest-hit kernels (B1, B3): a block ranks the candidate rows of a table
-// window by a lower bound of the entry distance of its rays (interval
-// arithmetic on the block's origin and direction bounds), sorts them by
-// (bound, row) in shared memory, and walks them in batches of 32 with one
-// block vote per batch, staging each visited cluster's frames into one of
-// two shared buffers with cp.async while the previous cluster is tested.
-// A visited cluster's tests are shared out: each ray that needs it is
-// tested by a whole warp, one triangle slot per lane.
+// The second half of this header is the ranked front-to-back walk of every
+// kernel (B1-B4): a block ranks the candidate rows of a table window by a
+// lower bound of the entry distance of its rays (interval arithmetic on the
+// block's origin and direction bounds), sorts them by (bound, row) in
+// shared memory, and walks them in batches of 32 with one block vote per
+// batch, staging each visited cluster's frames (and the shadow kernels'
+// side rows) into one of two shared buffers with cp.async while the
+// previous cluster is tested. A visited cluster's tests are shared out:
+// each ray that needs it is tested by a whole warp, one triangle slot per
+// lane. The per-ray test is the kernel's: closest hit reduces a (t, slot)
+// minimum, shadow a product of rgba opacities.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -81,16 +83,6 @@ __device__ __forceinline__ void slab(const float* __restrict__ box, int cp,
   const float tz2 = (box[5 * cp + c] - oz) * iz;
   tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-}
-
-// Cluster-local origin: o - (bmin + bmax) * 0.5, as the plain version forms it.
-__device__ __forceinline__ void local_origin(const float* __restrict__ box,
-                                             int cp, int c, float ox, float oy,
-                                             float oz, float& px, float& py,
-                                             float& pz) {
-  px = ox - (box[0 * cp + c] + box[3 * cp + c]) * 0.5f;
-  py = oy - (box[1 * cp + c] + box[4 * cp + c]) * 0.5f;
-  pz = oz - (box[2 * cp + c] + box[5 * cp + c]) * 0.5f;
 }
 
 // Widened slab test against the box lo[0..2], hi[0..2] (see GATE_PAD).
@@ -154,7 +146,7 @@ __device__ __forceinline__ float project(const float* fr, int j, float px,
 }
 
 // ---------------------------------------------------------------------------
-// ranked front-to-back walk (closest hit)
+// ranked front-to-back walk (every kernel)
 // ---------------------------------------------------------------------------
 
 typedef unsigned long long u64;
@@ -162,10 +154,15 @@ constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BATCH = 32;            // candidates per block vote (one mask bit each)
 constexpr int RANK_MAX = 4096;       // table rows per ranked window (8 B each)
-constexpr int SWEEP_MAX = 8;         // B3: meshes of <= 8 clusters are swept in order
-constexpr int CL_WINDOW = 512;       // B3: cluster rows per ranked window of one mesh
+constexpr int SWEEP_MAX = 8;         // B3/B4: meshes of <= 8 clusters are swept in order
+constexpr int CL_WINDOW = 512;       // B3/B4: cluster rows per ranked window of one mesh
 constexpr u64 NO_CAND = ~0ull;       // empty slot of a candidate list
 constexpr int FRAME_BYTES = FRAME_FLOATS * 4;
+constexpr float ALPHA_STOP = 1e-4f;  // B2/B4: a ray whose alpha is below it is blocked
+// floats staged beside each visited cluster's frames by the shadow kernels
+constexpr int B2_SIDE = 4 * CT;      // B2: the cluster's rgba opacity block op_tab[c]
+constexpr int B4_SIDE = CT;          // B4: the cluster's slot row cl_slot[s]
+constexpr int OP_ROW = 4 * SLOTS;    // B4: the visited instance's opacity row
 
 // The closest-hit gate's t limit: a box is entered no later than best_t,
 // widened by GATE_PAD of |best_t|. The slack only adds visits; it keeps a
@@ -202,15 +199,21 @@ __device__ __forceinline__ int pow2_at_least(int n) {
 
 // Shared memory of a block: two frame buffers, the vote words, the
 // feasible-candidate counter, the block's rays and their per-visit results
-// for the cooperative tests, then the candidate lists (8 B per row).
+// for the cooperative tests; for a shadow kernel two side-row buffers, the
+// per-visit products and (B4) the instance's opacity row; then the
+// candidate lists (8 B per row).
 struct Shared {
   float* ring;          // [2][FRAME_FLOATS]
   unsigned* votes;      // [2][2 * WARPS]: per warp the batch mask and the go vote
   int* count;           // [1]
   unsigned* mask;       // [WARPS]: the rays that test the visited cluster
-  float* rays;          // [7][THREADS]: origin xyz, direction xyz, near
+  float* rays;          // [7][THREADS]: origin xyz, direction xyz, and near
+                        // (closest hit) or dist (shadow)
   u64* res;             // [THREADS]: each tested ray's (t, slot) key
   float* scratch;       // [16][WARPS]: per-warp partials of block_bounds
+  float* side;          // shadow: [2][side floats], beside the two frame buffers
+  float4* prod;         // shadow: [THREADS]: each tested ray's rgba product
+  float* op_row;        // B4: [OP_ROW]: the visited instance's opacity row
   u64* keys;            // candidate lists
 };
 
@@ -222,7 +225,14 @@ constexpr int OFF_RES = OFF_RAYS + 7 * THREADS * 4;
 constexpr int OFF_SCRATCH = OFF_RES + THREADS * 8;
 constexpr int SHARED_HEAD = OFF_SCRATCH + 16 * WARPS * 4;
 
-__device__ __forceinline__ Shared shared_layout(unsigned char* smem) {
+// Bytes of the shadow regions of a kernel whose side rows are side floats
+// and whose instance opacity row is op_row floats (0, 0: closest hit).
+__host__ __device__ constexpr int shadow_bytes(int side, int op_row) {
+  return side == 0 ? 0 : 2 * side * 4 + THREADS * 16 + op_row * 4;
+}
+
+__device__ __forceinline__ Shared shared_layout(unsigned char* smem,
+                                                int side = 0, int op_row = 0) {
   Shared s;
   s.ring = reinterpret_cast<float*>(smem);
   s.votes = reinterpret_cast<unsigned*>(smem + OFF_VOTES);
@@ -231,12 +241,17 @@ __device__ __forceinline__ Shared shared_layout(unsigned char* smem) {
   s.rays = reinterpret_cast<float*>(smem + OFF_RAYS);
   s.res = reinterpret_cast<u64*>(smem + OFF_RES);
   s.scratch = reinterpret_cast<float*>(smem + OFF_SCRATCH);
-  s.keys = reinterpret_cast<u64*>(smem + SHARED_HEAD);
+  s.side = reinterpret_cast<float*>(smem + SHARED_HEAD);
+  s.prod = reinterpret_cast<float4*>(smem + SHARED_HEAD + 2 * side * 4);
+  s.op_row = reinterpret_cast<float*>(smem + SHARED_HEAD + 2 * side * 4 +
+                                      THREADS * 16);
+  s.keys = reinterpret_cast<u64*>(smem + SHARED_HEAD + shadow_bytes(side, op_row));
   return s;
 }
 
 // This thread's ray into its slot of the block's rays (origin and direction
-// in the space the clusters are tested in). Read after the next barrier.
+// in the space the clusters are tested in; near for closest hit, dist for
+// shadow). Read after the next barrier.
 __device__ __forceinline__ void store_ray(const Shared& sh, const float* o,
                                           const float* d, float near) {
 #pragma unroll
@@ -255,20 +270,22 @@ struct Walk {
 
 // The block's rays as boxes, for the rank: the bounds of the active rays'
 // origins and directions, their smallest near (nlo), and cap = the largest
-// gate_t(best_t) (-inf when no ray is active).
+// gate_t(reach) (-inf when no ray is active). A ray's reach is how far a
+// hit can still change its result: best_t for closest hit, dist for a
+// shadow ray that is not yet blocked.
 struct Bounds {
   float olo[3], ohi[3], dlo[3], dhi[3], nlo, cap;
 };
 
 constexpr int N_BOUNDS = 14;  // minima that block_bounds reduces
 
-// block_bounds of the rays (o, d, near) whose thread has active set: 14
-// minima (maxima as minima of negations), per warp with shuffles, then
+// block_bounds of the rays (o, d, near, reach) whose thread has active set:
+// 14 minima (maxima as minima of negations), per warp with shuffles, then
 // across the warps through shared scratch. Every thread calls it; two
-// barriers.
+// barriers. The shadow kernels pass near = 0 (they take hits at t > 0).
 __device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
                                                const float* o, const float* d,
-                                               float near, float best_t) {
+                                               float near, float reach) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float v[N_BOUNDS];
 #pragma unroll
@@ -278,7 +295,7 @@ __device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
     v[6 + a] = active ? d[a] : INFINITY;
     v[9 + a] = active ? -d[a] : INFINITY;
   }
-  v[12] = active ? -best_t : INFINITY;
+  v[12] = active ? -reach : INFINITY;
   v[13] = active ? near : INFINITY;
 #pragma unroll
   for (int i = 0; i < N_BOUNDS; ++i)
@@ -425,32 +442,34 @@ __device__ __forceinline__ int sweep_window(u64* keys, int r0, int n) {
   return n;
 }
 
-// Copy one cluster's 6 KB frame block into shared memory with 16-byte
-// cp.async copies (three per thread) as one commit group.
-__device__ __forceinline__ void stage_frames(float* dst,
-                                             const float* __restrict__ src) {
-  for (int q = threadIdx.x; q < FRAME_FLOATS / 4; q += THREADS)
+// Start copying floats (a multiple of 4, from 16-byte aligned addresses)
+// from src into shared dst with 16-byte cp.async copies, the block's
+// threads in turn; the caller commits the group.
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int floats) {
+  for (int q = threadIdx.x; q < floats / 4; q += THREADS)
     __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
-  __pipeline_commit();
 }
 
 // Block vote on the batch of candidates keys[k0 .. k0 + m), m = min(BATCH,
 // n - k0): each active thread votes go when the batch's first entry is
-// within its gate (gate_t(best_t())) and then marks the candidates its ray
+// within its gate (gate_t(reach())) and then marks the candidates its ray
 // still needs (need(row)); the block ORs both, in one barrier. Returns the
-// block's go (false: no ray can still be improved, since every later entry
-// is farther) and the marked candidates in todo.
-template <class Need, class BestT>
+// block's go (false: no ray can still be changed, since every later entry
+// is farther) and the marked candidates in todo. A blocked shadow ray's
+// reach is -1, below every ranked entry (>= 0), so it votes no more.
+template <class Need, class Reach>
 __device__ __forceinline__ bool vote_batch(const Shared& sh, Walk& w,
                                            const u64* keys, int k0, int n,
                                            bool active, Need need,
-                                           BestT best_t, unsigned& todo) {
+                                           Reach reach, unsigned& todo) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m = min(BATCH, n - k0);
   unsigned mask = 0;
   bool go = false;
   if (active) {
-    go = cand_pd(keys[k0]) <= gate_t(best_t());
+    go = cand_pd(keys[k0]) <= gate_t(reach());
     if (go) {
       for (int i = 0; i < m; ++i)
         if (need(cand_row(keys[k0 + i]))) mask |= 1u << i;
@@ -475,26 +494,35 @@ __device__ __forceinline__ bool vote_batch(const Shared& sh, Walk& w,
   return bg != 0;
 }
 
-// One ray's tests against the staged cluster, by one warp: lane l takes
-// slots l, l + 32, l + 64, l + 96; the warp keeps the smallest
-// (t, slot) key of the hits with t > near (NO_CAND: none) in res[r]. The
-// cluster-local origin is o - ctr, as local_origin forms it.
+// Ray r of the block's rays for a test against a cluster centred at ctr:
+// the cluster-local origin p = o - ctr, ctr = (bmin + bmax) * 0.5 (as the
+// plain version forms it), and the direction d; returns the ray's seventh row (near or dist).
+__device__ __forceinline__ float ray_slot(const Shared& sh, const float* ctr,
+                                          int r, float* p, float* d) {
+  const float* R = sh.rays;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p[a] = R[a * THREADS + r] - ctr[a];
+    d[a] = R[(3 + a) * THREADS + r];
+  }
+  return R[6 * THREADS + r];
+}
+
+// One ray's closest-hit tests against the staged cluster, by one warp:
+// lane l takes slots l, l + 32, l + 64, l + 96; the warp keeps the smallest
+// (t, slot) key of the hits with t > near (NO_CAND: none) in res[r].
 __device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
                                          const float* ctr, int cnt, int r) {
   const int lane = threadIdx.x & 31;
-  const float* R = sh.rays;
-  const float px = R[0 * THREADS + r] - ctr[0];
-  const float py = R[1 * THREADS + r] - ctr[1];
-  const float pz = R[2 * THREADS + r] - ctr[2];
-  const float dx = R[3 * THREADS + r], dy = R[4 * THREADS + r];
-  const float dz = R[5 * THREADS + r], near = R[6 * THREADS + r];
+  float p[3], d[3];
+  const float near = ray_slot(sh, ctr, r, p, d);
   u64 best = NO_CAND;
 #pragma unroll
   for (int q = 0; q < CT / 32; ++q) {
     const int j = lane + 32 * q;
     if (j < cnt) {
       bool inside;
-      const float t = project(fr, j, px, py, pz, dx, dy, dz, inside);
+      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2], inside);
       if (inside && t > near) {
         const u64 key = ((u64)ord_bits(t) << 32) | (unsigned)j;
         best = key < best ? key : best;
@@ -509,10 +537,47 @@ __device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
   if (lane == 0) sh.res[r] = best;
 }
 
+// One ray's shadow tests against the staged cluster, by one warp: lane l
+// takes slots l, l + 32, l + 64, l + 96 and multiplies the rgba factors
+// factor(j, f) of its hits with t in (0, dist); the warp multiplies the
+// lanes' four partial products by shuffles, and lane 0 writes the ray's
+// product over this cluster to prod[r]. (The plain version also takes one
+// product per cluster; the order inside it differs, by rounding only.)
+template <class Factor>
+__device__ __forceinline__ void shadow_test_ray(const Shared& sh,
+                                                const float* fr,
+                                                const float* ctr, int cnt,
+                                                int r, Factor factor) {
+  const int lane = threadIdx.x & 31;
+  float p[3], d[3];
+  const float dist = ray_slot(sh, ctr, r, p, d);
+  float m[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+  for (int q = 0; q < CT / 32; ++q) {
+    const int j = lane + 32 * q;
+    if (j < cnt) {
+      bool inside;
+      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2], inside);
+      if (inside && t > 0.0f && t < dist) {
+        float f[4];
+        factor(j, f);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) m[k] = m[k] * f[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = m[k] * __shfl_xor_sync(FULL, m[k], s);
+  if (lane == 0) sh.prod[r] = make_float4(m[0], m[1], m[2], m[3]);
+}
+
 // The cooperative tests of one visit: the rays marked in mask[] are dealt
-// to the warps in turn (the i-th marked ray to warp i % WARPS).
-__device__ __forceinline__ void test_rays(const Shared& sh, const float* fr,
-                                          const float* ctr, int cnt) {
+// to the warps in turn (the i-th marked ray to warp i % WARPS), and the
+// warp runs test_one(r) for each of its rays.
+template <class TestOne>
+__device__ __forceinline__ void test_rays(const Shared& sh, TestOne test_one) {
   const int warp = threadIdx.x >> 5;
   int i = 0;
 #pragma unroll
@@ -521,74 +586,94 @@ __device__ __forceinline__ void test_rays(const Shared& sh, const float* fr,
     while (m) {
       const int b = __ffs(m) - 1;
       m &= m - 1;
-      if ((i++ % WARPS) == warp) test_ray(sh, fr, ctr, cnt, wq * 32 + b);
+      if ((i++ % WARPS) == warp) test_one(wq * 32 + b);
     }
   }
 }
 
+// The closest-hit kernels' visit: no side rows, and test_ray.
+struct NoSide {
+  __device__ void operator()(int, int) const {}
+};
+struct ClosestTest {
+  const Shared& sh;
+  __device__ void operator()(const float* fr, int, const float* ctr, int cnt,
+                             int r) const {
+    test_ray(sh, fr, ctr, cnt, r);
+  }
+};
+
 // Walk the candidates keys[0 .. n) in rank order, a batch of 32 per block
 // vote (vote_batch), until the vote stops the block. The block visits each
-// marked candidate in order: its frames were
-// staged during the previous visit (the first of a batch is staged on the
-// spot); the rays that need it (need(row) at their current best_t) publish
-// a mask, one barrier makes frames and mask visible and retires the other
-// buffer, the warps test the marked rays cooperatively (test_rays, against
-// the rays' slots of store_ray and the box centre center(row, ctr)), and
-// after a second barrier each marked thread takes its result with
-// apply(row, key). Every thread calls this with the same n and list
-// (block-uniform).
-template <class Need, class BestT, class Center, class Apply>
+// marked candidate in order: its frames, and the side rows that
+// side(buf, row) starts copying, went into ring buffer buf as one commit
+// group during the previous visit (the first of a batch is staged on the
+// spot); the rays that need it (need(row) at their current reach) publish
+// a mask, one barrier makes the staged rows and the mask visible and
+// retires the other buffer, the warps test the marked rays cooperatively
+// (test(frames, buf, ctr, cnt, r), against the rays' slots of store_ray
+// and the box centre center(row, ctr)), and after a second barrier each
+// marked thread takes its result with apply(row). Every thread calls this
+// with the same n and list (block-uniform).
+template <class Need, class Reach, class Center, class Side, class Test,
+          class Apply>
 __device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
                                               const u64* keys, int n,
                                               bool active,
                                               const float* __restrict__ frames,
                                               int* block_visits, Need need,
-                                              BestT best_t, Center center,
+                                              Reach reach, Center center,
+                                              Side side, Test test,
                                               Apply apply) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto stage = [&](int buf, int row) {
+    stage_rows(sh.ring + buf * FRAME_FLOATS, frames + (size_t)row * FRAME_FLOATS,
+               FRAME_FLOATS);
+    side(buf, row);
+    __pipeline_commit();
+  };
   for (int k0 = 0; k0 < n; k0 += BATCH) {
     unsigned todo;
-    if (!vote_batch(sh, w, keys, k0, n, active, need, best_t, todo)) return;
+    if (!vote_batch(sh, w, keys, k0, n, active, need, reach, todo)) return;
     if (todo == 0) continue;
     int row = cand_row(keys[k0 + __ffs(todo) - 1]);
-    stage_frames(sh.ring + w.ring_next * FRAME_FLOATS,
-                 frames + (size_t)row * FRAME_FLOATS);
+    stage(w.ring_next, row);
     while (todo) {
       todo &= todo - 1;
       const int cur = row;
       const bool mine = active && need(cur);
       const unsigned ballot = __ballot_sync(FULL, mine);
       if (lane == 0) sh.mask[warp] = ballot;
-      const float* fr = sh.ring + w.ring_next * FRAME_FLOATS;
+      const int buf = w.ring_next;
+      const float* fr = sh.ring + buf * FRAME_FLOATS;
       __pipeline_wait_prior(0);
-      __syncthreads();  // frames and mask visible; the other buffer is done
+      __syncthreads();  // staged rows and mask visible; the other buffer is done
       w.ring_next ^= 1;
       if (todo) {
         row = cand_row(keys[k0 + __ffs(todo) - 1]);
-        stage_frames(sh.ring + w.ring_next * FRAME_FLOATS,
-                     frames + (size_t)row * FRAME_FLOATS);
+        stage(w.ring_next, row);
       }
       if (block_visits != nullptr && threadIdx.x == 0) ++*block_visits;
       float ctr[3];
       const int cnt = center(cur, ctr);
-      test_rays(sh, fr, ctr, cnt);
+      test_rays(sh, [&](int r) { test(fr, buf, ctr, cnt, r); });
       __syncthreads();  // results visible
-      if (mine) apply(cur, sh.res[threadIdx.x]);
+      if (mine) apply(cur);
     }
   }
 }
 
-// Walk the candidates keys[0 .. n) of the instance level (B3) in rank
+// Walk the candidates keys[0 .. n) of the instance level (B3, B4) in rank
 // order, batches and stop vote as walk_clusters; visit(row) runs the
 // instance's whole cluster walk, block-uniformly.
-template <class Need, class BestT, class Visit>
+template <class Need, class Reach, class Visit>
 __device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
                                           const u64* keys, int n, bool active,
-                                          Need need, BestT best_t,
+                                          Need need, Reach reach,
                                           Visit visit) {
   for (int k0 = 0; k0 < n; k0 += BATCH) {
     unsigned todo;
-    if (!vote_batch(sh, w, keys, k0, n, active, need, best_t, todo)) return;
+    if (!vote_batch(sh, w, keys, k0, n, active, need, reach, todo)) return;
     while (todo) {
       const int i = __ffs(todo) - 1;
       todo &= todo - 1;
@@ -597,15 +682,22 @@ __device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
   }
 }
 
-// Host: dynamic shared memory of a ranked kernel with list rows in all.
-inline size_t ranked_smem(int list_rows) {
-  return (size_t)SHARED_HEAD + (size_t)list_rows * sizeof(u64);
-}
-
 inline int rank_rows_for(int table_rows) {
   int p = BATCH;
   while (p < table_rows && p < RANK_MAX) p <<= 1;
   return p;
+}
+
+// Host: dynamic shared memory of kernel B<kernel> (1-4) over table_rows
+// rows: the candidate list of one window of them (B1/B2: cluster rows;
+// B3/B4: instance rows, plus one window of a mesh's clusters) and the
+// kernel's shadow regions.
+inline size_t kernel_smem(int kernel, int table_rows) {
+  const int rows = rank_rows_for(table_rows) + (kernel >= 3 ? CL_WINDOW : 0);
+  const int shadow = kernel == 2   ? shadow_bytes(B2_SIDE, 0)
+                     : kernel == 4 ? shadow_bytes(B4_SIDE, OP_ROW)
+                                   : 0;
+  return (size_t)SHARED_HEAD + (size_t)shadow + (size_t)rows * sizeof(u64);
 }
 
 // Host: launch-side opt-in above the default 48 KB of shared memory.

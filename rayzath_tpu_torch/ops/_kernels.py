@@ -41,17 +41,18 @@ _SIGNATURES = {
     # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id,
     # visits (null: not counted), stream
     "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a, stream
-    "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a,
+    # visits (null: not counted), stream
+    "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
     # t, id, inst, visits (null: not counted), stream
     "rz_cluster_closest_inst": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                 _P, _P, _P],
     # origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
-    # n_rays, ip, rgb, a, stream
+    # n_rays, ip, rgb, a, visits (null: not counted), stream
     "rz_cluster_shadow_inst": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                               _P, _P],
-    # table rows, instanced -> bytes of dynamic shared memory of B1 / B3
+                               _P, _P, _P],
+    # table rows, kernel (1-4: B1-B4) -> bytes of its dynamic shared memory
     "rz_ranked_smem": [_I, _I],
 }
 

@@ -409,8 +409,9 @@ def _stream():
 
 
 def _aligned(**tensors):
-    """Raise unless every tensor starts on a 16-byte boundary (the frames
-    are staged with 16-byte cp.async copies)."""
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    stage frames, opacity blocks and slot rows with 16-byte cp.async
+    copies)."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -423,11 +424,11 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
-def _ranked_smem(lib, dev, rows: int, instanced: bool) -> int:
-    """Dynamic shared memory of a ranked closest-hit launch over ``rows``
-    table rows (B1's clusters, or B3's instances plus one mesh window), as
-    the kernel asks for it; raises when the device cannot give it."""
-    need = lib.rz_ranked_smem(rows, int(instanced))
+def _ranked_smem(lib, dev, rows: int, kernel: int) -> int:
+    """Dynamic shared memory of a launch of kernel B``kernel`` (1-4) over
+    ``rows`` table rows (B1's and B2's clusters, B3's and B4's instances),
+    as the kernel asks for it; raises when the device cannot give it."""
+    need = lib.rz_ranked_smem(rows, kernel)
     have = _smem_optin(dev.index if dev.index is not None
                        else torch.cuda.current_device())
     if need > have:
@@ -478,7 +479,7 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("near", near, (r,)), ("far", far, (r,))))
     _aligned(frames=frames)
-    _ranked_smem(lib, dev, cp, instanced=False)
+    _ranked_smem(lib, dev, cp, kernel=1)
     counts = _visit_buffer(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
@@ -577,12 +578,14 @@ def _replay_chunk(r: int, f: int) -> int:
 
 
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
-                   count, op_rgb, op_a, *, tris=None):
+                   count, op_rgb, op_a, *, tris=None, visits=None):
     """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
     product of the live material opacity over every hit in (0, dist).
     CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
-    B2 kernel (``csrc/cluster_shadow.cu``), which may stop a ray once its
-    alpha is below 1e-4.
+    B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
+    block of 128 rays that stops a ray once its alpha is below 1e-4.
+    ``visits`` as for :func:`cluster_closest` (CUDA only, off the render
+    path).
 
     Differentiable when grad mode is on and an input requires grad: the
     backward replays the test densely (:func:`_soup_replay`) over ``tris``
@@ -594,7 +597,8 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
         return _ShadowReplay.apply(
             lambda: cluster_shadow(origin.detach(), direction.detach(),
                                    dist.detach(), box_tab, frames, order, base,
-                                   count, op_rgb.detach(), op_a.detach()),
+                                   count, op_rgb.detach(), op_a.detach(),
+                                   visits=visits),
             _soup_replay, origin, direction, dist, *tris, op_rgb, op_a)
     if _needs_grad(origin, direction, op_rgb, op_a):
         raise ValueError("cluster_shadow needs tris=(tri_v0, tri_e1, tri_e2) "
@@ -612,12 +616,16 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     cp = _check_tables(box_tab, frames, (
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("dist", dist, (r,)), ("op_tab", op_tab, (box_tab.shape[1], 4, CLUSTER_T))))
+    _aligned(frames=frames, op_tab=op_tab)
+    _ranked_smem(lib, dev, cp, kernel=2)
+    counts = _visit_buffer(visits, dev, r)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
         err = lib.rz_cluster_shadow(
             _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
-            _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), _stream())
+            _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts,
+            _stream())
         if err != 0:
             raise RuntimeError(f"cluster_shadow kernel launch failed: "
                                f"{_kernels.error_string(err)}")
@@ -662,7 +670,7 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("near", near, (r,)), ("far", far, (r,))))
     _aligned(frames=frames)
-    _ranked_smem(lib, dev, ip, instanced=True)
+    _ranked_smem(lib, dev, ip, kernel=3)
     counts = _visit_buffer(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     tid = torch.empty(r, dtype=torch.int32, device=dev)
@@ -684,13 +692,16 @@ cluster_closest_inst.launches = 0
 
 def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
                         cl_slot, inst_slot_map, mat_color, *, tris=None,
-                        expanded=None):
+                        expanded=None, visits=None):
     """Two-level transmission-filtered visibility: (mask_rgb [R,3],
     mask_a [R]), the product of the live material opacity, resolved through
     each instance's slot table (:func:`instance_opacity`), over every hit in
     (0, dist). CPU tensors take :func:`cluster_shadow_inst_plain`; CUDA
-    tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), which
-    may stop a ray once its alpha is below 1e-4.
+    tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), a
+    ranked front-to-back walk of the instances and of each visited mesh's
+    clusters per block of 128 rays that stops a ray once its alpha is below
+    1e-4. ``visits`` as for :func:`cluster_closest_inst` (CUDA only, off
+    the render path).
 
     Differentiable when grad mode is on and an input requires grad: the
     backward replays the test densely over the expanded (instance,
@@ -708,7 +719,7 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
             lambda: cluster_shadow_inst(origin.detach(), direction.detach(),
                                         dist.detach(), ti_rows, cl_obox,
                                         frames, cl_slot, inst_slot_map,
-                                        mat_color.detach()),
+                                        mat_color.detach(), visits=visits),
             replay, origin, direction, dist, *tris, mat_color)
     if _needs_grad(origin, direction, mat_color):
         raise ValueError("cluster_shadow_inst needs tris= and expanded= to "
@@ -728,13 +739,16 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("dist", dist, (r,)), ("cl_slot", cl_slot, (cl_obox.shape[0], CLUSTER_T)),
         ("op_tab", op_tab, (op_tab.shape[0], 4, SLOTS))))
+    _aligned(frames=frames, cl_slot=cl_slot, op_tab=op_tab)
+    _ranked_smem(lib, dev, ip, kernel=4)
+    counts = _visit_buffer(visits, dev, r)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
         err = lib.rz_cluster_shadow_inst(
             _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
             _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
-            _ptr(rgb), _ptr(a), _stream())
+            _ptr(rgb), _ptr(a), counts, _stream())
         if err != 0:
             raise RuntimeError(f"cluster_shadow_inst kernel launch failed: "
                                f"{_kernels.error_string(err)}")

@@ -1,5 +1,5 @@
-"""Cluster tables built to test the ranked closest-hit walks (B1, B3)
-against their plain versions, for ``chip_smoke.py`` and the port's tests.
+"""Cluster tables built to test the ranked walks (B1-B4) against their
+plain versions, for ``chip_smoke.py`` and the port's tests.
 
 * :func:`tie_tables`: every cluster of a random soup twice, as rows
   ``[0, m)`` and ``[m, 2m)`` with the same frames. The second copy's boxes
@@ -18,7 +18,9 @@ against their plain versions, for ``chip_smoke.py`` and the port's tests.
   for B3), so their walks take several windows.
 
 Each returns NumPy arrays and the world-space triangles (``v0``, ``e1``,
-``e2``, in the order of the ids the tables report) to aim rays at.
+``e2``, in the order of the ids the tables report) to aim rays at;
+:func:`soup_opacity` / :func:`instance_materials` add (translucent)
+opacities for the shadow walks (B2, B4).
 
 :func:`needed_soup` / :func:`needed_inst` count the visits a walk needs
 (the ray and (instance,) cluster pairs whose exact slab interval meets
@@ -232,6 +234,37 @@ def window_instance_tables(rows: int = MESH_WINDOW + 100, n: int = 300,
     out.update(ti_rows=_instances(cl_obox, moves, (False, False)),
                cl_obox=cl_obox, frames=frames)
     return out
+
+
+def soup_opacity(tabs: dict, seed: int) -> dict:
+    """Per-triangle translucent opacities of a flat table for the shadow
+    kernel (B2), in the original triangle order of ``tabs["order"]``: rgb
+    factors in [0.3, 1] and alpha factors (1 - alpha) in [0.5, 0.95], with
+    the per-row first triangle and count that ``cluster_opacity`` reads."""
+    rng = np.random.default_rng(seed)
+    t = len(tabs["v0"])
+    return dict(op_rgb=rng.uniform(0.3, 1.0, (t, 3)).astype(_F),
+                op_a=rng.uniform(0.5, 0.95, t).astype(_F),
+                base=tabs["box_tab"][B_BASE].astype(np.int32),
+                count=tabs["box_tab"][B_CNT].astype(np.int32))
+
+
+def instance_materials(tabs: dict, seed: int, alpha=(0.05, 0.5)) -> dict:
+    """Materials of an instanced table for the shadow kernel (B4): a random
+    slot in [0, 4) per triangle (``cl_slot``), each instance's slots mapped
+    to six random materials (``inst_slot_map``), and ``mat_color`` rgba
+    with rgb in [0.3, 1] and alpha in ``alpha`` (translucent by default;
+    (1, 1): opaque)."""
+    rng = np.random.default_rng(seed)
+    n_inst = int((tabs["ti_rows"][:, tc.TI_NCL] > 0).sum())
+    color = np.concatenate([rng.uniform(0.3, 1.0, (6, 3)),
+                            rng.uniform(*alpha, (6, 1))], 1)
+    return dict(
+        cl_slot=rng.integers(0, 4, (len(tabs["cl_obox"]), tc.CLUSTER_T))
+        .astype(_F),
+        inst_slot_map=rng.integers(0, 6, (n_inst, tc.SLOTS))
+        .astype(np.int32),
+        mat_color=color.astype(_F))
 
 
 def _safe_inv(v):

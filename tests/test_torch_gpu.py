@@ -12,7 +12,9 @@ bit for bit on the tables of ``utils/check_tables.py`` (exact ties across
 rows, walks of several windows, near < 0), where B1 must also test at
 most twice the needed clusters per ray on rays that hit a near wall; B2
 and B4 rgba to rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, and
-both below 1e-4 elsewhere; the B2/B4 backwards to rtol 1e-3 of the max
+both below 1e-4 elsewhere, also with translucent opacities on tables of
+several windows, and at most twice the needed cluster tests on shadow
+rays stopped by an opaque wall; the B2/B4 backwards to rtol 1e-3 of the max
 |g| of autograd through the plain versions; the texture fetch on the card
 to 1e-6 of the CPU's.
 """
@@ -74,6 +76,17 @@ def stack_rays(case):
     return o, d, np.full(128, 1000.0, np.float32)
 
 
+def shadow_gate(got, ref):
+    """The renderer's shadow gate: rgba (``got`` against the plain ``ref``)
+    to rtol 1e-5 / atol 1e-6 where the plain alpha is at least 1e-4, both
+    alphas below 1e-4 elsewhere."""
+    (rgb_k, a_k), (rgb_p, a_p) = got, ref
+    live = a_p >= 1e-4
+    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
+    assert bool((a_k[~live] < 1e-4).all())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -130,17 +143,12 @@ def test_kernels_match_plain(cuda, name):
 
         for dist in (torch.where(tid_k >= 0, t_k, torch.full_like(t_k, 3e38)),
                      torch.full_like(t_k, 3e38)):
-            rgb_k, a_k = tc.cluster_shadow(o, d, dist, scene.cl_box,
-                                           scene.cl_lw, scene.cl_order,
-                                           scene.cl_base, scene.cl_count,
-                                           op_rgb, op_a)
-            rgb_p, a_p = tc.cluster_shadow_plain(o, d, dist, scene.cl_box,
-                                                 scene.cl_lw, op_tab)
-            live = a_p >= 1e-4
-            torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5,
-                                       atol=1e-6)
-            assert bool((a_k[~live] < 1e-4).all())
+            shadow_gate(tc.cluster_shadow(o, d, dist, scene.cl_box,
+                                          scene.cl_lw, scene.cl_order,
+                                          scene.cl_base, scene.cl_count,
+                                          op_rgb, op_a),
+                        tc.cluster_shadow_plain(o, d, dist, scene.cl_box,
+                                                scene.cl_lw, op_tab))
 
 
 @pytest.mark.gpu
@@ -163,15 +171,14 @@ def test_translucent_shadow_products(cuda):
     v = rng.normal(size=(4096, 3)).astype(np.float32)
     d = torch.as_tensor(v / np.linalg.norm(v, axis=1, keepdims=True), device=cuda)
     dist = torch.full((4096,), 8.0, device=cuda)
-    rgb_k, a_k = tc.cluster_shadow(o, d, dist, box, frames, order, base, count,
-                                   op_rgb, op_a)
-    rgb_p, a_p = tc.cluster_shadow_plain(
+    got = tc.cluster_shadow(o, d, dist, box, frames, order, base, count,
+                            op_rgb, op_a)
+    ref = tc.cluster_shadow_plain(
         o, d, dist, box, frames,
         tc.cluster_opacity(op_rgb, op_a, order, base, count))
-    live = a_p >= 1e-4
-    assert int((a_p[live] < 1.0).sum()) > 100
-    torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5, atol=1e-6)
+    a_p = ref[1]
+    assert int(((a_p >= 1e-4) & (a_p < 1.0)).sum()) > 100
+    shadow_gate(got, ref)
 
 
 @pytest.mark.gpu
@@ -266,16 +273,11 @@ def test_inst_kernels_match_plain(cuda, name):
 
         for dist in (torch.where(tid_k >= 0, t_k, torch.full_like(t_k, 3e38)),
                      torch.full_like(t_k, 3e38)):
-            rgb_k, a_k = tc.cluster_shadow_inst(
+            shadow_gate(tc.cluster_shadow_inst(
                 o, d, dist, *tabs, scene.cl_slot, scene.inst_slot_map,
-                scene.mat_color)
-            rgb_p, a_p = tc.cluster_shadow_inst_plain(o, d, dist, *tabs,
-                                                      scene.cl_slot, op_tab)
-            live = a_p >= 1e-4
-            torch.testing.assert_close(a_k[live], a_p[live], rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(rgb_k[live], rgb_p[live], rtol=1e-5,
-                                       atol=1e-6)
-            assert bool((a_k[~live] < 1e-4).all())
+                scene.mat_color),
+                tc.cluster_shadow_inst_plain(o, d, dist, *tabs, scene.cl_slot,
+                                             op_tab))
 
 
 @pytest.mark.gpu
@@ -506,3 +508,77 @@ def test_ranked_b3_matches_plain_bit_for_bit(cuda, case):
     if case == "negative_near":
         assert bool((ref[0][hit] < 0).any())        # a hit behind an origin
     assert int(visits[:r].sum()) > 0 and int(visits[r:].max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b2", "b4"])
+@pytest.mark.parametrize("case", ["windows", "stop"])
+def test_ranked_shadow_matches_plain(cuda, case, kernel):
+    """B2's and B4's ranked walks with dist = BIG: "windows", translucent
+    opacities on a table of more than two windows of rows (B2) or a mesh of
+    more clusters than one window (B4), so that products run over several
+    windows; "stop", opaque walls hit by rays along (1, 1, 1) whose lines
+    cross five times the clusters they need: the walk tests at most twice
+    the needed ones per ray (the visit counter), as the model in
+    test_torch_ranked_walk.py does. rgba to the forward gate."""
+    r = 4096
+    dist = torch.full((r,), 3.4e38, device=cuda)
+    zero, far = torch.zeros(r, device=cuda), torch.full((r,), 1e30, device=cuda)
+    visits = torch.zeros(r + r // 128, dtype=torch.int32, device=cuda)
+    if kernel == "b2":
+        tabs = (ct.window_tables() if case == "windows"
+                else ct.window_tables(rows=200, n=300, seed=8))
+        box, frames, order = _table_tensors(tabs, ("box_tab", "frames", "order"),
+                                            cuda)
+        op = {k: torch.as_tensor(v, device=cuda)
+              for k, v in ct.soup_opacity(tabs, seed=10).items()}
+        if case == "windows":
+            assert tabs["real_rows"] > 2 * ct.RANK_WINDOW
+        else:
+            op["op_a"].zero_()                                   # opaque
+        args = (box, frames, order, op["base"], op["count"], op["op_rgb"],
+                op["op_a"])
+    else:
+        tabs = (ct.window_instance_tables() if case == "windows"
+                else ct.window_instance_tables(rows=200, n=300, seed=9))
+        ti, obox, frames = _table_tensors(tabs, ("ti_rows", "cl_obox", "frames"),
+                                          cuda)
+        mats = {k: torch.as_tensor(v, device=cuda) for k, v in
+                ct.instance_materials(tabs, seed=12, alpha=(
+                    (0.05, 0.5) if case == "windows" else (1.0, 1.0))).items()}
+        if case == "windows":
+            assert obox.shape[0] > ct.MESH_WINDOW
+        args = (ti, obox, frames, mats["cl_slot"], mats["inst_slot_map"],
+                mats["mat_color"])
+    if case == "windows":
+        o, d, *_ = _aimed_rays(tabs, r, 7, cuda)
+    else:
+        o, d = (torch.as_tensor(x, device=cuda)
+                for x in ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r))
+    if kernel == "b2":
+        got = tc.cluster_shadow(o, d, dist, *args, visits=visits)
+        ref = tc.cluster_shadow_plain(o, d, dist, box, frames, tc.cluster_opacity(
+            op["op_rgb"], op["op_a"], order, op["base"], op["count"]))
+    else:
+        got = tc.cluster_shadow_inst(o, d, dist, *args, visits=visits)
+        ref = tc.cluster_shadow_inst_plain(
+            o, d, dist, ti, obox, frames, mats["cl_slot"],
+            tc.instance_opacity(mats["mat_color"], mats["inst_slot_map"]))
+    torch.cuda.synchronize()
+    shadow_gate(got, ref)
+    made = int(visits[:r].sum())
+    assert made > 0 and int(visits[r:].max()) > 0
+    if case == "windows":
+        assert int(((ref[1] > 1e-4) & (ref[1] < 0.5)).sum()) > r // 20
+        return
+    assert bool((ref[1] == 0).all())              # every ray meets the wall
+    if kernel == "b2":
+        t = tc.cluster_closest_plain(o, d, zero, far, box, frames)[0]
+        needed = ct.needed_soup(o, d, zero, t, box)[0]
+        on_line = ct.needed_soup(o, d, zero, dist, box)[0]
+    else:
+        t = tc.cluster_closest_inst_plain(o, d, zero, far, ti, obox, frames)[0]
+        needed = ct.needed_inst(o, d, zero, t, ti, obox)[0]
+        on_line = ct.needed_inst(o, d, zero, dist, ti, obox)[0]
+    assert on_line >= 5 * needed > 0, (on_line, needed)
+    assert made <= 2 * needed, (made, needed)

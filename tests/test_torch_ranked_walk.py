@@ -1,6 +1,8 @@
 """A CPU model of the ranked front-to-back walk of the closest-hit kernels
 B1 (``csrc/cluster_closest.cu``) and B3 (``csrc/cluster_closest_inst.cu``),
-held to their plain versions bit for bit.
+held to their plain versions bit for bit, and of the shadow kernels B2
+(``csrc/cluster_shadow.cu``) and B4 (``csrc/cluster_shadow_inst.cu``), held
+to theirs under the renderer's forward gate.
 
 The CUDA kernels cannot run here, so this file models their block walk in
 torch, step for step, on blocks of 128 rays: the rank (each row's lower
@@ -15,6 +17,16 @@ triangles tie exactly across cluster rows and instance rows with the later
 row entered first, and with a window small enough that the walk takes
 three or more windows. The kernels themselves meet the same tables on the
 card in tests/test_torch_gpu.py.
+
+The shadow model walks the same way with a product in place of the
+minimum: a ray is live while its alpha is at least ALPHA_STOP, its reach
+is its dist while live and -1 once blocked (so it votes no more and marks
+no candidate), the rank's cap is the block's largest live dist, each
+visited cluster's factors enter as one product per cluster (the plain
+versions' structure), and the walk stops when no live ray reaches the next
+batch. It must meet ``cluster_shadow_plain`` / ``cluster_shadow_inst_plain``
+to rtol 1e-5 / atol 1e-6 where the plain alpha is at least 1e-4, and both
+be below 1e-4 elsewhere: the rank changes only the order of the factors.
 """
 import numpy as np
 import pytest
@@ -28,12 +40,14 @@ from rayzath_tpu_torch.ops import camera as cam_ops  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as tc  # noqa: E402
 from rayzath_tpu_torch.ops._kernels import header_constant  # noqa: E402
 from rayzath_tpu_torch.utils import check_tables as ct  # noqa: E402
+from test_torch_gpu import shadow_gate  # noqa: E402
 
 THREADS = header_constant("THREADS")        # rays per block
 BATCH = header_constant("BATCH")            # candidates per block vote
 SWEEP_MAX = header_constant("SWEEP_MAX")    # B3: smaller meshes are swept
 GATE_PAD = np.float32(header_constant("GATE_PAD"))
 BIG = np.float32(header_constant("BIG"))
+ALPHA_STOP = header_constant("ALPHA_STOP")  # B2/B4: a ray below it is blocked
 
 
 def safe_inv(v):
@@ -152,15 +166,16 @@ def rank(rows, row_box, b):
     return sorted(out)
 
 
-def walk(cands, blk, rays, need, visit):
+def walk(cands, reach, rays, need, visit):
     """Walk ranked candidates in batches of BATCH: stop when no ray's
-    (current) gate reaches the batch's first entry; visit every candidate
-    some ray of the block needs, in order. Returns the visits."""
+    (current) gate, gate_t(reach()), reaches the batch's first entry; visit
+    every candidate some ray of the block needs, in order. Returns the
+    visits."""
     visits = 0
     for k0 in range(0, len(cands), BATCH):
         batch = cands[k0:k0 + BATCH]
         go = rays & (torch.tensor(batch[0][0], dtype=torch.float32)
-                     <= gate_t(blk.best_t))
+                     <= gate_t(reach()))
         if not bool(go.any()):
             break
         todo = [row for _, row in batch if bool((go & need(row)).any())]
@@ -194,8 +209,8 @@ def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW):
             for w0 in range(0, cp, window):
                 rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
                 b = bounds(ob, db, blk.active, blk.near, blk.best_t)
-                visits += walk(rank(rows, lambda c: (lo[c], hi[c]), b), blk,
-                               blk.active, need, visit)
+                visits += walk(rank(rows, lambda c: (lo[c], hi[c]), b),
+                               lambda: blk.best_t, blk.active, need, visit)
         t_out.append(blk.best_t)
         id_out.append(blk.best_id)
         tests.append(blk.tests)
@@ -246,7 +261,8 @@ def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
                     cands = rank(rows, lambda s: (cl_obox[s, 0:3],
                                                   cl_obox[s, 3:6]),
                                  bounds(oo, dd, in_k, blk.near, blk.best_t))
-                n_visits[0] += walk(cands, blk, in_k, cneed, cvisit)
+                n_visits[0] += walk(cands, lambda: blk.best_t, in_k, cneed,
+                                    cvisit)
 
         if bool(blk.active.any()):
             ip = ti_rows.shape[0]
@@ -255,7 +271,7 @@ def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
                         if ti_rows[k, tc.TI_NCL] > 0]
                 b = bounds(ob, db, blk.active, blk.near, blk.best_t)
                 walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
-                          b), blk, blk.active, ineed, visit_inst)
+                          b), lambda: blk.best_t, blk.active, ineed, visit_inst)
         visits += n_visits[0]
         t_out.append(blk.best_t)
         id_out.append(blk.best_id)
@@ -425,3 +441,337 @@ def test_model_matches_plain_with_negative_near(kernel):
         ref = tc.cluster_closest_inst_plain(o, d, near, far, *tabs_t)
     assert_bits(got, ref)
     assert bool((ref[0][(ref[1] >= 0)] < 0).any())     # a hit behind an origin
+
+
+# ---------------------------------------------------------------------------
+# the shadow walks (B2, B4)
+# ---------------------------------------------------------------------------
+
+class ShadowBlock:
+    """The per-ray state of one block of a shadow walk: the rgba product
+    and the cluster tests."""
+
+    def __init__(self, dist):
+        self.dist = dist
+        self.active = dist > 0
+        self.m = torch.ones((len(dist), 4))
+        self.tests = torch.zeros(len(dist), dtype=torch.int32)
+
+    def live(self):
+        return self.active & (self.m[:, 3] >= ALPHA_STOP)
+
+    def reach(self):
+        return torch.where(self.live(), self.dist, torch.full_like(self.dist, -1.0))
+
+    def gate(self, tmin, tmax, rays):
+        """The exact (B2) or widened (B4) slab gate on (0, dist), for the
+        rays ``rays`` that are still live."""
+        return (rays & self.live() & (tmax >= 0) & (tmin <= tmax)
+                & (tmin <= self.dist))
+
+    def take(self, t, b1, b2, rays, op):
+        """One cluster's product for the rays ``rays``: op [4, 128] is the
+        factor of each slot, taken where the slot is hit in (0, dist)."""
+        hit = tc._inside(b1, b2) & (t > 0.0) & (t < self.dist[:, None])
+        fac = torch.where(hit[:, None, :], op[None], 1.0).prod(dim=2)
+        self.m = torch.where(rays[:, None], self.m * fac, self.m)
+        self.tests += rays.to(torch.int32)
+
+
+def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW):
+    """B2's walk, block by block. Returns (rgb, a, block visits, cluster
+    tests per ray)."""
+    cp = box_tab.shape[1]
+    lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
+    cnt = box_tab[tc.B_CNT]
+    m_out, tests, visits = [], [], 0
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = ShadowBlock(dist[sl])
+        zero = torch.zeros(len(ob))
+
+        def need(c):
+            return blk.gate(*slab(lo[c], hi[c], ob, inv), blk.active)
+
+        def visit(c):
+            t, b1, b2 = tc._project(ob, db, box_tab, frames, c)
+            blk.take(t, b1, b2, need(c), op_tab[c])
+
+        if bool(blk.active.any()):
+            for w0 in range(0, cp, window):
+                rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
+                b = bounds(ob, db, blk.live(), zero, blk.dist)
+                visits += walk(rank(rows, lambda c: (lo[c], hi[c]), b),
+                               blk.reach, blk.active, need, visit)
+        m_out.append(blk.m)
+        tests.append(blk.tests)
+    m = torch.cat(m_out)
+    return m[:, 0:3], m[:, 3], visits, torch.cat(tests)
+
+
+def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
+                      window=ct.RANK_WINDOW, mesh_window=ct.MESH_WINDOW):
+    """B4's walk, block by block: instances ranked, each visited mesh's
+    clusters ranked (more than SWEEP_MAX) or swept, each hit's factor
+    op_tab[gid, :, cl_slot[s, j]]. Returns (rgb, a, block visits, cluster
+    tests per ray)."""
+    box = cl_obox.t().contiguous()
+    slots = cl_slot.long()
+    m_out, tests, visits = [], [], 0
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = ShadowBlock(dist[sl])
+        zero = torch.zeros(len(ob))
+        n_visits = [0]
+
+        def ineed(k):
+            row = ti_rows[k]
+            return blk.gate(*slab(row[0:3], row[3:6], ob, inv, pad=True),
+                            blk.active)
+
+        def visit_inst(k):
+            row = ti_rows[k]
+            in_k = ineed(k)
+            oo, dd = tc._object_rays(ob, db, ti_rows, k)
+            invl = safe_inv(dd)
+            cl0, ncl, gid = (int(row[tc.TI_CL0]), int(row[tc.TI_NCL]),
+                             int(row[tc.TI_ID]))
+
+            def cneed(s):
+                return blk.gate(*slab(cl_obox[s, 0:3], cl_obox[s, 3:6], oo,
+                                      invl, pad=True), in_k)
+
+            def cvisit(s):
+                t, b1, b2 = tc._project(oo, dd, box, frames, s)
+                blk.take(t, b1, b2, cneed(s), op_tab[gid][:, slots[s]])
+
+            for s0 in range(cl0, cl0 + ncl, mesh_window):
+                rows = list(range(s0, min(cl0 + ncl, s0 + mesh_window)))
+                if ncl <= SWEEP_MAX:
+                    cands = [(-float("inf"), s) for s in rows]
+                else:
+                    cands = rank(rows, lambda s: (cl_obox[s, 0:3],
+                                                  cl_obox[s, 3:6]),
+                                 bounds(oo, dd, in_k & blk.live(), zero,
+                                        blk.dist))
+                n_visits[0] += walk(cands, blk.reach, in_k, cneed, cvisit)
+
+        if bool(blk.active.any()):
+            ip = ti_rows.shape[0]
+            for w0 in range(0, ip, window):
+                rows = [k for k in range(w0, min(ip, w0 + window))
+                        if ti_rows[k, tc.TI_NCL] > 0]
+                b = bounds(ob, db, blk.live(), zero, blk.dist)
+                walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
+                          b), blk.reach, blk.active, ineed, visit_inst)
+        visits += n_visits[0]
+        m_out.append(blk.m)
+        tests.append(blk.tests)
+    m = torch.cat(m_out)
+    return m[:, 0:3], m[:, 3], visits, torch.cat(tests)
+
+
+def _soup_op(scene, mat_color):
+    mat = mat_color[scene.tri_mat.long()]
+    return tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                              scene.cl_base, scene.cl_count)
+
+
+def _half_translucent(mat_color):
+    """Every other material (from index 2) at alpha 0.5, as chip_smoke.py's
+    translucent sets."""
+    mc = mat_color.clone()
+    mc[2::2, 3] = 0.5
+    return mc
+
+
+def _dists(t, hit):
+    """dist = the ray's first hit (else BIG), and dist = BIG."""
+    big = torch.full_like(t, float(BIG))
+    return {"hit": torch.where(hit, t, big), "big": big}
+
+
+@pytest.mark.parametrize("alpha", ["opaque", "half"])
+@pytest.mark.parametrize("dist", ["hit", "big"])
+def test_model_b2_matches_plain_on_mesh_heavy_like_rays(dist, alpha):
+    world = rt.scenes.mesh_heavy(24, 24, resolution=40)
+    scene = tds.compile_world(world, device="cpu")
+    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    op_tab = _soup_op(scene, mc)
+    sets, near, far = scene_rays(scene, world, 24, seed=3)
+    partial = 0
+    for o, d in sets:
+        t, tid = tc.cluster_closest_plain(o, d, near, far, scene.cl_box,
+                                          scene.cl_lw)
+        dd = _dists(t, tid >= 0)[dist]
+        ref = tc.cluster_shadow_plain(o, d, dd, scene.cl_box, scene.cl_lw, op_tab)
+        *got, visits, tests = model_shadow(o, d, dd, scene.cl_box, scene.cl_lw,
+                                           op_tab)
+        shadow_gate(got, ref)
+        partial += int(((ref[1] > 0) & (ref[1] < 1)).sum())
+        blocked = int((ref[1] < ALPHA_STOP).sum())
+        assert (blocked > len(o) // 8) == (dist == "big")
+        assert visits > 0 and int(tests.sum()) > 0
+    if dist == "big":           # dist = hit: nothing lies before the hit
+        assert (partial > 20) == (alpha == "half"), partial
+
+
+@pytest.mark.parametrize("alpha", ["opaque", "half"])
+@pytest.mark.parametrize("resolution", [8, 48])
+def test_model_b4_matches_plain_on_instanced_field_like_rays(resolution, alpha):
+    """resolution 8: one cluster per ball (swept); 48: 24 (ranked); each
+    ray set at dist = hit and dist = BIG."""
+    world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
+    scene = tds.compile_world(world, two_level=True, device="cpu")
+    assert (scene.max_ncl > SWEEP_MAX) == (resolution == 48)
+    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    op_tab = tc.instance_opacity(mc, scene.inst_slot_map)
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot, op_tab)
+    sets, near, far = scene_rays(scene, world, 16, seed=4)
+    partial = 0
+    for o, d in sets:
+        t, tid, _ = tc.cluster_closest_inst_plain(o, d, near, far, *tabs[:3])
+        for dd in _dists(t, tid >= 0).values():
+            ref = tc.cluster_shadow_inst_plain(o, d, dd, *tabs)
+            *got, visits, tests = model_shadow_inst(o, d, dd, *tabs)
+            shadow_gate(got, ref)
+            partial += int(((ref[1] > 0) & (ref[1] < 1)).sum())
+            assert visits > 0 and int(tests.sum()) > 0
+    assert (partial > 20) == (alpha == "half"), partial
+
+
+def _window_spans(o, d, dist, box_tab, frames, window):
+    """Per ray, the number of windows of ``window`` rows that hold a hit in
+    (0, dist) (the plain version's projection, cluster by cluster)."""
+    spans = torch.zeros((len(o), -(-box_tab.shape[1] // window)), dtype=torch.bool)
+    for c, _ in tc._real_clusters(box_tab):
+        t, b1, b2 = tc._project(o, d, box_tab, frames, c)
+        hit = (tc._inside(b1, b2) & (t > 0) & (t < dist[:, None])).any(1)
+        spans[:, c // window] |= hit
+    return spans.sum(1)
+
+
+def _soup_tables(tabs, seed):
+    box, frames, order = (torch.as_tensor(tabs[k])
+                          for k in ("box_tab", "frames", "order"))
+    op = {k: torch.as_tensor(v) for k, v in ct.soup_opacity(tabs, seed).items()}
+    op_tab = tc.cluster_opacity(op["op_rgb"], op["op_a"], order, op["base"],
+                                op["count"])
+    return box, frames, op_tab
+
+
+@pytest.mark.parametrize("window", [ct.RANK_WINDOW, 8])
+def test_model_b2_translucent_window_table(window):
+    """Translucent products over a tiled table: with 8-row windows a
+    product spans three or more windows, and the rank, the vote and the
+    alpha stop keep it the plain version's."""
+    tabs = ct.window_tables(rows=300, n=2000, seed=8)
+    box, frames, op_tab = _soup_tables(tabs, seed=10)
+    o, d, *_ = _table_rays(tabs, 512, seed=11)
+    dist = torch.full((len(o),), float(BIG))
+    ref = tc.cluster_shadow_plain(o, d, dist, box, frames, op_tab)
+    *got, visits, _ = model_shadow(o, d, dist, box, frames, op_tab, window)
+    shadow_gate(got, ref)
+    spans = _window_spans(o, d, dist, box, frames, 8)
+    live = ref[1] >= ALPHA_STOP
+    assert int((live & (spans >= 3)).sum()) > 10
+    assert int(((ref[1] > ALPHA_STOP) & (ref[1] < 0.5)).sum()) > 10
+    assert visits > 0
+
+
+def test_model_b4_translucent_window_table():
+    """Translucent products over one mesh of more clusters than three mesh
+    windows of 8, under two instances: a product spans three or more mesh
+    windows (of either instance), and slot rows and instance opacity rows
+    resolve every factor."""
+    tabs = ct.window_instance_tables(rows=100, n=2000, seed=9)
+    mats = {k: torch.as_tensor(v) for k, v in
+            ct.instance_materials(tabs, seed=12).items()}
+    ti, obox, frames = (torch.as_tensor(tabs[k])
+                        for k in ("ti_rows", "cl_obox", "frames"))
+    assert obox.shape[0] > 3 * 8 > SWEEP_MAX
+    op_tab = tc.instance_opacity(mats["mat_color"], mats["inst_slot_map"])
+    o, d, *_ = _table_rays(tabs, 256, seed=13)
+    dist = torch.full((len(o),), float(BIG))
+    tabs_t = (ti, obox, frames, mats["cl_slot"], op_tab)
+    ref = tc.cluster_shadow_inst_plain(o, d, dist, *tabs_t)
+    got = model_shadow_inst(o, d, dist, *tabs_t, mesh_window=8)[:2]
+    shadow_gate(got, ref)
+    spans = sum(_window_spans(*tc._object_rays(o, d, ti, k), dist,
+                              obox.t().contiguous(), frames, 8) for k in (0, 1))
+    assert int(((ref[1] >= ALPHA_STOP) & (spans >= 3)).sum()) > 10
+    assert int(((ref[1] > ALPHA_STOP) & (ref[1] < 0.5)).sum()) > 10
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b4"])
+@pytest.mark.parametrize("case", ["instances", "clusters"])
+def test_model_shadow_takes_every_factor_of_128_rows(case, kernel):
+    """The 128-layer translucent stack (alpha 0.01 per layer): every factor
+    is taken, alpha = 0.99^128 = 0.276252, through the soup walk (B2) and
+    the two-level walk (B4), where the JAX ranked loops drop the last row
+    (ROADMAP C)."""
+    from test_torch_gpu import stack_rays, stacked_world
+    from rayzath_tpu_torch.models.mesh import Mesh
+    from rayzath_tpu_torch.utils.hostmath import Transform
+    world = stacked_world(case, rt.World, Mesh, Transform)
+    o, d, dist = (torch.as_tensor(x) for x in stack_rays(case))
+    if kernel == "b2":
+        scene = tds.compile_world(world, two_level=False, device="cpu")
+        rgb, a, *_ = model_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                                  _soup_op(scene, scene.mat_color))
+    else:
+        scene = tds.compile_world(world, two_level=True, device="cpu")
+        rgb, a, *_ = model_shadow_inst(
+            o, d, dist, scene.ti_rows, scene.cl_obox, scene.cl_lw,
+            scene.cl_slot, tc.instance_opacity(scene.mat_color,
+                                               scene.inst_slot_map))
+    np.testing.assert_allclose(a.numpy(), 0.99 ** 128, rtol=1e-5)
+    np.testing.assert_allclose(rgb.numpy(), 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b4"])
+def test_model_shadow_stops_at_the_opaque_wall(kernel):
+    """Shadow rays with dist = BIG that hit an opaque wall along (1, 1, 1):
+    their lines cross five times the clusters they need (those that meet
+    (0, the wall's hit)), and the walk tests at most twice the needed ones,
+    since front to back meets the wall first and the blocked rays vote no
+    more (tests/test_torch_gpu.py holds B2 and B4 to the same bar)."""
+    r = 512
+    if kernel == "b2":
+        tabs = ct.window_tables(rows=200, n=300, seed=8)
+        box, frames, _ = _soup_tables(tabs, seed=14)
+        op_tab = torch.zeros((box.shape[1], 4, tc.CLUSTER_T))     # opaque
+    else:
+        tabs = ct.window_instance_tables(rows=200, n=300, seed=9)
+        mats = ct.instance_materials(tabs, seed=15, alpha=(1.0, 1.0))
+        ti, obox, frames = (torch.as_tensor(tabs[k])
+                            for k in ("ti_rows", "cl_obox", "frames"))
+        slots = torch.as_tensor(mats["cl_slot"])
+        op_tab = tc.instance_opacity(torch.as_tensor(mats["mat_color"]),
+                                     torch.as_tensor(mats["inst_slot_map"]))
+    o, d = (torch.as_tensor(x) for x in ct.wall_rays(tabs["v0"], tabs["e1"],
+                                                     tabs["e2"], r))
+    zero, far = torch.zeros(r), torch.full((r,), 1e30)
+    dist = torch.full((r,), float(BIG))
+    if kernel == "b2":
+        t = tc.cluster_closest_plain(o, d, zero, far, box, frames)[0]
+        ref = tc.cluster_shadow_plain(o, d, dist, box, frames, op_tab)
+        *got, _, tests = model_shadow(o, d, dist, box, frames, op_tab)
+        needed = ct.needed_soup(o, d, zero, t, box)[0]
+        on_line = ct.needed_soup(o, d, zero, dist, box)[0]
+    else:
+        t = tc.cluster_closest_inst_plain(o, d, zero, far, ti, obox, frames)[0]
+        ref = tc.cluster_shadow_inst_plain(o, d, dist, ti, obox, frames, slots,
+                                           op_tab)
+        *got, _, tests = model_shadow_inst(o, d, dist, ti, obox, frames, slots,
+                                           op_tab)
+        needed = ct.needed_inst(o, d, zero, t, ti, obox)[0]
+        on_line = ct.needed_inst(o, d, zero, dist, ti, obox)[0]
+    shadow_gate(got, ref)
+    assert bool((ref[1] == 0).all())              # every ray meets the wall
+    assert on_line >= 5 * needed > 0, (on_line, needed)
+    assert int(tests.sum()) <= 2 * needed, (int(tests.sum()), needed)

@@ -20,14 +20,15 @@ those kernels twice; only device-side events are read here.
 trace then holds no device events. The last line per scene is one JSON
 object with the numbers above.
 
-``--parent DIR`` then times the closest-hit kernels of two trees on the same
+``--parent DIR`` then times the traversal kernels of two trees on the same
 card in turns (parent, change, change, parent): DIR holds another checkout
 of the repository (``git archive <commit> | tar -x -C DIR``), and each turn
 is one process that imports ``rayzath_tpu_torch`` from its tree, builds that
-tree's kernels, and prints the median ms of 20 launches of B1 on
-mesh_heavy's, B3 on instanced_field's and B3 on two-level multi_light's
-bounce-like rays (``chip_smoke.py`` phase 2's rays, in the integrator's
-order) as one JSON line:
+tree's kernels, and prints the median ms of 20 launches of B1 and B2 on
+mesh_heavy's, B3 and B4 on instanced_field's and B3 on two-level
+multi_light's bounce-like rays (``chip_smoke.py`` phase 2's rays, in the
+integrator's order; the shadow kernels with dist = BIG and the scene's
+opacities) as one JSON line:
 
     python3 tools/profile_torch.py --scenes "" --parent build/parent
 """
@@ -116,26 +117,29 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def closest_times(res: int) -> dict:
-    """Median ms of B1 on mesh_heavy's, of B3 on instanced_field's and of B3
-    on two-level multi_light's (whose meshes have at most 8 clusters)
-    bounce-like rays at ``res``^2: from just before each camera ray's first
-    hit, in uniform-sphere directions from a numpy seed, in the order the
-    integrator hands them to the kernels. Uses the ``rayzath_tpu_torch``
-    found first on ``sys.path`` and only the API every tree since the
-    two-level port has."""
+def kernel_times(res: int) -> dict:
+    """Median ms of B1 and B2 on mesh_heavy's, of B3 and B4 on
+    instanced_field's and of B3 on two-level multi_light's (whose meshes
+    have at most 8 clusters) bounce-like rays at ``res``^2: from just before
+    each camera ray's first hit, in uniform-sphere directions from a numpy
+    seed, in the order the integrator hands them to the kernels; the shadow
+    kernels with dist = BIG and the scene's opacities. Uses the
+    ``rayzath_tpu_torch`` found first on ``sys.path`` and only the API every
+    tree since the two-level port has."""
     import numpy as np
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.engine import integrator as I
     from rayzath_tpu_torch.models.device_scene import compile_camera, compile_world
     from rayzath_tpu_torch.ops import camera as cam_ops
     from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.intersect import BIG
     dev = torch.device("cuda")
     cfg = rt.RenderConfig()
     out = {"package": os.path.dirname(os.path.abspath(rt.__file__))}
-    for key, name, two_level in (("b1", "mesh_heavy", None),
-                                 ("b3", "instanced_field", None),
-                                 ("b3_small", "multi_light", True)):
+    for key, shadow_key, name, two_level in (
+            ("b1", "b2", "mesh_heavy", None),
+            ("b3", "b4", "instanced_field", None),
+            ("b3_small", None, "multi_light", True)):
         world = rt.scenes.SCENES[name](res, res)
         scene = compile_world(world, two_level=two_level, device=dev)
         cam = compile_camera(world.cameras[0], dev)
@@ -143,9 +147,15 @@ def closest_times(res: int) -> dict:
         if scene.two_level:
             fn, tabs = tc.cluster_closest_inst, (scene.ti_rows, scene.cl_obox,
                                                  scene.cl_lw)
+            shadow, shadow_tabs = tc.cluster_shadow_inst, (
+                *tabs, scene.cl_slot, scene.inst_slot_map, scene.mat_color)
         else:
             fn, tabs = tc.cluster_closest, (scene.cl_box, scene.cl_lw,
                                             scene.cl_order)
+            mat = scene.mat_color[scene.tri_mat.long()]
+            shadow, shadow_tabs = tc.cluster_shadow, (
+                *tabs, scene.cl_base, scene.cl_count, mat[:, :3].contiguous(),
+                (1.0 - mat[:, 3]).contiguous())
         o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res, device=dev),
                                      torch.full((r, 4), 0.5, device=dev))
         near = torch.zeros(r, device=dev)
@@ -166,17 +176,25 @@ def closest_times(res: int) -> dict:
         t, tid = fn(o, d, near, far, *tabs)[:2]
         # equal sums in two trees: the same hits (a cheap cross-tree check)
         out[f"{key}_sums"] = [float(t.double().sum()), int(tid.long().sum())]
+        if shadow_key:
+            big = torch.full((r,), BIG, device=dev)
+            out[f"{shadow_key}_ms"] = cuda_ms(
+                lambda: shadow(o, d, big, *shadow_tabs), RUNS)
+            out[f"{shadow_key}_scene"] = name
+            rgb, a = shadow(o, d, big, *shadow_tabs)
+            out[f"{shadow_key}_sums"] = [float(rgb.double().sum()),
+                                         float(a.double().sum())]
     return out
 
 
 def parent_turns(parent: str, res: int) -> list:
-    """B1/B3 times of the parent tree and this one, in turns (parent,
+    """Kernel times of the parent tree and this one, in turns (parent,
     change, change, parent), one process per turn."""
     recs = []
     for label, root in (("parent", parent), ("change", ROOT),
                         ("change", ROOT), ("parent", parent)):
         p = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--closest-times",
+            [sys.executable, os.path.abspath(__file__), "--kernel-times",
              "--root", os.path.abspath(root), "--res", str(res)],
             capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
@@ -255,15 +273,15 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--parent", default=None,
-                    help="another checkout: time its B1/B3 against this one's")
-    ap.add_argument("--closest-times", action="store_true",
-                    help="one --parent turn: B1/B3 times of the --root tree")
+                    help="another checkout: time its kernels against this one's")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="one --parent turn: kernel times of the --root tree")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
-    if args.closest_times:
+    if args.kernel_times:
         with torch.no_grad():
-            print(json.dumps(closest_times(args.res)), flush=True)
+            print(json.dumps(kernel_times(args.res)), flush=True)
         return 0
     dev = torch.device(args.device)
     print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
@@ -273,7 +291,7 @@ def main(argv=None) -> int:
                           args.profile_passes, args.top)
     if args.parent:
         recs = parent_turns(args.parent, args.res)
-        for key in ("b1_ms", "b3_ms", "b3_small_ms"):
+        for key in ("b1_ms", "b2_ms", "b3_ms", "b4_ms", "b3_small_ms"):
             print(f"{key} parent / change / change / parent [{card_line()}]: "
                   + ", ".join(f"{r[key]:.3f}" for r in recs), flush=True)
     return 0
