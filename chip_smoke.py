@@ -6,8 +6,14 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. Environment: the card (``nvidia-smi``), torch and nvcc versions; build the
-   hand-written kernels from ``rayzath_tpu_torch/csrc`` (timed).
-2. Kernel against plain: B1 ``cluster_closest`` and B2 ``cluster_shadow``
+   hand-written kernels from ``rayzath_tpu_torch/csrc`` (timed) and the
+   native library (``native/``, g++), and say which BVH builder runs.
+2. Kernel against plain. The threefry kernel (``csrc/threefry.cu``) against
+   ``ops/rng.py`` ``uniform_rows_plain`` on the card, bit for bit, on full
+   512^2 passes at ns = 8 and 14, a band of rows at row0 > 0 at ns = 11 and
+   an odd width; both timed on a 512^2 x 14 pass (median of 20), and its
+   bound from the bytes written and the integer operations counted from
+   the source over the int32 rate. Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
    against their plain PyTorch versions on the card, for cornell_box_nee,
    multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
    bounce-like rays from the first hits (uniform-sphere directions from a
@@ -56,13 +62,26 @@ Phases, each of which raises on failure (exit code != 0):
    (kernels) and on the CPU (plain versions) with the same numpy uniforms;
    sample counts equal, radiance as ``assert_images_match`` (frac 0.98 for
    textured_room, the JAX suite's own tolerance for its normal-mapped
-   glossy bounces, ``tests/test_oracle_parity.py:85``).
+   glossy bounces, ``tests/test_oracle_parity.py:85``). Then
+   ``Renderer(seed=5)`` with no injected uniforms, card (threefry kernel)
+   against CPU (plain draw) at 64^2, 3 passes and one more after: on
+   cornell_box_nee; on multi_light with a camera move in between (the
+   reprojection, which must seed samples); on cornell_box_nee with
+   ``brute_force_threshold=64`` and on the empty world (the dense path,
+   where B1 must not launch).
 4. The slice at size: ``Renderer(device="cuda")`` renders cornell_box_nee
    (32 passes), multi_light, mesh_heavy, instanced_field (two-level by the
    automatic choice), textured_room and the cutout world (8 passes each) at
    512^2, depth 8; NaN-free, samples accumulated, image mean in (5, 220),
-   and the launch counters of the path's two kernels (all four reset just
-   before) at least one per pass.
+   and the launch counters of the path's two kernels and the threefry
+   kernel (all five reset just before) at least one per pass. Then the
+   slice's scene files: multi_light (soup, B1/B2) and instanced_field
+   (two-level, B3/B4) written by the port's ``save_scene`` with one OBJ/MTL
+   per mesh and an HDR sky, loaded into a fresh ``World`` and rendered at
+   512^2, depth 8, 8 passes with no injected uniforms; then
+   ``Renderer.focus``, a camera move, the reprojection alone (it must seed
+   samples; its ``"temporal reproject"`` ms) and 8 more passes; Mrays/s,
+   warm-up and launches of both renders.
 5. Training: ``parallel.train.training_step`` on textured_room(512, 512),
    depth 3, 4 passes per step, remat, 3 steps at lr 0.01 against the same
    scene with the panel's emission halved (with 2 passes the panel never
@@ -72,8 +91,10 @@ Phases, each of which raises on failure (exit code != 0):
 
 The last lines of standard output are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
-``{"ok": true, "device": {...}}``. Needs one CUDA device and nvcc; there is
-no CPU fallback.
+``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4 and the
+threefry kernel (``"replaces": null``: the JAX package draws in XLA), each
+with its launches in phase 4. Needs one CUDA device and nvcc; there is no
+CPU fallback.
 """
 from __future__ import annotations
 
@@ -159,10 +180,12 @@ TEST_OPS = 49
 TO_OBJECT_OPS = 33
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_s: float = F32_OPS_S) -> tuple[float, str]:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate, and which of the two it is."""
-    tb, to = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    operations over their rate (float32 unless given), and which of the two
+    it is."""
+    tb, to = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -950,6 +973,60 @@ def phase_backward(card: str, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the draw: the threefry kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# 32-bit integer operations per second: a quarter of the float32 rate above,
+# since an H100 SM has half as many INT32 lanes as FP32 lanes (64 vs 128)
+# and the float32 rate counts a fused multiply-add as two operations
+INT32_OPS_S = F32_OPS_S / 4
+# integer operations of one threefry2x32, counted from csrc/threefry.cu: the
+# two initial key adds, 20 rounds of (add, rotate, xor) and five key
+# injections of two adds each (the constant folds into the key word)
+HASH_OPS = 2 + 20 * 3 + 5 * 2
+# per drawn float: the x0 ^ x1, the shift, the or and the float subtract
+UNIT_OPS = 4
+# (seed, pass, row0, rows, width, ns): full passes at the n_streams of the
+# scenes (8, plus 3 per kind of light: 11, 14), a band at row0 > 0, and an
+# odd width whose rows end inside a block
+THREEFRY_SETS = ((0, 0, 0, RES, RES, 8), (7, 3, 0, RES, RES, 14),
+                 (2 ** 31 - 1, 11, 300, 100, RES, 11), (5, 2, 17, 64, 513, 14))
+THREEFRY_NS = (8, 11, 14)
+
+
+def phase_threefry(card: str, dev):
+    """The threefry kernel bit for bit against ``uniform_rows_plain`` on the
+    card, then both timed on a full pass at ns = 14, and its bound."""
+    import torch
+    from rayzath_tpu_torch.ops import rng
+    for seed, pass_idx, row0, h, w, ns in THREEFRY_SETS:
+        k = rng.fold_in(rng.key(seed), pass_idx)
+        got = rng.uniform_rows(k, row0, h, w, ns, dev)
+        ref = rng.uniform_rows_plain(k, row0, h, w, ns, dev)
+        torch.cuda.synchronize()
+        if got.shape != (h * w, ns) or not torch.equal(
+                got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"threefry seed {seed} pass {pass_idx} rows "
+                                 f"{row0}+{h} width {w} ns {ns}: "
+                                 f"{int((got != ref).sum())} floats differ")
+        print(f"  threefry seed {seed} pass {pass_idx} rows {row0}+{h} x "
+              f"{w} x {ns}: bit for bit, range [{float(got.min()):.6f}, "
+              f"{float(got.max()):.6f}]", flush=True)
+    k = rng.fold_in(rng.key(1), 0)
+    h, w, ns = RES, RES, THREEFRY_NS[-1]
+    ms = cuda_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 20)
+    plain_ms = cuda_ms(lambda: rng.uniform_rows_plain(k, 0, h, w, ns, dev), 20)
+    n = h * w * ns
+    # bytes: the uniforms written once (the key is an argument); operations:
+    # one hash per row key and one hash and conversion per float
+    b = bound(n * 4, n * (HASH_OPS + UNIT_OPS) + h * HASH_OPS, INT32_OPS_S)
+    print(f"  threefry times [{card}]: {h}^2 x {ns} uniforms, kernel {ms:.4f} ms "
+          f"vs plain {plain_ms:.3f} ms (median of 20), bound {b[0]:.4f} ms "
+          f"({b[1]})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound=b, err=0.0)
+
+
+# ---------------------------------------------------------------------------
 # phase 3: end to end on the card against the CPU plain path
 # ---------------------------------------------------------------------------
 
@@ -998,20 +1075,96 @@ def phase_end_to_end(dev):
         print(f"{label}: 64^2 x 4 passes, CUDA kernels vs CPU plain: sample "
               f"counts equal, {close:.4f} of pixels within 2e-3 (frac "
               f"{frac})", flush=True)
+    phase_seeded(dev)
+
+
+def seeded_render(make_world, dev, cfg, passes, move):
+    """``Renderer(seed=5)`` on ``dev`` with no injected uniforms: ``passes``
+    passes, then ``move(world)`` and one more pass. Returns the accumulation
+    [H,W,4] and the B1 launches."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    world = make_world()
+    r = rt.Renderer(world, cfg, seed=5, device=dev)
+    before = tc.cluster_closest.launches
+    r.render(rpp=passes)
+    move(world)
+    r.render(rpp=1)
+    accum = r.views[id(world.cameras[0])].state.accum.cpu().numpy()
+    return accum, tc.cluster_closest.launches - before
+
+
+def phase_seeded(dev):
+    """Renders from a seed on the card (threefry kernel) against the CPU
+    (plain draw): no injected uniforms, a reprojecting camera move, the
+    dense path and the empty world; sample counts equal, radiance as
+    ``images_match``."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.utils.check_worlds import empty_world
+    from rayzath_tpu_torch.utils.parity import images_match
+    res = 64
+    tracing = rt.Tracing(max_depth=4)
+
+    def still(world):
+        pass
+
+    def look_aside(world):
+        world.cameras[0].look_at((0.1, 0.0, 1.0))
+
+    cases = (
+        ("cornell_box_nee, no injected uniforms", "cornell_box_nee",
+         rt.RenderConfig(tracing=tracing), still),
+        ("multi_light, camera move (reprojection)", "multi_light",
+         rt.RenderConfig(tracing=tracing), look_aside),
+        ("cornell_box_nee, brute_force_threshold=64 (dense path)",
+         "cornell_box_nee",
+         rt.RenderConfig(brute_force_threshold=64, tracing=tracing), still),
+        ("the empty world (dense path)", "empty",
+         rt.RenderConfig(tracing=tracing), still))
+    for label, name, cfg, move in cases:
+        def make(name=name):
+            if name == "empty":
+                return empty_world(res)
+            return rt.scenes.SCENES[name](res, res)
+        a_gpu, b1 = seeded_render(make, dev, cfg, 3, move)
+        a_cpu, _ = seeded_render(make, "cpu", cfg, 3, move)
+        close = images_match(a_gpu, a_cpu)
+        samples = float(a_gpu[..., 3].sum())
+        if move is look_aside and not samples > res * res:
+            raise AssertionError(f"{label}: the reprojection seeded no samples")
+        if cfg.brute_force_threshold or name == "empty":
+            if b1:
+                raise AssertionError(f"{label}: B1 launched {b1} times")
+        elif not b1:
+            raise AssertionError(f"{label}: B1 never launched")
+        if not float(a_gpu[..., :3].max()) > 0.0:
+            raise AssertionError(f"{label}: black image")
+        print(f"{label}: {res}^2, Renderer(seed=5) 3 + 1 passes, CUDA vs CPU: "
+              f"sample counts equal ({samples:.0f} samples), {close:.4f} of "
+              f"pixels within 2e-3, B1 launches {b1}", flush=True)
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the slice at size through the public entry point
 # ---------------------------------------------------------------------------
 
+def path_wrappers() -> dict:
+    """{label: wrapper} of the main path's kernels; each wrapper counts
+    the launches of its kernel in its ``launches`` attribute."""
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
+            "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
+            "threefry": rng.uniform_rows}
+
+
 def phase_slice(card: str, dev):
+    """Returns the launches per kernel label of the six renders."""
     import torch
     import rayzath_tpu_torch as rt
-    from rayzath_tpu_torch.ops import traverse_cluster as tc
-    wrappers = {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
-                "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst}
     from rayzath_tpu_torch.utils import check_worlds
-    launches = {f.__name__: 0 for f in wrappers.values()}
+    wrappers = path_wrappers()
+    launches = dict.fromkeys(wrappers, 0)
     for name, rpp in (("cornell_box_nee", 32), ("multi_light", 8),
                       ("mesh_heavy", 8), ("instanced_field", 8),
                       ("textured_room", 8), ("cutout world", 8)):
@@ -1030,7 +1183,8 @@ def phase_slice(card: str, dev):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
-        path = ("B3", "B4") if r.scene.two_level else ("B1", "B2")
+        path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
+            "threefry",)
         if name == "instanced_field" and not r.scene.two_level:
             raise AssertionError("instanced_field did not compile two-level")
         if name == "textured_room" and r.scene.map_kinds_used != (True,) * 5:
@@ -1040,7 +1194,7 @@ def phase_slice(card: str, dev):
         if min(counts[k] for k in path) < rpp:
             raise AssertionError(f"{name}: launches {counts} < {rpp} passes")
         for k in path:
-            launches[wrappers[k].__name__] += counts[k]
+            launches[k] += counts[k]
         accum = r.views[id(world.cameras[0])].state.accum
         if bool(torch.isnan(accum).any()):
             raise AssertionError(f"{name}: NaN in accum")
@@ -1059,6 +1213,94 @@ def phase_slice(card: str, dev):
     return launches
 
 
+def phase_files(card: str, dev, launches: dict):
+    """The slice's scene files: multi_light (soup) and instanced_field
+    (two-level by the automatic choice) written with the port's own
+    ``save_scene`` plus one OBJ/MTL per mesh and an HDR sky
+    (``utils/check_worlds.scene_files``) into a temporary directory, loaded
+    into a fresh ``World``, rendered at 512^2, depth 8, with no injected
+    uniforms; then ``Renderer.focus`` on the centre pixel and a camera move,
+    the reprojection alone (``render(rpp=0)``, which must seed samples) and
+    a render that starts from the reprojected accumulation. Adds the
+    launches of both renders to ``launches``."""
+    import tempfile
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.utils.check_worlds import scene_files
+    wrappers = path_wrappers()
+    rpp = 8
+    for name, two_level in (("multi_light", False), ("instanced_field", True)):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = scene_files(rt.scenes.SCENES[name](RES, RES), tmp)
+            world = rt.World()
+            loaded = world.load_scene(path)
+            if not loaded.ok:
+                raise AssertionError(f"{name}: loading {path} failed: {loaded}")
+        cam = world.cameras[0]
+        r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
+                        seed=3, device=dev)
+        t0 = time.perf_counter()
+        r.render(rpp=1)                      # warm-up: compile_world + 1 pass
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        if r.scene.two_level != two_level:
+            raise AssertionError(f"{name}: two_level is {r.scene.two_level}")
+        ns = I.n_streams(r.config, r.scene)
+        if ns not in THREEFRY_NS:
+            raise AssertionError(f"{name}: n_streams {ns} not checked")
+        path_k = ("B3", "B4", "threefry") if two_level else ("B1", "B2",
+                                                              "threefry")
+        for f in wrappers.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        r.render(rpp=rpp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in wrappers.items()}
+        r.focus(cam, cam.width // 2, cam.height // 2)
+        cam.position = np.asarray(cam.position, np.float32) + (0.05, 0.02, 0.0)
+        cam.touch()
+        for f in wrappers.values():
+            f.launches = 0
+        r.render(rpp=0)                      # the reprojection alone
+        reproject_ms = r.time_table.entries()["temporal reproject"][0]
+        seeded = float(r.views[id(cam)].state.accum[..., 3].sum())
+        if not seeded > 0.0:
+            raise AssertionError(f"{name}: the reprojection seeded no samples")
+        t0 = time.perf_counter()
+        r.render(rpp=rpp)
+        torch.cuda.synchronize()
+        dt2 = time.perf_counter() - t0
+        counts2 = {k: f.launches for k, f in wrappers.items()}
+        for k in path_k:
+            if min(counts[k], counts2[k]) < rpp:
+                raise AssertionError(f"{name}: launches {counts} then "
+                                     f"{counts2} < {rpp} passes")
+            launches[k] += counts[k] + counts2[k]
+        accum = r.views[id(cam)].state.accum
+        if bool(torch.isnan(accum).any()):
+            raise AssertionError(f"{name}: NaN in accum")
+        if not float(accum[..., 3].sum()) > seeded:
+            raise AssertionError(f"{name}: no samples accumulated after the move")
+        mean = float(r.image().mean())
+        if not 5.0 < mean < 220.0:
+            raise AssertionError(f"{name}: image mean {mean} outside (5, 220)")
+        shown = " ".join(f"{k} {counts[k]}+{counts2[k]}" for k in path_k)
+        print(f"{name} from scene files ({len(world.meshes)} meshes, "
+              f"{len(world.instances)} instances, "
+              f"{'two-level' if two_level else 'soup'}): {RES}^2 depth 8, "
+              f"{rpp} passes in {dt:.3f} s = {rpp * RES * RES / dt / 1e6:.3f} "
+              f"Mrays/s, warm-up {warm:.2f} s; focus + camera move, temporal "
+              f"reproject {reproject_ms:.3f} ms, {rpp} passes in {dt2:.3f} s "
+              f"= {rpp * RES * RES / dt2 / 1e6:.3f} Mrays/s, reprojected "
+              f"samples {seeded:.0f} of {RES * RES} pixels; launches {shown}, "
+              f"image mean {mean:.1f} [{card}]", flush=True)
+        del r, world
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
@@ -1070,6 +1312,7 @@ def phase_train(card: str, dev):
     from rayzath_tpu_torch.engine.integrator import render_steps_preserve
     from rayzath_tpu_torch.engine.state import init_state
     from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    from rayzath_tpu_torch.ops import rng
     from rayzath_tpu_torch.parallel.train import training_step
     world = rt.scenes.textured_room(RES, RES)
     scene = compile_world(world, device=dev)
@@ -1081,7 +1324,8 @@ def phase_train(card: str, dev):
     emission[panel] *= 0.5
     with torch.no_grad():
         st = render_steps_preserve(dataclasses.replace(scene, mat_emission=emission),
-                                   cam, cfg, init_state(RES, RES, dev), seed, passes)
+                                   cam, cfg, init_state(RES, RES, dev),
+                                   rng.key(seed), passes)
     target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1135,8 +1379,15 @@ def main() -> int:
     _kernels.load()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
           f"{built.relative_to(ROOT)}", flush=True)
+    from rayzath_tpu_torch import native
+    t0 = time.perf_counter()
+    builder = ("the native C++ builder" if native.available()
+               else "the NumPy builder (native library unavailable)")
+    print(f"BVH builds: {builder} ({time.perf_counter() - t0:.2f} s to build "
+          f"and load native/)", flush=True)
 
     t_phase = time.perf_counter()
+    threefry = phase_threefry(card, dev)
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
     phase_tables(dev)
@@ -1150,6 +1401,7 @@ def main() -> int:
     print(f"phase 3 (end to end) {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
     launches = phase_slice(card, dev)
+    phase_files(card, dev, launches)
     print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     t_phase = time.perf_counter()
@@ -1160,16 +1412,17 @@ def main() -> int:
     # rays; "rays" / "plain_rays" say which ray set each time was taken on;
     # the bound and the needed visits are this run's on the same rays
     record = []
-    for name, line, scene in (("cluster_closest", 872, "mesh_heavy"),
-                              ("cluster_shadow", 975, "mesh_heavy"),
-                              ("cluster_closest_inst", 1503, "instanced_field"),
-                              ("cluster_shadow_inst", 1636, "instanced_field")):
+    for label, name, line, scene in (
+            ("B1", "cluster_closest", 872, "mesh_heavy"),
+            ("B2", "cluster_shadow", 975, "mesh_heavy"),
+            ("B3", "cluster_closest_inst", 1503, "instanced_field"),
+            ("B4", "cluster_shadow_inst", 1636, "instanced_field")):
         m = kernels[name][scene]
         record.append({
             "name": name, "route": "cuda",
             "source": f"rayzath_tpu_torch/csrc/{name}.cu",
             "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
-            "launches": launches[name], "max_abs_err": kernels[name]["err"],
+            "launches": launches[label], "max_abs_err": kernels[name]["err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1], "library_ms": None, "scene": scene,
             "rays": m["rays"], "plain_rays": m["plain_rays"],
@@ -1179,6 +1432,16 @@ def main() -> int:
         if name in backward:
             record[-1].update(backward_max_rel_err=backward[name],
                               backward_rtol=BACKWARD_RTOL)
+    # the draw replaces no TPU kernel (the JAX package draws in XLA); timed
+    # on one 512^2 pass at ns = 14, bit for bit to the plain draw
+    record.append({
+        "name": "threefry", "route": "cuda",
+        "source": "rayzath_tpu_torch/csrc/threefry.cu", "replaces": None,
+        "launches": launches["threefry"], "max_abs_err": threefry["err"],
+        "ms": threefry["ms"], "plain_ms": threefry["plain_ms"],
+        "bound_ms": threefry["bound"][0], "bound_by": threefry["bound"][1],
+        "library_ms": None, "rows": RES, "width": RES,
+        "ns": THREEFRY_NS[-1]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

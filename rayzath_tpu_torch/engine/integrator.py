@@ -21,11 +21,12 @@ B2 ``cluster_shadow`` traces every NEE shadow ray; on a two-level scene B3
 object-space shading row is moved to world space through the instance's
 transforms.
 
-Uniforms: ``bounce_step(..., u=None)`` takes an optional [R, ns] tensor (the
-tests inject the JAX package's ``pass_uniforms`` streams through it).
-Without one, each pass draws ``torch.rand`` from a generator seeded by
-(seed, pass index), so a pass is reproducible and a checkpoint resumes the
-same render. Bit-exact threefry streams are ROADMAP A3.
+Uniforms: the JAX package's streams bit for bit (``ops/rng.py``). A render
+holds a key, ``rng.key(seed)`` as ``jax.random.key(seed)``; each pass folds
+its pass index into it, and :func:`pass_uniforms` keys each global image
+row by itself, so a band of rows at ``row0`` draws what the same rows of
+the whole image draw. On the card one threefry kernel launch draws a pass.
+``bounce_step(..., u=)`` takes injected [R, ns] uniforms instead.
 
 Differentiable, as the JAX package is: discrete hit ids from the traversal
 kernels carry no gradient, and (t, b1, b2) are re-derived differentiably by
@@ -45,8 +46,10 @@ import torch.utils.checkpoint
 
 from ..models.device_scene import TorchScene, TorchCamera, WORLD_MATERIAL_ID
 from ..ops import camera as cam_ops
+from ..ops import rng
 from ..ops import texture as tex_ops
-from ..ops.intersect import _project_terms, refine_tri
+from ..ops.intersect import (_project_terms, project_closest, project_shadow,
+                             refine_tri)
 from ..ops.sort_rays import sort_payload, unsort_payload
 from ..ops.traverse_cluster import (cluster_closest, cluster_shadow,
                                     cluster_closest_inst, cluster_shadow_inst,
@@ -65,10 +68,6 @@ def check_config(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "packet_traversal=False selects the XLA skip-link walk, which is "
             "not ported (ROADMAP A17)")
-    if cfg.brute_force_threshold > 0:
-        raise NotImplementedError(
-            "the dense projection path (brute_force_threshold > 0) is not "
-            "ported (ROADMAP A4)")
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +215,14 @@ def _apply_nrm(nrm_rows, v):
         a[:, 6] * v[:, 0] + a[:, 7] * v[:, 1] + a[:, 8] * v[:, 2]], dim=1)
 
 
+def _dense(cfg: RenderConfig, scene: TorchScene) -> bool:
+    """A soup scene takes the dense projection test (``ops/intersect.py``)
+    when it has at most ``cfg.brute_force_threshold`` triangles or no
+    cluster table (an empty world), as in the JAX package."""
+    return (scene.n_triangles <= cfg.brute_force_threshold
+            or scene.cl_box is None)
+
+
 def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
                 hw=None):
     """Returns (t, tri_id, inst_id, b1, b2, external, tp): the traversal
@@ -248,11 +255,16 @@ def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
                 torch.linalg.norm(n_w, dim=1, keepdim=True), min=1e-20))
         tp = torch.cat(parts + [tp[:, 18:]], dim=1)
     else:
-        t, tid = _run_coherent(
-            cfg, hw, o_k, d_k, (near, far),
-            lambda o, d, near, far: cluster_closest(
-                o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order),
-            sort=sort)
+        if _dense(cfg, scene):
+            t, tid = project_closest(o_k, d_k, near, far, scene.tri_pw,
+                                     scene.tri_pc,
+                                     chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
+        else:
+            t, tid = _run_coherent(
+                cfg, hw, o_k, d_k, (near, far),
+                lambda o, d, near, far: cluster_closest(
+                    o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order),
+                sort=sort)
         inst = None
         tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
     t_r, b1_r, b2_r, det = refine_tri(o, d, tp[:, 0:3], tp[:, 3:6], tp[:, 6:9])
@@ -331,6 +343,9 @@ def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
     mat = scene.mat_color[scene.tri_mat.long()]
     op_rgb = mat[:, :3]
     op_a = 1.0 - mat[:, 3]
+    if _dense(cfg, scene):
+        return project_shadow(o, d, dist, scene.tri_pw, scene.tri_pc, op_rgb,
+                              op_a, chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
     return _run_coherent(
         cfg, hw, o, d, (dist,),
         lambda o, d, dist: cluster_shadow(
@@ -526,29 +541,34 @@ def n_streams(cfg: RenderConfig, scene: TorchScene) -> int:
     return ns
 
 
-def pass_uniforms(seed: int, pass_idx: int, r: int, ns: int, device):
-    """[R, ns] uniforms of one pass, from a generator seeded by
-    (seed, pass): the same pass always draws the same numbers."""
-    g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 0x9E3779B1 + int(pass_idx)) % (2 ** 63))
-    return torch.rand((r, ns), generator=g, dtype=torch.float32, device=device)
+def pass_uniforms(key: rng.Key, row0: int, height: int, width: int, ns: int,
+                  device) -> torch.Tensor:
+    """Uniform streams for image rows [row0, row0 + height) at one pass
+    (the JAX package's ``pass_uniforms``): row y draws
+    ``uniform(fold_in(key, y), (width, ns))``, so the streams depend on
+    (key, global row) only. Returns [height * width, ns] float32 on
+    ``device``, drawn by the threefry kernel on a card."""
+    return rng.uniform_rows(key, row0, height, width, ns, device)
 
 
 def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
-                state: RenderState, seed: int = 0, u=None,
+                state: RenderState, key: Optional[rng.Key] = None, u=None,
                 row0: int = 0) -> RenderState:
     """Advance every pixel's path by one bounce (reference
     renderCumulativePass, cuda_render_kernel.cu:67-121).
 
-    ``u``: optional [R, ns] uniforms (ns = :func:`n_streams`); None draws
-    :func:`pass_uniforms` for (seed, state.pass_idx). ``row0``: global image
-    row of this wavefront's first row."""
+    ``key``: this pass's key (:func:`render_steps` folds the pass index
+    into the render's key); the pass draws :func:`pass_uniforms` from it.
+    ``u``: injected [R, ns] uniforms (ns = :func:`n_streams`) in place of
+    the draw. ``row0``: global image row of this wavefront's first row."""
     H, W = state.height, state.width
     R = H * W
     dev = state.accum.device
     f32 = torch.float32
     if u is None:
-        u = pass_uniforms(seed, state.pass_idx, R, n_streams(cfg, scene), dev)
+        if key is None:
+            raise ValueError("bounce_step needs a pass key or uniforms u")
+        u = pass_uniforms(key, row0, H, W, n_streams(cfg, scene), dev)
     zero = torch.zeros((), dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
 
@@ -756,25 +776,28 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
 # ---------------------------------------------------------------------------
 
 def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
-                 state: RenderState, seed: int, n_steps: int,
+                 state: RenderState, key: rng.Key, n_steps: int,
                  row0: int = 0, remat: bool = False, u=None) -> RenderState:
     """Run ``n_steps`` cumulative bounce passes (the analog of the reference
     render cycle, cuda_engine_renderer.cu:125-186). Never mutates ``state``.
+    Each pass runs under ``rng.fold_in(key, state.pass_idx)``, as the JAX
+    package's ``_render_steps_impl`` does; ``key`` is ``rng.key(seed)``.
 
     ``remat``: one ``torch.utils.checkpoint`` per bounce, so a backward
     keeps only each bounce's input state and recomputes its graph. That is
-    exact: a pass's uniforms depend only on (seed, pass index) or are
+    exact: a pass's uniforms depend only on (key, pass index, row) or are
     injected, and the kernels are deterministic. ``u``: optional sequence of
     ``n_steps`` injected [R, ns] uniform tensors (see :func:`bounce_step`)."""
     check_config(cfg)
     for i in range(n_steps):
         ui = None if u is None else u[i]
+        k = rng.fold_in(key, state.pass_idx)
         if remat and torch.is_grad_enabled():
             state = torch.utils.checkpoint.checkpoint(
-                bounce_step, scene, cam, cfg, state, seed, ui, row0,
+                bounce_step, scene, cam, cfg, state, k, ui, row0,
                 use_reentrant=False)
         else:
-            state = bounce_step(scene, cam, cfg, state, seed, u=ui, row0=row0)
+            state = bounce_step(scene, cam, cfg, state, k, u=ui, row0=row0)
     return state
 
 

@@ -4,13 +4,12 @@ Counterpart of ``rayzath_tpu/engine/renderer.py`` (the reference render
 orchestration, cuda_engine_core.cu:32-128 + cuda_engine_renderer.cu:73-262):
 the world is re-flattened into a TorchScene whenever its content version
 changes, each camera keeps its own progressive RenderState, and a render
-cycle runs ``rpp`` bounce passes. Everything lives on ``device``: the
-card by default, the CPU's plain versions with ``device="cpu"``
-(``utils/device.py``).
-
-Not ported yet: the temporal reprojection that the JAX renderer runs when a
-camera with ``temporal_blend > 0`` moves (ROADMAP A13) raises
-NotImplementedError instead of silently dropping the blend.
+cycle runs ``rpp`` bounce passes under the renderer's key
+(``rng.key(seed)``, as ``jax.random.key(seed)``). When a camera with
+``temporal_blend > 0`` moves, its fresh accumulation is seeded by
+reprojecting the previous one (``ops/reproject.py``). Everything lives on
+``device``: the card by default, the CPU's plain versions with
+``device="cpu"`` (``utils/device.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +24,8 @@ from ..models.device_scene import (TorchScene, TorchCamera, compile_world,
 from ..models.world import World
 from ..utils.device import DEFAULT, resolve
 from ..utils.timing import TimeTable
+from ..ops import rng
+from ..ops.reproject import primary_hits, reproject_accum
 from ..ops.tonemap import final_color, to_u8
 from .config import RenderConfig
 from .integrator import check_config, render_steps, ray_cast
@@ -43,6 +44,9 @@ class CameraView:
         self.camera_version = -1
         self.ray_count = 0       # rays traced (W*H per bounce pass, as in reference)
         self.pass_count = 0      # bounce passes executed
+        # (previous TorchCamera, accum, depth) captured on a camera move,
+        # consumed by the renderer's reprojection step
+        self.pending_reprojection = None
 
     def ensure(self):
         if (self.state is None or self.camera_version != self.camera.version
@@ -52,10 +56,9 @@ class CameraView:
                     and self.state.width == self.camera.width
                     and self.state.height == self.camera.height
                     and self.camera.temporal_blend > 0.0):
-                raise NotImplementedError(
-                    "temporal reprojection after a camera move is not ported "
-                    "yet (ROADMAP A13); set camera.temporal_blend = 0 to "
-                    "restart accumulation instead")
+                self.pending_reprojection = (self.device_camera,
+                                             self.state.accum,
+                                             self.state.depth_buf)
             self.device_camera = compile_camera(self.camera, self.device)
             self.state = init_state(self.camera.width, self.camera.height,
                                     self.device)
@@ -70,7 +73,7 @@ class Renderer:
         self.world = world
         self.config = config or RenderConfig()
         check_config(self.config)
-        self.seed = int(seed)
+        self.key = rng.key(seed)
         self.device = resolve(device)
         self.scene: Optional[TorchScene] = None
         self._scene_version = -1
@@ -97,6 +100,7 @@ class Renderer:
                                             view.camera.height, self.device)
                     view.ray_count = 0
                     view.pass_count = 0
+                    view.pending_reprojection = None  # stale: scene changed
             self.time_table.update("update world")
         return self.scene
 
@@ -119,13 +123,31 @@ class Renderer:
         cameras = [camera] if camera is not None else [
             c for c in self.world.cameras if c.enabled]
         n = rpp if rpp is not None else self.config.tracing.rpp
+        sync = block and self.device.type == "cuda"
         for cam in cameras:
             cv = self.view(cam)
+            if cv.pending_reprojection is not None:
+                # temporal reuse across the camera move (reference
+                # spacialReprojection, cuda_engine_renderer.cu:139)
+                prev_cam, prev_accum, prev_depth = cv.pending_reprojection
+                cv.pending_reprojection = None
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    depth, space = primary_hits(scene, cv.device_camera,
+                                                self.config)
+                    accum = reproject_accum(space, prev_cam, prev_accum,
+                                            prev_depth, cam.temporal_blend)
+                cv.state = cv.state.replace(accum=accum, depth_buf=depth,
+                                            space_buf=space)
+                if sync:
+                    torch.cuda.synchronize(self.device)
+                self.time_table.set("temporal reproject",
+                                    (time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             with torch.no_grad():       # serving records no autograd graph
                 cv.state = render_steps(scene, cv.device_camera, self.config,
-                                        cv.state, self.seed, n)
-            if block and self.device.type == "cuda":
+                                        cv.state, self.key, n)
+            if sync:
                 torch.cuda.synchronize(self.device)
             self.time_table.set("trace", (time.perf_counter() - t0) * 1e3)
             cv.pass_count += n

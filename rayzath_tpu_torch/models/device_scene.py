@@ -32,12 +32,17 @@ also gets the expanded (instance, triangle) lists ``exp_tri``/``exp_inst``
 that only the B4 backward reads (317,954 rows on ``instanced_field``, so
 the serve path never builds them).
 
+A soup scene also gets the dense projection frames ``tri_pw``/``tri_pc``
+of every (padded) triangle, which the dense path reads
+(``brute_force_threshold``); an empty world gets no cluster table
+(``cl_box`` and the other ``cl_*`` fields None), as in the JAX package, and
+always takes that path.
+
 Not built, because no path of the port reads them: the XLA skip-link
-tables (``aabb_links``, ``node_*``), the dense projection frames
-(``tri_pw``/``tri_pc``; the shadow backwards build theirs from the
-triangles), the per-vertex normal/texcoord columns outside ``tri_pack``
-and the cutouts' raw geometry (``cut_v0``/``cut_e1``/``cut_e2``, read only
-by the JAX package's NumPy oracle).
+tables (``aabb_links``, ``node_*``), the per-vertex normal/texcoord columns
+outside ``tri_pack`` and the cutouts' raw geometry
+(``cut_v0``/``cut_e1``/``cut_e2``, read only by the JAX package's NumPy
+oracle).
 """
 from __future__ import annotations
 
@@ -100,15 +105,6 @@ class TorchScene:
     dir_emission: torch.Tensor   # [D]
     dir_cos: torch.Tensor        # [D]
 
-    # cluster tables (ops/traverse_cluster.py); two-level: cl_lw, cl_base
-    # and cl_count hold the shared per-mesh tables, cl_box and cl_order are
-    # placeholders
-    cl_box: torch.Tensor         # [8,Cp] cluster AABB / base / count table
-    cl_lw: torch.Tensor          # [Cp,4,384] cluster-local projection frames
-    cl_order: torch.Tensor       # [F] i32 cluster order -> soup index
-    cl_base: torch.Tensor        # [Cp] i32 first triangle (cluster order)
-    cl_count: torch.Tensor       # [Cp] i32 triangle count
-
     # two-level instance tables (placeholders on the soup path)
     ti_rows: torch.Tensor        # [Ip,24] instance rows (AABB, inv, range, id)
     cl_obox: torch.Tensor        # [Cm,8] object-space cluster rows
@@ -127,6 +123,18 @@ class TorchScene:
     col_blk_idx: torch.Tensor    # [Hc*Wc,4] i32 2x2 block texel indices
     sc_blk_idx: torch.Tensor     # [Hs*Ws,4] i32
 
+    # cluster tables (ops/traverse_cluster.py; None on an empty soup
+    # world); two-level: cl_lw, cl_base and cl_count hold the shared
+    # per-mesh tables, cl_box and cl_order are placeholders
+    cl_box: Optional[torch.Tensor] = None    # [8,Cp] AABB / base / count table
+    cl_lw: Optional[torch.Tensor] = None     # [Cp,4,384] cluster-local frames
+    cl_order: Optional[torch.Tensor] = None  # [F] i32 cluster order -> soup index
+    cl_base: Optional[torch.Tensor] = None   # [Cp] i32 first triangle (cluster order)
+    cl_count: Optional[torch.Tensor] = None  # [Cp] i32 triangle count
+    # dense projection frames of the soup's triangles (ops/intersect.py;
+    # two-level: placeholders)
+    tri_pw: Optional[torch.Tensor] = None    # [3,3F]
+    tri_pc: Optional[torch.Tensor] = None    # [3F]
     # texture-alpha cutout set, world space (None when n_cutout == 0)
     cut_pw: Optional[torch.Tensor] = None    # [3,3C] projection frames
     cut_pc: Optional[torch.Tensor] = None    # [3C]
@@ -350,6 +358,7 @@ def compile_world(world: World, leaf_size: int = 8,
     arrays = dict(
         tri_v0=geo["tri_v0"], tri_e1=geo["tri_e1"], tri_e2=geo["tri_e2"],
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
+        tri_pw=geo["tri_pw"], tri_pc=geo["tri_pc"],
         **common, **geo["cl_fields"], **cut)
     return scene_from_arrays(
         arrays, dict(statics, n_triangles=n_tri, n_clusters=geo["n_clusters"],
@@ -687,13 +696,16 @@ def _empty_obox() -> np.ndarray:
 
 def placeholders(two_level: bool) -> dict:
     """Small stand-ins for the fields that only the other structure reads:
-    on a two-level scene the soup's ``cl_box`` (all padding) and
-    ``cl_order``; on a soup scene the instance tables (no real row)."""
+    on a two-level scene the soup's ``cl_box`` (all padding), ``cl_order``
+    and dense frames (the JAX scene's inert ``tri_pw``/``tri_pc``); on a
+    soup scene the instance tables (no real row)."""
     if two_level:
         box = np.zeros((8, 128), np.float32)
         box[B_MIN:B_MIN + 3] = 3e38
         box[B_MAX:B_MAX + 3] = -3e38
-        return dict(cl_box=box, cl_order=np.zeros(1, np.int32))
+        return dict(cl_box=box, cl_order=np.zeros(1, np.int32),
+                    tri_pw=np.zeros((3, 3), np.float32),
+                    tri_pc=np.zeros(3, np.float32))
     return dict(
         ti_rows=build_instance_tables(np.zeros((0, 3)), np.zeros((0, 3)),
                                       np.zeros((0, 3, 4)), np.zeros(0),
@@ -796,21 +808,27 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
     slot_rows = _pad_rows(slot_rows, n_tri_pad, 0)
     inst_rows = _pad_rows(inst_rows, n_tri_pad, -1)
 
-    # cluster tables; an empty world gets an all-padding table (the JAX
-    # package has none and takes its dense path there)
-    cl_box, cl_lw, cl_order, cl_base, cl_count = build_cluster_tables(
-        tri_v0[:n_tri], tri_e1[:n_tri], tri_e2[:n_tri])
+    tri_pw, tri_pc = triangle_frames(tri_v0, tri_e1, tri_e2)
+
+    # cluster tables for every non-empty world; an empty one has none and
+    # takes the dense path, as in the JAX package
+    cl_fields, n_clusters = {}, 0
+    if n_tri:
+        cl_box, cl_lw, cl_order, cl_base, cl_count = build_cluster_tables(
+            tri_v0[:n_tri], tri_e1[:n_tri], tri_e2[:n_tri])
+        cl_fields = dict(cl_box=cl_box, cl_lw=cl_lw,
+                         # order padded to the triangle bucket, as in JAX
+                         cl_order=_pad_rows(cl_order, n_tri_pad, 0),
+                         cl_base=cl_base, cl_count=cl_count)
+        n_clusters = int((cl_count > 0).sum())
     value = dict(
         n_tri=n_tri, n_tri_pad=n_tri_pad,
         tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
         tri_n0=tri_n0, tri_n1=tri_n1, tri_n2=tri_n2,
         tri_t0=tri_t0, tri_t1=tri_t1, tri_t2=tri_t2,
         slot_rows=slot_rows, inst_rows=inst_rows,
-        cl_fields=dict(cl_box=cl_box, cl_lw=cl_lw,
-                       # order padded to the triangle bucket, as in JAX
-                       cl_order=_pad_rows(cl_order, n_tri_pad, 0),
-                       cl_base=cl_base, cl_count=cl_count),
-        n_clusters=int((cl_count > 0).sum()),
+        tri_pw=tri_pw, tri_pc=tri_pc,
+        cl_fields=cl_fields, n_clusters=n_clusters,
         refs=refs,  # pin object identity: id() reuse cannot false-hit
     )
     if cache is not None:

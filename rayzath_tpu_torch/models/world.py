@@ -199,13 +199,13 @@ class World:
         self.touch()
 
     # -- scene IO (reference World::loader()/saver(), world.hpp) ----------------
-    # (the io layer is not ported yet: rayzath_tpu.io loads a scene file into
-    # a JAX-package World)
     def load_scene(self, path: str):
-        raise NotImplementedError("scene files are not ported yet (ROADMAP A15)")
+        from ..io.loader import load_scene
+        return load_scene(self, path)
 
     def save_scene(self, path: str) -> None:
-        raise NotImplementedError("scene files are not ported yet (ROADMAP A15)")
+        from ..io.loader import save_scene
+        save_scene(self, path)
 
     # -- stats ------------------------------------------------------------------
     def triangle_count(self) -> int:

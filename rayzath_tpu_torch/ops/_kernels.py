@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH, "-fmad=false", "-prec-div=true",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
     # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id,
     # visits (null: not counted), stream
@@ -54,6 +55,8 @@ _SIGNATURES = {
                                _P, _P, _P],
     # table rows, kernel (1-4: B1-B4) -> bytes of its dynamic shared memory
     "rz_ranked_smem": [_I, _I],
+    # out, pass key words k0, k1, row0, height, width, ns, stream
+    "rz_threefry_uniform": [_P, _U, _U, _I, _I, _I, _I, _P],
 }
 
 
@@ -129,7 +132,7 @@ def load() -> ctypes.CDLL:
     """Build (first use only) and load the kernel library. Raises when there
     is no CUDA device or no compiler; there is no fallback."""
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the cluster kernels need one")
+        raise RuntimeError("no CUDA device: the CUDA kernels need one")
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

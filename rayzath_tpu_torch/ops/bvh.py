@@ -1,8 +1,8 @@
 """Host BVH build over triangles (NumPy).
 
-Counterpart of ``rayzath_tpu/ops/bvh.py``: ``build_bvh_numpy``,
-``triangle_aabbs`` and ``FlatBVH`` copied verbatim. Build heuristics follow
-the reference triangle BVH (RayZath/component_container.hpp:145-364 and
+Counterpart of ``rayzath_tpu/ops/bvh.py``: ``build_bvh``,
+``build_bvh_numpy``, ``triangle_aabbs`` and ``FlatBVH`` copied verbatim.
+Build heuristics follow the reference triangle BVH (RayZath/component_container.hpp:145-364 and
 bvh_tree_node.hpp:117-215):
 
 * split point = mean of primitive centroids,
@@ -15,15 +15,20 @@ FIRST child (both children adjacent) plus its split axis, and a leaf stores a
 [begin, count) range into the reordered primitive array (``count == 0``
 marks an inner node); primitives are reordered into leaf order.
 
-``build_bvh`` always runs the NumPy builder here. The JAX package prefers a
-C++ builder with bit-identical output (rayzath_tpu/native); wiring that into
-the port is later work.
+``build_bvh`` prefers the C++ builder of ``native/`` and falls back to
+``build_bvh_numpy``, exactly as the JAX package's does, so with the
+defaults both packages compile the same leaf orders. The two builders are
+not bit-identical: the C++ one keeps its centroid statistics in double,
+the NumPy one in float32, and their splits part where that rounding
+decides (``RZ_NATIVE=0`` selects the NumPy builder).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 MAX_DEPTH = 31
 
@@ -44,7 +49,16 @@ class FlatBVH:
 
 def build_bvh(prim_min: np.ndarray, prim_max: np.ndarray,
               leaf_size: int = 8, max_depth: int = MAX_DEPTH) -> FlatBVH:
-    """Build a flattened binary BVH over primitives given per-primitive AABBs."""
+    """Build a flattened binary BVH over primitives given per-primitive AABBs:
+    the native C++ builder when it is available, else the NumPy one."""
+    out = native.bvh_build(np.asarray(prim_min, np.float32),
+                           np.asarray(prim_max, np.float32),
+                           leaf_size, max_depth)
+    if out is not None:
+        bvh = FlatBVH(*out)
+        if len(prim_min) == 0:
+            bvh.order = np.zeros(0, np.int32)
+        return bvh
     return build_bvh_numpy(prim_min, prim_max, leaf_size, max_depth)
 
 

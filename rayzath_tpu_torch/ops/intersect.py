@@ -1,8 +1,9 @@
-"""Per-ray Moller-Trumbore refine, projection frames and the dense shadow
-replay.
+"""Per-ray Moller-Trumbore refine, projection frames and the dense
+closest-hit and shadow tests.
 
-Counterpart of ``rayzath_tpu/ops/intersect.py`` (all but the dense closest
-hit ``project_closest``, ROADMAP A4). Numerical semantics follow the
+Counterpart of ``rayzath_tpu/ops/intersect.py``: its projection path,
+which the JAX renderer runs (its all-pairs ``brute_force_*`` functions serve
+only its tests and tools). Numerical semantics follow the
 reference device intersector (RayZath/cuda_render_parts.cuh:1023-1083): the
 determinant is nudged by +1e-7 when |det| < 1e-7, and ``external`` (front
 face) is det > 0.
@@ -12,9 +13,11 @@ projection frames that the cluster tables hold: per triangle
 M = inv([e1 e2 n]) (n = e1 x e2) and c = -M v0, so that a world point p maps
 to M p + c, whose (x, y) are the barycentrics (b1, b2) and whose z vanishes
 on the triangle plane. ``triangle_frames_torch`` builds the same frames
-differentiably, and ``project_shadow`` runs the dense shadow test on them:
-the path the B2/B4 backwards replay (ops/traverse_cluster.py) and the
-texture cutout pass (engine/integrator.py) project through.
+differentiably. ``project_closest`` and ``project_shadow`` run the dense
+tests on them: the integrator's dense path (``brute_force_threshold``, and
+every empty world), and the replay the B2/B4 backwards
+(ops/traverse_cluster.py) and the texture cutout pass (engine/integrator.py)
+project through.
 """
 from __future__ import annotations
 
@@ -88,6 +91,37 @@ def _project_terms(origin, direction, w, c):
     dz = dz + (dz.abs() < DET_EPS).to(dz.dtype) * DET_EPS
     t = -oz / dz
     return t, ox + t * dx, oy + t * dy, dz
+
+
+def project_closest(origin, direction, near, far, tri_w, tri_c,
+                    chunk: int = 512):
+    """Dense closest hit of rays [R,3] against every triangle frame (the JAX
+    package's ``project_closest``). Per chunk of triangles: the valid hits
+    with t in (near, best t so far), their smallest t and its first index
+    on ties, taken only where strictly nearer than the running best; the
+    last chunk is ragged where the JAX package pads it with never-hit
+    frames (the same answers). Returns (t [R], tri_id [R] i32, -1 = miss);
+    discrete, so it records no gradient (``refine_tri`` re-derives a hit's
+    t)."""
+    f = tri_w.shape[1] // 3
+    w3 = tri_w.reshape(3, 3, f)
+    c3 = tri_c.reshape(3, f)
+    best_t = torch.clamp(far, max=BIG)
+    best_id = torch.full((origin.shape[0],), -1, dtype=torch.int32,
+                         device=origin.device)
+    with torch.no_grad():
+        for i0 in range(0, f, chunk):
+            sl = slice(i0, min(i0 + chunk, f))
+            t, b1, b2, _ = _project_terms(origin, direction,
+                                          w3[:, :, sl].reshape(3, -1),
+                                          c3[:, sl].reshape(-1))
+            valid = ((b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+                     & (t > near[:, None]) & (t < best_t[:, None]))
+            tk, k = torch.where(valid, t, BIG).min(dim=1)
+            upd = tk < best_t
+            best_id = torch.where(upd, (k + i0).to(torch.int32), best_id)
+            best_t = torch.where(upd, tk, best_t)
+    return best_t, best_id
 
 
 def _shadow_block(origin, direction, dist, w, c, op):

@@ -1,0 +1,119 @@
+"""Counter-based uniforms: the JAX package's random streams, bit for bit.
+
+Counterpart of the ``jax.random`` calls the JAX integrator makes
+(``rayzath_tpu/engine/integrator.py`` ``pass_uniforms`` and
+``_render_steps_impl``), with jax's default threefry2x32 generator in its
+partitionable layout:
+
+* a key is a pair of uint32 words; ``key(seed)`` is ``(0, seed)``;
+* ``fold_in(k, d)`` is both output words of ``threefry2x32(k, (0, d))``;
+* the 32 random bits at flat index i of an array drawn from key k are
+  ``x0 ^ x1`` of ``threefry2x32(k, (0, i))``, and the float is
+  ``bitcast_f32((bits >> 9) | 0x3F800000) - 1``, in [0, 1).
+
+A pass's uniforms (:func:`uniform_rows`) key each global image row by
+itself, ``fold_in(pass_key, row)``, and draw that row's [W, ns] block from
+the row key, so a band of rows at ``row0`` draws exactly the numbers of the
+same rows of the whole image.
+
+:func:`threefry2x32` runs on Python ints (keys, on the host) and on int64
+tensors holding uint32 words (the plain version of the draw, masked after
+every add and shift). :func:`uniform_rows` takes that plain version on the
+CPU and launches the hand-written kernel ``csrc/threefry.cu`` on a CUDA
+device, counting its launches in ``uniform_rows.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _kernels
+
+MASK = 0xFFFFFFFF
+KS_PARITY = 0x1BD11BDA                      # threefry's key-schedule constant
+ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+ONE_BITS = 0x3F800000                       # float32 1.0
+
+Key = Tuple[int, int]
+
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (jax's ``threefry2x32``): key words
+    (k0, k1), counter words (x0, x1) -> two output words. Each argument is a
+    Python int or an int64 tensor of uint32 values (broadcast together)."""
+    ks = (k0, k1, (k0 ^ k1 ^ KS_PARITY) & MASK)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for i in range(5):
+        for r in ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x0, x1
+
+
+def key(seed: int) -> Key:
+    """``jax.random.key(seed)`` as its two words."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return 0, seed & MASK
+
+
+def fold_in(k: Key, data: int) -> Key:
+    """``jax.random.fold_in(k, data)`` for 0 <= data < 2**32."""
+    return threefry2x32(int(k[0]), int(k[1]), 0, int(data) & MASK)
+
+
+def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64 tensor) -> float32 uniforms in [0, 1)."""
+    f = ((bits >> 9) | ONE_BITS).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform_rows_plain(k: Key, row0: int, height: int, width: int, ns: int,
+                       device="cpu") -> torch.Tensor:
+    """[height * width, ns] float32 uniforms of image rows
+    [row0, row0 + height) under the pass key ``k``: row y draws
+    ``uniform(fold_in(k, y), (width, ns))``."""
+    i64 = dict(dtype=torch.int64, device=device)
+    rows = torch.arange(height, **i64) + int(row0)
+    rk0, rk1 = threefry2x32(int(k[0]), int(k[1]), 0, rows)
+    idx = torch.arange(width * ns, **i64)
+    x0, x1 = threefry2x32(rk0[:, None], rk1[:, None], 0, idx[None, :])
+    return bits_to_unit(x0 ^ x1).reshape(height * width, ns)
+
+
+def uniform_rows(k: Key, row0: int, height: int, width: int, ns: int,
+                 device) -> torch.Tensor:
+    """The uniforms of :func:`uniform_rows_plain`, on ``device``: the plain
+    version on the CPU, the threefry kernel (``csrc/threefry.cu``, one
+    launch) on a CUDA device; any other device raises."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return uniform_rows_plain(k, row0, height, width, ns, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"uniform_rows: no kernel for device {dev}")
+    lib = _kernels.load()
+    out = torch.empty((height * width, ns), dtype=torch.float32, device=dev)
+    if out.numel():
+        with torch.cuda.device(out.device):
+            err = lib.rz_threefry_uniform(
+                ctypes.c_void_p(out.data_ptr()), int(k[0]) & MASK,
+                int(k[1]) & MASK, int(row0), height, width, ns,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"threefry kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        uniform_rows.launches += 1
+    return out
+
+
+uniform_rows.launches = 0

@@ -18,6 +18,7 @@ import torch
 
 from ..engine.integrator import render_steps_preserve
 from ..engine.state import RenderState
+from ..ops import rng
 
 #: Scene leaves that receive gradients (the JAX package's list; each is
 #: held against ``jax.grad`` and finite differences in
@@ -33,8 +34,10 @@ def image_loss(scene, cam, cfg, state: RenderState, seed: int, target,
                n_steps: int, remat: bool = False, u=None):
     """MSE between the mean accumulated radiance and a target HDR image
     [H, W, 3]. Returns (loss, post-render state); ``state`` is not
-    mutated. ``u``: optional injected uniforms, one tensor per step."""
-    st = render_steps_preserve(scene, cam, cfg, state, seed, n_steps,
+    mutated. The render runs under ``rng.key(seed)``, the JAX package's
+    ``jax.random.key(seed)``. ``u``: optional injected uniforms, one tensor
+    per step."""
+    st = render_steps_preserve(scene, cam, cfg, state, rng.key(seed), n_steps,
                                remat=remat, u=u)
     spp = torch.maximum(st.accum[..., 3:4], torch.ones_like(st.accum[..., 3:4]))
     img = st.accum[..., :3] / spp

@@ -16,7 +16,10 @@ both below 1e-4 elsewhere, also with translucent opacities on tables of
 several windows, and at most twice the needed cluster tests on shadow
 rays stopped by an opaque wall; the B2/B4 backwards to rtol 1e-3 of the max
 |g| of autograd through the plain versions; the texture fetch on the card
-to 1e-6 of the CPU's.
+to 1e-6 of the CPU's; the threefry kernel bit for bit to the plain draw;
+renders from a seed (no injected uniforms) on the card against the CPU by
+``images_match`` (sample counts equal; radiance tol 2e-3, frac 0.995),
+across a reprojecting camera move and on the dense path.
 """
 import numpy as np
 import pytest
@@ -582,3 +585,79 @@ def test_ranked_shadow_matches_plain(cuda, case, kernel):
         on_line = ct.needed_inst(o, d, zero, dist, ti, obox)[0]
     assert on_line >= 5 * needed > 0, (on_line, needed)
     assert made <= 2 * needed, (made, needed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,pass_idx,row0,h,w,ns", [
+    (0, 0, 0, 4, 7, 8), (7, 3, 5, 16, 33, 14), (2 ** 31 - 1, 11, 300, 3, 512, 11),
+    (9, 1, 0, 512, 512, 8)])
+def test_threefry_kernel_matches_plain(cuda, seed, pass_idx, row0, h, w, ns):
+    """The threefry kernel draws the plain version's uniforms bit for bit,
+    in one launch."""
+    from rayzath_tpu_torch.ops import rng
+    k = rng.fold_in(rng.key(seed), pass_idx)
+    before = rng.uniform_rows.launches
+    got = rng.uniform_rows(k, row0, h, w, ns, cuda)
+    assert rng.uniform_rows.launches == before + 1
+    ref = rng.uniform_rows_plain(k, row0, h, w, ns, cuda)
+    torch.cuda.synchronize()
+    assert got.shape == (h * w, ns)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+def _seeded_renders(make_world, cfg, dev, move):
+    """Renderer(seed=5) on ``dev``: two passes, then ``move(world)`` and one
+    pass. Returns the accumulation after each render call."""
+    world = make_world()
+    r = rt.Renderer(world, cfg, seed=5, device=dev)
+    cam = world.cameras[0]
+    out = []
+    for step in range(2):
+        if step:
+            move(world)
+        r.render(rpp=2 - step)
+        out.append(r.views[id(cam)].state.accum.cpu().numpy())
+    return out
+
+
+@pytest.mark.gpu
+def test_reprojection_render_cuda_matches_cpu(cuda):
+    """No injected uniforms: the card's render (threefry kernel, B1/B2 and
+    the reprojection through B1) and the CPU's, from the same seed, agree
+    before and after a camera move under temporal_blend 0.75."""
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+
+    def move(world):
+        world.cameras[0].look_at((0.1, 0.0, 1.0))
+
+    gpu = _seeded_renders(lambda: rt.scenes.cornell_box_nee(32, 32), cfg, cuda,
+                          move)
+    cpu = _seeded_renders(lambda: rt.scenes.cornell_box_nee(32, 32), cfg, "cpu",
+                          move)
+    for a, b in zip(gpu, cpu):
+        images_match(a, b)
+    assert gpu[1][..., 3].sum() > 32 * 32            # seeded beyond one pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["threshold", "empty"])
+def test_dense_path_cuda_matches_cpu(cuda, case):
+    """The dense path (brute_force_threshold above the triangle count, and
+    the empty world, which has no cluster table) on the card against the
+    CPU, from the same seed."""
+    from rayzath_tpu_torch.utils.check_worlds import empty_world
+    if case == "threshold":
+        make = lambda: rt.scenes.cornell_box_nee(32, 32)    # noqa: E731
+        cfg = rt.RenderConfig(brute_force_threshold=64,
+                              tracing=rt.Tracing(max_depth=4))
+    else:
+        make = lambda: empty_world(32)                      # noqa: E731
+        cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    before = tc.cluster_closest.launches
+    gpu = _seeded_renders(make, cfg, cuda, lambda w: None)
+    assert tc.cluster_closest.launches == before        # no cluster walk
+    cpu = _seeded_renders(make, cfg, "cpu", lambda w: None)
+    for a, b in zip(gpu, cpu):
+        images_match(a, b)
+    assert gpu[1][..., :3].max() > 0

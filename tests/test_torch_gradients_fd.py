@@ -23,6 +23,7 @@ import rayzath_tpu_torch as rt  # noqa: E402
 from rayzath_tpu_torch.engine.integrator import render_steps_preserve  # noqa: E402
 from rayzath_tpu_torch.engine.state import init_state  # noqa: E402
 from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
+from rayzath_tpu_torch.ops import rng  # noqa: E402
 from rayzath_tpu_torch.parallel.train import image_loss, training_step  # noqa: E402
 
 from test_torch_gradients import (assert_grads_match, both_grads,  # noqa: E402
@@ -161,7 +162,7 @@ def test_grad_fd_scattering_score_function():
         s[0] = v
         s.requires_grad_(grad)
         st = render_steps_preserve(dataclasses.replace(scene, mat_scattering=s),
-                                   cam, cfg, state, seed, 4)
+                                   cam, cfg, state, rng.key(seed), 4)
         return st.accum[..., :3].mean(), s
 
     gs, fds = [], []
@@ -184,7 +185,7 @@ def test_training_step_descends():
     scene, cam, cfg, state, _ = setup(tiny_world, 3)
     dim, *_ = setup(lambda pkg: tiny_world(pkg, emission=2.0), 3)
     with torch.no_grad():
-        st = render_steps_preserve(dim, cam, cfg, state, 7, 6)
+        st = render_steps_preserve(dim, cam, cfg, state, rng.key(7), 6)
     target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
     before = {k: v.clone() for k, v in vars(scene).items()
               if isinstance(v, torch.Tensor)}

@@ -4,10 +4,11 @@ The port carries jax-free copies of the host model, the scene builders, the
 BVH and cluster-table builds and the soup branch of ``compile_world``; these
 tests pin the copies to the originals array for array.
 
-The JAX package's ``build_bvh`` prefers its C++ builder when that compiles;
-that builder is not bit-identical to the NumPy one it falls back to (see
-``test_native_bvh_builder_differs``), and the port runs the NumPy builder.
-The exact-equality tests therefore run the JAX side on its NumPy fallback.
+Both packages' ``build_bvh`` prefer their C++ builder (``native/``) and
+fall back to the NumPy one, which is not bit-identical to it (see
+``test_native_bvh_builder_differs``). The ``numpy_bvh`` fixture routes both
+packages to their NumPy builders, so these tests hold the NumPy copies to
+the originals; ``tests/test_torch_native.py`` holds the defaults.
 """
 import dataclasses
 import os
@@ -27,6 +28,7 @@ from rayzath_tpu.ops import bvh as jbvh  # noqa: E402
 from rayzath_tpu.ops import traverse_cluster as jtc  # noqa: E402
 
 import rayzath_tpu_torch as rt  # noqa: E402
+from rayzath_tpu_torch import native as rt_native  # noqa: E402
 from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
 from rayzath_tpu_torch.ops import bvh as tbvh  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as ttc  # noqa: E402
@@ -36,8 +38,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture
 def numpy_bvh(monkeypatch):
-    """Route the JAX package's build_bvh to its NumPy fallback."""
+    """Route both packages' build_bvh to their NumPy builders."""
     monkeypatch.setattr(rz_native, "bvh_build", lambda *a, **k: None)
+    monkeypatch.setattr(rt_native, "bvh_build", lambda *a, **k: None)
 
 
 def jax_leaves(scene):
@@ -126,7 +129,9 @@ def test_import_is_jax_free():
             "from rayzath_tpu_torch.models.device_scene import "
             "_two_level_arrays; "
             "import rayzath_tpu_torch.ops.texture, rayzath_tpu_torch.ops.intersect, "
-            "rayzath_tpu_torch.parallel.train, rayzath_tpu_torch.utils.check_worlds; "
+            "rayzath_tpu_torch.parallel.train, rayzath_tpu_torch.utils.check_worlds, "
+            "rayzath_tpu_torch.ops.rng, rayzath_tpu_torch.ops.reproject, "
+            "rayzath_tpu_torch.native, rayzath_tpu_torch.io; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
@@ -163,11 +168,25 @@ def test_map_and_cutout_worlds_compile_like_jax(case, numpy_bvh):
 
 
 def test_unported_config_raises():
+    """The skip-link walk (A17) still raises. The dense path (A4) is
+    ported: with ``brute_force_threshold`` above the triangle count the
+    render takes ``project_closest``/``project_shadow`` and draws the
+    cluster path's image (the same hits; radiance by ``images_match``,
+    sample counts equal)."""
+    from rayzath_tpu_torch.engine import integrator as tint
+    from rayzath_tpu_torch.utils.parity import images_match
     w = rt.scenes.cornell_box(8, 8)
     with pytest.raises(NotImplementedError, match="A17"):
         rt.Renderer(w, rt.RenderConfig(packet_traversal=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        rt.Renderer(w, rt.RenderConfig(brute_force_threshold=64), device="cpu")
+    out = []
+    for threshold in (64, 0):
+        cfg = rt.RenderConfig(brute_force_threshold=threshold,
+                              tracing=rt.Tracing(max_depth=3))
+        r = rt.Renderer(w, cfg, seed=4, device="cpu")
+        r.render(rpp=3)
+        assert tint._dense(cfg, r.scene) == (threshold > 0)
+        out.append(r.views[id(w.cameras[0])].state.accum.numpy())
+    images_match(out[0], out[1])
 
 
 @pytest.mark.parametrize("n", [1, 37, 900])
@@ -175,7 +194,7 @@ def test_bvh_numpy_copy_matches(n):
     rng = np.random.default_rng(n)
     lo = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     hi = lo + rng.uniform(0, 0.5, (n, 3)).astype(np.float32)
-    a = tbvh.build_bvh(lo, hi, leaf_size=8)
+    a = tbvh.build_bvh_numpy(lo, hi, leaf_size=8)
     b = jbvh.build_bvh_numpy(lo, hi, leaf_size=8)
     for f in dataclasses.fields(a):
         assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
@@ -183,9 +202,10 @@ def test_bvh_numpy_copy_matches(n):
 
 def test_native_bvh_builder_differs():
     """Records a reference-side fault: the C++ builder accumulates the
-    centroid statistics in f64, the NumPy builder in f32, so their leaf
-    orders differ on the glass_and_fog soup (README claims bit-identity).
-    Skips where the C++ builder is not available."""
+    centroid statistics in f64, the NumPy builder in f32, so the JAX
+    package's native leaf order differs from the port's NumPy builder on
+    the glass_and_fog soup (README claims bit-identity). Skips where the
+    C++ builder is not available."""
     geo = jds._soup_geometry(rz.scenes.glass_and_fog(8, 8), 8, None)
     n = geo["n_tri"]
     v0, e1, e2 = geo["tri_v0"][:n], geo["tri_e1"][:n], geo["tri_e2"][:n]
@@ -193,21 +213,16 @@ def test_native_bvh_builder_differs():
     out = rz_native.bvh_build(lo, hi, 128, jbvh.MAX_DEPTH)
     if out is None:
         pytest.skip("the C++ BVH builder is not available here")
-    assert not np.array_equal(out[5], tbvh.build_bvh(lo, hi, 128).order)
+    assert not np.array_equal(out[5], tbvh.build_bvh_numpy(lo, hi, 128).order)
 
 
-def test_cluster_tables_match():
+def test_cluster_tables_match(numpy_bvh):
     rng = np.random.default_rng(3)
     v0 = rng.uniform(-4, 4, (700, 3)).astype(np.float32)
     e1 = rng.uniform(-0.35, 0.35, (700, 3)).astype(np.float32)
     e2 = rng.uniform(-0.35, 0.35, (700, 3)).astype(np.float32)
     ours = ttc.build_cluster_tables(v0, e1, e2)
-    orig = rz_native.bvh_build
-    try:
-        rz_native.bvh_build = lambda *a, **k: None
-        ref = jtc.build_cluster_tables(v0, e1, e2)
-    finally:
-        rz_native.bvh_build = orig
+    ref = jtc.build_cluster_tables(v0, e1, e2)
     for a, b in zip(ours, ref):
         assert np.array_equal(a, b)
 

@@ -228,13 +228,27 @@ def test_checkpoint_crosses_packages(tmp_path):
 
 
 def test_camera_move_with_temporal_blend_raises():
-    world = rt.scenes.cornell_box_nee(16, 16)
-    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=2)), device="cpu")
-    r.render(rpp=1)
-    cam = world.cameras[0]
-    cam.look_at((0.1, 0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="A13"):
+    """A camera move under the default temporal_blend (0.75) once raised
+    NotImplementedError (ROADMAP A13). Now the port reprojects as the JAX
+    renderer does: two passes, a look_at, one pass, in both packages from
+    the same seed with no injected uniforms; the seeded accumulation
+    matches JAX's (``assert_images_match``). With temporal_blend 0 the
+    accumulation restarts."""
+    out = []
+    for pkg in (rz, rt):
+        world = pkg.scenes.cornell_box_nee(16, 16)
+        kw = {} if pkg is rz else dict(device="cpu")
+        r = pkg.Renderer(world, pkg.RenderConfig(tracing=pkg.Tracing(max_depth=2)),
+                         seed=2, **kw)
+        r.render(rpp=2)
+        cam = world.cameras[0]
+        cam.look_at((0.1, 0.0, 1.0))
         r.render(rpp=1)
-    cam.temporal_blend = 0.0
-    r.render(rpp=1)
+        out.append(np.asarray(r.views[id(cam)].state.accum))
     assert r.views[id(cam)].pass_count == 1
+    assert out[1][..., 3].sum() > 16 * 16          # seeded beyond one pass
+    assert_images_match(out[1], out[0])
+    cam.temporal_blend = 0.0
+    cam.look_at((0.0, 0.1, 1.0))
+    r.render(rpp=1)
+    assert r.views[id(cam)].state.accum[..., 3].sum() == 16 * 16

@@ -3,8 +3,9 @@ tables of ``compile_world(two_level=True)``, instanced closest hit (B3) and
 instanced shadow (B4), the two-level branches of the integrator and picking.
 
 On the CPU the port's wrappers take their plain PyTorch versions; the JAX
-side runs its Pallas kernels in interpret mode and its host build on the
-NumPy BVH (the ``numpy_bvh`` fixture of test_torch_host.py). Rules, as in
+side runs its Pallas kernels in interpret mode, and both packages build
+their BVHs with their NumPy builders (the ``numpy_bvh`` fixture of
+test_torch_host.py). Rules, as in
 tests/test_torch_traverse.py, with the f64 Moller-Trumbore reference run
 over the expanded world-space (instance, triangle) set:
 
