@@ -88,13 +88,37 @@ Phases, each of which raises on failure (exit code != 0):
    enters the image: pass 0 traces the initial placeholder rays, pass 1 the
    camera's first hits); the loss finite and descending, the atlas update
    finite and non-zero; seconds per step and peak device memory.
+6. The front ends and the row-band runtime, at 512^2, depth 8 (training:
+   depth 3, 4 passes). The headless runner in process (``Headless().run``
+   with images saved, as ``-r``) on a task file of multi_light (soup) and
+   instanced_field (two-level), each loaded from scene files, engine
+   ``"CUDAGPU"``, rpp 64, timeout 30: the report's lines, a PNG per task
+   (signature, IHDR 512x512), rays/s per task, and the launches of B1/B2,
+   B3/B4 and the threefry kernel (all reset just before) at least one per
+   pass; then ``python -m rayzath_tpu_torch --headless <tasks> <dir> -r``
+   with rpp 8 in a subprocess, which must exit 0. ``Engine()`` on the
+   default device renders cornell_box_nee bit for bit as
+   ``Renderer(seed=0, device="cuda")``. The viewer on multi_light (port 0,
+   4 passes per cycle): the page, ``/frame``, ``/stats``, ``/orbit`` (the
+   next cycle reprojects), ``/pick`` at the centre (an instance),
+   ``/focus``, ``/zoom``, ``/tree``, ``/props`` and an ``/edit`` of a
+   roughness, which restarts the pass count; its rays/s. Row bands: 1, 2
+   and 4 bands on the card against the unsharded render (4 passes) on
+   cornell_box_nee and mesh_heavy, by ``images_match`` (sample counts
+   equal; the bands' coherence sort changes B2's walk order, so shadow
+   rgb may move in the last bits), with whether they came out
+   bit-identical and each time. ``--scaling cornell_box_nee`` (its n = 1
+   report on a one-card host). ``torch.distributed`` on NCCL at world size
+   1: ``gather_image`` equals the plain render bit for bit.
+   ``sharded_training_step`` over 2 bands of textured_room against phase
+   5's first step: loss to rtol 1e-4, the update to 1e-4 of the step.
 
 The last lines of standard output are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4 and the
 threefry kernel (``"replaces": null``: the JAX package draws in XLA), each
-with its launches in phase 4. Needs one CUDA device and nvcc; there is no
-CPU fallback.
+with its launches in phase 4 and in phase 6's headless run. Needs one CUDA
+device and nvcc; there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -1329,7 +1353,7 @@ def phase_train(card: str, dev):
     target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, first = [], [], None
     s = scene
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1343,6 +1367,7 @@ def phase_train(card: str, dev):
         if not float(step.abs().max()) > 0.0:
             raise AssertionError("training: the atlas gradient is zero")
         losses.append(float(loss))
+        first = first or (s_new, float(loss))
         s = s_new
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
@@ -1354,7 +1379,364 @@ def phase_train(card: str, dev):
           f"seconds per step {[f'{x:.3f}' for x in times]}, peak device memory "
           f"{peak:.2f} GiB, panel emission {float(scene.mat_emission[panel]):.4f}"
           f" -> {float(s.mat_emission[panel]):.4f} [{card}]", flush=True)
-    return dict(losses=losses, seconds=times, peak_gib=peak)
+    return dict(losses=losses, seconds=times, peak_gib=peak, scene=scene,
+                cam=cam, cfg=cfg, target=target, seed=seed, lr=lr,
+                passes=passes, first=first)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the front ends and the row-band runtime
+# ---------------------------------------------------------------------------
+
+BAND_COUNTS = (1, 2, 4)
+BAND_PASSES = 4
+TRAIN_BANDS = 2
+TRAIN_RTOL = 1e-4     # sharded against unsharded step on the card (see below)
+
+
+def png_size(path) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR; raises unless the file starts with
+    the PNG signature and an IHDR chunk."""
+    import struct
+    head = Path(path).read_bytes()[:24]
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG with an IHDR")
+    return struct.unpack(">II", head[16:24])
+
+
+def headless_tasks(directory: Path, rpp: int) -> Path:
+    """A task file of two tasks, multi_light (soup) and instanced_field
+    (two-level), each loaded from scene files, engine "CUDAGPU", depth 8."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.utils.check_worlds import scene_files
+    tasks = []
+    for name in ("multi_light", "instanced_field"):
+        sub = directory / name
+        sub.mkdir(parents=True, exist_ok=True)
+        path = sub / f"{name}.json"          # the image names start with it
+        Path(scene_files(rt.scenes.SCENES[name](RES, RES), str(sub))).rename(path)
+        tasks.append({"scene path": str(path.relative_to(directory)),
+                      "engine": ["CUDAGPU"], "rpp": rpp, "timeout": 30,
+                      "max depth": 8})
+    task_file = directory / "tasks.json"
+    task_file.write_text(json.dumps({"tasks": tasks}))
+    return task_file
+
+
+def phase_headless(card: str, tmp: Path) -> dict:
+    """The headless runner in process (``Headless().run`` with images
+    saved, as ``-r`` asks), then ``python -m rayzath_tpu_torch --headless
+    ... -r`` in a subprocess. Returns the in-process run's launches per
+    kernel label."""
+    import io
+    import os
+    from rayzath_tpu_torch.headless import Headless
+    wrappers = path_wrappers()
+    task_file = headless_tasks(tmp / "headless", 64)
+    report = tmp / "headless" / "report"
+    runner = Headless(out=io.StringIO())
+    for f in wrappers.values():
+        f.launches = 0
+    code = runner.run(str(task_file), str(report), save_images=True)
+    counts = {k: f.launches for k, f in wrappers.items()}
+    if code != 0:
+        raise AssertionError(f"headless: exit {code}")
+    results = runner.results
+    lines = (report / "report.txt").read_text().splitlines()
+    if len(results) != 2 or len(lines) != 6:
+        raise AssertionError(f"headless: {len(results)} results, report "
+                             f"{lines}")
+    passes = {}
+    for r, head in zip(results, (lines[0:3], lines[3:6])):
+        name = Path(r.scene_path).stem
+        if head[0] != f"Scene: {name}.json" or \
+                head[1] != "\tengine: CUDAGPU | max depth: 8" or \
+                not head[2].startswith("\tduration: ") or \
+                not head[2].endswith("rps)"):
+            raise AssertionError(f"headless {name}: report lines {head}")
+        # the warm-up cycle renders one pass before the timed ones
+        passes[name] = r.total_traced_rays // (RES * RES) + 1
+        print(f"headless {name} (scene files, CUDAGPU): {RES}^2 depth 8, "
+              f"{passes[name] - 1} passes in {r.duration:.3f} s = "
+              f"{r.rays_per_second / 1e6:.3f} Mrays/s [{card}]", flush=True)
+    pngs = sorted(report.glob("*.png"))
+    if len(pngs) != 2 or any(png_size(p) != (RES, RES) for p in pngs):
+        raise AssertionError(f"headless: PNGs {pngs}")
+    need = {"B1": passes["multi_light"], "B2": passes["multi_light"],
+            "B3": passes["instanced_field"], "B4": passes["instanced_field"],
+            "threefry": sum(passes.values())}
+    if any(counts[k] < n for k, n in need.items()):
+        raise AssertionError(f"headless: launches {counts} < passes {need}")
+    print(f"headless launches {counts} over passes {passes} (warm-up "
+          f"included); report and {len(pngs)} PNGs of {RES}x{RES}", flush=True)
+
+    task_file = headless_tasks(tmp / "cli", 8)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rayzath_tpu_torch", "--headless",
+         str(task_file), str(tmp / "cli" / "report"), "-r"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m rayzath_tpu_torch --headless exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    if len(list((tmp / "cli" / "report").glob("*.png"))) != 2:
+        raise AssertionError("python -m rayzath_tpu_torch wrote no PNGs")
+    print(f"python -m rayzath_tpu_torch --headless (rpp 8, two tasks, -r): "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def phase_engine(card: str):
+    import torch
+    import rayzath_tpu_torch as rt
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    e = rt.Engine(cfg)
+    if e.device.type != "cuda":
+        raise AssertionError(f"Engine() chose {e.device}")
+    e.world = rt.scenes.cornell_box_nee(RES, RES)
+    e.render_world(rpp=8)
+    w = rt.scenes.cornell_box_nee(RES, RES)
+    r = rt.Renderer(w, cfg, seed=0, device="cuda")
+    r.render(rpp=8)
+    a = e.renderer.views[id(e.world.cameras[0])].state.accum
+    if not torch.equal(a, r.views[id(w.cameras[0])].state.accum):
+        raise AssertionError("Engine() differs from Renderer(seed=0, cuda)")
+    print(f"Engine() on {e.device}: cornell_box_nee {RES}^2 depth 8, 8 passes, "
+          f"bit for bit as Renderer(seed=0, device='cuda')", flush=True)
+
+
+def http(port: int, path: str, body=None):
+    import urllib.request
+    url = f"http://127.0.0.1:{port}{path}"
+    req = url if body is None else urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read()
+
+
+def wait_for(pred, what: str, seconds: float = 60.0) -> None:
+    end = time.monotonic() + seconds
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"viewer: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def phase_viewer(card: str):
+    import threading
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.viewer import Viewer
+    world = rt.scenes.multi_light(RES, RES)
+    v = Viewer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)))
+    server = v.make_server(port=0)
+    port = server.server_address[1]
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    v.start()
+    try:
+        wait_for(lambda: v.stats()["pass_count"] >= 8 or v.error, "8 passes")
+        code, page = http(port, "/")
+        if code != 200 or b"orbit" not in page:
+            raise AssertionError("viewer: no page")
+        code, png = http(port, "/frame")
+        if code != 200 or png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("viewer: /frame is not a PNG")
+        stats = json.loads(http(port, "/stats")[1])
+        if stats["width"] != RES or not stats["pass_count"] > 0:
+            raise AssertionError(f"viewer: stats {stats}")
+        rps = stats["rays_per_second"]
+        http(port, "/orbit", {"dx": 40, "dy": 10})
+        wait_for(lambda: "temporal reproject"
+                 in v.renderer.time_table.entries() or v.error,
+                 "a reprojecting cycle")
+        reproject_ms = v.renderer.time_table.entries()["temporal reproject"][0]
+        wait_for(lambda: v.stats()["pass_count"] >= 4 or v.error, "passes")
+        picked = json.loads(http(port, "/pick", {"x": RES // 2, "y": RES // 2})[1])
+        if not picked["instance"] >= 0:
+            raise AssertionError(f"viewer: centre pick {picked}")
+        fd = json.loads(http(port, "/focus", {"x": RES // 2,
+                                              "y": RES // 2})[1])
+        http(port, "/zoom", {"d": -120})
+        tree = json.loads(http(port, "/tree")[1])
+        props = json.loads(http(port, "/props?type=material&idx=0")[1])
+        if not tree["instance"] or not props["fields"]:
+            raise AssertionError("viewer: empty /tree or /props")
+        wait_for(lambda: v.stats()["pass_count"] >= 12 or v.error, "12 passes")
+        http(port, "/edit", {"type": "material", "idx": 0,
+                             "attr": "roughness", "value": 0.4})
+        wait_for(lambda: 0 < v.stats()["pass_count"] <= 8 or v.error,
+                 "the pass count to restart after /edit")
+        if v.error:
+            raise AssertionError(f"viewer: the render thread failed: {v.error}")
+        rps = max(rps, v.stats()["rays_per_second"])
+    finally:
+        v.stop()
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=30)
+    print(f"viewer on multi_light {RES}^2 depth 8, 4 passes per cycle: "
+          f"{rps / 1e6:.3f} Mrays/s (moving average); /orbit reprojected in "
+          f"{reproject_ms:.3f} ms; /pick {picked['name']!r} (instance "
+          f"{picked['instance']}), /focus {fd['focal_distance']:.3f}, /zoom, "
+          f"/tree, /props, /edit restarted the pass count [{card}]",
+          flush=True)
+
+
+def phase_bands(card: str, dev):
+    import numpy as np
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.parallel.mesh import sharded_render_steps
+    from rayzath_tpu_torch.utils.parity import images_match
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    for name in ("cornell_box_nee", "mesh_heavy"):
+        world = rt.scenes.SCENES[name](RES, RES)
+        scene = compile_world(world, device=dev)
+        cam = compile_camera(world.cameras[0], dev)
+        key = rng.key(4)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        render_steps(scene, cam, cfg, init_state(RES, RES, dev), key, 1)
+        ref, ref_ms = timed(lambda: render_steps(
+            scene, cam, cfg, init_state(RES, RES, dev), key, BAND_PASSES))
+        a_ref = ref.accum.cpu().numpy()
+        shown = []
+        for n in BAND_COUNTS:
+            got, ms = timed(lambda: sharded_render_steps(
+                scene, cam, cfg, init_state(RES, RES, dev), key, BAND_PASSES,
+                [dev] * n))
+            a = got.accum.cpu().numpy()
+            close = images_match(a, a_ref)
+            same = "yes" if np.array_equal(a, a_ref) else "no"
+            shown.append(f"n={n} {ms:.1f} ms (within 2e-3: {close:.4f}, "
+                         f"bit-identical: {same})")
+        print(f"bands on {dev}, {name} {RES}^2 depth 8, {BAND_PASSES} passes: "
+              f"unsharded {ref_ms:.1f} ms; " + "; ".join(shown) + f" [{card}]",
+              flush=True)
+        del scene, world
+        torch.cuda.empty_cache()
+
+
+def phase_scaling(card: str):
+    import contextlib
+    import io
+    from rayzath_tpu_torch import headless
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = headless.main(["--scaling", "cornell_box_nee"])
+    lines = out.getvalue().strip().splitlines()
+    if code != 0 or len(lines) != 2 or \
+            lines[0] != "devices | Mrays/s | scaling efficiency" or \
+            lines[1].split("|")[0].strip() != "1":
+        raise AssertionError(f"--scaling: exit {code}, {lines}")
+    print(f"--scaling cornell_box_nee (256^2, depth 8, 64 passes): "
+          f"{lines[1].strip()} [{card}]", flush=True)
+
+
+def phase_distributed(card: str, dev):
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.parallel import distributed as D
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if D.init_distributed(f"localhost:{port}", 1, 0) != 0:
+        raise AssertionError("distributed: rank is not 0")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"distributed: backend {dist.get_backend()}")
+        world = rt.scenes.cornell_box_nee(RES, RES)
+        scene = compile_world(world, device=dev)
+        cam = compile_camera(world.cameras[0], dev)
+        cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+        state = D.init_state_distributed(RES, RES)
+        state = D.render_steps_distributed(scene, cam, cfg, state, rng.key(6), 4)
+        img = D.gather_image(state)
+    finally:
+        dist.destroy_process_group()
+    ref = render_steps(scene, cam, cfg, init_state(RES, RES, dev), rng.key(6), 4)
+    if not np.array_equal(img, ref.accum.cpu().numpy()):
+        raise AssertionError("distributed: gather_image differs from the "
+                             "plain render")
+    print(f"torch.distributed on NCCL, world size 1: gather_image (all_gather) "
+          f"of cornell_box_nee {RES}^2 depth 8, 4 passes, bit for bit as the "
+          f"plain render [{card}]", flush=True)
+
+
+def phase_sharded_train(card: str, dev, train: dict):
+    """``sharded_training_step`` over two bands on the card against phase
+    5's first unsharded step, same scene, target and seed. On the card the
+    bands are coherence-sorted on their own (B2's products may differ in
+    the last bits) and the dense shadow replay takes other chunks, so the
+    gate is a tolerance: loss to rtol 1e-4 and the updated parameters to
+    1e-4 of their max |step|."""
+    import torch
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.parallel.mesh import sharded_training_step
+    from rayzath_tpu_torch.parallel.train import DIFF_PARAMS
+    scene, (ref_scene, ref_loss) = train["scene"], train["first"]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _, loss = sharded_training_step(
+            scene, train["cam"], train["cfg"], init_state(RES, RES, dev),
+            train["seed"], train["target"], train["lr"], train["passes"],
+            [dev] * TRAIN_BANDS, remat=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not abs(float(loss) - ref_loss) <= TRAIN_RTOL * abs(ref_loss):
+        raise AssertionError(f"sharded training: loss {float(loss)} against "
+                             f"{ref_loss}")
+    worst = 0.0
+    for k in DIFF_PARAMS:
+        step = (getattr(ref_scene, k) - getattr(scene, k)).abs().max()
+        diff = (getattr(new, k) - getattr(ref_scene, k)).abs().max()
+        if float(step) > 0:
+            worst = max(worst, float(diff / step))
+        if float(diff) > TRAIN_RTOL * max(float(step), 1e-30):
+            raise AssertionError(f"sharded training: {k} differs by "
+                                 f"{float(diff)}, step {float(step)}")
+    print(f"sharded_training_step, {TRAIN_BANDS} bands on {dev}, textured_room "
+          f"{RES}^2 depth 3, {train['passes']} passes, remat: loss "
+          f"{float(loss):.6f} against {ref_loss:.6f}, update within "
+          f"{worst:.2e} of the step; seconds per step "
+          f"{[f'{x:.3f}' for x in times]} (unsharded "
+          f"{[f'{x:.3f}' for x in train['seconds']]}) [{card}]", flush=True)
+
+
+def phase_front_ends(card: str, dev, train: dict) -> dict:
+    """Returns the headless run's launches per kernel label."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_headless(card, Path(tmp))
+    phase_engine(card)
+    phase_viewer(card)
+    phase_bands(card, dev)
+    phase_scaling(card)
+    phase_distributed(card, dev)
+    phase_sharded_train(card, dev, train)
+    return launches
 
 
 def main() -> int:
@@ -1405,8 +1787,13 @@ def main() -> int:
     print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     t_phase = time.perf_counter()
-    phase_train(card, dev)
+    train = phase_train(card, dev)
     print(f"phase 5 (training) {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    for k, n in phase_front_ends(card, dev, train).items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"phase 6 (front ends) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
     # times: B1/B2 on mesh_heavy, B3/B4 on instanced_field, bounce-like
     # rays; "rays" / "plain_rays" say which ray set each time was taken on;

@@ -1,4 +1,6 @@
 from .config import RenderConfig, Tracing, LightSampling
 from .renderer import Renderer, CameraView
+from .engine import Engine
 
-__all__ = ["RenderConfig", "Tracing", "LightSampling", "Renderer", "CameraView"]
+__all__ = ["RenderConfig", "Tracing", "LightSampling", "Renderer", "CameraView",
+           "Engine"]

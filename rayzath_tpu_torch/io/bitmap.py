@@ -1,11 +1,16 @@
 """Bitmap load/save (the stb_image / BitmapSaver analog, reference
-loader.cpp + saver.cpp:22-66). A copy of ``rayzath_tpu/io/bitmap.py``: PNG
-and JPEG go through PIL and raise when PIL is not installed; Radiance
-``.hdr`` and float ``.npy`` maps decode in NumPy.
+loader.cpp + saver.cpp:22-66). A copy of ``rayzath_tpu/io/bitmap.py``,
+except that :func:`save_image` writes PNG with its own encoder
+(:func:`encode_png`, ``zlib`` + ``struct``), so images can be saved where
+PIL is not installed. Loading PNG and JPEG, and saving JPEG, go through PIL
+and raise without it; Radiance ``.hdr`` and float ``.npy`` maps decode in
+NumPy.
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -143,15 +148,44 @@ def hdr_to_texture_emission(rgb: np.ndarray):
     return np.clip(tex, 0.0, 1.0), mx
 
 
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def encode_png(a: np.ndarray) -> bytes:
+    """PNG bytes of a uint8 [H,W,3] (RGB) or [H,W,4] (RGBA) image: 8 bits
+    per channel, one IDAT chunk, filter type 0 on every row, no
+    interlacing."""
+    a = np.ascontiguousarray(a)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] not in (3, 4):
+        raise ValueError(f"encode_png takes uint8 [H,W,3|4], got {a.dtype} "
+                         f"{a.shape}")
+    h, w, c = a.shape
+    raw = np.zeros((h, 1 + w * c), np.uint8)         # column 0: filter 0
+    raw[:, 1:] = a.reshape(h, w * c)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
 def save_image(path: str, rgb: np.ndarray) -> None:
-    """Save uint8 [H,W,3|4] (or float in [0,1]) as PNG/JPEG by extension."""
+    """Save uint8 [H,W,3|4] (or float in [0,1]) as PNG/JPEG by extension.
+    PNG goes through :func:`encode_png`; any other format needs PIL."""
     a = np.asarray(rgb)
     if a.dtype != np.uint8:
         a = np.clip(a * 255.0, 0, 255).astype(np.uint8)
-    if not _HAS_PIL:
-        raise RuntimeError("PIL is unavailable; cannot save images")
+    png = path.lower().endswith(".png")
+    if not png and not _HAS_PIL:
+        raise RuntimeError("PIL is unavailable; cannot save images other "
+                           "than PNG")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(a).save(path)
+    if png:
+        with open(path, "wb") as f:
+            f.write(encode_png(a))
+    else:
+        Image.fromarray(a).save(path)
 
 
 def save_depth(path: str, depth: np.ndarray) -> None:

@@ -404,8 +404,16 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _launch(name, fn, dev, *args):
+    """Call the library function ``fn(*args, stream)`` on CUDA device
+    ``dev`` and that device's current stream, whatever device is current in
+    the calling thread; raise when it reports an error."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{_kernels.error_string(err)}")
 
 
 def _aligned(**tensors):
@@ -484,13 +492,9 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
-        err = lib.rz_cluster_closest(
-            _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
-            _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), counts,
-            _stream())
-        if err != 0:
-            raise RuntimeError(f"cluster_closest kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
+        _launch("cluster_closest", lib.rz_cluster_closest, dev,
+                _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
+                _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), counts)
         cluster_closest.launches += 1
     return t, _map_ids(rid, order.to(dev))
 
@@ -622,13 +626,9 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
-        err = lib.rz_cluster_shadow(
-            _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
-            _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts,
-            _stream())
-        if err != 0:
-            raise RuntimeError(f"cluster_shadow kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
+        _launch("cluster_shadow", lib.rz_cluster_shadow, dev,
+                _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
+                _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts)
         cluster_shadow.launches += 1
     return rgb, a
 
@@ -676,13 +676,10 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     tid = torch.empty(r, dtype=torch.int32, device=dev)
     inst = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
-        err = lib.rz_cluster_closest_inst(
-            _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
-            _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
-            _ptr(tid), _ptr(inst), counts, _stream())
-        if err != 0:
-            raise RuntimeError(f"cluster_closest_inst kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
+        _launch("cluster_closest_inst", lib.rz_cluster_closest_inst, dev,
+                _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
+                _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
+                _ptr(tid), _ptr(inst), counts)
         cluster_closest_inst.launches += 1
     return t, tid, inst
 
@@ -745,13 +742,10 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
-        err = lib.rz_cluster_shadow_inst(
-            _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
-            _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
-            _ptr(rgb), _ptr(a), counts, _stream())
-        if err != 0:
-            raise RuntimeError(f"cluster_shadow_inst kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
+        _launch("cluster_shadow_inst", lib.rz_cluster_shadow_inst, dev,
+                _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
+                _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
+                _ptr(rgb), _ptr(a), counts)
         cluster_shadow_inst.launches += 1
     return rgb, a
 

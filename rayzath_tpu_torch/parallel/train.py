@@ -31,14 +31,15 @@ _UNIT_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "color_atlas")
 
 
 def image_loss(scene, cam, cfg, state: RenderState, seed: int, target,
-               n_steps: int, remat: bool = False, u=None):
+               n_steps: int, remat: bool = False, u=None, row0: int = 0):
     """MSE between the mean accumulated radiance and a target HDR image
     [H, W, 3]. Returns (loss, post-render state); ``state`` is not
     mutated. The render runs under ``rng.key(seed)``, the JAX package's
     ``jax.random.key(seed)``. ``u``: optional injected uniforms, one tensor
-    per step."""
+    per step. ``row0``: global image row of the state's first row (a band
+    of ``parallel/mesh.py``)."""
     st = render_steps_preserve(scene, cam, cfg, state, rng.key(seed), n_steps,
-                               remat=remat, u=u)
+                               row0=row0, remat=remat, u=u)
     spp = torch.maximum(st.accum[..., 3:4], torch.ones_like(st.accum[..., 3:4]))
     img = st.accum[..., :3] / spp
     return torch.mean(torch.square(img - target)), st

@@ -113,8 +113,9 @@ def write_hdr(path: str, rgb: np.ndarray) -> None:
 def scene_files(world: World, directory: str) -> str:
     """Write ``world`` into ``directory`` as scene files and return the path
     of the JSON scene: ``save_scene`` writes ``scene.json`` (texture maps as
-    PNG, which needs PIL); each mesh then moves into ``meshes/<name>.obj``
-    (``save_obj``, with an ``mtllib`` line) beside ``meshes/<name>.mtl``
+    PNG, which need PIL to load back); each mesh then moves into
+    ``meshes/<name>.obj`` (``save_obj``, with an ``mtllib`` line) beside
+    ``meshes/<name>.mtl``
     (``save_mtl``, the materials of the instances that use it), referenced
     from the JSON by ``"file"``; and the world material gets an HDR sky,
     ``sky.hdr`` (a blue-to-white gradient of radiance 0.6-1.2), loaded as

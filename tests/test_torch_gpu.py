@@ -661,3 +661,91 @@ def test_dense_path_cuda_matches_cpu(cuda, case):
     for a, b in zip(gpu, cpu):
         images_match(a, b)
     assert gpu[1][..., :3].max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("name", ["cornell_box_nee", "multi_light"])
+def test_band_render_on_the_card(cuda, name, n):
+    """n row bands on one card against the unsharded render on the card,
+    same seed: sample counts equal, radiance by ``images_match`` (B2's walk
+    order may differ where a band is coherence-sorted on its own)."""
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.parallel.mesh import sharded_render_steps
+    world = rt.scenes.SCENES[name](64, 64)
+    scene = tds.compile_world(world, device=cuda)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    ref = render_steps(scene, cam, cfg, init_state(64, 64, cuda), rng.key(2), 3)
+    got = sharded_render_steps(scene, cam, cfg, init_state(64, 64, cuda),
+                               rng.key(2), 3, [cuda] * n)
+    assert got.accum.device.type == "cuda" and got.height == 64
+    images_match(got.accum.cpu().numpy(), ref.accum.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card(cuda):
+    """Engine() renders on the card by default, bit for bit as
+    Renderer(seed=0, device="cuda") on the same world."""
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    e = rt.Engine(cfg)
+    assert e.device.type == "cuda"
+    e.world = rt.scenes.cornell_box_nee(64, 64)
+    e.render_world(rpp=3)
+    w = rt.scenes.cornell_box_nee(64, 64)
+    r = rt.Renderer(w, cfg, seed=0, device="cuda")
+    r.render(rpp=3)
+    a = e.renderer.views[id(e.world.cameras[0])].state.accum
+    assert torch.equal(a, r.views[id(w.cameras[0])].state.accum)
+
+
+@pytest.mark.gpu
+def test_headless_on_the_card(cuda, tmp_path):
+    """A task file with the default engine ("CUDAGPU") renders on the card
+    and writes its report and a PNG."""
+    import io
+    import json
+    import os
+    from rayzath_tpu_torch.headless import Headless
+    scene = {"Objects": {
+        "Material": [{"name": "white", "color": [0.8, 0.8, 0.8, 1.0],
+                      "emission": 5.0}],
+        "Mesh": [{"name": "box", "generate cube": {}}],
+        "Camera": {"name": "cam", "position": [0, 0, -3],
+                   "resolution": [16, 16], "aperture": 0.02,
+                   "exposure time": 1.0},
+        "Instance": [{"name": "box1", "Mesh": "box", "Material": ["white"]}]},
+        "Material": {"emission": 0.5}}
+    (tmp_path / "scene.json").write_text(json.dumps(scene))
+    (tmp_path / "tasks.json").write_text(json.dumps({"tasks": [
+        {"scene path": "scene.json", "rpp": 4, "max depth": 3}]}))
+    before = tc.cluster_closest.launches
+    assert Headless(out=io.StringIO()).run(str(tmp_path / "tasks.json"),
+                                           str(tmp_path / "out"), True) == 0
+    assert tc.cluster_closest.launches >= before + 4
+    report = (tmp_path / "out" / "report.txt").read_text()
+    assert "engine: CUDAGPU | max depth: 3" in report
+    assert [f for f in os.listdir(tmp_path / "out") if f.endswith(".png")]
+
+
+@pytest.mark.gpu
+def test_second_card_renders_like_the_first(cuda):
+    """With cuda:0 current, a Renderer on cuda:1 launches its kernels on
+    cuda:1 (each launch under its tensors' device) and renders what cuda:0
+    renders, bit for bit. Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    out = []
+    torch.cuda.set_device(0)
+    for dev in ("cuda:0", "cuda:1"):
+        w = rt.scenes.multi_light(64, 64)
+        r = rt.Renderer(w, cfg, seed=1, device=dev)
+        r.render(rpp=3)
+        a = r.views[id(w.cameras[0])].state.accum
+        assert a.device == torch.device(dev)
+        out.append(a.cpu())
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(out[0], out[1])

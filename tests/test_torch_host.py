@@ -132,7 +132,17 @@ def test_import_is_jax_free():
             "rayzath_tpu_torch.parallel.train, rayzath_tpu_torch.utils.check_worlds, "
             "rayzath_tpu_torch.ops.rng, rayzath_tpu_torch.ops.reproject, "
             "rayzath_tpu_torch.native, rayzath_tpu_torch.io; "
-            "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
+            "import rayzath_tpu_torch.utils.exceptions, "
+            "rayzath_tpu_torch.utils.text, rayzath_tpu_torch.utils.args, "
+            "rayzath_tpu_torch.engine.engine, rayzath_tpu_torch.editor, "
+            "rayzath_tpu_torch.headless, rayzath_tpu_torch.viewer, "
+            "rayzath_tpu_torch.parallel, rayzath_tpu_torch.parallel.mesh, "
+            "rayzath_tpu_torch.parallel.distributed, "
+            "rayzath_tpu_torch.parallel.scaling, "
+            "rayzath_tpu_torch.parallel.dryrun; "
+            "assert 'jax' not in sys.modules and 'flax' not in sys.modules and "
+            "not any(m == 'rayzath_tpu' or m.startswith('rayzath_tpu.') "
+            "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
                    timeout=300)
