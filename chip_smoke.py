@@ -10,10 +10,14 @@ Phases, each of which raises on failure (exit code != 0):
    native library (``native/``, g++), and say which BVH builder runs.
 2. Kernel against plain. The threefry kernel (``csrc/threefry.cu``) against
    ``ops/rng.py`` ``uniform_rows_plain`` on the card, bit for bit, on full
-   512^2 passes at ns = 8 and 14, a band of rows at row0 > 0 at ns = 11 and
-   an odd width; both timed on a 512^2 x 14 pass (median of 20), and its
-   bound from the bytes written and the integer operations counted from
-   the source over the int32 rate. Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
+   512^2 passes at ns = 8 and 14, a band of rows at row0 > 0 at ns = 11, an
+   odd width and rows of 3 floats; timed on a 512^2 x 14 pass: the
+   kernel's own device time (``device_ms``: 50 launches queued behind a
+   ``torch.cuda._sleep``, so the events hold no host time; median of 5),
+   the call's time with its Python wrapper and the plain version's (CUDA
+   events around one call, median of 20), and its bound from the bytes
+   written and the fewest instructions of the function (70 per float) over
+   the SM's issue rate. Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
    against their plain PyTorch versions on the card, for cornell_box_nee,
    multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
    bounce-like rays from the first hits (uniform-sphere directions from a
@@ -26,7 +30,8 @@ Phases, each of which raises on failure (exit code != 0):
    materials at alpha 0.5. B1 and B3 t, ids (and B3 instance ids) must
    equal the plain versions' bit for bit; shadow rgba to rtol 1e-5 / atol
    1e-6 where the plain alpha >= 1e-4, both below 1e-4 elsewhere. Median
-   times of kernel and plain with CUDA events. On each timed (bounce-like)
+   times of kernel and plain with CUDA events, the kernel's both as its
+   device time (``device_ms``) and as its call's. On each timed (bounce-like)
    set: the needed visits per ray (the pairs of ray and (instance,) cluster
    whose exact slab interval meets [near, t_final], or for shadow
    (0, the first opaque hit or dist)), the visits per ray each kernel made
@@ -81,7 +86,25 @@ Phases, each of which raises on failure (exit code != 0):
    512^2, depth 8, 8 passes with no injected uniforms; then
    ``Renderer.focus``, a camera move, the reprojection alone (it must seed
    samples; its ``"temporal reproject"`` ms) and 8 more passes; Mrays/s,
-   warm-up and launches of both renders.
+   warm-up and launches of both renders. Then the skip-link BVH walk
+   (``packet_traversal=False``, ``ops/traverse.py``: torch ops, no
+   kernel): on cornell_box_nee's 512^2 camera rays the walk on the card
+   bit for bit as on the CPU (closest t and ids, shadow rgba toward the
+   spot light); ``Renderer(device="cuda", config=RenderConfig(
+   packet_traversal=False))`` on cornell_box_nee (8 passes) and mesh_heavy
+   (4) at 512^2, depth 8, after a warm-up pass: NaN-free, samples
+   accumulated, B1-B4 never launched and the threefry kernel once per
+   pass; ms per pass and the walks' ms per pass. The walk and B1 give
+   their hit ids apart only on rays an f64 Moller-Trumbore calls chaotic
+   (checked on both scenes' 512^2 camera and bounce-like rays, and on the
+   placeholder ray that pass 0 traces for every pixel), where a path may
+   end a bounce sooner or later, so the image against the packet path's
+   from the same seed may differ in the sample counts of at most 1e-4 of
+   the pixels (1 of 262,144 on an H100 on cornell_box_nee), with radiance
+   by ``images_match``'s rule over all pixels (``render_gate``; pass 0 is
+   left out only where the two walks part on its f64-chaotic ray).
+   mesh_massive (phase 2) also reports the skip-link tables' host time
+   against its compile's.
 5. Training: ``parallel.train.training_step`` on textured_room(512, 512),
    depth 3, 4 passes per step, remat, 3 steps at lr 0.01 against the same
    scene with the panel's emission halved (with 2 passes the panel never
@@ -117,14 +140,14 @@ The last lines of standard output are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4 and the
 threefry kernel (``"replaces": null``: the JAX package draws in XLA), each
-with its launches in phase 4 and in phase 6's headless run. Needs one CUDA
-device and nvcc; there is no CPU fallback.
+with its launches in phase 4 (the draw's also in the skip-link renders)
+and in phase 6's headless run, ``ms`` its device time and ``call_ms`` its
+call's time. Needs one CUDA device and nvcc; there is no CPU fallback.
 """
 from __future__ import annotations
 
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -161,30 +184,14 @@ def nvcc_release(nvcc: str) -> str:
     return m.group(1) if m else out.strip().splitlines()[-1]
 
 
-def cuda_ms(fn, runs: int) -> float:
-    """Median milliseconds of ``fn()`` over ``runs`` launches (CUDA events,
-    after one warm-up call)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def plain_runs(fn) -> tuple[float, int]:
     """Median of up to 20 timed runs of a plain version, fewer when one run
     is slow (mesh_heavy's plain walk is an all-pairs pass over 65k
     triangles), so the script stays inside its time limit."""
-    first = cuda_ms(fn, 1)
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms
+    first = call_ms(fn, 1)
     runs = int(max(3, min(20, PLAIN_BUDGET_MS // max(first, 1e-3))))
-    return cuda_ms(fn, runs), runs
+    return call_ms(fn, runs), runs
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +384,7 @@ def phase_kernels(card: str, dev):
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.ops.intersect import BIG
     from rayzath_tpu_torch.utils.check_tables import needed_soup
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
     out = {"cluster_closest": {"err": 0.0}, "cluster_shadow": {"err": 0.0}}
     for name in SCENES:
         t0 = time.perf_counter()
@@ -407,16 +415,20 @@ def phase_kernels(card: str, dev):
         # times on the bounce-like set: the wavefront of every later bounce
         o, d, near, far, big, op_rgb, op_a, op_tab, t_k, tid_k = timing["bounce"]
         # the kernels first, before the plain versions' seconds of load
-        k1 = cuda_ms(lambda: tc.cluster_closest(o, d, near, far, *tabs), 20)
-        k2 = cuda_ms(lambda: tc.cluster_shadow(
+        k1 = call_ms(lambda: tc.cluster_closest(o, d, near, far, *tabs), 20)
+        k2 = call_ms(lambda: tc.cluster_shadow(
             o, d, big, scene.cl_box, scene.cl_lw, scene.cl_order,
             scene.cl_base, scene.cl_count, op_rgb, op_a), 20)
+        d1 = device_ms(lambda: tc.cluster_closest(o, d, near, far, *tabs))
+        d2 = device_ms(lambda: tc.cluster_shadow(
+            o, d, big, scene.cl_box, scene.cl_lw, scene.cl_order,
+            scene.cl_base, scene.cl_count, op_rgb, op_a))
         p1, n1 = plain_runs(lambda: tc.cluster_closest_plain(
             o, d, near, far, scene.cl_box, scene.cl_lw))
         p2, n2 = plain_runs(lambda: tc.cluster_shadow_plain(
             o, d, big, scene.cl_box, scene.cl_lw, op_tab))
         oc, dc, nc, fc, *_ = timing["camera"]
-        kc = cuda_ms(lambda: tc.cluster_closest(oc, dc, nc, fc, *tabs), 20)
+        kc = call_ms(lambda: tc.cluster_closest(oc, dc, nc, fc, *tabs), 20)
         # visits made against needed visits, and the bounds
         made, staged = visits_made(lambda v: tc.cluster_closest(
             o, d, near, far, *tabs, visits=v), r)
@@ -434,20 +446,22 @@ def phase_kernels(card: str, dev):
                    tests1 * TEST_OPS)
         b2 = bound(r * (28 + 16) + rows2 * (FRAME_BYTES + 2048) + real * 32,
                    tests2 * TEST_OPS)
-        print(f"  {name} times [{card}]: B1 kernel {k1:.3f} ms vs plain "
+        print(f"  {name} times [{card}]: B1 kernel {d1:.4f} ms on the device "
+              f"(call {k1:.3f} ms) vs plain "
               f"{p1:.3f} ms (median of 20 / {n1}), bound {b1[0]:.4f} ms "
               f"({b1[1]}), visits per ray {made:.3f} made / {pairs1 / r:.3f} "
               f"needed, {staged:.2f} clusters staged per block; B2 kernel "
-              f"{k2:.3f} ms vs plain {p2:.3f} ms (median of 20 / {n2}), bound "
+              f"{d2:.4f} ms on the device (call {k2:.3f} ms) vs plain "
+              f"{p2:.3f} ms (median of 20 / {n2}), bound "
               f"{b2[0]:.4f} ms ({b2[1]}), visits per ray {made2:.3f} made / "
               f"{pairs2 / r:.3f} needed, {staged2:.2f} clusters staged per "
               f"block; B1 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["cluster_closest"][name] = dict(
-            ms=k1, plain_ms=p1, rays=r, plain_rays=r, bound=b1,
+            ms=d1, call_ms=k1, plain_ms=p1, rays=r, plain_rays=r, bound=b1,
             needed_visits_per_ray=pairs1 / r, visits_per_ray=made)
         out["cluster_shadow"][name] = dict(
-            ms=k2, plain_ms=p2, rays=r, plain_rays=r, bound=b2,
+            ms=d2, call_ms=k2, plain_ms=p2, rays=r, plain_rays=r, bound=b2,
             needed_visits_per_ray=pairs2 / r, visits_per_ray=made2)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
@@ -516,6 +530,7 @@ def phase_inst_kernels(card: str, dev):
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.ops.intersect import BIG
     from rayzath_tpu_torch.utils.check_tables import needed_inst
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
     out = {"cluster_closest_inst": {"err": 0.0},
            "cluster_shadow_inst": {"err": 0.0}}
     for name, stride in INST_SCENES:
@@ -554,20 +569,23 @@ def phase_inst_kernels(card: str, dev):
         op_tab = tc.instance_opacity(scene.mat_color, scene.inst_slot_map)
         os_, ds_, ns_, fs_, bs_ = (x[sub].contiguous()
                                    for x in (o, d, near, far, big))
-        k3 = cuda_ms(lambda: tc.cluster_closest_inst(o, d, near, far, *tabs), 20)
-        k3s = cuda_ms(lambda: tc.cluster_closest_inst(os_, ds_, ns_, fs_,
+        k3 = call_ms(lambda: tc.cluster_closest_inst(o, d, near, far, *tabs), 20)
+        k3s = call_ms(lambda: tc.cluster_closest_inst(os_, ds_, ns_, fs_,
                                                       *tabs), 20)
         shadow_args = (scene.cl_slot, scene.inst_slot_map, scene.mat_color)
-        k4 = cuda_ms(lambda: tc.cluster_shadow_inst(o, d, big, *tabs,
+        k4 = call_ms(lambda: tc.cluster_shadow_inst(o, d, big, *tabs,
                                                     *shadow_args), 20)
-        k4s = cuda_ms(lambda: tc.cluster_shadow_inst(os_, ds_, bs_, *tabs,
+        k4s = call_ms(lambda: tc.cluster_shadow_inst(os_, ds_, bs_, *tabs,
                                                      *shadow_args), 20)
+        d3 = device_ms(lambda: tc.cluster_closest_inst(o, d, near, far, *tabs))
+        d4 = device_ms(lambda: tc.cluster_shadow_inst(o, d, big, *tabs,
+                                                      *shadow_args))
         p3, n3 = plain_runs(lambda: tc.cluster_closest_inst_plain(
             os_, ds_, ns_, fs_, *tabs))
         p4, n4 = plain_runs(lambda: tc.cluster_shadow_inst_plain(
             os_, ds_, bs_, *tabs, scene.cl_slot, op_tab))
         oc, dc, nc, fc, *_ = timing["camera"]
-        kc = cuda_ms(lambda: tc.cluster_closest_inst(oc, dc, nc, fc, *tabs), 20)
+        kc = call_ms(lambda: tc.cluster_closest_inst(oc, dc, nc, fc, *tabs), 20)
         # visits made against needed visits, and the bounds
         made, staged = visits_made(lambda v: tc.cluster_closest_inst(
             o, d, near, far, *tabs, visits=v), r)
@@ -587,22 +605,24 @@ def phase_inst_kernels(card: str, dev):
                    tests3 * TEST_OPS + ipairs3 * TO_OBJECT_OPS)
         b4 = bound(r * (28 + 16) + cl4 * (FRAME_BYTES + 32 + 512) + real * 96
                    + in4 * 4 * 64 * 4, tests4 * TEST_OPS + ipairs4 * TO_OBJECT_OPS)
-        print(f"  {name} times [{card}]: B3 kernel {k3:.3f} ms on {r} rays, "
+        print(f"  {name} times [{card}]: B3 kernel {d3:.4f} ms on the device "
+              f"(call {k3:.3f} ms) on {r} rays, "
               f"{k3s:.3f} ms on {len(sub)}, plain {p3:.3f} ms on {len(sub)} "
               f"(median of 20 / {n3}), bound {b3[0]:.4f} ms ({b3[1]}), "
               f"visits per ray {made:.3f} made / {pairs3 / r:.3f} needed "
               f"(instances {ipairs3 / r:.3f} needed), {staged:.2f} clusters "
-              f"staged per block; B4 kernel {k4:.3f} ms on {r}, {k4s:.3f} ms "
+              f"staged per block; B4 kernel {d4:.4f} ms on the device (call "
+              f"{k4:.3f} ms) on {r}, {k4s:.3f} ms "
               f"on {len(sub)}, plain {p4:.3f} ms on {len(sub)} (median of 20 / "
               f"{n4}), bound {b4[0]:.4f} ms ({b4[1]}), visits per ray "
               f"{made4:.3f} made / {pairs4 / r:.3f} needed, {staged4:.2f} "
               f"clusters staged per block; B3 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["cluster_closest_inst"][name] = dict(
-            ms=k3, plain_ms=p3, rays=r, plain_rays=len(sub), bound=b3,
+            ms=d3, call_ms=k3, plain_ms=p3, rays=r, plain_rays=len(sub), bound=b3,
             needed_visits_per_ray=pairs3 / r, visits_per_ray=made)
         out["cluster_shadow_inst"][name] = dict(
-            ms=k4, plain_ms=p4, rays=r, plain_rays=len(sub), bound=b4,
+            ms=d4, call_ms=k4, plain_ms=p4, rays=r, plain_rays=len(sub), bound=b4,
             needed_visits_per_ray=pairs4 / r, visits_per_ray=made4)
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
@@ -746,15 +766,34 @@ def phase_massive(card: str, dev):
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.models.device_scene import compile_world
     from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.bvh import (build_bvh, compute_skip_links,
+                                           triangle_aabbs)
     from rayzath_tpu_torch.ops.intersect import BIG
+    from rayzath_tpu_torch.ops.traverse import build_aabb_links, leaf_table
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms
     t0 = time.perf_counter()
     world = rt.scenes.mesh_massive(RES, RES)
     scene = compile_world(world, device=dev)
+    compiled = time.perf_counter() - t0
+    # the skip-link walk's tables, which every soup compile builds, timed
+    # alone on a BVH of the same (leaf-ordered) triangles
+    n = scene.n_triangles
+    v0, e1, e2 = (x[:n].cpu().numpy() for x in (scene.tri_v0, scene.tri_e1,
+                                                scene.tri_e2))
+    bvh = build_bvh(*triangle_aabbs(v0, v0 + e1, v0 + e2), leaf_size=8)
+    t0 = time.perf_counter()
+    build_aabb_links(bvh.node_min, bvh.node_max, bvh.node_count,
+                     *compute_skip_links(bvh.node_begin, bvh.node_count,
+                                         bvh.node_axis))
+    leaf_table(bvh.node_begin, bvh.node_count, 8)
+    tables = time.perf_counter() - t0
     tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
     r = RES * RES
     real = int((scene.cl_box[tc.B_CNT] > 0).sum())
-    print(f"mesh_massive: {scene.n_triangles} triangles, {real} clusters, "
-          f"compiled in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"mesh_massive: {n} triangles, {real} clusters, compiled in "
+          f"{compiled:.2f} s; the skip-link tables of a {bvh.n_nodes}-node BVH "
+          f"of them take {tables:.3f} s ({100 * tables / compiled:.1f}% of the "
+          f"compile)", flush=True)
     o, d = world_rays(world, dev)
     near = torch.zeros(r, device=dev)
     far = torch.full((r,), 1e30, device=dev)
@@ -775,7 +814,7 @@ def phase_massive(card: str, dev):
         torch.cuda.synchronize()
         assert_bits(f"mesh_massive/{set_name}", [x[sub] for x in got],
                     (t_p, tc._map_ids(rid_p, scene.cl_order)))
-        ms = cuda_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs), 10)
+        ms = call_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs), 10)
         made, staged = visits_made(lambda v: tc.cluster_closest(
             o_s, d_s, n_s, f_s, *tabs, visits=v), r)
         print(f"  mesh_massive/{set_name}: B1 hits {int((got[1] >= 0).sum())}"
@@ -797,7 +836,7 @@ def phase_massive(card: str, dev):
             torch.cuda.synchronize()
             err = shadow_gate(f"mesh_massive/{set_name}/dist=BIG{label} B2",
                               [x[sub] for x in got], ref)
-            ms = cuda_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow), 10)
+            ms = call_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow), 10)
             made, staged = visits_made(lambda v: tc.cluster_shadow(
                 o_s, d_s, big, *shadow, visits=v), r)
             part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
@@ -947,6 +986,7 @@ def phase_backward(card: str, dev):
     from rayzath_tpu_torch.models.device_scene import compile_world
     from rayzath_tpu_torch.ops import texture as tex_ops
     from rayzath_tpu_torch.utils import check_worlds
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms
     out = {}
     world = translucent_half(check_worlds.lit_world(64))
     scene = compile_world(world, device=dev)
@@ -966,7 +1006,7 @@ def phase_backward(card: str, dev):
     o, d = bounce_rays(scene, world, dev, RES, 24)
     uv = torch.as_tensor(rng.uniform(-1, 2, (r, 2)).astype(np.float32), device=dev)
     tex_id = torch.zeros(r, dtype=torch.int32, device=dev)
-    t_fetch = cuda_ms(lambda: tex_ops.fetch_scene(scene, tex_id, uv, atlas=0), 20)
+    t_fetch = call_ms(lambda: tex_ops.fetch_scene(scene, tex_id, uv, atlas=0), 20)
     dist = torch.full((r,), 3e38, device=dev)
     leaves = (o, d, dist, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.mat_color)
     g = (torch.ones(r, 3, device=dev), torch.ones(r, device=dev))
@@ -979,13 +1019,13 @@ def phase_backward(card: str, dev):
         torch.autograd.grad(fn, xs[6], g)
 
     torch.cuda.reset_peak_memory_stats()
-    t_fwd = cuda_ms(fwd, 5)
-    t_bwd = cuda_ms(fwd_bwd, 5)
+    t_fwd = call_ms(fwd, 5)
+    t_bwd = call_ms(fwd_bwd, 5)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     cworld = check_worlds.cutout_world(RES)
     cscene = compile_world(cworld, device=dev)
     co, cd = bounce_rays(cscene, cworld, dev, RES, 25)
-    t_cut = cuda_ms(lambda: I.texture_shadow_factor(cscene, co, cd, dist), 20)
+    t_cut = call_ms(lambda: I.texture_shadow_factor(cscene, co, cd, dist), 20)
     print(f"  plain pieces at {RES}^2 [{card}]: texture fetch (color atlas) "
           f"{t_fetch:.3f} ms; cutout pass ({cscene.n_cutout} cutouts) "
           f"{t_cut:.3f} ms; B2 Function forward (kernel) {t_fwd:.3f} ms, "
@@ -1000,21 +1040,26 @@ def phase_backward(card: str, dev):
 # phase 2, the draw: the threefry kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# 32-bit integer operations per second: a quarter of the float32 rate above,
-# since an H100 SM has half as many INT32 lanes as FP32 lanes (64 vs 128)
-# and the float32 rate counts a fused multiply-add as two operations
-INT32_OPS_S = F32_OPS_S / 4
-# integer operations of one threefry2x32, counted from csrc/threefry.cu: the
-# two initial key adds, 20 rounds of (add, rotate, xor) and five key
-# injections of two adds each (the constant folds into the key word)
-HASH_OPS = 2 + 20 * 3 + 5 * 2
-# per drawn float: the x0 ^ x1, the shift, the or and the float subtract
-UNIT_OPS = 4
+# instructions per second, whatever their pipe: an SM issues at most four
+# warp instructions a clock (128 lanes), the float32 rate above at a fused
+# multiply-add counted as one
+ISSUE_S = F32_OPS_S / 2
+# the fewest instructions of one threefry2x32 with counter (0, e), a count
+# of the function and not of a kernel: x1 = e + k1 (x0 = k0 needs none),
+# 20 rounds of (add, funnel-shift rotate, xor), one add per middle key
+# injection into x1 (the one into x0 folds into the next round's
+# three-input add, the constant into the key word) and the two final adds
+HASH_OPS = 1 + 20 * 3 + 4 + 2
+# per drawn float: the x0 ^ x1, the shift-or (one LEA.HI) and the float
+# subtract
+UNIT_OPS = 3
 # (seed, pass, row0, rows, width, ns): full passes at the n_streams of the
-# scenes (8, plus 3 per kind of light: 11, 14), a band at row0 > 0, and an
-# odd width whose rows end inside a block
+# scenes (8, plus 3 per kind of light: 11, 14), a band at row0 > 0, an odd
+# width whose rows end inside a lane's 8 floats, and rows of 3 floats (a
+# warp's 1,024 floats span more rows than its 32 lanes hold keys for)
 THREEFRY_SETS = ((0, 0, 0, RES, RES, 8), (7, 3, 0, RES, RES, 14),
-                 (2 ** 31 - 1, 11, 300, 100, RES, 11), (5, 2, 17, 64, 513, 14))
+                 (2 ** 31 - 1, 11, 300, 100, RES, 11), (5, 2, 17, 64, 513, 14),
+                 (3, 1, 2, 700, 1, 3))
 THREEFRY_NS = (8, 11, 14)
 
 
@@ -1023,6 +1068,7 @@ def phase_threefry(card: str, dev):
     card, then both timed on a full pass at ns = 14, and its bound."""
     import torch
     from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
     for seed, pass_idx, row0, h, w, ns in THREEFRY_SETS:
         k = rng.fold_in(rng.key(seed), pass_idx)
         got = rng.uniform_rows(k, row0, h, w, ns, dev)
@@ -1038,16 +1084,19 @@ def phase_threefry(card: str, dev):
               f"{float(got.max()):.6f}]", flush=True)
     k = rng.fold_in(rng.key(1), 0)
     h, w, ns = RES, RES, THREEFRY_NS[-1]
-    ms = cuda_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 20)
-    plain_ms = cuda_ms(lambda: rng.uniform_rows_plain(k, 0, h, w, ns, dev), 20)
+    call = call_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 20)
+    ms = device_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 50)
+    plain_ms = call_ms(lambda: rng.uniform_rows_plain(k, 0, h, w, ns, dev), 20)
     n = h * w * ns
     # bytes: the uniforms written once (the key is an argument); operations:
     # one hash per row key and one hash and conversion per float
-    b = bound(n * 4, n * (HASH_OPS + UNIT_OPS) + h * HASH_OPS, INT32_OPS_S)
+    b = bound(n * 4, n * (HASH_OPS + UNIT_OPS) + h * HASH_OPS, ISSUE_S)
     print(f"  threefry times [{card}]: {h}^2 x {ns} uniforms, kernel {ms:.4f} ms "
-          f"vs plain {plain_ms:.3f} ms (median of 20), bound {b[0]:.4f} ms "
-          f"({b[1]})", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound=b, err=0.0)
+          f"on the device (50 launches behind a sleep, median of 5), the call "
+          f"{call:.4f} ms (its Python wrapper included, median of 20), plain "
+          f"{plain_ms:.3f} ms (median of 20), bound {b[0]:.4f} ms ({b[1]}): "
+          f"the device time is {ms / b[0]:.2f}x the bound", flush=True)
+    return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound=b, err=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1322,6 +1371,236 @@ def phase_files(card: str, dev, launches: dict):
               f"samples {seeded:.0f} of {RES * RES} pixels; launches {shown}, "
               f"image mean {mean:.1f} [{card}]", flush=True)
         del r, world
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4, the skip-link walk: RenderConfig(packet_traversal=False)
+# ---------------------------------------------------------------------------
+
+SKIP_PASSES = (("cornell_box_nee", 8), ("mesh_heavy", 4))   # (scene, passes)
+
+
+def placeholder_ray(scene, dev) -> dict:
+    """``init_state``'s placeholder ray (origin 0, direction +z, near 0,
+    far BIG), which pass 0 traces for every pixel before it makes camera
+    rays (ROADMAP C): B1's id, the skip-link walk's and the f64 Moller-
+    Trumbore's, and whether f64 calls the ray chaotic."""
+    import torch
+    from rayzath_tpu_torch.engine.state import BIG
+    from rayzath_tpu_torch.ops import traverse as tw
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils.parity import closest_f64
+    o = torch.zeros((1, 3), device=dev)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=dev)
+    near, far = torch.zeros(1, device=dev), torch.full((1,), BIG, device=dev)
+    b1 = tc.cluster_closest(o, d, near, far, scene.cl_box, scene.cl_lw,
+                            scene.cl_order)
+    walk = tw.bvh_closest(o, d, near, far, scene.aabb_links, scene.node_count,
+                          scene.leaf_tri, scene.tri_v0, scene.tri_e1,
+                          scene.tri_e2)
+    n = scene.n_triangles
+    ref, chaotic = closest_f64(*(x.cpu().numpy() for x in (o, d)),
+                               *(x[:n].cpu().numpy() for x in (
+                                   scene.tri_v0, scene.tri_e1, scene.tri_e2)),
+                               *(x.cpu().numpy() for x in (near, far)))
+    return dict(b1=int(b1[1][0]), b1_t=float(b1[0][0]), walk=int(walk[1][0]),
+                walk_t=float(walk[0][0]), f64=int(ref[0]),
+                chaotic=bool(chaotic[0]))
+
+
+def walk_ids_vs_b1(card: str, dev) -> dict:
+    """The skip-link walk's closest-hit ids against B1's on the 512^2
+    camera and bounce-like rays of cornell_box_nee and mesh_heavy, and on
+    the placeholder ray of pass 0 (:func:`placeholder_ray`): every ray
+    where they differ must be one an f64 Moller-Trumbore calls chaotic (the
+    walk's Moller-Trumbore and B1's projection test round apart only
+    there). Returns, per scene, whether the two take one id on the
+    placeholder ray, so that pass 0 belongs in ``render_gate``."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse as tw
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils.parity import closest_f64
+    same_pass0 = {}
+    for name, _ in SKIP_PASSES:
+        scene, cam_set, bounce_set = scene_rays(name, dev)
+        n = scene.n_triangles
+        tris = [x[:n].cpu().numpy() for x in (scene.tri_v0, scene.tri_e1,
+                                              scene.tri_e2)]
+        shown = []
+        for label, (o, d) in (("camera", cam_set), ("bounce", bounce_set)):
+            r = o.shape[0]
+            near = torch.zeros(r, device=dev)
+            far = torch.full((r,), 1e30, device=dev)
+            tid_b1 = tc.cluster_closest(o, d, near, far, scene.cl_box,
+                                        scene.cl_lw, scene.cl_order)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tid = tw.bvh_closest(o, d, near, far, scene.aabb_links,
+                                 scene.node_count, scene.leaf_tri,
+                                 scene.tri_v0, scene.tri_e1, scene.tri_e2)[1]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            bad = torch.nonzero(tid != tid_b1).flatten()
+            _, chaotic = closest_f64(*(x[bad].cpu().numpy() for x in (o, d)),
+                                     *tris, *(x[bad].cpu().numpy()
+                                              for x in (near, far)))
+            if not chaotic.all():
+                raise AssertionError(
+                    f"{name}/{label}: the skip-link walk and B1 differ on "
+                    f"{int((~chaotic).sum())} rays f64 does not call chaotic")
+            shown.append(f"{label} {len(bad)} of {r} (all f64-chaotic), walk "
+                         f"{ms:.1f} ms")
+        p = placeholder_ray(scene, dev)
+        same_pass0[name] = p["b1"] == p["walk"]
+        if not (same_pass0[name] or p["chaotic"]):
+            raise AssertionError(f"{name}: B1 and the skip-link walk differ on "
+                                 f"the placeholder ray, which f64 does not "
+                                 f"call chaotic: {p}")
+        shown.append(
+            f"the placeholder ray of pass 0: B1 {p['b1']} at t {p['b1_t']:.7g}, "
+            f"the walk {p['walk']} at t {p['walk_t']:.7g}, f64 {p['f64']} "
+            f"({'chaotic' if p['chaotic'] else 'not chaotic'}), so pass 0 is "
+            f"{'in' if same_pass0[name] else 'left out of'} the render gate")
+        print(f"{name} skip-link walk ids against B1's: differ on "
+              + "; ".join(shown) + f" [{card}]", flush=True)
+        del scene
+        torch.cuda.empty_cache()
+    return same_pass0
+
+
+def render_gate(name, a, b, max_differ=1e-4):
+    """The skip-link render ``a`` against the packet path's ``b``, each the
+    accumulation of the timed passes, and of pass 0 where both walks take
+    one id on its placeholder ray (``walk_ids_vs_b1``; where they do not,
+    the ray is f64-chaotic and pass 0 differs on every pixel, since every
+    pixel's first sample traces it). The two walks round apart on
+    f64-chaotic rays, so a path there may end a bounce sooner or later and
+    move its pixel's sample count; at most ``max_differ`` of the pixels
+    may, and the radiance must meet ``images_match``'s rule over all pixels
+    (the bulk at fp noise, 0.995 within 2e-3). Returns (pixels whose counts
+    differ, the fraction within 2e-3)."""
+    import numpy as np
+    differ = int((a[..., 3] != b[..., 3]).sum())
+    scale = max(float(np.abs(b[..., :3]).max()), 1e-6)
+    rel = np.abs(a[..., :3] - b[..., :3]) / scale
+    close = float((rel < 2e-3).mean())
+    if differ > max_differ * a[..., 3].size:
+        raise AssertionError(f"{name}: sample counts differ on {differ} pixels")
+    if not (np.percentile(rel, 75) < 1e-6 and close >= 0.995):
+        raise AssertionError(f"{name}: only {close:.4f} of pixels within 2e-3")
+    return differ, close
+
+
+def walk_card_vs_cpu(dev):
+    """The skip-link walk (``ops/traverse.py``) on the card against the
+    same walk on the CPU on cornell_box_nee's 512^2 camera rays: closest
+    hit t and ids, then the shadow rays from the hits toward the spot
+    light, rgba, all bit for bit."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.models.device_scene import compile_world
+    from rayzath_tpu_torch.ops import traverse as tw
+    world = rt.scenes.cornell_box_nee(RES, RES)
+    cpu = torch.device("cpu")
+    r = RES * RES
+    o, d = (x.cpu() for x in world_rays(world, dev))
+    near, far = torch.zeros(r), torch.full((r,), 1e30)
+    out, shadow_rays = [], None
+    for where in (cpu, dev):      # the CPU first: it makes the shadow rays
+        scene = compile_world(world, device=where)
+        walk = (scene.aabb_links, scene.node_count, scene.leaf_tri,
+                scene.tri_v0, scene.tri_e1, scene.tri_e2)
+        t, tid = tw.bvh_closest(*(x.to(where) for x in (o, d, near, far)),
+                                *walk)
+        if shadow_rays is None:
+            p = o + d * (t * 0.9999)[:, None]
+            v = scene.spot_pos[0] - p
+            dist = torch.linalg.norm(v, dim=1)
+            shadow_rays = (p, v / dist[:, None], dist)
+        mat = scene.mat_color[scene.tri_mat.long()]
+        rgb, a = tw.bvh_shadow(*(x.to(where) for x in shadow_rays), *walk,
+                               mat[:, :3], 1.0 - mat[:, 3])
+        out.append([x.cpu() for x in (t, tid, rgb, a)])
+    for label, a, b in zip(("t", "ids", "rgb", "alpha"), *out):
+        if not torch.equal(a, b):
+            raise AssertionError(f"skip-link walk, card vs CPU: {label} differ "
+                                 f"on {int((a != b).reshape(r, -1).any(1).sum())} "
+                                 f"of {r} rays")
+    hits = int((out[0][1] >= 0).sum())
+    lit = int((out[0][3] >= 1e-4).sum())
+    print(f"skip-link walk on cornell_box_nee {RES}^2 camera rays: card bit for "
+          f"bit as the CPU ({hits} hits; shadow rays to the spot light, {lit} "
+          f"unblocked)", flush=True)
+
+
+def phase_skiplink(card: str, dev, launches: dict):
+    """``Renderer(device="cuda", config=RenderConfig(packet_traversal=
+    False))``: the skip-link walk in torch ops, no kernel, on
+    cornell_box_nee and mesh_heavy (65,026 triangles, the heaviest soup) at
+    512^2, depth 8, a warm-up pass (pass 0) then SKIP_PASSES timed passes;
+    NaN-free, samples accumulated, B1-B4 never launched, the threefry kernel
+    once per pass; the image against the packet path's render from the same
+    seed (``render_gate``); ms per pass and the walks' ms per pass (their
+    ``seconds`` counters). Before them, ``walk_card_vs_cpu`` and
+    ``walk_ids_vs_b1``. Adds the draw's launches to ``launches``."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.ops import traverse as tw
+    walk_card_vs_cpu(dev)
+    same_pass0 = walk_ids_vs_b1(card, dev)
+    wrappers = path_wrappers()
+    tracing = rt.Tracing(max_depth=8)
+    walks = {"closest": tw.bvh_closest, "shadow": tw.bvh_shadow}
+    for name, rpp in SKIP_PASSES:
+        world = rt.scenes.SCENES[name](RES, RES)
+        accum, shown = {}, ""
+        for packet in (False, True):
+            r = rt.Renderer(world, rt.RenderConfig(tracing=tracing,
+                                                   packet_traversal=packet),
+                            seed=9, device=dev)
+            r.render(rpp=1)                  # warm-up: compile_world + pass 0
+            torch.cuda.synchronize()
+            acc0 = r.views[id(world.cameras[0])].state.accum.clone()
+            for f in wrappers.values():
+                f.launches = 0
+            for f in walks.values():
+                f.seconds = 0.0
+            t0 = time.perf_counter()
+            r.render(rpp=rpp)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in wrappers.items()}
+            walk_ms = {k: f.seconds * 1e3 / rpp for k, f in walks.items()}
+            acc = r.views[id(world.cameras[0])].state.accum
+            accum[packet] = (acc if same_pass0[name] else acc - acc0).cpu().numpy()
+            if packet:
+                shown += f"; the packet path {dt / rpp * 1e3:.1f} ms per pass"
+                continue
+            if any(counts[k] for k in ("B1", "B2", "B3", "B4")):
+                raise AssertionError(f"{name}: a cluster kernel launched in "
+                                     f"the skip-link render: {counts}")
+            if counts["threefry"] != rpp:
+                raise AssertionError(f"{name}: threefry launched "
+                                     f"{counts['threefry']} times in {rpp} passes")
+            if not all(walk_ms.values()):
+                raise AssertionError(f"{name}: a walk did not run: {walk_ms}")
+            launches["threefry"] += counts["threefry"]
+            if bool(torch.isnan(acc).any()):
+                raise AssertionError(f"{name}: NaN in the skip-link accum")
+            if not float(acc[..., 3].sum()) > 0:
+                raise AssertionError(f"{name}: no samples accumulated")
+            shown = (f"{rpp} passes in {dt:.3f} s = {dt / rpp * 1e3:.1f} ms per "
+                     f"pass, walks {walk_ms['closest']:.1f} ms closest + "
+                     f"{walk_ms['shadow']:.1f} ms shadow per pass, threefry "
+                     f"launches {counts['threefry']}, B1-B4 none")
+        differ, close = render_gate(name, accum[False], accum[True])
+        print(f"{name} skip-link walk (packet_traversal=False): {RES}^2 depth 8, "
+              f"{shown}; against the packet path from seed 9 "
+              f"({'with' if same_pass0[name] else 'without'} pass 0): sample "
+              f"counts differ on {differ} of {RES * RES} pixels, {close:.4f} of "
+              f"pixels within 2e-3 [{card}]", flush=True)
+        del world
         torch.cuda.empty_cache()
 
 
@@ -1787,6 +2066,10 @@ def main() -> int:
     print(f"phase 4 (slice at size) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     t_phase = time.perf_counter()
+    phase_skiplink(card, dev, launches)
+    print(f"phase 4, the skip-link walk {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    t_phase = time.perf_counter()
     train = phase_train(card, dev)
     print(f"phase 5 (training) {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
@@ -1810,7 +2093,8 @@ def main() -> int:
             "source": f"rayzath_tpu_torch/csrc/{name}.cu",
             "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
             "launches": launches[label], "max_abs_err": kernels[name]["err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1], "library_ms": None, "scene": scene,
             "rays": m["rays"], "plain_rays": m["plain_rays"],
             "needed_visits_per_ray": m["needed_visits_per_ray"]})
@@ -1825,7 +2109,8 @@ def main() -> int:
         "name": "threefry", "route": "cuda",
         "source": "rayzath_tpu_torch/csrc/threefry.cu", "replaces": None,
         "launches": launches["threefry"], "max_abs_err": threefry["err"],
-        "ms": threefry["ms"], "plain_ms": threefry["plain_ms"],
+        "ms": threefry["ms"], "call_ms": threefry["call_ms"],
+        "plain_ms": threefry["plain_ms"],
         "bound_ms": threefry["bound"][0], "bound_by": threefry["bound"][1],
         "library_ms": None, "rows": RES, "width": RES,
         "ns": THREEFRY_NS[-1]})

@@ -12,17 +12,28 @@
 //
 // What bounds it on the H100: the function writes R * ns * 4 bytes once and
 // reads nothing but its arguments, and per element it runs 20 rounds of
-// (add, rotate, xor) plus the key injections: integer operations, about
-// five times the time of the bytes at the card's int32 rate. The plain
-// version in torch is ~200 elementwise int64 launches over the same
-// elements, each reading and writing the whole [R, ns] block.
+// (add, rotate, xor) plus the key injections, about 70 instructions: twice
+// the time of the bytes at the card's issue rate (four warp instructions a
+// clock per SM, whatever their pipe). A kernel that leaves every integer
+// instruction to the integer pipe, which takes a warp instruction every
+// other clock, runs at half that rate; the plain version in torch is ~200
+// elementwise int64 launches, each reading and writing the whole block.
 //
-// What the design does about it: one launch; each thread keeps its words in
-// registers through the 20 rounds (rotations as funnel shifts) and writes
-// PER_THREAD floats, neighbouring threads on neighbouring addresses. A block
-// covers THREADS * PER_THREAD elements of one row, and its first thread
-// derives that row's key once, in a prologue, into shared memory, so the
-// key costs one hash per block instead of one per element.
+// What the design does about it:
+// * the adds (rounds and key injections) issue as IMAD on the FMA pipe:
+//   `add` multiplies by `one`, a kernel argument (always 1) the compiler
+//   cannot fold, so the integer pipe keeps only the funnel-shift rotations
+//   and the xors, and the two pipes share the issue slots;
+// * each warp owns SPAN consecutive floats of the flattened output, in
+//   STEPS steps of UNIT consecutive floats per lane (two float4 stores);
+//   lane i hashes the key of the span's (i + 1)-th row once, and a unit
+//   takes its row's key from that lane with __shfl_sync: no shared memory,
+//   no barrier, one row-key hash per lane per 32 float hashes;
+// * a unit that crosses a row's end, ends the output, or lies past the
+//   span's 32 keyed rows (rows shorter than ~32 floats) hashes each float's
+//   row key itself and stores floats one by one;
+// * one span per warp: a 512^2 x 14 pass is 896 blocks of 4 warps, all
+//   resident at once (6.8 per SM), so no grid-stride loop is needed.
 #include <climits>
 #include <cstdint>
 
@@ -30,41 +41,51 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PER_THREAD = 4;
-constexpr int MAX_GRID_Y = 65535;
+constexpr int WARPS = 4;                    // warps per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int UNIT = 8;                     // consecutive floats per lane and step
+constexpr int STEP = 32 * UNIT;             // floats per warp and step
+constexpr int STEPS = 4;
+constexpr int SPAN = STEP * STEPS;          // consecutive floats per warp
+constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t KS_PARITY = 0x1BD11BDAu;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
   return __funnelshift_l(v, v, r);
 }
 
+// a + b, issued as an IMAD on the FMA pipe (`one` == 1 at run time)
+__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b, uint32_t one) {
+  return a * one + b;
+}
+
 // jax's threefry2x32, 20 rounds: key (k0, k1), counter (x0, x1) in place.
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
+                                             uint32_t one, uint32_t& x0,
+                                             uint32_t& x1) {
   const uint32_t k2 = k0 ^ k1 ^ KS_PARITY;
-#define RZ_ROUND(r) \
-  x0 += x1;         \
+#define RZ_ROUND(r)       \
+  x0 = add(x0, x1, one);  \
   x1 = rotl(x1, r) ^ x0;
 #define RZ_ROUNDS_A RZ_ROUND(13) RZ_ROUND(15) RZ_ROUND(26) RZ_ROUND(6)
 #define RZ_ROUNDS_B RZ_ROUND(17) RZ_ROUND(29) RZ_ROUND(16) RZ_ROUND(24)
-  x0 += k0;
-  x1 += k1;
+  x0 = add(x0, k0, one);
+  x1 = add(x1, k1, one);
   RZ_ROUNDS_A
-  x0 += k1;
-  x1 += k2 + 1u;
+  x0 = add(x0, k1, one);
+  x1 = add(x1, k2 + 1u, one);
   RZ_ROUNDS_B
-  x0 += k2;
-  x1 += k0 + 2u;
+  x0 = add(x0, k2, one);
+  x1 = add(x1, k0 + 2u, one);
   RZ_ROUNDS_A
-  x0 += k0;
-  x1 += k1 + 3u;
+  x0 = add(x0, k0, one);
+  x1 = add(x1, k1 + 3u, one);
   RZ_ROUNDS_B
-  x0 += k1;
-  x1 += k2 + 4u;
+  x0 = add(x0, k1, one);
+  x1 = add(x1, k2 + 4u, one);
   RZ_ROUNDS_A
-  x0 += k2;
-  x1 += k0 + 5u;
+  x0 = add(x0, k2, one);
+  x1 = add(x1, k0 + 5u, one);
 #undef RZ_ROUNDS_B
 #undef RZ_ROUNDS_A
 #undef RZ_ROUND
@@ -74,48 +95,73 @@ __device__ __forceinline__ float to_unit(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// the float of element e of a row keyed (r0, r1)
+__device__ __forceinline__ float draw(uint32_t r0, uint32_t r1, uint32_t one,
+                                      int e) {
+  uint32_t x0 = 0u, x1 = (uint32_t)e;
+  threefry2x32(r0, r1, one, x0, x1);
+  return to_unit(x0 ^ x1);
+}
+
+// out: the n = height * row_len floats, flattened; 16-byte aligned.
 __global__ void __launch_bounds__(THREADS)
 uniform_kernel(float* __restrict__ out, uint32_t k0, uint32_t k1, int row0,
-               int height, int row_len) {
-  __shared__ uint32_t row_key[2];
-  const int base = blockIdx.x * (THREADS * PER_THREAD) + threadIdx.x;
-  for (int y = blockIdx.y; y < height; y += gridDim.y) {
-    if (threadIdx.x == 0) {
-      uint32_t a = 0u, b = (uint32_t)(row0 + y);
-      threefry2x32(k0, k1, a, b);
-      row_key[0] = a;
-      row_key[1] = b;
+               int row_len, int n, uint32_t one) {
+  const int lane = threadIdx.x & 31;
+  const int span0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * SPAN;
+  if (span0 >= n) return;                   // the whole warp
+  const int y_first = span0 / row_len;
+  uint32_t key0 = 0u, key1 = (uint32_t)(row0 + y_first + lane);
+  threefry2x32(k0, k1, one, key0, key1);    // rows past the end: unused
+  int y = y_first;
+  int e = span0 - y_first * row_len + lane * UNIT;
+#pragma unroll 1
+  for (int s = 0; s < STEPS; ++s, e += STEP) {
+    while (e >= row_len) {
+      e -= row_len;
+      ++y;
     }
-    __syncthreads();
-    const uint32_t r0 = row_key[0], r1 = row_key[1];
-    float* row = out + (size_t)y * (size_t)row_len;
+    const int ry = y - y_first;
+    const uint32_t r0 = __shfl_sync(FULL, key0, ry & 31);
+    const uint32_t r1 = __shfl_sync(FULL, key1, ry & 31);
+    const int g = span0 + s * STEP + lane * UNIT;
+    if (g >= n) continue;
+    if (ry < 32 && e + UNIT <= row_len && g + UNIT <= n) {
+      float v[UNIT];
 #pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) {
-      const int e = base + j * THREADS;
-      if (e < row_len) {
-        uint32_t x0 = 0u, x1 = (uint32_t)e;
-        threefry2x32(r0, r1, x0, x1);
-        row[e] = to_unit(x0 ^ x1);
-      }
+      for (int j = 0; j < UNIT; ++j) v[j] = draw(r0, r1, one, e + j);
+      float4* dst = reinterpret_cast<float4*>(out + g);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      continue;
     }
-    __syncthreads();  // every thread has read row_key before the next row's
+    int yy = y, ee = e;
+    for (int j = 0; j < UNIT && g + j < n; ++j, ++ee) {
+      while (ee >= row_len) {
+        ee -= row_len;
+        ++yy;
+      }
+      uint32_t a = 0u, b = (uint32_t)(row0 + yy);
+      threefry2x32(k0, k1, one, a, b);
+      out[g + j] = draw(a, b, one, ee);
+    }
   }
 }
 
 }  // namespace
 
-// out: float[height][width * ns]; (k0, k1): the pass key.
+// out: float[height][width * ns], 16-byte aligned; (k0, k1): the pass key.
 extern "C" int rz_threefry_uniform(float* out, unsigned int k0,
                                    unsigned int k1, int row0, int height,
                                    int width, int ns, void* stream) {
   if (height <= 0 || width <= 0 || ns <= 0) return 0;
-  const long long row_len = (long long)width * ns;
-  if (row_len > INT_MAX - THREADS * PER_THREAD)
-    return (int)cudaErrorInvalidValue;
-  const int per_block = THREADS * PER_THREAD;
-  const dim3 grid((unsigned)((row_len + per_block - 1) / per_block),
-                  (unsigned)(height < MAX_GRID_Y ? height : MAX_GRID_Y));
-  uniform_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      out, k0, k1, row0, height, (int)row_len);
+  const long long n = (long long)height * width * ns;
+  if (n > INT_MAX - SPAN) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long spans = (n + SPAN - 1) / SPAN;
+  const unsigned blocks = (unsigned)((spans + WARPS - 1) / WARPS);
+  uniform_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      out, k0, k1, row0, width * ns, (int)n, 1u);
   return (int)cudaGetLastError();
 }

@@ -28,19 +28,19 @@ class LightSampling:
 class RenderConfig:
     tracing: Tracing = Tracing()
     light_sampling: LightSampling = LightSampling()
-    # Scenes with <= this many triangles take the dense projection test in
-    # the JAX package. That path is not ported (ROADMAP A4); the port always
-    # runs the cluster traversal, and a positive value raises.
+    # Soup scenes with <= this many triangles (and every empty world) take
+    # the dense projection test (ops/intersect.py) instead of a walk.
     brute_force_threshold: int = 0
+    # the soup BVH's leaf size (the Renderer compiles with it), and so the
+    # skip-link walk's lanes
     bvh_leaf_size: int = 8
-    chunk: int = 512                   # dense-path triangle tile (JAX only)
-    # Use the cluster traversal kernels. Must be True in the port: the
-    # JAX package's alternative, the XLA skip-link walk (ops/traverse.py),
-    # is not ported (ROADMAP A17).
+    chunk: int = 512                   # dense-path triangle tile
+    # Soup scenes: True = the cluster traversal kernels (B1/B2), False =
+    # the skip-link BVH walk of ops/traverse.py (torch ops, slow). Two-level
+    # scenes always take B3/B4, as in the JAX package.
     packet_traversal: bool = True
     # Acceleration structure: None = auto (two-level when instancing would
-    # duplicate geometry substantially; world-space soup otherwise). The
-    # port renders the soup only; a two-level scene raises (ROADMAP A11).
+    # duplicate geometry substantially; world-space soup otherwise).
     two_level: Optional[bool] = None
     # Sort rays by the coherence key (ops/sort_rays.py) before traversal.
     # None = auto: on when the scene has at least 16 real clusters, as in

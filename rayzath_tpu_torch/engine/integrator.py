@@ -19,7 +19,10 @@ scene B1 ``cluster_closest`` answers every bounce's closest-hit query and
 B2 ``cluster_shadow`` traces every NEE shadow ray; on a two-level scene B3
 ``cluster_closest_inst`` and B4 ``cluster_shadow_inst`` do, and the hit's
 object-space shading row is moved to world space through the instance's
-transforms.
+transforms. As in the JAX package, a soup scene takes the dense test
+instead at or below ``brute_force_threshold`` triangles, and the skip-link
+BVH walk of ``ops/traverse.py`` (torch ops, no kernel) when the config
+asks for ``packet_traversal=False``; a two-level scene keeps B3/B4.
 
 Uniforms: the JAX package's streams bit for bit (``ops/rng.py``). A render
 holds a key, ``rng.key(seed)`` as ``jax.random.key(seed)``; each pass folds
@@ -51,6 +54,7 @@ from ..ops import texture as tex_ops
 from ..ops.intersect import (_project_terms, project_closest, project_shadow,
                              refine_tri)
 from ..ops.sort_rays import sort_payload, unsort_payload
+from ..ops.traverse import bvh_closest, bvh_shadow
 from ..ops.traverse_cluster import (cluster_closest, cluster_shadow,
                                     cluster_closest_inst, cluster_shadow_inst,
                                     SLOTS)
@@ -60,14 +64,6 @@ from ..ops.vec import (dot, normalize, lerp, reflect, halfway,
                        cross)
 from .config import RenderConfig
 from .state import RenderState, BIG, PATH_LIMIT
-
-
-def check_config(cfg: RenderConfig) -> None:
-    """Raise for the configurations whose code paths are not ported."""
-    if not cfg.packet_traversal:
-        raise NotImplementedError(
-            "packet_traversal=False selects the XLA skip-link walk, which is "
-            "not ported (ROADMAP A17)")
 
 
 # ---------------------------------------------------------------------------
@@ -259,12 +255,16 @@ def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
             t, tid = project_closest(o_k, d_k, near, far, scene.tri_pw,
                                      scene.tri_pc,
                                      chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
-        else:
+        elif cfg.packet_traversal:
             t, tid = _run_coherent(
                 cfg, hw, o_k, d_k, (near, far),
                 lambda o, d, near, far: cluster_closest(
                     o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order),
                 sort=sort)
+        else:
+            t, tid = bvh_closest(o_k, d_k, near, far, scene.aabb_links,
+                                 scene.node_count, scene.leaf_tri,
+                                 scene.tri_v0, scene.tri_e1, scene.tri_e2)
         inst = None
         tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
     t_r, b1_r, b2_r, det = refine_tri(o, d, tp[:, 0:3], tp[:, 3:6], tp[:, 6:9])
@@ -346,12 +346,15 @@ def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
     if _dense(cfg, scene):
         return project_shadow(o, d, dist, scene.tri_pw, scene.tri_pc, op_rgb,
                               op_a, chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
-    return _run_coherent(
-        cfg, hw, o, d, (dist,),
-        lambda o, d, dist: cluster_shadow(
-            o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
-            scene.cl_base, scene.cl_count, op_rgb, op_a, tris=tris),
-        sort=_sort_traversal(cfg, scene))
+    if cfg.packet_traversal:
+        return _run_coherent(
+            cfg, hw, o, d, (dist,),
+            lambda o, d, dist: cluster_shadow(
+                o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
+                scene.cl_base, scene.cl_count, op_rgb, op_a, tris=tris),
+            sort=_sort_traversal(cfg, scene))
+    return bvh_shadow(o, d, dist, scene.aabb_links, scene.node_count,
+                      scene.leaf_tri, *tris, op_rgb, op_a)
 
 
 # ---------------------------------------------------------------------------
@@ -788,7 +791,6 @@ def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
     exact: a pass's uniforms depend only on (key, pass index, row) or are
     injected, and the kernels are deterministic. ``u``: optional sequence of
     ``n_steps`` injected [R, ns] uniform tensors (see :func:`bounce_step`)."""
-    check_config(cfg)
     for i in range(n_steps):
         ui = None if u is None else u[i]
         k = rng.fold_in(key, state.pass_idx)

@@ -28,7 +28,7 @@ from ..ops import rng
 from ..ops.reproject import primary_hits, reproject_accum
 from ..ops.tonemap import final_color, to_u8
 from .config import RenderConfig
-from .integrator import check_config, render_steps, ray_cast
+from .integrator import render_steps, ray_cast
 from .state import RenderState, init_state, save_state, load_state
 
 
@@ -72,7 +72,6 @@ class Renderer:
                  seed: int = 0, device=DEFAULT):
         self.world = world
         self.config = config or RenderConfig()
-        check_config(self.config)
         self.key = rng.key(seed)
         self.device = resolve(device)
         self.scene: Optional[TorchScene] = None

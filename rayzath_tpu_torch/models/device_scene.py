@@ -38,9 +38,18 @@ of every (padded) triangle, which the dense path reads
 (``cl_box`` and the other ``cl_*`` fields None), as in the JAX package, and
 always takes that path.
 
-Not built, because no path of the port reads them: the XLA skip-link
-tables (``aabb_links``, ``node_*``), the per-vertex normal/texcoord columns
-outside ``tri_pack`` and the cutouts' raw geometry
+A soup scene also gets the tables of the skip-link BVH walk
+(``ops/traverse.py``, ``packet_traversal=False``): ``aabb_links``, the
+per-octant [8, 8N] node table of ``build_aabb_links`` over the links of
+``ops/bvh.py`` ``compute_skip_links``, and the leaf ranges ``node_begin`` /
+``node_count`` of the same BVH, always, as in the JAX package; and, the
+port's own, ``leaf_tri``, the walk's leaf blocks of ``leaf_size`` lanes
+(``ops/traverse.py`` ``leaf_table``), which the JAX walk rebuilds inside
+every call. A two-level scene and the empty world hold the JAX two-level
+scene's placeholders there (:func:`_no_skip_links`; no path reads them).
+
+Not built, because no path of the port reads them: the per-vertex
+normal/texcoord columns outside ``tri_pack`` and the cutouts' raw geometry
 (``cut_v0``/``cut_e1``/``cut_e2``, read only by the JAX package's NumPy
 oracle).
 """
@@ -53,9 +62,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.bvh import build_bvh, triangle_aabbs, FlatBVH
+from ..ops.bvh import build_bvh, compute_skip_links, triangle_aabbs, FlatBVH
 from ..ops.intersect import triangle_frames
 from ..ops.texture import block_indices
+from ..ops.traverse import build_aabb_links, leaf_table
 from ..ops.traverse_cluster import (build_cluster_tables,
                                     build_instance_tables, cluster_slot_rows,
                                     B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
@@ -68,6 +78,7 @@ from .world import World
 WORLD_MATERIAL_ID = 0
 DEFAULT_MATERIAL_ID = 1
 NO_MAP = -1
+DEFAULT_LEAF_SIZE = 8        # BVH leaf size, RenderConfig.bvh_leaf_size's default
 
 
 @dataclasses.dataclass
@@ -135,6 +146,12 @@ class TorchScene:
     # two-level: placeholders)
     tri_pw: Optional[torch.Tensor] = None    # [3,3F]
     tri_pc: Optional[torch.Tensor] = None    # [3F]
+    # skip-link walk tables (ops/traverse.py; two-level and the empty
+    # world: placeholders)
+    aabb_links: Optional[torch.Tensor] = None  # [8,8N] per-octant node table
+    node_begin: Optional[torch.Tensor] = None  # [N] i32 first triangle / child
+    node_count: Optional[torch.Tensor] = None  # [N] i32 (0 = inner node)
+    leaf_tri: Optional[torch.Tensor] = None    # [NB,L] i32 leaf blocks' ids
     # texture-alpha cutout set, world space (None when n_cutout == 0)
     cut_pw: Optional[torch.Tensor] = None    # [3,3C] projection frames
     cut_pc: Optional[torch.Tensor] = None    # [3C]
@@ -275,7 +292,7 @@ def _two_level_auto(world: World) -> bool:
     return expanded > 8192 and expanded >= 2 * unique
 
 
-def compile_world(world: World, leaf_size: int = 8,
+def compile_world(world: World, leaf_size: int = DEFAULT_LEAF_SIZE,
                   two_level: Optional[bool] = None,
                   cache: Optional[dict] = None,
                   device=DEFAULT, differentiable: bool = False) -> TorchScene:
@@ -359,7 +376,7 @@ def compile_world(world: World, leaf_size: int = 8,
         tri_v0=geo["tri_v0"], tri_e1=geo["tri_e1"], tri_e2=geo["tri_e2"],
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
         tri_pw=geo["tri_pw"], tri_pc=geo["tri_pc"],
-        **common, **geo["cl_fields"], **cut)
+        **common, **geo["cl_fields"], **geo["skip_fields"], **cut)
     return scene_from_arrays(
         arrays, dict(statics, n_triangles=n_tri, n_clusters=geo["n_clusters"],
                      max_ncl=0, n_cutout=len(cut.get("cut_map", ())),
@@ -694,18 +711,28 @@ def _empty_obox() -> np.ndarray:
     return obox
 
 
+def _no_skip_links() -> dict:
+    """The skip-link tables of a scene without a soup BVH to walk (the JAX
+    two-level scene's inert fields, device_scene.py:554-556)."""
+    return dict(aabb_links=np.zeros((8, 8), np.float32),
+                node_begin=np.zeros(1, np.int32),
+                node_count=np.zeros(1, np.int32),
+                leaf_tri=np.full((1, DEFAULT_LEAF_SIZE), -1, np.int32))
+
+
 def placeholders(two_level: bool) -> dict:
     """Small stand-ins for the fields that only the other structure reads:
-    on a two-level scene the soup's ``cl_box`` (all padding), ``cl_order``
-    and dense frames (the JAX scene's inert ``tri_pw``/``tri_pc``); on a
-    soup scene the instance tables (no real row)."""
+    on a two-level scene the soup's ``cl_box`` (all padding), ``cl_order``,
+    dense frames and skip-link tables (the JAX scene's inert ``tri_pw``,
+    ``tri_pc``, ``aabb_links`` and ``node_*``); on a soup scene the
+    instance tables (no real row)."""
     if two_level:
         box = np.zeros((8, 128), np.float32)
         box[B_MIN:B_MIN + 3] = 3e38
         box[B_MAX:B_MAX + 3] = -3e38
         return dict(cl_box=box, cl_order=np.zeros(1, np.int32),
                     tri_pw=np.zeros((3, 3), np.float32),
-                    tri_pc=np.zeros(3, np.float32))
+                    tri_pc=np.zeros(3, np.float32), **_no_skip_links())
     return dict(
         ti_rows=build_instance_tables(np.zeros((0, 3)), np.zeros((0, 3)),
                                       np.zeros((0, 3, 4)), np.zeros(0),
@@ -784,7 +811,9 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
 
     n_tri = len(tri_v0)
 
-    # ---- BVH over world-space triangles + reorder into leaf order ----
+    # ---- BVH over world-space triangles + reorder into leaf order, and
+    # the skip-link walk's tables of that BVH ----
+    skip_fields = _no_skip_links()
     if n_tri:
         pmin, pmax = triangle_aabbs(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
         bvh: FlatBVH = build_bvh(pmin, pmax, leaf_size=leaf_size)
@@ -793,6 +822,13 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
         tri_n0, tri_n1, tri_n2 = tri_n0[o], tri_n1[o], tri_n2[o]
         tri_t0, tri_t1, tri_t2 = tri_t0[o], tri_t1[o], tri_t2[o]
         slot_rows, inst_rows = slot_rows[o], inst_rows[o]
+        first8, skip8 = compute_skip_links(bvh.node_begin, bvh.node_count,
+                                           bvh.node_axis)
+        skip_fields = dict(
+            aabb_links=build_aabb_links(bvh.node_min, bvh.node_max,
+                                        bvh.node_count, first8, skip8),
+            node_begin=bvh.node_begin, node_count=bvh.node_count,
+            leaf_tri=leaf_table(bvh.node_begin, bvh.node_count, leaf_size))
 
     # pad to a bucketed size; the padded tail never hits (v0 far, zero edges)
     n_tri_pad = _bucket(n_tri)
@@ -827,7 +863,7 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
         tri_n0=tri_n0, tri_n1=tri_n1, tri_n2=tri_n2,
         tri_t0=tri_t0, tri_t1=tri_t1, tri_t2=tri_t2,
         slot_rows=slot_rows, inst_rows=inst_rows,
-        tri_pw=tri_pw, tri_pc=tri_pc,
+        tri_pw=tri_pw, tri_pc=tri_pc, skip_fields=skip_fields,
         cl_fields=cl_fields, n_clusters=n_clusters,
         refs=refs,  # pin object identity: id() reuse cannot false-hit
     )
@@ -873,10 +909,15 @@ def scene_from_arrays(leaves: dict, statics: dict,
     counts and flags. Extra leaves are ignored; the fields that only the
     other structure reads may be missing and take :func:`placeholders`, and
     the optional fields (the cutout set, the expanded lists) stay None when
-    missing."""
+    missing. A soup's ``leaf_tri``, which the JAX scene does not hold, is
+    built from its ``node_begin`` / ``node_count`` at the default leaf
+    size."""
     device = resolve(device)
     two_level = bool(statics.get("two_level", False))
     stand_in = placeholders(two_level)
+    if not two_level and "leaf_tri" not in leaves and "node_count" in leaves:
+        leaves = dict(leaves, leaf_tri=leaf_table(
+            leaves["node_begin"], leaves["node_count"], DEFAULT_LEAF_SIZE))
     tensors = {}
     for f in dataclasses.fields(TorchScene):
         if f.name in _STATICS or f.name in _FLAGS or f.name == "map_kinds_used":

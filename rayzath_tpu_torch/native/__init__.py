@@ -7,6 +7,9 @@ Counterpart of ``rayzath_tpu/native`` with copies of its sources
   NumPy builder in ``ops/bvh.py`` with its statistics in double;
   ``ops/bvh.py`` ``build_bvh`` prefers it, as the JAX package's does, so
   both packages compile the same leaf orders and cluster tables.
+* ``bvh_skip_links``: the per-octant skip-link tables of the stackless BVH
+  walk (``ops/traverse.py``), preferred by ``ops/bvh.py``
+  ``compute_skip_links`` over its NumPy sweep.
 * ``obj_parse``: the OBJ parser behind ``io/obj.py`` ``parse_obj``.
 
 The shared library is compiled with ``g++`` on first use into
@@ -66,6 +69,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rz_bvh_build.restype = ctypes.c_int
     lib.rz_bvh_build.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, f32p, f32p, i32p, i32p, i32p, i32p]
+    lib.rz_bvh_skip_links.restype = ctypes.c_int
+    lib.rz_bvh_skip_links.argtypes = [i32p, i32p, i32p, ctypes.c_int, i32p, i32p]
     lib.rz_obj_parse.restype = ctypes.c_void_p
     lib.rz_obj_parse.argtypes = [ctypes.c_char_p]
     lib.rz_obj_free.restype = None
@@ -149,6 +154,25 @@ def bvh_build(prim_min: np.ndarray, prim_max: np.ndarray,
     return (node_min[:n_nodes].copy(), node_max[:n_nodes].copy(),
             node_begin[:n_nodes].copy(), node_count[:n_nodes].copy(),
             node_axis[:n_nodes].copy(), order[:n].copy())
+
+
+def bvh_skip_links(node_begin: np.ndarray, node_count: np.ndarray,
+                   node_axis: np.ndarray):
+    """Native per-octant traversal tables; (first8 [8,N], skip8 [8,N]) or
+    None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(node_begin)
+    begin = np.ascontiguousarray(node_begin, np.int32)
+    count = np.ascontiguousarray(node_count, np.int32)
+    axis = np.ascontiguousarray(node_axis, np.int32)
+    first8 = np.empty((8, max(n, 1)), np.int32)
+    skip8 = np.empty((8, max(n, 1)), np.int32)
+    if lib.rz_bvh_skip_links(_i32p(begin), _i32p(count), _i32p(axis), n,
+                             _i32p(first8), _i32p(skip8)) != 0:
+        return None
+    return first8[:, :n], skip8[:, :n]
 
 
 class NativeMesh:

@@ -1,7 +1,8 @@
 """Host BVH build over triangles (NumPy).
 
 Counterpart of ``rayzath_tpu/ops/bvh.py``: ``build_bvh``,
-``build_bvh_numpy``, ``triangle_aabbs`` and ``FlatBVH`` copied verbatim.
+``build_bvh_numpy``, ``compute_skip_links``, ``triangle_aabbs`` and
+``FlatBVH`` copied verbatim.
 Build heuristics follow the reference triangle BVH (RayZath/component_container.hpp:145-364 and
 bvh_tree_node.hpp:117-215):
 
@@ -168,6 +169,46 @@ def build_bvh_numpy(prim_min: np.ndarray, prim_max: np.ndarray,
         node_axis=np.asarray(node_axis, np.int32),
         order=np.concatenate(order).astype(np.int32) if order else np.zeros(0, np.int32),
     )
+
+
+def compute_skip_links(node_begin: np.ndarray, node_count: np.ndarray,
+                       node_axis: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-octant stackless traversal tables.
+
+    For each of the 8 ray-direction octants, emit ``first[o, node]`` (the child
+    visited first = the near child for that octant, from the node's split axis)
+    and ``skip[o, node]`` (the next node in that octant's front-to-back DFS
+    order once this node's subtree is done; ``N`` = traversal finished).
+
+    This turns the reference's per-thread index-stack walk
+    (cuda_bvh.cuh:129-170, including its direction-sign child ordering) into a
+    scatter-free iteration: per step a ray holds ONE node index and either
+    descends (``first``) or skips (``skip``). The native builder is preferred,
+    the NumPy sweep below is its fallback (the two are identical).
+    """
+    out = native.bvh_skip_links(node_begin, node_count, node_axis)
+    if out is not None:
+        return out
+    n = len(node_begin)
+    inner = node_count == 0
+    first8 = np.zeros((8, n), np.int32)
+    skip8 = np.zeros((8, n), np.int32)
+    for o in range(8):
+        bits = np.asarray([(o >> a) & 1 for a in range(3)], np.int32)
+        flip = bits[node_axis]
+        near = node_begin + flip
+        far = node_begin + 1 - flip
+        first = np.where(inner, near, n).astype(np.int32)
+        skip = np.full(n, n, np.int32)
+        # parents precede children in allocation order, so one forward sweep
+        # propagates "next after my subtree" top-down
+        for node in range(n):
+            if inner[node]:
+                skip[near[node]] = far[node]
+                skip[far[node]] = skip[node]
+        first8[o] = first
+        skip8[o] = skip
+    return first8, skip8
 
 
 def triangle_aabbs(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):

@@ -168,8 +168,20 @@ def test_empty_world_matches_jax():
 
 def test_empty_world_compiles_like_jax():
     """The empty world's compiled arrays, port against JAX, array for
-    array (the cluster fields None in both)."""
+    array (the cluster fields None in both), but for the skip-link tables:
+    the JAX scene's come from an out-of-bounds write of its native
+    ``rz_bvh_skip_links`` on the empty BVH's lone node (ROADMAP C), the
+    port's are the JAX two-level scene's placeholders. No path reads them:
+    an empty world takes the dense path."""
+    import dataclasses
     js = jds.compile_world(empty_world(8, rz.World))
     ts = tds.compile_world(empty_world(8), device="cpu")
-    assert_scene_equal(ts, *jax_leaves(js))
+    leaves, statics = jax_leaves(js)
+    skip = ("aabb_links", "node_begin", "node_count")
+    for f in skip:
+        assert leaves.pop(f).shape == getattr(ts, f).shape, f
+        assert np.array_equal(getattr(ts, f).numpy(), tds._no_skip_links()[f]), f
+    assert np.array_equal(ts.leaf_tri.numpy(), tds._no_skip_links()["leaf_tri"])
+    assert_scene_equal(dataclasses.replace(ts, **dict.fromkeys(skip + ("leaf_tri",))),
+                       leaves, statics)
 

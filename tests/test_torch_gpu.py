@@ -19,7 +19,9 @@ rays stopped by an opaque wall; the B2/B4 backwards to rtol 1e-3 of the max
 to 1e-6 of the CPU's; the threefry kernel bit for bit to the plain draw;
 renders from a seed (no injected uniforms) on the card against the CPU by
 ``images_match`` (sample counts equal; radiance tol 2e-3, frac 0.995),
-across a reprojecting camera move and on the dense path.
+across a reprojecting camera move and on the dense path; the skip-link
+walk (torch ops, ``packet_traversal=False``) on the card bit for bit as on
+the CPU; the draw's device-only time below its call's time.
 """
 import numpy as np
 import pytest
@@ -590,10 +592,11 @@ def test_ranked_shadow_matches_plain(cuda, case, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,pass_idx,row0,h,w,ns", [
     (0, 0, 0, 4, 7, 8), (7, 3, 5, 16, 33, 14), (2 ** 31 - 1, 11, 300, 3, 512, 11),
-    (9, 1, 0, 512, 512, 8)])
+    (9, 1, 0, 512, 512, 8), (3, 1, 2, 700, 1, 3)])
 def test_threefry_kernel_matches_plain(cuda, seed, pass_idx, row0, h, w, ns):
     """The threefry kernel draws the plain version's uniforms bit for bit,
-    in one launch."""
+    in one launch; also where a warp's floats span more rows than its 32
+    lanes hold keys for (rows of 3 floats)."""
     from rayzath_tpu_torch.ops import rng
     k = rng.fold_in(rng.key(seed), pass_idx)
     before = rng.uniform_rows.launches
@@ -604,6 +607,65 @@ def test_threefry_kernel_matches_plain(cuda, seed, pass_idx, row0, h, w, ns):
     assert got.shape == (h * w, ns)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+@pytest.mark.gpu
+def test_draw_device_time_below_its_call(cuda):
+    """``utils/cuda_timing.device_ms`` (launches queued behind a sleep)
+    gives the threefry kernel's own time at 512^2 x 14: positive and below
+    the call's time with its Python wrapper (``call_ms``)."""
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    k = rng.fold_in(rng.key(1), 0)
+
+    def draw():
+        return rng.uniform_rows(k, 0, 512, 512, 14, cuda)
+
+    dev_ms = device_ms(draw, 50)
+    assert 0.0 < dev_ms < call_ms(draw, 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["glass_and_fog", "cornell_box_nee"])
+def test_skip_link_walk_card_matches_cpu(cuda, name):
+    """The skip-link walk (torch ops) on the card returns the CPU's bits:
+    closest-hit t and ids on camera and bounce-like rays, and the shadow
+    rgba of rays from the hits toward the first spot light (glass_and_fog
+    has leaves of more than 8 triangles, walked in blocks)."""
+    from rayzath_tpu_torch.ops import traverse as tw
+    world = rt.scenes.SCENES[name](64, 64)
+    cpu = torch.device("cpu")
+    scenes = {dev.type: tds.compile_world(world, device=dev)
+              for dev in (cuda, cpu)}
+    # the inputs, made once on the CPU: the card's own camera rays and
+    # norms would round differently
+    scene = scenes["cpu"]
+    walk = (scene.aabb_links, scene.node_count, scene.leaf_tri,
+            scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    mat = scene.mat_color[scene.tri_mat.long()]
+    sets = []
+    for o, d in _rays(scene, world, cpu, 64):
+        r = o.shape[0]
+        near, far = torch.zeros(r), torch.full((r,), 1e30)
+        t, tid = tw.bvh_closest(o, d, near, far, *walk)
+        p = torch.where((tid >= 0)[:, None], o + d * (t * 0.999)[:, None], o)
+        v = scene.spot_pos[0] - p
+        dist = torch.linalg.norm(v, dim=1)
+        sets.append(((o, d, near, far), (p, v / dist[:, None], dist)))
+    assert int((scene.node_count > 8).sum()) > 0 or name != "glass_and_fog"
+    for closest, shadow in sets:
+        out = {}
+        for dev, s in scenes.items():
+            walk = (s.aabb_links, s.node_count, s.leaf_tri, s.tri_v0,
+                    s.tri_e1, s.tri_e2)
+            mat = s.mat_color[s.tri_mat.long()]
+            out[dev] = [x.cpu() for x in (
+                *tw.bvh_closest(*(x.to(s.tri_v0.device) for x in closest), *walk),
+                *tw.bvh_shadow(*(x.to(s.tri_v0.device) for x in shadow), *walk,
+                               mat[:, :3], 1.0 - mat[:, 3]))]
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(a, b)
+        assert int((out["cpu"][1] >= 0).sum()) > 1000
 
 
 def _seeded_renders(make_world, cfg, dev, move):

@@ -21,6 +21,7 @@ import torch
 
 torch.set_num_threads(2)
 
+import jax.numpy as jnp  # noqa: E402
 import rayzath_tpu as rz  # noqa: E402
 from rayzath_tpu import native as rz_native  # noqa: E402
 from rayzath_tpu.models import device_scene as jds  # noqa: E402
@@ -31,6 +32,7 @@ import rayzath_tpu_torch as rt  # noqa: E402
 from rayzath_tpu_torch import native as rt_native  # noqa: E402
 from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
 from rayzath_tpu_torch.ops import bvh as tbvh  # noqa: E402
+from rayzath_tpu_torch.ops import traverse as ttw  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as ttc  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,8 +64,13 @@ def assert_scene_equal(ts, leaves, statics):
     same name; a field the JAX scene leaves out (None) must be one of the
     port's placeholders for the other structure, or None in the port too.
     The expanded lists ``exp_tri``/``exp_inst`` may be None in the port,
-    which builds them only for ``differentiable=True``."""
+    which builds them only for ``differentiable=True``. ``leaf_tri``, the
+    port's own, holds the skip-link walk's leaf blocks of the JAX scene's
+    BVH (default leaf size) on a soup scene."""
     stand_in = tds.placeholders(ts.two_level)
+    if not ts.two_level and "node_count" in leaves:
+        stand_in["leaf_tri"] = ttw.leaf_table(leaves["node_begin"],
+                                              leaves["node_count"], 8)
     for f in dataclasses.fields(tds.TorchScene):
         a = getattr(ts, f.name)
         if a is None:
@@ -131,6 +138,7 @@ def test_import_is_jax_free():
             "import rayzath_tpu_torch.ops.texture, rayzath_tpu_torch.ops.intersect, "
             "rayzath_tpu_torch.parallel.train, rayzath_tpu_torch.utils.check_worlds, "
             "rayzath_tpu_torch.ops.rng, rayzath_tpu_torch.ops.reproject, "
+            "rayzath_tpu_torch.ops.traverse, rayzath_tpu_torch.utils.cuda_timing, "
             "rayzath_tpu_torch.native, rayzath_tpu_torch.io; "
             "import rayzath_tpu_torch.utils.exceptions, "
             "rayzath_tpu_torch.utils.text, rayzath_tpu_torch.utils.args, "
@@ -177,26 +185,127 @@ def test_map_and_cutout_worlds_compile_like_jax(case, numpy_bvh):
             ts.exp_tri.numpy(), leaves["exp_tri"])
 
 
-def test_unported_config_raises():
-    """The skip-link walk (A17) still raises. The dense path (A4) is
-    ported: with ``brute_force_threshold`` above the triangle count the
-    render takes ``project_closest``/``project_shadow`` and draws the
-    cluster path's image (the same hits; radiance by ``images_match``,
-    sample counts equal)."""
+def test_skip_link_and_dense_configs_render_like_the_cluster_path():
+    """Both other traversals of the JAX package's config are ported: with
+    ``packet_traversal=False`` the render takes the skip-link walk (A17)
+    and with ``brute_force_threshold`` above the triangle count
+    ``project_closest``/``project_shadow`` (A4), and each draws the cluster
+    path's image from the same seed (the same hits; radiance by
+    ``images_match``, sample counts equal). The dense path still comes
+    first when both are asked for."""
     from rayzath_tpu_torch.engine import integrator as tint
+    from rayzath_tpu_torch.ops import traverse as ttw
     from rayzath_tpu_torch.utils.parity import images_match
-    w = rt.scenes.cornell_box(8, 8)
-    with pytest.raises(NotImplementedError, match="A17"):
-        rt.Renderer(w, rt.RenderConfig(packet_traversal=False), device="cpu")
-    out = []
-    for threshold in (64, 0):
-        cfg = rt.RenderConfig(brute_force_threshold=threshold,
-                              tracing=rt.Tracing(max_depth=3))
-        r = rt.Renderer(w, cfg, seed=4, device="cpu")
-        r.render(rpp=3)
-        assert tint._dense(cfg, r.scene) == (threshold > 0)
-        out.append(r.views[id(w.cameras[0])].state.accum.numpy())
-    images_match(out[0], out[1])
+    w = rt.scenes.cornell_box_nee(8, 8)
+    walks = []
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            walks.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return call
+
+    out = {}
+    saved = tint.bvh_closest, tint.bvh_shadow
+    tint.bvh_closest, tint.bvh_shadow = map(counted, saved)
+    try:
+        for label, kw in (("cluster", {}), ("skip", dict(packet_traversal=False)),
+                          ("dense", dict(brute_force_threshold=64)),
+                          ("dense first", dict(brute_force_threshold=64,
+                                               packet_traversal=False))):
+            walks.clear()
+            cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=3), **kw)
+            r = rt.Renderer(w, cfg, seed=4, device="cpu")
+            r.render(rpp=3)
+            assert tint._dense(cfg, r.scene) == label.startswith("dense")
+            assert (walks == ["bvh_closest", "bvh_shadow"] * 3) == (label == "skip")
+            out[label] = r.views[id(w.cameras[0])].state.accum.numpy()
+    finally:
+        tint.bvh_closest, tint.bvh_shadow = saved
+    assert ttw.bvh_closest is saved[0]
+    for label in ("skip", "dense", "dense first"):
+        images_match(out[label], out["cluster"])
+    assert np.array_equal(out["dense"], out["dense first"])
+
+
+@pytest.mark.parametrize("builder", ["native", "numpy"])
+@pytest.mark.parametrize("n", [1, 9, 37, 900])
+def test_skip_links_match_jax(monkeypatch, builder, n):
+    """``compute_skip_links`` and ``build_aabb_links`` array for array
+    against the JAX package's, through each package's C++ builder (skips
+    where it cannot be built) and through both NumPy sweeps."""
+    from rayzath_tpu.ops import traverse as jtw
+    from rayzath_tpu_torch.ops import traverse as ttw
+    if builder == "native":
+        if not (rt_native.available() and rz_native.get_lib() is not None):
+            pytest.skip("the C++ builder is not available here")
+    else:
+        monkeypatch.setattr(rz_native, "bvh_skip_links", lambda *a: None)
+        monkeypatch.setattr(rt_native, "bvh_skip_links", lambda *a: None)
+    rng = np.random.default_rng(n)
+    lo = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.5, (n, 3)).astype(np.float32)
+    lo[: n // 10] = -6.0                  # some primitives span every split
+    hi[: n // 10] = 6.0
+    bvh = tbvh.build_bvh(lo, hi, leaf_size=8)
+    ours = tbvh.compute_skip_links(bvh.node_begin, bvh.node_count, bvh.node_axis)
+    ref = jbvh.compute_skip_links(bvh.node_begin, bvh.node_count, bvh.node_axis)
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    args = (bvh.node_min, bvh.node_max, bvh.node_count, *ours)
+    assert np.array_equal(ttw.build_aabb_links(*args), jtw.build_aabb_links(*args))
+
+
+@pytest.mark.parametrize("name", ["cornell_box_nee", "mesh_heavy",
+                                  "instanced_field"])
+def test_compile_world_skip_tables_match(name):
+    """``aabb_links``, ``node_begin`` and ``node_count`` of ``compile_world``
+    (default builders) equal the JAX scene's: the soup's tables, and on the
+    two-level instanced_field the JAX scene's inert placeholders."""
+    js = jds.compile_world(getattr(rz.scenes, name)(16, 16))
+    ts = tds.compile_world(getattr(rt.scenes, name)(16, 16), device="cpu")
+    assert ts.two_level == js.two_level == (name == "instanced_field")
+    for f in ("aabb_links", "node_begin", "node_count"):
+        a, b = getattr(ts, f).numpy(), np.asarray(getattr(js, f))
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    n = ts.node_count.numel()
+    assert ts.aabb_links.shape == (8, 8 * n)
+    if not ts.two_level:
+        assert int(ts.node_count.sum()) == ts.n_triangles
+        # the walk's leaf blocks: every triangle in exactly one lane
+        ids = ts.leaf_tri.numpy()
+        assert np.array_equal(ids, ttw.leaf_table(js.node_begin, js.node_count, 8))
+        assert np.array_equal(np.sort(ids[ids >= 0]), np.arange(ts.n_triangles))
+
+
+@pytest.mark.parametrize("n", [9, 37, 900])
+def test_leaf_table_matches_jax_leaf_ids(n):
+    """``leaf_table`` against the id group of the JAX walk's ``_leaf_table``
+    over the same BVH: row for row where no leaf holds more than the lanes;
+    with 4 lanes, a leaf of up to 8 takes two rows, the first equal to the
+    JAX row and the second its next 4 triangles."""
+    from rayzath_tpu.ops import traverse as jtw
+    rng = np.random.default_rng(n)
+    lo = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.5, (n, 3)).astype(np.float32)
+    bvh = tbvh.build_bvh(lo, hi, leaf_size=8)
+    assert bvh.node_count.max() <= 8
+    ids = np.arange(n, dtype=np.float32)
+    for lanes in (8, 4):
+        ref = np.asarray(jtw._leaf_table(jnp.asarray(bvh.node_begin),
+                                         jnp.asarray(bvh.node_count), lanes,
+                                         [jnp.asarray(ids)]))[:, lanes:]
+        ours = ttw.leaf_table(bvh.node_begin, bvh.node_count, lanes)
+        first = np.cumsum(np.maximum(-(-bvh.node_count // lanes), 1))
+        first -= np.maximum(-(-bvh.node_count // lanes), 1)
+        assert ours.dtype == np.int32 and ours.shape[1] == lanes
+        assert np.array_equal(ours[first], ref.astype(np.int32))
+        big = bvh.node_count > lanes
+        assert (big.any() or lanes == 8) and np.array_equal(
+            ours[first[big] + 1],
+            np.where(np.arange(lanes) < bvh.node_count[big, None] - lanes,
+                     bvh.node_begin[big, None] + lanes + np.arange(lanes), -1))
+        assert len(ours) == len(bvh.node_count) + int(big.sum())
 
 
 @pytest.mark.parametrize("n", [1, 37, 900])

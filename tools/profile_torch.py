@@ -28,7 +28,9 @@ tree's kernels, and prints the median ms of 20 launches of B1 and B2 on
 mesh_heavy's, B3 and B4 on instanced_field's and B3 on two-level
 multi_light's bounce-like rays (``chip_smoke.py`` phase 2's rays, in the
 integrator's order; the shadow kernels with dist = BIG and the scene's
-opacities) as one JSON line:
+opacities), and of the threefry draw of one pass at ``--res``^2 x 14, both
+its call and its kernel's median device duration in a ``torch.profiler``
+trace of 20 calls, as one JSON line:
 
     python3 tools/profile_torch.py --scenes "" --parent build/parent
 """
@@ -184,6 +186,24 @@ def kernel_times(res: int) -> dict:
             rgb, a = shadow(o, d, big, *shadow_tabs)
             out[f"{shadow_key}_sums"] = [float(rgb.double().sum()),
                                          float(a.double().sum())]
+    from rayzath_tpu_torch.ops import rng
+    k = rng.fold_in(rng.key(1), 0)
+
+    def draw():
+        return rng.uniform_rows(k, 0, res, res, 14, dev)
+
+    out["draw_call_ms"] = cuda_ms(draw, RUNS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(RUNS):
+            draw()
+        sync(dev)
+    kernel = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "uniform_kernel" in e.name]
+    if len(kernel) != RUNS:
+        raise RuntimeError(f"{len(kernel)} threefry kernels in the trace of "
+                           f"{RUNS} draws")
+    out["draw_ms"] = statistics.median(kernel)
+    out["draw_sum"] = int(draw().view(torch.int32).long().sum())
     return out
 
 
@@ -291,9 +311,10 @@ def main(argv=None) -> int:
                           args.profile_passes, args.top)
     if args.parent:
         recs = parent_turns(args.parent, args.res)
-        for key in ("b1_ms", "b2_ms", "b3_ms", "b4_ms", "b3_small_ms"):
+        for key in ("b1_ms", "b2_ms", "b3_ms", "b4_ms", "b3_small_ms",
+                    "draw_ms", "draw_call_ms"):
             print(f"{key} parent / change / change / parent [{card_line()}]: "
-                  + ", ".join(f"{r[key]:.3f}" for r in recs), flush=True)
+                  + ", ".join(f"{r[key]:.4f}" for r in recs), flush=True)
     return 0
 
 
