@@ -11,7 +11,11 @@ Phases, each of which raises on failure (exit code != 0):
 2. Kernel against plain. The threefry kernel (``csrc/threefry.cu``) against
    ``ops/rng.py`` ``uniform_rows_plain`` on the card, bit for bit, on full
    512^2 passes at ns = 8 and 14, a band of rows at row0 > 0 at ns = 11, an
-   odd width and rows of 3 floats; timed on a 512^2 x 14 pass: the
+   odd width and rows of 3 floats; its keyed entry (the render cycle's
+   draw, which folds the pass key on the device from the key words and an
+   int32 pass counter) bit for bit on the same sets and at pass 2^32 - 1
+   against the by-value entry and the plain draw under
+   ``rng.fold_in_tensor``; each entry timed on a 512^2 x 14 pass: the
    kernel's own device time (``device_ms``: 50 launches queued behind a
    ``torch.cuda._sleep``, so the events hold no host time; median of 5),
    the call's time with its Python wrapper and the plain version's (CUDA
@@ -77,9 +81,11 @@ Phases, each of which raises on failure (exit code != 0):
 4. The slice at size: ``Renderer(device="cuda")`` renders cornell_box_nee
    (32 passes), multi_light, mesh_heavy, instanced_field (two-level by the
    automatic choice), textured_room and the cutout world (8 passes each) at
-   512^2, depth 8; NaN-free, samples accumulated, image mean in (5, 220),
-   and the launch counters of the path's two kernels and the threefry
-   kernel (all five reset just before) at least one per pass. Then the
+   512^2, depth 8 (through the render cycle: replays of one captured graph
+   per pass); NaN-free, samples accumulated, image mean in (5, 220),
+   and the launch counters of the path's two kernels and the keyed
+   threefry entry (all reset just before; a replay adds the captured
+   pass's launches) at least one per pass. Then the
    slice's scene files: multi_light (soup, B1/B2) and instanced_field
    (two-level, B3/B4) written by the port's ``save_scene`` with one OBJ/MTL
    per mesh and an HDR sky, loaded into a fresh ``World`` and rendered at
@@ -93,8 +99,8 @@ Phases, each of which raises on failure (exit code != 0):
    spot light); ``Renderer(device="cuda", config=RenderConfig(
    packet_traversal=False))`` on cornell_box_nee (8 passes) and mesh_heavy
    (4) at 512^2, depth 8, after a warm-up pass: NaN-free, samples
-   accumulated, B1-B4 never launched and the threefry kernel once per
-   pass; ms per pass and the walks' ms per pass. The walk and B1 give
+   accumulated, B1-B4 never launched and the keyed threefry entry once
+   per pass (the cycle runs this route eagerly); ms per pass and the walks' ms per pass. The walk and B1 give
    their hit ids apart only on rays an f64 Moller-Trumbore calls chaotic
    (checked on both scenes' 512^2 camera and bounce-like rays, and on the
    placeholder ray that pass 0 traces for every pixel), where a path may
@@ -110,7 +116,8 @@ Phases, each of which raises on failure (exit code != 0):
    scene with the panel's emission halved (with 2 passes the panel never
    enters the image: pass 0 traces the initial placeholder rays, pass 1 the
    camera's first hits); the loss finite and descending, the atlas update
-   finite and non-zero; seconds per step and peak device memory.
+   finite and non-zero; seconds per step, peak device memory and the
+   by-value threefry entry's launches (``render_steps``, eager by design).
 6. The front ends and the row-band runtime, at 512^2, depth 8 (training:
    depth 3, 4 passes). The headless runner in process (``Headless().run``
    with images saved, as ``-r``) on a task file of multi_light (soup) and
@@ -135,14 +142,33 @@ Phases, each of which raises on failure (exit code != 0):
    1: ``gather_image`` equals the plain render bit for bit.
    ``sharded_training_step`` over 2 bands of textured_room against phase
    5's first step: loss to rtol 1e-4, the update to 1e-4 of the step.
+7. The render cycle (``engine/cycle.py``, the counterpart of the JAX
+   package's jitted, donated ``render_steps``): on cornell_box_nee,
+   multi_light, mesh_heavy, instanced_field, textured_room and the cutout
+   world at 512^2, depth 8, ``Renderer.render`` (one captured CUDA graph
+   per pass) leaves every state array bit for bit as eager
+   ``render_steps`` from the same seed, so sample counts are equal, over
+   rpp 1, 3, 2, a reprojecting camera move (no new capture), a material
+   edit (a new capture) and a checkpoint resumed in a fresh renderer
+   (``utils/check_cycle.py``); then the turns eager, graph, graph, eager
+   of ``tools/profile_torch.py`` ``cycle_turn``: Mrays/s, device busy ms
+   per pass (a torch.profiler trace) and device ms per pass (passes queued
+   behind a sleep), the idle share of the trace and (graph) of the timed
+   renders, device events per pass, capture ms, peak MiB, and the host ms
+   of ``render(rpp=16, block=False)``.
 
-The last lines of standard output are the kernels' JSON record, the card's
+The last lines of standard output are the render cycle's JSON record
+(``{"render_cycle": ...}``), the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4 and the
-threefry kernel (``"replaces": null``: the JAX package draws in XLA), each
-with its launches in phase 4 (the draw's also in the skip-link renders)
-and in phase 6's headless run, ``ms`` its device time and ``call_ms`` its
-call's time. Needs one CUDA device and nvcc; there is no CPU fallback.
+threefry kernel's two entries (``"replaces": null``: the JAX package draws
+in XLA), each with its launches in the paths driven with the counters set
+to 0 just before and read just after: phase 4's renders (B1-B4 and the
+keyed draw), the skip-link renders (the keyed draw), phase 5's training
+steps (the by-value draw), phase 6's headless run and phase 7's turns;
+``ms`` its device time and ``call_ms`` its call's time. It fails if a
+kernel never launched. Needs one CUDA device and nvcc; there is no CPU
+fallback.
 """
 from __future__ import annotations
 
@@ -1082,21 +1108,60 @@ def phase_threefry(card: str, dev):
         print(f"  threefry seed {seed} pass {pass_idx} rows {row0}+{h} x "
               f"{w} x {ns}: bit for bit, range [{float(got.min()):.6f}, "
               f"{float(got.max()):.6f}]", flush=True)
+    # the keyed entry (the render cycle's draw): the pass key folded on the
+    # device from the key words and an int32 pass counter, bit for bit as
+    # the by-value draw and the plain draw under the host-folded key
+    for seed, pass_idx, row0, h, w, ns in THREEFRY_SETS + (
+            (9, 2 ** 32 - 1, 0, RES, RES, 14),):
+        k = rng.key(seed)
+        dk = rng.DeviceKey(rng.key_words(k, dev), torch.tensor(
+            pass_idx - (2 ** 32 if pass_idx >= 2 ** 31 else 0),
+            dtype=torch.int32, device=dev))
+        got = rng.uniform_rows_keyed(dk, row0, h, w, ns, dev)
+        ref = rng.uniform_rows(rng.fold_in(k, pass_idx), row0, h, w, ns, dev)
+        plain = rng.uniform_rows_plain(
+            rng.fold_in_tensor(dk.words, dk.pass_idx), row0, h, w, ns, dev)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int32), ref.view(torch.int32))
+                and torch.equal(got.view(torch.int32), plain.view(torch.int32))):
+            raise AssertionError(f"keyed threefry seed {seed} pass {pass_idx} "
+                                 f"rows {row0}+{h} width {w} ns {ns}: "
+                                 f"{int((got != plain).sum())} floats differ")
+    print(f"  keyed threefry: {len(THREEFRY_SETS) + 1} sets bit for bit as the "
+          f"by-value kernel and the plain draw under fold_in_tensor",
+          flush=True)
+    out = {}
     k = rng.fold_in(rng.key(1), 0)
+    dk = rng.DeviceKey(rng.key_words(rng.key(1), dev),
+                       torch.zeros((), dtype=torch.int32, device=dev))
     h, w, ns = RES, RES, THREEFRY_NS[-1]
-    call = call_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 20)
-    ms = device_ms(lambda: rng.uniform_rows(k, 0, h, w, ns, dev), 50)
-    plain_ms = call_ms(lambda: rng.uniform_rows_plain(k, 0, h, w, ns, dev), 20)
     n = h * w * ns
-    # bytes: the uniforms written once (the key is an argument); operations:
-    # one hash per row key and one hash and conversion per float
-    b = bound(n * 4, n * (HASH_OPS + UNIT_OPS) + h * HASH_OPS, ISSUE_S)
-    print(f"  threefry times [{card}]: {h}^2 x {ns} uniforms, kernel {ms:.4f} ms "
-          f"on the device (50 launches behind a sleep, median of 5), the call "
-          f"{call:.4f} ms (its Python wrapper included, median of 20), plain "
-          f"{plain_ms:.3f} ms (median of 20), bound {b[0]:.4f} ms ({b[1]}): "
-          f"the device time is {ms / b[0]:.2f}x the bound", flush=True)
-    return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound=b, err=0.0)
+    for name, draw, plain, key_hashes, key_bytes in (
+            ("threefry", lambda: rng.uniform_rows(k, 0, h, w, ns, dev),
+             lambda: rng.uniform_rows_plain(k, 0, h, w, ns, dev), 0, 0),
+            ("threefry_keyed",
+             lambda: rng.uniform_rows_keyed(dk, 0, h, w, ns, dev),
+             lambda: rng.uniform_rows_plain(
+                 rng.fold_in_tensor(dk.words, dk.pass_idx), 0, h, w, ns, dev),
+             1, 12)):
+        call = call_ms(draw, 20)
+        ms = device_ms(draw, 50)
+        plain_ms = call_ms(plain, 20)
+        # bytes: the uniforms written once (and the keyed entry's key words
+        # and pass counter read once); operations: one hash per row key and
+        # one hash and conversion per float (and the keyed entry's fold)
+        b = bound(n * 4 + key_bytes,
+                  n * (HASH_OPS + UNIT_OPS) + (h + key_hashes) * HASH_OPS,
+                  ISSUE_S)
+        print(f"  {name} times [{card}]: {h}^2 x {ns} uniforms, kernel "
+              f"{ms:.4f} ms on the device (50 launches behind a sleep, median "
+              f"of 5), the call {call:.4f} ms (its Python wrapper included, "
+              f"median of 20), plain {plain_ms:.3f} ms (median of 20), bound "
+              f"{b[0]:.4f} ms ({b[1]}): the device time is {ms / b[0]:.2f}x "
+              f"the bound", flush=True)
+        out[name] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound=b,
+                         err=0.0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1228,7 +1293,8 @@ def path_wrappers() -> dict:
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
             "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
-            "threefry": rng.uniform_rows}
+            "threefry": rng.uniform_rows,
+            "threefry_keyed": rng.uniform_rows_keyed}
 
 
 def phase_slice(card: str, dev):
@@ -1257,7 +1323,7 @@ def phase_slice(card: str, dev):
         dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
         path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
-            "threefry",)
+            "threefry_keyed",)
         if name == "instanced_field" and not r.scene.two_level:
             raise AssertionError("instanced_field did not compile two-level")
         if name == "textured_room" and r.scene.map_kinds_used != (True,) * 5:
@@ -1323,8 +1389,8 @@ def phase_files(card: str, dev, launches: dict):
         ns = I.n_streams(r.config, r.scene)
         if ns not in THREEFRY_NS:
             raise AssertionError(f"{name}: n_streams {ns} not checked")
-        path_k = ("B3", "B4", "threefry") if two_level else ("B1", "B2",
-                                                              "threefry")
+        path_k = (("B3", "B4") if two_level else ("B1", "B2")) + (
+            "threefry_keyed",)
         for f in wrappers.values():
             f.launches = 0
         t0 = time.perf_counter()
@@ -1580,12 +1646,13 @@ def phase_skiplink(card: str, dev, launches: dict):
             if any(counts[k] for k in ("B1", "B2", "B3", "B4")):
                 raise AssertionError(f"{name}: a cluster kernel launched in "
                                      f"the skip-link render: {counts}")
-            if counts["threefry"] != rpp:
-                raise AssertionError(f"{name}: threefry launched "
-                                     f"{counts['threefry']} times in {rpp} passes")
+            if counts["threefry_keyed"] != rpp:
+                raise AssertionError(f"{name}: threefry_keyed launched "
+                                     f"{counts['threefry_keyed']} times in "
+                                     f"{rpp} passes")
             if not all(walk_ms.values()):
                 raise AssertionError(f"{name}: a walk did not run: {walk_ms}")
-            launches["threefry"] += counts["threefry"]
+            launches["threefry_keyed"] += counts["threefry_keyed"]
             if bool(torch.isnan(acc).any()):
                 raise AssertionError(f"{name}: NaN in the skip-link accum")
             if not float(acc[..., 3].sum()) > 0:
@@ -1593,7 +1660,8 @@ def phase_skiplink(card: str, dev, launches: dict):
             shown = (f"{rpp} passes in {dt:.3f} s = {dt / rpp * 1e3:.1f} ms per "
                      f"pass, walks {walk_ms['closest']:.1f} ms closest + "
                      f"{walk_ms['shadow']:.1f} ms shadow per pass, threefry "
-                     f"launches {counts['threefry']}, B1-B4 none")
+                     f"(keyed) launches {counts['threefry_keyed']}, B1-B4 "
+                     f"none")
         differ, close = render_gate(name, accum[False], accum[True])
         print(f"{name} skip-link walk (packet_traversal=False): {RES}^2 depth 8, "
               f"{shown}; against the packet path from seed 9 "
@@ -1608,7 +1676,9 @@ def phase_skiplink(card: str, dev, launches: dict):
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
-def phase_train(card: str, dev):
+def phase_train(card: str, dev, launches: dict):
+    """Three training steps; adds the by-value draw's launches of the steps
+    (``render_steps``, the route that stays eager) to ``launches``."""
     import dataclasses
     import torch
     import rayzath_tpu_torch as rt
@@ -1634,6 +1704,7 @@ def phase_train(card: str, dev):
     torch.cuda.reset_peak_memory_stats()
     losses, times, first = [], [], None
     s = scene
+    rng.uniform_rows.launches = 0
     for _ in range(3):
         t0 = time.perf_counter()
         s_new, _, loss = training_step(s, cam, cfg, init_state(RES, RES, dev),
@@ -1649,6 +1720,11 @@ def phase_train(card: str, dev):
         first = first or (s_new, float(loss))
         s = s_new
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    drawn = rng.uniform_rows.launches
+    if drawn < 3 * passes:
+        raise AssertionError(f"training: threefry launched {drawn} times in "
+                             f"{3 * passes} passes")
+    launches["threefry"] += drawn
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
         raise AssertionError(f"training: loss not finite {losses}")
     if not losses[-1] < losses[0]:
@@ -1657,7 +1733,8 @@ def phase_train(card: str, dev):
           f"step, remat, lr {lr}: losses {[f'{x:.6f}' for x in losses]}, "
           f"seconds per step {[f'{x:.3f}' for x in times]}, peak device memory "
           f"{peak:.2f} GiB, panel emission {float(scene.mat_emission[panel]):.4f}"
-          f" -> {float(s.mat_emission[panel]):.4f} [{card}]", flush=True)
+          f" -> {float(s.mat_emission[panel]):.4f}, threefry launches {drawn} "
+          f"[{card}]", flush=True)
     return dict(losses=losses, seconds=times, peak_gib=peak, scene=scene,
                 cam=cam, cfg=cfg, target=target, seed=seed, lr=lr,
                 passes=passes, first=first)
@@ -1743,7 +1820,7 @@ def phase_headless(card: str, tmp: Path) -> dict:
         raise AssertionError(f"headless: PNGs {pngs}")
     need = {"B1": passes["multi_light"], "B2": passes["multi_light"],
             "B3": passes["instanced_field"], "B4": passes["instanced_field"],
-            "threefry": sum(passes.values())}
+            "threefry_keyed": sum(passes.values())}
     if any(counts[k] < n for k, n in need.items()):
         raise AssertionError(f"headless: launches {counts} < passes {need}")
     print(f"headless launches {counts} over passes {passes} (warm-up "
@@ -2018,6 +2095,90 @@ def phase_front_ends(card: str, dev, train: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the render cycle, one captured CUDA graph per pass
+# ---------------------------------------------------------------------------
+
+CYCLE_SCENES = ("cornell_box_nee", "multi_light", "mesh_heavy",
+                "instanced_field", "textured_room", "cutout_world")
+CYCLE_SEED = 6
+CYCLE_TURNS = ("eager", "graph", "graph", "eager")
+CYCLE_KEYS = ("mrays_s", "busy_ms_per_pass", "device_ms_per_pass",
+              "idle_share", "timed_idle_share", "events_per_pass",
+              "capture_ms", "peak_mib", "first_ms", "nonblocking_host_ms")
+
+
+def phase_cycle(card: str, dev, launches: dict) -> dict:
+    """``Renderer.render`` replays one captured graph per pass
+    (``engine/cycle.py``). On the six scenes of ``tools/profile_torch.py``
+    at 512^2, depth 8: ``utils/check_cycle.against_eager`` (every state
+    array bit for bit as eager ``render_steps`` from one seed, so sample
+    counts equal: an rpp sequence 1, 3, 2, a reprojecting camera move, a
+    material edit that captures again, a checkpoint resumed in a fresh
+    renderer), then the turns eager, graph, graph, eager of
+    ``profile_torch.cycle_turn`` (Mrays/s, busy and device ms per pass,
+    idle share, events per pass, capture ms, peak MiB, the host ms of
+    ``render(rpp=16, block=False)``). Adds the turns' launches to
+    ``launches``; returns the ``render_cycle`` record."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.utils.check_cycle import against_eager
+    sys.path.insert(0, str(ROOT / "tools"))
+    import profile_torch as pt
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    wrappers = path_wrappers()
+    record = {"card": card, "res": RES, "max_depth": 8, "seed": CYCLE_SEED,
+              "turns": list(CYCLE_TURNS), "scenes": {}}
+    for name in CYCLE_SCENES:
+        t0 = time.perf_counter()
+        out = against_eager(pt.make_world(name, RES), cfg, dev,
+                            seed=CYCLE_SEED)
+        if out["captures"] != [1, 1, 1, 1, 2, 1]:
+            raise AssertionError(f"{name}: captures after each stage "
+                                 f"{out['captures']}, not [1, 1, 1, 1, 2, 1]")
+        samples = {label: n for label, _, n in out["stages"]}
+        if not samples["camera move"] > RES * RES:
+            raise AssertionError(f"{name}: the reprojection seeded no samples")
+        check_s = time.perf_counter() - t0
+        renderer = rt.Renderer(pt.make_world(name, RES), cfg, device=dev)
+        turns = []
+        for mode in CYCLE_TURNS:
+            for f in wrappers.values():
+                f.launches = 0
+            turns.append(pt.cycle_turn(renderer, mode, dev, RES,
+                                       pt.PASSES[name], repeats=2,
+                                       trace_passes=4))
+            for k, f in wrappers.items():
+                launches[k] += f.launches
+        rec = {"passes": pt.PASSES[name], "check_s": check_s,
+               "samples": samples}
+        for mode in ("eager", "graph"):
+            mine = [t for t in turns if t["mode"] == mode]
+            rec[mode] = {k: [t.get(k) for t in mine] for k in CYCLE_KEYS}
+            rec[mode]["mrays_s"] = [x for t in mine for x in t["mrays_s"]]
+        for t in turns:
+            if not (t["busy_ms"] > 0 and t["events_per_pass"] > 0):
+                raise AssertionError(f"{name} {t['mode']}: the trace holds no "
+                                     f"device events")
+        record["scenes"][name] = rec
+        e, g = rec["eager"], rec["graph"]
+        print(f"{name} render cycle [{card}]: graph bit for bit as eager "
+              f"render_steps at {RES}^2 depth 8 over rpp 1, 3, 2, a camera "
+              f"move, an edit and a resume ({check_s:.1f} s); Mrays/s eager "
+              f"{', '.join(f'{x:.3f}' for x in e['mrays_s'])}, graph "
+              f"{', '.join(f'{x:.3f}' for x in g['mrays_s'])}; busy ms per "
+              f"pass eager {e['busy_ms_per_pass']}, graph "
+              f"{g['busy_ms_per_pass']}; idle eager {e['idle_share']}, graph "
+              f"{g['idle_share']}; events per pass eager "
+              f"{e['events_per_pass']}, graph {g['events_per_pass']}; "
+              f"capture ms {g['capture_ms']}; peak MiB eager {e['peak_mib']}, "
+              f"graph {g['peak_mib']}; render(rpp=16, block=False) host ms "
+              f"{g['nonblocking_host_ms']}", flush=True)
+        del renderer
+        torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2070,12 +2231,16 @@ def main() -> int:
     print(f"phase 4, the skip-link walk {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     t_phase = time.perf_counter()
-    train = phase_train(card, dev)
+    train = phase_train(card, dev, launches)
     print(f"phase 5 (training) {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
     for k, n in phase_front_ends(card, dev, train).items():
         launches[k] = launches.get(k, 0) + n
     print(f"phase 6 (front ends) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    t_phase = time.perf_counter()
+    cycle = phase_cycle(card, dev, launches)
+    print(f"phase 7 (the render cycle) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     # times: B1/B2 on mesh_heavy, B3/B4 on instanced_field, bounce-like
@@ -2103,17 +2268,24 @@ def main() -> int:
         if name in backward:
             record[-1].update(backward_max_rel_err=backward[name],
                               backward_rtol=BACKWARD_RTOL)
-    # the draw replaces no TPU kernel (the JAX package draws in XLA); timed
-    # on one 512^2 pass at ns = 14, bit for bit to the plain draw
-    record.append({
-        "name": "threefry", "route": "cuda",
-        "source": "rayzath_tpu_torch/csrc/threefry.cu", "replaces": None,
-        "launches": launches["threefry"], "max_abs_err": threefry["err"],
-        "ms": threefry["ms"], "call_ms": threefry["call_ms"],
-        "plain_ms": threefry["plain_ms"],
-        "bound_ms": threefry["bound"][0], "bound_by": threefry["bound"][1],
-        "library_ms": None, "rows": RES, "width": RES,
-        "ns": THREEFRY_NS[-1]})
+    # the draw replaces no TPU kernel (the JAX package draws in XLA); both
+    # entries timed on one 512^2 pass at ns = 14, bit for bit to the plain
+    # draw; the keyed entry (the render cycle's) folds the pass key on the
+    # device
+    for name in ("threefry", "threefry_keyed"):
+        m = threefry[name]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "rayzath_tpu_torch/csrc/threefry.cu", "replaces": None,
+            "launches": launches[name], "max_abs_err": m["err"],
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+            "library_ms": None, "rows": RES, "width": RES,
+            "ns": THREEFRY_NS[-1]})
+    idle = [r["name"] for r in record if not r["launches"]]
+    if idle:
+        return fail(f"kernels of the path never launched: {idle}")
+    print(json.dumps({"render_cycle": cycle}))
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,15 @@
 //   row key itself and stores floats one by one;
 // * one span per warp: a 512^2 x 14 pass is 896 blocks of 4 warps, all
 //   resident at once (6.8 per SM), so no grid-stride loop is needed.
+//
+// Two entry points draw the same pass. `rz_threefry_uniform` takes the pass
+// key by value. `rz_threefry_uniform_keyed` takes the render's key words
+// and the pass index as device pointers and folds the pass key on the
+// device, fold_in(key, pass_idx) = threefry2x32(key, (0, pass_idx)): a
+// CUDA graph freezes a launch's arguments, and a replayed pass must draw
+// from the pass counter it reads when it runs (engine/cycle.py). Each warp
+// hashes the pass key once, its lanes in lockstep: one hash on top of a
+// lane's 33, and three cached 4-byte loads.
 #include <climits>
 #include <cstdint>
 
@@ -103,10 +112,11 @@ __device__ __forceinline__ float draw(uint32_t r0, uint32_t r1, uint32_t one,
   return to_unit(x0 ^ x1);
 }
 
-// out: the n = height * row_len floats, flattened; 16-byte aligned.
-__global__ void __launch_bounds__(THREADS)
-uniform_kernel(float* __restrict__ out, uint32_t k0, uint32_t k1, int row0,
-               int row_len, int n, uint32_t one) {
+// The draw of one pass under the pass key (k0, k1). out: the
+// n = height * row_len floats, flattened; 16-byte aligned.
+__device__ __forceinline__ void draw_pass(float* __restrict__ out, uint32_t k0,
+                                          uint32_t k1, int row0, int row_len,
+                                          int n, uint32_t one) {
   const int lane = threadIdx.x & 31;
   const int span0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * SPAN;
   if (span0 >= n) return;                   // the whole warp
@@ -148,6 +158,37 @@ uniform_kernel(float* __restrict__ out, uint32_t k0, uint32_t k1, int row0,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+uniform_kernel(float* __restrict__ out, uint32_t k0, uint32_t k1, int row0,
+               int row_len, int n, uint32_t one) {
+  draw_pass(out, k0, k1, row0, row_len, n, one);
+}
+
+// key: the render key's two words; pass_idx: the pass counter, as jax
+// folds an int32 in (its bits as uint32).
+__global__ void __launch_bounds__(THREADS)
+uniform_keyed_kernel(float* __restrict__ out, const uint32_t* __restrict__ key,
+                     const int32_t* __restrict__ pass_idx, int row0,
+                     int row_len, int n, uint32_t one) {
+  uint32_t k0 = 0u, k1 = (uint32_t)__ldg(pass_idx);
+  threefry2x32(__ldg(key), __ldg(key + 1), one, k0, k1);
+  draw_pass(out, k0, k1, row0, row_len, n, one);
+}
+
+// The launch shape of a draw of height x width x ns floats at out: 0 and
+// n, blocks; or the error that refuses it.
+int launch_shape(const float* out, int height, int width, int ns, int& n,
+                 unsigned& blocks) {
+  const long long total = (long long)height * width * ns;
+  if (total > INT_MAX - SPAN) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long spans = (total + SPAN - 1) / SPAN;
+  n = (int)total;
+  blocks = (unsigned)((spans + WARPS - 1) / WARPS);
+  return 0;
+}
+
 }  // namespace
 
 // out: float[height][width * ns], 16-byte aligned; (k0, k1): the pass key.
@@ -155,13 +196,28 @@ extern "C" int rz_threefry_uniform(float* out, unsigned int k0,
                                    unsigned int k1, int row0, int height,
                                    int width, int ns, void* stream) {
   if (height <= 0 || width <= 0 || ns <= 0) return 0;
-  const long long n = (long long)height * width * ns;
-  if (n > INT_MAX - SPAN) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const long long spans = (n + SPAN - 1) / SPAN;
-  const unsigned blocks = (unsigned)((spans + WARPS - 1) / WARPS);
+  int n;
+  unsigned blocks;
+  if (const int err = launch_shape(out, height, width, ns, n, blocks))
+    return err;
   uniform_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      out, k0, k1, row0, width * ns, (int)n, 1u);
+      out, k0, k1, row0, width * ns, n, 1u);
+  return (int)cudaGetLastError();
+}
+
+// As rz_threefry_uniform under the pass key fold_in(key, *pass_idx), both
+// read on the device when the kernel runs: key = uint32[2], pass_idx =
+// int32[1], each 4-byte aligned.
+extern "C" int rz_threefry_uniform_keyed(float* out, const unsigned int* key,
+                                         const int* pass_idx, int row0,
+                                         int height, int width, int ns,
+                                         void* stream) {
+  if (height <= 0 || width <= 0 || ns <= 0) return 0;
+  int n;
+  unsigned blocks;
+  if (const int err = launch_shape(out, height, width, ns, n, blocks))
+    return err;
+  uniform_keyed_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      out, key, pass_idx, row0, width * ns, n, 1u);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,10 @@ holds a key, ``rng.key(seed)`` as ``jax.random.key(seed)``; each pass folds
 its pass index into it, and :func:`pass_uniforms` keys each global image
 row by itself, so a band of rows at ``row0`` draws what the same rows of
 the whole image draw. On the card one threefry kernel launch draws a pass.
-``bounce_step(..., u=)`` takes injected [R, ns] uniforms instead.
+``bounce_step`` takes the pass key from the host, or an ``rng.DeviceKey``
+(the render's key words and a device pass counter, folded where the draw
+runs: the captured render cycle of ``engine/cycle.py``), or injected
+[R, ns] uniforms (``u=``).
 
 Differentiable, as the JAX package is: discrete hit ids from the traversal
 kernels carry no gradient, and (t, b1, b2) are re-derived differentiably by
@@ -544,26 +547,41 @@ def n_streams(cfg: RenderConfig, scene: TorchScene) -> int:
     return ns
 
 
-def pass_uniforms(key: rng.Key, row0: int, height: int, width: int, ns: int,
+def pass_uniforms(key, row0: int, height: int, width: int, ns: int,
                   device) -> torch.Tensor:
     """Uniform streams for image rows [row0, row0 + height) at one pass
     (the JAX package's ``pass_uniforms``): row y draws
     ``uniform(fold_in(key, y), (width, ns))``, so the streams depend on
-    (key, global row) only. Returns [height * width, ns] float32 on
-    ``device``, drawn by the threefry kernel on a card."""
+    (key, global row) only. ``key`` is the pass key (``rng.Key``) or an
+    ``rng.DeviceKey`` whose pass key is folded on the device. Returns
+    [height * width, ns] float32 on ``device``, drawn by the threefry
+    kernel on a card."""
+    if isinstance(key, rng.DeviceKey):
+        return rng.uniform_rows_keyed(key, row0, height, width, ns, device)
     return rng.uniform_rows(key, row0, height, width, ns, device)
 
 
+def host_reads(cfg: RenderConfig, scene: TorchScene) -> bool:
+    """Whether a pass reads device values on the host: the skip-link walk
+    (``packet_traversal=False`` on a soup scene with a cluster table) reads
+    its active ray count every ``CHECK_EVERY`` steps, so its pass cannot be
+    captured into a CUDA graph."""
+    return not (cfg.packet_traversal or scene.two_level or _dense(cfg, scene))
+
+
 def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
-                state: RenderState, key: Optional[rng.Key] = None, u=None,
+                state: RenderState, key=None, u=None,
                 row0: int = 0) -> RenderState:
     """Advance every pixel's path by one bounce (reference
     renderCumulativePass, cuda_render_kernel.cu:67-121).
 
-    ``key``: this pass's key (:func:`render_steps` folds the pass index
-    into the render's key); the pass draws :func:`pass_uniforms` from it.
-    ``u``: injected [R, ns] uniforms (ns = :func:`n_streams`) in place of
-    the draw. ``row0``: global image row of this wavefront's first row."""
+    ``key``: this pass's key, an ``rng.Key`` (:func:`render_steps` folds
+    the pass index into the render's key on the host) or an
+    ``rng.DeviceKey`` (the render's key words and a device pass counter,
+    folded where the draw runs); the pass draws :func:`pass_uniforms` from
+    it. ``u``: injected [R, ns] uniforms (ns = :func:`n_streams`) in place
+    of the draw. ``row0``: global image row of this wavefront's first
+    row."""
     H, W = state.height, state.width
     R = H * W
     dev = state.accum.device
@@ -804,8 +822,10 @@ def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
 
 
 #: The JAX package donates the input state of ``render_steps`` and keeps a
-#: non-donating twin; the port's ``render_steps`` never mutates its input,
-#: so both names are the same function.
+#: non-donating twin. The port's ``render_steps`` never mutates its input,
+#: so both names are the same function; the donated, compiled counterpart
+#: is the render cycle of ``engine/cycle.py``, which ``Renderer.render``
+#: runs.
 render_steps_preserve = render_steps
 
 

@@ -10,6 +10,14 @@ cycle runs ``rpp`` bounce passes under the renderer's key
 reprojecting the previous one (``ops/reproject.py``). Everything lives on
 ``device``: the card by default, the CPU's plain versions with
 ``device="cpu"`` (``utils/device.py``).
+
+Each camera's view owns a :class:`~.cycle.RenderCycle`, the counterpart of
+the JAX package's jitted, donated ``render_steps``: its state lives in
+static buffers updated in place, and on a card a render replays one
+captured CUDA graph per pass, so ``render(block=False)`` returns once the
+replays are enqueued, as the JAX renderer's jitted step does. The state's
+arrays are those buffers: a caller that keeps one across a render sees it
+change (copy it to keep it).
 """
 from __future__ import annotations
 
@@ -28,19 +36,21 @@ from ..ops import rng
 from ..ops.reproject import primary_hits, reproject_accum
 from ..ops.tonemap import final_color, to_u8
 from .config import RenderConfig
-from .integrator import render_steps, ray_cast
-from .state import RenderState, init_state, save_state, load_state
+from .cycle import RenderCycle
+from .integrator import ray_cast
+from .state import RenderState, save_state, load_state
 
 
 class CameraView:
     """Per-camera progressive render state + counters (the analog of the
-    reference's per-camera FrameBuffers/TracingStates)."""
+    reference's per-camera FrameBuffers/TracingStates). The state and the
+    camera the passes read live in the view's render cycle."""
 
     def __init__(self, camera, device):
         self.camera = camera
         self.device = device
-        self.device_camera: Optional[TorchCamera] = None
-        self.state: Optional[RenderState] = None
+        self.device_camera: Optional[TorchCamera] = None   # last compiled
+        self.cycle = RenderCycle(device)
         self.camera_version = -1
         self.ray_count = 0       # rays traced (W*H per bounce pass, as in reference)
         self.pass_count = 0      # bounce passes executed
@@ -48,20 +58,26 @@ class CameraView:
         # consumed by the renderer's reprojection step
         self.pending_reprojection = None
 
+    @property
+    def state(self) -> Optional[RenderState]:
+        """The progressive state: the cycle's static buffers."""
+        return self.cycle.state
+
     def ensure(self):
-        if (self.state is None or self.camera_version != self.camera.version
-                or self.state.width != self.camera.width
-                or self.state.height != self.camera.height):
-            if (self.state is not None
-                    and self.state.width == self.camera.width
-                    and self.state.height == self.camera.height
+        st = self.state
+        if (st is None or self.camera_version != self.camera.version
+                or st.width != self.camera.width
+                or st.height != self.camera.height):
+            if (st is not None and st.width == self.camera.width
+                    and st.height == self.camera.height
                     and self.camera.temporal_blend > 0.0):
+                # snapshots: the reset below rewrites the static buffers
                 self.pending_reprojection = (self.device_camera,
-                                             self.state.accum,
-                                             self.state.depth_buf)
+                                             st.accum.clone(),
+                                             st.depth_buf.clone())
             self.device_camera = compile_camera(self.camera, self.device)
-            self.state = init_state(self.camera.width, self.camera.height,
-                                    self.device)
+            self.cycle.set_camera(self.device_camera)
+            self.cycle.reset(self.camera.width, self.camera.height)
             self.camera_version = self.camera.version
             self.ray_count = 0
             self.pass_count = 0
@@ -95,8 +111,7 @@ class Renderer:
             # update-flag path, cuda_engine_renderer.cu:91-113)
             for view in self.views.values():
                 if view.state is not None:
-                    view.state = init_state(view.camera.width,
-                                            view.camera.height, self.device)
+                    view.cycle.reset(view.camera.width, view.camera.height)
                     view.ray_count = 0
                     view.pass_count = 0
                     view.pending_reprojection = None  # stale: scene changed
@@ -117,7 +132,9 @@ class Renderer:
     # -- rendering ------------------------------------------------------------
     def render(self, camera=None, rpp: Optional[int] = None, block: bool = True):
         """Run one render cycle: ``rpp`` cumulative bounce passes for the camera
-        (default: every enabled camera / config rpp)."""
+        (default: every enabled camera / config rpp). On a card the passes
+        replay the view's captured graph (``engine/cycle.py``); with
+        ``block=False`` the call returns once they are enqueued."""
         scene = self.update_scene()
         cameras = [camera] if camera is not None else [
             c for c in self.world.cameras if c.enabled]
@@ -136,16 +153,15 @@ class Renderer:
                                                 self.config)
                     accum = reproject_accum(space, prev_cam, prev_accum,
                                             prev_depth, cam.temporal_blend)
-                cv.state = cv.state.replace(accum=accum, depth_buf=depth,
-                                            space_buf=space)
+                cv.cycle.load(cv.state.replace(accum=accum, depth_buf=depth,
+                                               space_buf=space))
                 if sync:
                     torch.cuda.synchronize(self.device)
                 self.time_table.set("temporal reproject",
                                     (time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             with torch.no_grad():       # serving records no autograd graph
-                cv.state = render_steps(scene, cv.device_camera, self.config,
-                                        cv.state, self.key, n)
+                cv.cycle.run(scene, self.config, self.key, n)
             if sync:
                 torch.cuda.synchronize(self.device)
             self.time_table.set("trace", (time.perf_counter() - t0) * 1e3)
@@ -171,7 +187,8 @@ class Renderer:
         return out
 
     def depth(self, camera=None) -> np.ndarray:
-        return self.view(self._camera(camera)).state.depth_buf.cpu().numpy()
+        # a copy: the state's buffer changes with the next render
+        return self.view(self._camera(camera)).state.depth_buf.cpu().numpy().copy()
 
     def focus(self, camera, x: int, y: int) -> float:
         """Auto-focus: set the camera's focal distance from the rendered depth
@@ -205,7 +222,7 @@ class Renderer:
         # checkpoint loaded below
         self.update_scene()
         cv = self.view(cam)
-        cv.state = load_state(path, self.device)
+        cv.cycle.load(load_state(path, self.device))
         cv.pass_count = cv.state.pass_idx
         cv.ray_count = cv.pass_count * cam.width * cam.height
 

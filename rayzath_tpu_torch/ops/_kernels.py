@@ -57,6 +57,9 @@ _SIGNATURES = {
     "rz_ranked_smem": [_I, _I],
     # out, pass key words k0, k1, row0, height, width, ns, stream
     "rz_threefry_uniform": [_P, _U, _U, _I, _I, _I, _I, _P],
+    # out, key words (uint32[2]), pass index (int32[1]), row0, height,
+    # width, ns, stream
+    "rz_threefry_uniform_keyed": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -30,8 +30,10 @@ def _rotate(v, rot):
 
 
 def _pinhole(cam, pixels):
-    w = torch.tensor(float(cam.width), dtype=torch.float32, device=pixels.device)
-    h = torch.tensor(float(cam.height), dtype=torch.float32, device=pixels.device)
+    # made on the device by a fill, not copied from the host (a copy cannot
+    # be captured into a CUDA graph); float32 division, as in the JAX package
+    w = torch.full((), float(cam.width), dtype=torch.float32, device=pixels.device)
+    h = torch.full((), float(cam.height), dtype=torch.float32, device=pixels.device)
     aspect = w / h
     tana = torch.tan(cam.fov * 0.5)
     dx = ((pixels[:, 0] + 0.5) / w - 0.5) * tana

@@ -21,11 +21,19 @@ tensors holding uint32 words (the plain version of the draw, masked after
 every add and shift). :func:`uniform_rows` takes that plain version on the
 CPU and launches the hand-written kernel ``csrc/threefry.cu`` on a CUDA
 device, counting its launches in ``uniform_rows.launches``.
+
+:func:`uniform_rows_keyed` draws the same numbers under a
+:class:`DeviceKey`, the render's key words and a pass counter that stay on
+the device: the pass key is folded where the draw runs (the kernel's keyed
+entry on a card, :func:`fold_in_tensor` before the plain draw on the CPU),
+so a CUDA graph that captured the draw draws each replay's own pass
+(``engine/cycle.py``). Its launches count in
+``uniform_rows_keyed.launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -72,6 +80,31 @@ def fold_in(k: Key, data: int) -> Key:
     return threefry2x32(int(k[0]), int(k[1]), 0, int(data) & MASK)
 
 
+class DeviceKey(NamedTuple):
+    """A render key and a pass index that stay on the device: ``words`` is
+    an int32 tensor [2] holding the key's two uint32 words (their bits),
+    ``pass_idx`` an int32 scalar tensor. The pass key is
+    ``fold_in(key, pass_idx)``, as the JAX package folds its device int32
+    pass counter into the key."""
+    words: torch.Tensor
+    pass_idx: torch.Tensor
+
+
+def key_words(k: Key, device) -> torch.Tensor:
+    """The key's two uint32 words as an int32 tensor [2] on ``device``."""
+    signed = [(int(w) & MASK) - ((int(w) & MASK) >> 31 << 32) for w in k]
+    return torch.tensor(signed, dtype=torch.int32, device=device)
+
+
+def fold_in_tensor(words: torch.Tensor, data: torch.Tensor):
+    """:func:`fold_in` on tensors: ``words`` an int32 tensor [2] of a key's
+    words, ``data`` an int32 tensor, read as uint32 as jax reads an int32.
+    Returns the folded key's two words as int64 tensors of ``data``'s shape
+    holding uint32 values."""
+    w = words.to(torch.int64) & MASK
+    return threefry2x32(w[0], w[1], 0, data.to(torch.int64) & MASK)
+
+
 def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """uint32 words (int64 tensor) -> float32 uniforms in [0, 1)."""
     f = ((bits >> 9) | ONE_BITS).to(torch.int32).view(torch.float32)
@@ -82,10 +115,11 @@ def uniform_rows_plain(k: Key, row0: int, height: int, width: int, ns: int,
                        device="cpu") -> torch.Tensor:
     """[height * width, ns] float32 uniforms of image rows
     [row0, row0 + height) under the pass key ``k``: row y draws
-    ``uniform(fold_in(k, y), (width, ns))``."""
+    ``uniform(fold_in(k, y), (width, ns))``. The key's words are ints or
+    scalar int64 tensors on ``device`` (:func:`fold_in_tensor`)."""
     i64 = dict(dtype=torch.int64, device=device)
     rows = torch.arange(height, **i64) + int(row0)
-    rk0, rk1 = threefry2x32(int(k[0]), int(k[1]), 0, rows)
+    rk0, rk1 = threefry2x32(k[0], k[1], 0, rows)
     idx = torch.arange(width * ns, **i64)
     x0, x1 = threefry2x32(rk0[:, None], rk1[:, None], 0, idx[None, :])
     return bits_to_unit(x0 ^ x1).reshape(height * width, ns)
@@ -117,3 +151,47 @@ def uniform_rows(k: Key, row0: int, height: int, width: int, ns: int,
 
 
 uniform_rows.launches = 0
+
+
+def uniform_rows_keyed(dk: DeviceKey, row0: int, height: int, width: int,
+                       ns: int, device) -> torch.Tensor:
+    """The uniforms of :func:`uniform_rows` under the pass key
+    ``fold_in(key, pass_idx)`` of a :class:`DeviceKey` on ``device``: on
+    the CPU :func:`fold_in_tensor` and the plain draw, on a CUDA device one
+    launch of the threefry kernel's keyed entry, which folds the key when
+    it runs; any other device raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    words, pass_idx = dk
+    for name, x, n in (("words", words, 2), ("pass_idx", pass_idx, 1)):
+        if x.device != dev or x.dtype != torch.int32 or x.numel() != n:
+            raise ValueError(f"uniform_rows_keyed: {name} must be {n} int32 "
+                             f"on {dev}, got {x.numel()} {x.dtype} on "
+                             f"{x.device}")
+    if dev.type == "cpu":
+        return uniform_rows_plain(fold_in_tensor(words, pass_idx.reshape(())),
+                                  row0, height, width, ns, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"uniform_rows_keyed: no kernel for device {dev}")
+    if not (words.is_contiguous() and pass_idx.is_contiguous()):
+        raise ValueError("uniform_rows_keyed: words and pass_idx must be "
+                         "contiguous")
+    lib = _kernels.load()
+    out = torch.empty((height * width, ns), dtype=torch.float32, device=dev)
+    if out.numel():
+        with torch.cuda.device(out.device):
+            err = lib.rz_threefry_uniform_keyed(
+                ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_void_p(words.data_ptr()),
+                ctypes.c_void_p(pass_idx.data_ptr()), int(row0), height,
+                width, ns,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"threefry keyed kernel launch failed: "
+                               f"{_kernels.error_string(err)}")
+        uniform_rows_keyed.launches += 1
+    return out
+
+
+uniform_rows_keyed.launches = 0

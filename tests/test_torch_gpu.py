@@ -21,7 +21,13 @@ renders from a seed (no injected uniforms) on the card against the CPU by
 ``images_match`` (sample counts equal; radiance tol 2e-3, frac 0.995),
 across a reprojecting camera move and on the dense path; the skip-link
 walk (torch ops, ``packet_traversal=False``) on the card bit for bit as on
-the CPU; the draw's device-only time below its call's time.
+the CPU; the draw's device-only time below its call's time. The render
+cycle (``engine/cycle.py``): the keyed draw bit for bit as the by-value
+draw; graph renders bit for bit as eager ``render_steps`` across a camera
+move, a material edit and a checkpoint resume (``utils/check_cycle.py``),
+one capture per scene and config; launch counters that count replays;
+``render(block=False)`` returning before the device finishes; and a pass
+that cannot be captured raising instead of rendering eagerly.
 """
 import numpy as np
 import pytest
@@ -670,7 +676,8 @@ def test_skip_link_walk_card_matches_cpu(cuda, name):
 
 def _seeded_renders(make_world, cfg, dev, move):
     """Renderer(seed=5) on ``dev``: two passes, then ``move(world)`` and one
-    pass. Returns the accumulation after each render call."""
+    pass. Returns copies of the accumulation after each render call (the
+    renderer updates its state in place)."""
     world = make_world()
     r = rt.Renderer(world, cfg, seed=5, device=dev)
     cam = world.cameras[0]
@@ -679,7 +686,7 @@ def _seeded_renders(make_world, cfg, dev, move):
         if step:
             move(world)
         r.render(rpp=2 - step)
-        out.append(r.views[id(cam)].state.accum.cpu().numpy())
+        out.append(r.views[id(cam)].state.accum.cpu().numpy().copy())
     return out
 
 
@@ -811,3 +818,129 @@ def test_second_card_renders_like_the_first(cuda):
         out.append(a.cpu())
     assert torch.cuda.current_device() == 0
     assert torch.equal(out[0], out[1])
+
+
+# ---------------------------------------------------------------------------
+# the render cycle: one captured CUDA graph per pass
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,pass_idx,row0,h,w,ns", [
+    (0, 0, 0, 4, 7, 8), (7, 2 ** 31 - 1, 5, 16, 33, 14),
+    (2 ** 31 - 1, 2 ** 32 - 1, 300, 3, 512, 11), (9, 1, 0, 512, 512, 8),
+    (3, 1, 2, 700, 1, 3)])
+def test_keyed_draw_matches_by_value_draw(cuda, seed, pass_idx, row0, h, w, ns):
+    """The keyed entry folds fold_in(key, pass_idx) on the device and draws
+    the by-value kernel's (and so the plain version's) bits, one launch."""
+    from rayzath_tpu_torch.ops import rng
+    k = rng.key(seed)
+    counter = pass_idx - 2 ** 32 if pass_idx >= 2 ** 31 else pass_idx
+    dk = rng.DeviceKey(rng.key_words(k, cuda),
+                       torch.tensor(counter, dtype=torch.int32, device=cuda))
+    before = rng.uniform_rows_keyed.launches
+    got = rng.uniform_rows_keyed(dk, row0, h, w, ns, cuda)
+    assert rng.uniform_rows_keyed.launches == before + 1
+    ref = rng.uniform_rows(rng.fold_in(k, pass_idx), row0, h, w, ns, cuda)
+    plain = rng.uniform_rows_plain(rng.fold_in(k, pass_idx), row0, h, w, ns,
+                                   cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+def _cycle_world(name, res):
+    from rayzath_tpu_torch.utils.check_worlds import cutout_world
+    if name == "cutout world":
+        return cutout_world(res)
+    return rt.scenes.SCENES[name](res, res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell_box_nee", "multi_light",
+                                  "instanced_field", "textured_room",
+                                  "cutout world"])
+def test_graph_render_equals_eager(cuda, name):
+    """Renderer.render on the card replays captured graphs and leaves every
+    state array bit for bit as eager render_steps from the same seed, at
+    64^2: an rpp sequence, a reprojecting camera move (no new capture), a
+    material edit (a new capture) and a checkpoint resumed in a fresh
+    renderer (its own capture)."""
+    from rayzath_tpu_torch.utils.check_cycle import against_eager
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    out = against_eager(_cycle_world(name, 64), cfg, cuda, seed=4)
+    assert out["captures"] == [1, 1, 1, 1, 2, 1]
+    assert dict((s[0], s[2]) for s in out["stages"])["camera move"] > 64 * 64
+
+
+@pytest.mark.gpu
+def test_replays_count_launches(cuda):
+    """Each replayed pass adds the captured pass's launches to the
+    wrappers' counters: as many as one eager pass makes."""
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    world = rt.scenes.multi_light(64, 64)
+    r = rt.Renderer(world, cfg, seed=2, device=cuda)
+    r.render(rpp=1)                                  # capture
+    wrappers = (tc.cluster_closest, tc.cluster_shadow, rng.uniform_rows,
+                rng.uniform_rows_keyed)
+    start = [f.launches for f in wrappers]
+    with torch.no_grad():
+        render_steps(r.scene, tds.compile_camera(world.cameras[0], cuda), cfg,
+                     init_state(64, 64, cuda), rng.key(2), 1)
+    eager = [f.launches - s for f, s in zip(wrappers, start)]
+    # multi_light: one closest hit, a shadow ray per light sample, one draw
+    assert eager[0] == 1 and eager[1] >= 2 and eager[2] == 1 and eager[3] == 0
+    start = [f.launches for f in wrappers]
+    r.render(rpp=5)
+    got = [f.launches - s for f, s in zip(wrappers, start)]
+    assert got == [5 * eager[0], 5 * eager[1], 0, 5]
+    assert r.views[id(world.cameras[0])].cycle.captures == 1
+
+
+@pytest.mark.gpu
+def test_render_without_blocking_returns_before_the_device(cuda):
+    """render(block=False) at 512^2, rpp 16, returns once the replays are
+    enqueued: its host time is below the device time of the same render."""
+    world = rt.scenes.cornell_box_nee(512, 512)
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
+                    device=cuda)
+    r.render(rpp=1)                                  # capture
+    torch.cuda.synchronize()
+    import time
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    r.render(rpp=16, block=False)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.record()
+    b.synchronize()
+    assert host_ms < a.elapsed_time(b)
+    assert r.views[id(world.cameras[0])].state.pass_idx == 17
+
+
+@pytest.mark.gpu
+def test_pass_that_cannot_be_captured_raises(cuda, monkeypatch):
+    """A pass that reads a device value on the host cannot be captured: the
+    render raises RuntimeError and renders nothing eagerly."""
+    from rayzath_tpu_torch.engine import integrator as I
+    mat_pack = I.mat_pack
+
+    def reads_the_device(scene):
+        mp = mat_pack(scene)
+        float(mp[0, 0].item())
+        return mp
+
+    world = rt.scenes.cornell_box_nee(64, 64)
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)),
+                    device=cuda)
+    monkeypatch.setattr(I, "mat_pack", reads_the_device)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        r.render(rpp=2)
+    cv = r.views[id(world.cameras[0])]
+    assert cv.pass_count == 0 and cv.state.pass_idx == 0
+    assert float(cv.state.accum.abs().sum()) == 0.0
+    monkeypatch.setattr(I, "mat_pack", mat_pack)
+    r.render(rpp=2)                                  # captures again
+    assert cv.cycle.captures == 1 and cv.state.pass_idx == 2

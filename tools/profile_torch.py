@@ -1,13 +1,25 @@
 """Where the time goes in the PyTorch/CUDA port (``rayzath_tpu_torch``).
 
-For each scene, on one device, at ``--res``^2 and depth 8: one warm-up
-render, ``--repeats`` timed renders of the scene's pass count (wall clock,
-each ending in ``torch.cuda.synchronize``), then one ``torch.profiler``
-trace of ``--profile-passes`` passes. From the trace it prints the wall time,
-the device's busy time, the idle share, the busy time by group (B1 closest
-kernel, B2 shadow kernel, B3/B4 their instanced twins, ray sort, everything
-else) and the top device kernels. ``cutout_world`` is the texture-alpha
-cutout scene of ``rayzath_tpu_torch/utils/check_worlds.py``.
+For each scene, on one device, at ``--res``^2 and depth 8, four turns in
+the order eager, graph, graph, eager (:func:`cycle_turn`). An eager turn
+runs ``render_steps`` pass by pass from Python, as ``Renderer.render`` did
+before the render cycle; a graph turn runs ``Renderer.render``, which
+replays the view's captured CUDA graph (``engine/cycle.py``; each graph turn
+starts from a new view, so it captures anew). Each turn: one warm-up pass
+(the graph turn's capture, its ms reported), ``--repeats`` timed renders of
+the scene's pass count (wall clock, each ending in
+``torch.cuda.synchronize``), one ``torch.profiler`` trace of
+``--profile-passes`` passes, the device's own ms per pass
+(``utils/cuda_timing.device_ms``: passes queued behind a sleep, so no host
+time), the peak device memory from the warm-up to the end of the timed
+renders and, in a graph turn, the host ms of ``render(rpp=16,
+block=False)``. From the trace it prints the wall time, the device's busy
+time, the idle share (and, in a graph turn, the timed renders' idle share
+against the device ms of as many passes), the device events per pass, the
+busy time by group
+(B1 closest kernel, B2 shadow kernel, B3/B4 their instanced twins, ray
+sort, everything else) and the top device kernels. ``cutout_world`` is the
+texture-alpha cutout scene of ``rayzath_tpu_torch/utils/check_worlds.py``.
 
 Busy time is the union of the device-side intervals (kernels, memcpy,
 memset). The host-side ``aten::*`` rows of ``key_averages()`` carry the
@@ -16,9 +28,9 @@ those kernels twice; only device-side events are read here.
 
     python3 tools/profile_torch.py [--scenes a,b] [--res 512] [--repeats 3]
 
-``--device cpu`` at a small ``--res`` runs the same code without a card; the
-trace then holds no device events. The last line per scene is one JSON
-object with the numbers above.
+``--device cpu`` at a small ``--res`` runs the eager turns without a card
+(the trace then holds no device events; there are no graph turns). The
+last line per turn is one JSON object with the numbers above.
 
 ``--parent DIR`` then times the traversal kernels of two trees on the same
 card in turns (parent, change, change, parent): DIR holds another checkout
@@ -226,33 +238,69 @@ def parent_turns(parent: str, res: int) -> list:
     return recs
 
 
-def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
-                  top: int) -> dict:
-    import rayzath_tpu_torch as rt
-    world = make_world(name, res)
-    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
-                    device=dev)
-    r.render(rpp=4)
-    sync(dev)
-    rpp = PASSES[name]
-    reps = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        r.render(rpp=rpp)
-        sync(dev)
-        dt = time.perf_counter() - t0
-        reps.append(rpp * res * res / dt / 1e6)
-        print(f"{name}: {rpp} passes in {dt * 1e3:.2f} ms = {reps[-1]:.3f} "
-              f"Mrays/s", flush=True)
+def trace_device(fn, dev) -> tuple:
+    """``fn()`` under ``torch.profiler`` (CPU and, on a card, CUDA
+    activity), then a synchronize. Returns (wall ms, the device-side
+    events)."""
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        r.render(rpp=passes)
+        fn()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall_ms, events
+
+
+def cycle_turn(renderer, mode: str, dev, res: int, passes: int, repeats: int,
+               trace_passes: int, top: int = 0, seed: int = 0) -> dict:
+    """One turn of ``mode`` ("eager" or "graph") on ``renderer``'s world
+    (its compiled scene and first camera; depth as its config). Returns the
+    turn's record; prints the top ``top`` device kernels of its trace."""
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import compile_camera
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.utils.cuda_timing import device_ms
+    scene, cfg = renderer.update_scene(), renderer.config
+    cam = renderer.world.cameras[0]
+    rec = {"mode": mode, "res": res, "passes": passes}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if mode == "graph":
+        renderer.views.clear()                  # a new view: a new capture
+        renderer.render(rpp=1)
+        view = renderer.views[id(cam)]
+
+        def run(n, block=True):
+            renderer.render(rpp=n, block=block)
+    else:
+        tcam = compile_camera(cam, dev)
+        key = rng.key(seed)
+        state = [init_state(cam.width, cam.height, dev)]
+
+        def run(n, block=True):
+            state[0] = render_steps(scene, tcam, cfg, state[0], key, n)
+            if block:
+                sync(dev)
+        run(1)
+    rec["first_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["capture_ms"] = view.cycle.capture_ms if mode == "graph" else None
+    reps, walls = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(passes)
+        dt = time.perf_counter() - t0
+        walls.append(dt * 1e3)
+        reps.append(passes * res * res / dt / 1e6)
+    rec["mrays_s"] = reps
+    rec["peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                       if dev.type == "cuda" else None)
+    wall_ms, events = trace_device(lambda: run(trace_passes), dev)
     busy_ms = union_us([(e.time_range.start, e.time_range.end)
                         for e in events]) / 1e3
     groups = {g: 0.0 for g, _ in GROUPS}
@@ -264,24 +312,53 @@ def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
         k = per_kernel.setdefault(e.name, [0.0, 0])
         k[0] += ms
         k[1] += 1
-    print(f"{name} profiled {passes} passes: wall {wall_ms:.2f} ms, device "
-          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), device "
-          f"events {len(events)} ({len(events) / passes:.0f} per pass)",
-          flush=True)
-    rows_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    print(f"   (sum over every key_averages() row, which counts a kernel under "
-          f"its aten op as well: {rows_ms:.2f} ms)")
-    for g, ms in groups.items():
-        share = 100 * ms / busy_ms if busy_ms else 0.0
-        print(f"   {g:>9}: {ms:9.3f} ms ({share:.1f}% of busy)")
+    rec.update(profiled_passes=trace_passes, wall_ms=wall_ms, busy_ms=busy_ms,
+               busy_ms_per_pass=busy_ms / trace_passes,
+               idle_share=1.0 - busy_ms / wall_ms,
+               events_per_pass=len(events) / trace_passes, groups_ms=groups)
+    # an eager pass's ~1,000 launches fill the launch queue behind the
+    # sleep of device_ms, so only a graph pass (one launch) is timed so
+    rec["device_ms_per_pass"] = rec["timed_idle_share"] = None
+    if dev.type == "cuda" and mode == "graph":
+        rec["device_ms_per_pass"] = device_ms(
+            lambda: run(1, block=False), launches=4, repeats=3)
+        # the timed renders' idle share: their wall time against the
+        # device's own time of as many passes
+        rec["timed_idle_share"] = [1.0 - rec["device_ms_per_pass"] * passes / w
+                                   for w in walls]
+        sync(dev)
+        t0 = time.perf_counter()
+        run(16, block=False)
+        rec["nonblocking_host_ms"] = (time.perf_counter() - t0) * 1e3
+        sync(dev)
     for kname, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"   {ms:9.3f} ms  x{n:5d}  {kname[:90]}")
-    rec = {"scene": name, "res": res, "passes": rpp, "mrays_s": reps,
-           "profiled_passes": passes, "wall_ms": wall_ms, "busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / wall_ms, "device_events": len(events),
-           "groups_ms": groups}
-    print(json.dumps(rec), flush=True)
     return rec
+
+
+def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
+                  top: int) -> list:
+    """The turns eager, graph, graph, eager on one scene (eager only on the
+    CPU); prints a line and a JSON record per turn."""
+    import rayzath_tpu_torch as rt
+    r = rt.Renderer(make_world(name, res),
+                    rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
+                    device=dev)
+    modes = (("eager", "graph", "graph", "eager") if dev.type == "cuda"
+             else ("eager",))
+    recs = []
+    for mode in modes:
+        rec = dict(scene=name, **cycle_turn(r, mode, dev, res, PASSES[name],
+                                            repeats, passes, top))
+        print(f"{name} {mode}: {rec['passes']} passes at "
+              + ", ".join(f"{x:.3f}" for x in rec["mrays_s"])
+              + f" Mrays/s; traced {passes} passes: wall {rec['wall_ms']:.2f} "
+              f"ms, device busy {rec['busy_ms']:.2f} ms, idle "
+              f"{100 * rec['idle_share']:.1f}%, {rec['events_per_pass']:.1f} "
+              f"device events per pass", flush=True)
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
 
 
 def main(argv=None) -> int:
