@@ -54,7 +54,7 @@ Phases, each of which raises on failure (exit code != 0):
    needed visits); and B1 and B2 on mesh_massive, whose table takes two
    windows (the plain versions on every 64th ray).
    Backward: B2's and B4's ``torch.autograd.Function`` (kernel forward,
-   dense replay backward) against autograd through their plain twins on
+   B2-grad / B4-grad backward) against autograd through their plain twins on
    the card, for every input, on ``lit_world`` (tests/test_gradients.py) at
    64^2 bounce-like rays with half the materials at alpha 0.55 (B2) and on
    a two-level instanced_field(n=3, resolution=12) likewise (B4): the
@@ -64,7 +64,20 @@ Phases, each of which raises on failure (exit code != 0):
    plain alpha is below 1e-4 (the kernels stop there) or that an f64
    Moller-Trumbore calls chaotic. Then device times of the plain torch
    pieces of this slice at 512^2: the texture fetch, the cutout pass and
-   B2's backward on textured_room.
+   B2's forward and forward + backward on textured_room. Then B2-grad
+   (``csrc/cluster_shadow_grad.cu``) on mesh_heavy and B4-grad
+   (``csrc/cluster_shadow_inst_grad.cu``) on instanced_field at 512^2 on
+   bounce-like rays with dist = BIG, half the materials translucent and
+   random cotangents: against ``cluster_shadow_grad_plain`` /
+   ``cluster_shadow_inst_grad_plain`` on every 8th / 16th ray (max |d g| /
+   max |g| <= 1e-3), whether two calls give the same bits (their atomics
+   add in no fixed order), device and call ms, the plain version's ms,
+   made visits (both walks) against the needed ones (the pairs on each
+   ray's line in (0, dist), each once, no stop; more than 2x needed per
+   walk fails) and the bound: operations the needed triangle tests x 49
+   (+ 33 per needed instance), each once, plus 2 per hit and channel (hits
+   counted on the plain version's rays and scaled), bytes each input once
+   plus the gradient table.
 3. End to end: cornell_box_nee and multi_light at 64^2, a two-level
    instanced_field(n=4, resolution=16), textured_room and the cutout world
    (each on both structures) at 64^2, depth 4, 4 passes, on the card
@@ -111,13 +124,33 @@ Phases, each of which raises on failure (exit code != 0):
    left out only where the two walks part on its f64-chaotic ray).
    mesh_massive (phase 2) also reports the skip-link tables' host time
    against its compile's.
-5. Training: ``parallel.train.training_step`` on textured_room(512, 512),
-   depth 3, 4 passes per step, remat, 3 steps at lr 0.01 against the same
-   scene with the panel's emission halved (with 2 passes the panel never
-   enters the image: pass 0 traces the initial placeholder rays, pass 1 the
-   camera's first hits); the loss finite and descending, the atlas update
-   finite and non-zero; seconds per step, peak device memory and the
-   by-value threefry entry's launches (``render_steps``, eager by design).
+5. Training on textured_room(512, 512), depth 3, 4 passes per step,
+   remat, lr 0.01 against the same scene with the panel's emission halved
+   (with 2 passes the panel never enters the image: pass 0 traces the
+   initial placeholder rays, pass 1 the camera's first hits), the
+   training cell of ``rayzath_tpu_torch/utils/check_train.py``: a first
+   and three timed eager steps (``train._eager_step``, by-value draw) and
+   the same with ``training_step`` (one captured CUDA graph per step,
+   keyed draw): s per step, capture ms, peak GiB; the first graph step's
+   loss bit for bit as the first eager step's, its parameters within 1e-4
+   of the max |step|; after every eager and graph step the parameters
+   finite and the atlas moved; the losses finite and descending; B2-grad
+   launched in both. Then B2-grad against ``cluster_shadow_grad_plain``
+   on the arguments (rays, dist, tables, cotangents) of every shadow
+   backward of one more eager step, all 262,144 rays (max |d g| / max |g|
+   <= 1e-3, and 0 exactly where the plain gradient is 0), as given and
+   with half the materials translucent in the opacity table (the scene is
+   opaque, so the gradient as given may be 0 throughout; with the
+   translucent table some call must have one). Then, through
+   ``tools/profile_torch.py``, one eager step under torch.profiler, split
+   into device ms of the forward passes, the checkpointed recompute, the
+   shadow backward (B2-grad), the rest of the backward and the update,
+   with its wall ms and idle share. Then one
+   two-level ``training_step`` on instanced_field at 512^2
+   (``differentiable=True``): the loss finite, the materials' update
+   non-zero, B4-grad launched; and B4-grad against its plain version on
+   the arguments of one eager two-level step, every 32nd ray, in the same
+   two cases.
 6. The front ends and the row-band runtime, at 512^2, depth 8 (training:
    depth 3, 4 passes). The headless runner in process (``Headless().run``
    with images saved, as ``-r``) on a task file of multi_light (soup) and
@@ -140,8 +173,9 @@ Phases, each of which raises on failure (exit code != 0):
    bit-identical and each time. ``--scaling cornell_box_nee`` (its n = 1
    report on a one-card host). ``torch.distributed`` on NCCL at world size
    1: ``gather_image`` equals the plain render bit for bit.
-   ``sharded_training_step`` over 2 bands of textured_room against phase
-   5's first step: loss to rtol 1e-4, the update to 1e-4 of the step.
+   ``sharded_training_step`` over 2 bands of textured_room (eager)
+   against phase 5's first graph step: loss to rtol 1e-4, the update to
+   1e-4 of the step.
 7. The render cycle (``engine/cycle.py``, the counterpart of the JAX
    package's jitted, donated ``render_steps``): on cornell_box_nee,
    multi_light, mesh_heavy, instanced_field, textured_room and the cutout
@@ -160,18 +194,21 @@ Phases, each of which raises on failure (exit code != 0):
 The last lines of standard output are the render cycle's JSON record
 (``{"render_cycle": ...}``), the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and the result line
-``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4 and the
+``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4, the
 threefry kernel's two entries (``"replaces": null``: the JAX package draws
-in XLA), each with its launches in the paths driven with the counters set
-to 0 just before and read just after: phase 4's renders (B1-B4 and the
-keyed draw), the skip-link renders (the keyed draw), phase 5's training
-steps (the by-value draw), phase 6's headless run and phase 7's turns;
+in XLA) and B2-grad and B4-grad (``replaces``: the custom_vjp bwd rules,
+a dense replay in XLA), each with its launches in the paths driven with
+the counters set to 0 just before and read just after: phase 4's renders
+(B1-B4 and the keyed draw), the skip-link renders (the keyed draw), phase
+5's training steps (B1, B2, B2-grad and both draws; the two-level step
+B3, B4 and B4-grad), phase 6's headless run and phase 7's turns;
 ``ms`` its device time and ``call_ms`` its call's time. It fails if a
 kernel never launched. Needs one CUDA device and nvcc; there is no CPU
 fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -185,6 +222,10 @@ INST_SCENES = (("instanced_field", 16), ("multi_light", 1))  # (scene, stride)
 RES = 512
 PLAIN_BUDGET_MS = 8000.0     # timing budget of one plain version per scene
 BACKWARD_RTOL = 1e-3         # B2/B4 backward against the plain twins' autograd
+# a training step's updated parameters against another route's (graph
+# against eager, row bands against unsharded), of the max |step|: the
+# backwards' atomics add in no fixed order
+TRAIN_RTOL = 1e-4
 # cluster tests per ray at most this many times the needed visits: a walk
 # without the front-to-back order and its stop also tests clusters behind
 # the (opaque) hits
@@ -1054,11 +1095,135 @@ def phase_backward(card: str, dev):
     t_cut = call_ms(lambda: I.texture_shadow_factor(cscene, co, cd, dist), 20)
     print(f"  plain pieces at {RES}^2 [{card}]: texture fetch (color atlas) "
           f"{t_fetch:.3f} ms; cutout pass ({cscene.n_cutout} cutouts) "
-          f"{t_cut:.3f} ms; B2 Function forward (kernel) {t_fwd:.3f} ms, "
-          f"forward + backward (dense replay over {scene.tri_v0.shape[0]} "
-          f"triangles) {t_bwd:.3f} ms, peak {peak:.2f} GiB", flush=True)
+          f"{t_cut:.3f} ms; B2 Function on textured_room "
+          f"({scene.tri_v0.shape[0]} triangles) forward (B2) {t_fwd:.3f} ms, "
+          f"forward + backward (B2-grad) {t_bwd:.3f} ms, peak {peak:.2f} GiB",
+          flush=True)
     out["times"] = dict(fetch_ms=t_fetch, cutout_ms=t_cut, b2_fwd_ms=t_fwd,
                         b2_fwd_bwd_ms=t_bwd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the shadow backwards at size: B2-grad and B4-grad
+# ---------------------------------------------------------------------------
+
+# the plain backwards on every n-th ray (two walks of [R, 4, 128] terms per
+# cluster: all 262,144 rays would take tens of seconds a call)
+GRAD_STRIDE = {"mesh_heavy": 8, "instanced_field": 16}
+# operations of one hit's share per channel: the division (or the select of
+# B) and the add
+SCATTER_OPS = 2
+# B2-grad and B4-grad walk each block's clusters twice by design (walk 1
+# folds the products, walk 2 scatters the shares), where the function needs
+# each (ray, cluster) pair tested once: their made visits are held to
+# MADE_PER_NEEDED x the needed ones per walk
+GRAD_WALKS = 2
+# B4-grad's plain version on every n-th ray of a two-level training step's
+# shadow calls (four calls, each held twice)
+STEP_GRAD_STRIDE = 32
+
+
+def check_grad_kernel(card: str, dev, name: str) -> dict:
+    """B2-grad (mesh_heavy, soup) or B4-grad (instanced_field, two-level)
+    at 512^2 on bounce-like rays in the integrator's order, dist = BIG,
+    half the materials translucent, cotangents from a numpy seed: the
+    kernel against its plain version on every GRAD_STRIDE-th ray (max
+    |d g| / max |g| <= BACKWARD_RTOL), whether two calls on all rays give
+    the same bits (the atomics' order), device and call ms on all rays, the
+    plain version's ms on its rays, made visits (both walks) against the
+    needed ones (the (instance,) cluster pairs on each ray's line in (0,
+    dist), each once: no stop) and the bound (each needed pair tested once,
+    each hit's share scattered once)."""
+    import numpy as np
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.ops.intersect import BIG
+    from rayzath_tpu_torch.utils import check_tables as ct
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    two_level = name == "instanced_field"
+    t0 = time.perf_counter()
+    scene, _, (o, d) = (inst_scene_rays if two_level else scene_rays)(name, dev)
+    r = RES * RES
+    near = torch.zeros(r, device=dev)
+    o, d, (near,) = coherent_order(scene, o, d, (near,))
+    dist = torch.full((r,), BIG, device=dev)
+    g = torch.as_tensor(np.random.default_rng(31).normal(size=(r, 4))
+                        .astype(np.float32), device=dev)
+    g_rgb, g_a = g[:, :3].contiguous(), g[:, 3].contiguous()
+    mc = half_translucent(scene.mat_color)
+    if two_level:
+        label = "B4-grad"
+        kernel, plain = tc.cluster_shadow_inst_grad, tc.cluster_shadow_inst_grad_plain
+        tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot,
+                tc.instance_opacity(mc, scene.inst_slot_map))
+    else:
+        label = "B2-grad"
+        kernel, plain = tc.cluster_shadow_grad, tc.cluster_shadow_grad_plain
+        mat = mc[scene.tri_mat.long()]
+        tabs = (scene.cl_box, scene.cl_lw,
+                tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                                   scene.cl_base, scene.cl_count))
+    stride = GRAD_STRIDE[name]
+    sub = torch.arange(0, r, stride, device=dev)
+    sub_args = [x[sub].contiguous() for x in (o, d, dist)]
+    sub_g = [x[sub].contiguous() for x in (g_rgb, g_a)]
+    got = kernel(*sub_args, *tabs, *sub_g)
+    ref = plain(*sub_args, *tabs, *sub_g)
+    full = [kernel(o, d, dist, *tabs, g_rgb, g_a) for _ in range(2)]
+    torch.cuda.synchronize()
+    max_abs = float((got - ref).abs().max())
+    err = max_abs / float(ref.abs().max())
+    if not err <= BACKWARD_RTOL:
+        raise AssertionError(f"{name} {label}: max rel err {err:.3e} > "
+                             f"{BACKWARD_RTOL}")
+    same_bits = bool(torch.equal(full[0], full[1]))
+    k_call = call_ms(lambda: kernel(o, d, dist, *tabs, g_rgb, g_a), 20)
+    k_dev = device_ms(lambda: kernel(o, d, dist, *tabs, g_rgb, g_a))
+    p_ms, n_runs = plain_runs(lambda: plain(*sub_args, *tabs, *sub_g))
+    made, staged = visits_made(lambda v: kernel(o, d, dist, *tabs, g_rgb, g_a,
+                                                visits=v), r)
+    zero = torch.zeros(r, device=dev)
+    d_op_bytes = tabs[-1].numel() * 4
+    if two_level:
+        pairs, tests, ipairs, cl, insts, real = ct.needed_inst(
+            o, d, zero, dist, scene.ti_rows, scene.cl_obox)
+        hits = stride * ct.shadow_hits_inst(*sub_args, *tabs[:3])
+        n_bytes = (r * (28 + 16) + cl * (FRAME_BYTES + 32 + 512) + real * 96
+                   + insts * 4 * 64 * 4 + d_op_bytes)
+        n_ops = tests * TEST_OPS + ipairs * TO_OBJECT_OPS
+    else:
+        pairs, tests, rows, real = ct.needed_soup(o, d, zero, dist, scene.cl_box)
+        hits = stride * ct.shadow_hits(*sub_args, *tabs[:2])
+        n_bytes = r * (28 + 16) + rows * (FRAME_BYTES + 2048) + real * 32 + d_op_bytes
+        n_ops = tests * TEST_OPS
+    n_ops += hits * 4 * SCATTER_OPS
+    needed = pairs / r
+    check_made(f"{name} {label} (per walk)", made / GRAD_WALKS, needed)
+    b = bound(n_bytes, n_ops)
+    print(f"  {name} {label} [{card}]: against the plain version on "
+          f"{len(sub)} rays max rel err {err:.3e} (max abs {max_abs:.3e}); "
+          f"two calls on {r} rays bit for bit: {'yes' if same_bits else 'no'}; "
+          f"kernel {k_dev:.4f} ms on the device (call {k_call:.3f} ms) on {r} "
+          f"rays, plain {p_ms:.3f} ms on {len(sub)} (median of 20 / {n_runs}), "
+          f"bound {b[0]:.4f} ms ({b[1]}; {hits} hits, scaled from every "
+          f"{stride}th ray), visits per ray {made:.3f} made ({GRAD_WALKS} "
+          f"walks) / {needed:.3f} needed, {staged:.2f} clusters staged per "
+          f"block; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(ms=k_dev, call_ms=k_call, plain_ms=p_ms, rays=r,
+                plain_rays=len(sub), bound=b, needed_visits_per_ray=needed,
+                visits_per_ray=made, err=max_abs, rel_err=err,
+                same_bits=same_bits, scene=name)
+
+
+def phase_grad_kernels(card: str, dev) -> dict:
+    import torch
+    out = {}
+    for key, name in (("cluster_shadow_grad", "mesh_heavy"),
+                      ("cluster_shadow_inst_grad", "instanced_field")):
+        out[key] = check_grad_kernel(card, dev, name)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1293,6 +1458,8 @@ def path_wrappers() -> dict:
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
             "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
+            "B2-grad": tc.cluster_shadow_grad,
+            "B4-grad": tc.cluster_shadow_inst_grad,
             "threefry": rng.uniform_rows,
             "threefry_keyed": rng.uniform_rows_keyed}
 
@@ -1676,68 +1843,279 @@ def phase_skiplink(card: str, dev, launches: dict):
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """Calls of ``module.<name>`` (a kernel wrapper that a backward looks up
+    as a module global) go through a recorder that keeps a copy of each
+    call's positional arguments and then calls the wrapper; yields the list
+    of those argument tuples."""
+    import torch
+    fn = getattr(module, name)
+    calls = []
+
+    def record(*args, **kw):
+        calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                           else a for a in args))
+        return fn(*args, **kw)
+
+    # the wrapper adds its launches to the counter of the name it is bound
+    # to, here the recorder's
+    record.launches = 0
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_step_grads(label: str, kernel, plain, calls, stride: int,
+                    op_tab=None) -> dict:
+    """A shadow backward's kernel against its plain version on the
+    arguments ``calls`` that a training step gave it (every ``stride``-th
+    ray), with ``op_tab``, when given, in place of each call's opacity
+    table: max |d g| / max |g| <= BACKWARD_RTOL in each call whose plain
+    gradient is non-zero, and 0 exactly where it is 0 everywhere. Returns
+    the worst relative and absolute errors, the calls with a non-zero
+    gradient, the rays held, those with a finite shadow distance and those
+    with a cotangent."""
+    import torch
+    from rayzath_tpu_torch.ops.intersect import BIG
+    worst, worst_abs, rays, finite, with_g, scaled = 0.0, 0.0, 0, 0, 0, 0
+    for o, d, dist, *tabs, g_rgb, g_a in calls:
+        if op_tab is not None:
+            tabs[-1] = op_tab
+        sub = torch.arange(0, o.shape[0], stride, device=o.device)
+        ray_args = [x[sub].contiguous() for x in (o, d, dist)]
+        gs = [x[sub].contiguous() for x in (g_rgb, g_a)]
+        got, ref = kernel(*ray_args, *tabs, *gs), plain(*ray_args, *tabs, *gs)
+        torch.cuda.synchronize()
+        diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        if scale > 0.0:
+            scaled += 1
+            worst = max(worst, diff / scale)
+        elif diff != 0.0:
+            raise AssertionError(f"{label} on a training step's arguments: "
+                                 f"{diff} where the plain gradient is 0")
+        worst_abs = max(worst_abs, diff)
+        rays += len(sub)
+        finite += int((ray_args[2] < BIG).sum())
+        with_g += int(((gs[0] != 0).any(dim=1) | (gs[1] != 0)).sum())
+    if not worst <= BACKWARD_RTOL:
+        raise AssertionError(f"{label} on a training step's arguments: max "
+                             f"rel err {worst:.3e} (rtol {BACKWARD_RTOL})")
+    return dict(rel_err=worst, err=worst_abs, calls=len(calls),
+                with_grad=scaled, rays=rays, finite_dist=finite,
+                with_cotangent=with_g)
+
+
+def hold_step_grad_cases(label: str, kernel, plain, calls, stride: int,
+                         op_tab) -> dict:
+    """:func:`hold_step_grads` on the step's own arguments (on an opaque
+    scene their gradient may be 0 throughout: a blocked ray meets two
+    opaque faces of a closed mesh) and again with ``op_tab``, the scene's
+    table with half its materials translucent, where some call must have a
+    non-zero gradient. Returns both records, as "step" and "translucent"."""
+    out = {"step": hold_step_grads(label, kernel, plain, calls, stride),
+           "translucent": hold_step_grads(label, kernel, plain, calls, stride,
+                                          op_tab)}
+    if not out["translucent"]["with_grad"]:
+        raise AssertionError(f"{label} on a training step's arguments, half "
+                             f"the materials translucent: no call has a "
+                             f"gradient")
+    return out
+
+
+def grad_case_text(rec: dict) -> str:
+    a, b = rec["step"], rec["translucent"]
+    return (f"{a['calls']} calls, {a['rays']} rays, {a['finite_dist']} with "
+            f"a finite dist, {a['with_cotangent']} with a cotangent) against "
+            f"the plain version: as given {a['with_grad']} calls with a "
+            f"non-zero gradient, max rel err {a['rel_err']:.3e} (max abs "
+            f"{a['err']:.3e}); half the materials translucent "
+            f"{b['with_grad']} calls with a gradient, max rel err "
+            f"{b['rel_err']:.3e} (max abs {b['err']:.3e})")
+
+
+def check_steps(label: str, rec: dict) -> None:
+    """Every step of a ``check_train.timed_steps`` record left the
+    parameters finite and moved the atlas, and its losses are finite and
+    descend."""
+    for i, c in enumerate(rec["checks"]):
+        if not c["finite"]:
+            raise AssertionError(f"training: non-finite parameters after "
+                                 f"{label} step {i}")
+        if not c["atlas_step"] > 0.0:
+            raise AssertionError(f"training: {label} step {i} left the atlas "
+                                 f"as it was")
+    losses = rec["losses"]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"training: {label} loss not finite {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: {label} loss did not descend {losses}")
+
+
 def phase_train(card: str, dev, launches: dict):
-    """Three training steps; adds the by-value draw's launches of the steps
-    (``render_steps``, the route that stays eager) to ``launches``."""
+    """The training step at full width (the training cell of
+    ``utils/check_train.py``: textured_room at 512^2, depth 3, 4 passes per
+    step, remat, lr 0.01): a first and three timed eager steps
+    (``train._eager_step``) and the same with ``training_step`` (a capture,
+    then one replay per step). Gates: the first graph step's loss equal to
+    the first eager step's bit for bit and its updated parameters within
+    TRAIN_RTOL of the max |step|; every eager and graph step leaves the
+    parameters finite and moves the atlas; the losses finite and
+    descending. Then B2-grad against its plain version on the arguments of
+    every shadow backward of one more eager step (all rays; as given and
+    with half the materials translucent), and the split
+    of one eager step under torch.profiler (``tools/profile_torch.py``,
+    whose range wrappers are in place only for that step). Then one
+    two-level step on instanced_field at 512^2 (compiled with
+    ``differentiable=True``, B4-grad's path): a finite loss and a non-zero
+    update of the materials; and B4-grad against its plain version on one
+    eager two-level step's arguments in the same two cases (every
+    STEP_GRAD_STRIDE-th ray). Adds the
+    launches of the steps (every path kernel, counters at 0 just before;
+    the comparisons' launches left out) to ``launches``; returns what phase
+    6 compares its bands with."""
     import dataclasses
     import torch
     import rayzath_tpu_torch as rt
-    from rayzath_tpu_torch.engine.integrator import render_steps_preserve
+    from rayzath_tpu_torch.engine.integrator import render_steps
     from rayzath_tpu_torch.engine.state import init_state
     from rayzath_tpu_torch.models.device_scene import compile_world, compile_camera
     from rayzath_tpu_torch.ops import rng
-    from rayzath_tpu_torch.parallel.train import training_step
-    world = rt.scenes.textured_room(RES, RES)
-    scene = compile_world(world, device=dev)
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.parallel import train
+    from rayzath_tpu_torch.utils import check_train as ctr
+    setup = ctr.train_setup(dev, RES)
+    scene = setup["scene"]
+    passes, lr = ctr.TRAIN["passes"], ctr.TRAIN["lr"]
+    wrappers = path_wrappers()
+    for f in wrappers.values():
+        f.launches = 0
+    eager = ctr.timed_steps(train._eager_step, setup, dev)
+    eager_grads = wrappers["B2-grad"].launches
+    eager_draws = wrappers["threefry"].launches
+    train._STEPS.clear()
+    before = {k: f.launches for k, f in wrappers.items()}
+    graph = ctr.timed_steps(train.training_step, setup, dev)
+    step = train._STEPS[dev]
+    counts = {k: f.launches - before[k] for k, f in wrappers.items()}
+    steps = 1 + ctr.TRAIN["steps"]
+    if not (min(eager_grads, eager_draws, counts["B2-grad"],
+                counts["threefry_keyed"]) >= steps * passes):
+        raise AssertionError(f"training: launches eager B2-grad {eager_grads}, "
+                             f"by-value draw {eager_draws}, graph {counts} "
+                             f"over {steps} steps of {passes} passes")
+    (e_scene, e_loss), (g_scene, g_loss) = eager["first"], graph["first"]
+    if not torch.equal(e_loss, g_loss):
+        raise AssertionError(f"training: graph loss {float(g_loss)!r} against "
+                             f"eager {float(e_loss)!r}")
+    worst = 0.0
+    for k in train.DIFF_PARAMS:
+        change = float((getattr(e_scene, k) - getattr(scene, k)).abs().max())
+        diff = float((getattr(g_scene, k) - getattr(e_scene, k)).abs().max())
+        if diff > TRAIN_RTOL * max(change, 1e-30):
+            raise AssertionError(f"training: graph {k} differs by {diff}, step "
+                                 f"{change}")
+        worst = max(worst, diff / change if change else 0.0)
+    check_steps("eager", eager)
+    check_steps("graph", graph)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import profile_torch as pt
+    split = pt.split_step(lambda: ctr.step_call(train._eager_step, setup, scene,
+                                                dev), dev)
+    for k, f in wrappers.items():
+        launches[k] += f.launches
+    held = {k: f.launches for k, f in wrappers.items()}
+    with recorded_calls(tc, "cluster_shadow_grad") as calls:
+        ctr.step_call(train._eager_step, setup, scene, dev)
+    mat = half_translucent(scene.mat_color)[scene.tri_mat.long()]
+    b2 = hold_step_grad_cases(
+        "B2-grad", tc.cluster_shadow_grad, tc.cluster_shadow_grad_plain, calls,
+        1, tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                              scene.cl_base, scene.cl_count))
+    del calls
+    for k, f in wrappers.items():
+        f.launches = held[k]
+    sp = split["device_ms"]
+    print(f"training_step on textured_room {RES}^2, depth 3, {passes} passes "
+          f"per step, remat, lr {lr} [{card}]: split of an eager "
+          f"step: wall {split['wall_ms']:.1f} ms, device busy "
+          f"{split['busy_ms']:.1f} ms (idle {100 * split['idle_share']:.1f}%), "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sp.items())
+          + f" device ms ({split['unattributed_events']} of "
+          f"{split['device_events']} events unattributed); eager s per step "
+          f"{[round(x, 4) for x in eager['seconds']]} (first "
+          f"{eager['first_s']:.3f}), peak {eager['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 6) for x in eager['losses']]}; graph s per step "
+          f"{[round(x, 4) for x in graph['seconds']]} (capture call "
+          f"{graph['first_s']:.3f} s, capture {step.capture_ms:.1f} ms), peak "
+          f"{graph['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 6) for x in graph['losses']]}; first step: loss bit for "
+          f"bit, parameters within {worst:.2e} of the step; every eager and "
+          f"graph step: parameters finite, atlas moved (min "
+          f"{min(c['atlas_step'] for c in eager['checks'] + graph['checks']):.3e}"
+          f"); launches per graph run {counts}; B2-grad on an eager step's "
+          f"own arguments ({grad_case_text(b2)}", flush=True)
+
+    # two-level: instanced_field at full width, B4-grad's path
+    world = rt.scenes.instanced_field(RES, RES)
+    iscene = compile_world(world, two_level=True, differentiable=True, device=dev)
     cam = compile_camera(world.cameras[0], dev)
-    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=3))
-    passes, lr, seed = 4, 0.01, 11
-    panel = [m.name for m in world.materials].index("panel") + 2
-    emission = scene.mat_emission.clone()
-    emission[panel] *= 0.5
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=3), two_level=True)
+    dim = iscene.mat_color.clone()
+    dim[2:, :3] *= 0.8
     with torch.no_grad():
-        st = render_steps_preserve(dataclasses.replace(scene, mat_emission=emission),
-                                   cam, cfg, init_state(RES, RES, dev),
-                                   rng.key(seed), passes)
+        st = render_steps(dataclasses.replace(iscene, mat_color=dim), cam, cfg,
+                          init_state(RES, RES, dev), rng.key(12), passes)
     target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
-    torch.cuda.synchronize()
+    for f in wrappers.values():
+        f.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    losses, times, first = [], [], None
-    s = scene
-    rng.uniform_rows.launches = 0
-    for _ in range(3):
-        t0 = time.perf_counter()
-        s_new, _, loss = training_step(s, cam, cfg, init_state(RES, RES, dev),
-                                       seed, target, lr, passes, remat=True)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        step = s_new.color_atlas - s.color_atlas
-        if not bool(torch.isfinite(s_new.color_atlas).all()):
-            raise AssertionError("training: non-finite atlas after a step")
-        if not float(step.abs().max()) > 0.0:
-            raise AssertionError("training: the atlas gradient is zero")
-        losses.append(float(loss))
-        first = first or (s_new, float(loss))
-        s = s_new
+    t0 = time.perf_counter()
+    new, _, loss = train.training_step(iscene, cam, cfg, init_state(RES, RES, dev),
+                                       12, target, lr, passes, remat=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    update = float((new.mat_color - iscene.mat_color)[2:].abs().max())
+    grads = wrappers["B4-grad"].launches
+    if not (float(loss) == float(loss) and abs(float(loss)) != float("inf")):
+        raise AssertionError(f"two-level training: loss {float(loss)}")
+    if not (grads >= passes and update > 0.0):
+        raise AssertionError(f"two-level training: B4-grad launches {grads}, "
+                             f"material update {update}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    drawn = rng.uniform_rows.launches
-    if drawn < 3 * passes:
-        raise AssertionError(f"training: threefry launched {drawn} times in "
-                             f"{3 * passes} passes")
-    launches["threefry"] += drawn
-    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
-        raise AssertionError(f"training: loss not finite {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training: loss did not descend {losses}")
-    print(f"training_step on textured_room {RES}^2, depth 3, {passes} passes per "
-          f"step, remat, lr {lr}: losses {[f'{x:.6f}' for x in losses]}, "
-          f"seconds per step {[f'{x:.3f}' for x in times]}, peak device memory "
-          f"{peak:.2f} GiB, panel emission {float(scene.mat_emission[panel]):.4f}"
-          f" -> {float(s.mat_emission[panel]):.4f}, threefry launches {drawn} "
-          f"[{card}]", flush=True)
-    return dict(losses=losses, seconds=times, peak_gib=peak, scene=scene,
-                cam=cam, cfg=cfg, target=target, seed=seed, lr=lr,
-                passes=passes, first=first)
+    for k, f in wrappers.items():
+        launches[k] += f.launches
+    held = {k: f.launches for k, f in wrappers.items()}
+    capture_ms = train._STEPS[dev].capture_ms
+    train._STEPS.clear()
+    stride = STEP_GRAD_STRIDE
+    with recorded_calls(tc, "cluster_shadow_inst_grad") as calls:
+        train._eager_step(iscene, cam, cfg, init_state(RES, RES, dev), 12,
+                          target, lr, passes, remat=True)
+    b4 = hold_step_grad_cases(
+        "B4-grad", tc.cluster_shadow_inst_grad,
+        tc.cluster_shadow_inst_grad_plain, calls, stride,
+        tc.instance_opacity(half_translucent(iscene.mat_color),
+                            iscene.inst_slot_map))
+    del calls
+    for k, f in wrappers.items():
+        f.launches = held[k]
+    print(f"two-level training_step on instanced_field {RES}^2 "
+          f"({iscene.exp_tri.shape[0]} expanded triangles), depth 3, {passes} "
+          f"passes, remat: loss {float(loss):.6f}, max material update "
+          f"{update:.3e}, {dt:.3f} s with the capture ({capture_ms:.1f} ms), "
+          f"peak {peak:.2f} GiB, B4-grad launches {grads}; B4-grad on an "
+          f"eager step's own arguments (every {stride}th ray: "
+          f"{grad_case_text(b4)} [{card}]", flush=True)
+    return dict(scene=scene, cam=setup["cam"], cfg=setup["cfg"],
+                target=setup["target"], seed=ctr.TRAIN["seed"], lr=lr,
+                passes=passes, first=(g_scene, float(g_loss)),
+                seconds=graph["seconds"], split=split,
+                eager_seconds=eager["seconds"],
+                step_grads={"cluster_shadow_grad": b2,
+                            "cluster_shadow_inst_grad": b4})
 
 
 # ---------------------------------------------------------------------------
@@ -1747,7 +2125,6 @@ def phase_train(card: str, dev, launches: dict):
 BAND_COUNTS = (1, 2, 4)
 BAND_PASSES = 4
 TRAIN_BANDS = 2
-TRAIN_RTOL = 1e-4     # sharded against unsharded step on the card (see below)
 
 
 def png_size(path) -> tuple[int, int]:
@@ -2040,12 +2417,12 @@ def phase_distributed(card: str, dev):
 
 
 def phase_sharded_train(card: str, dev, train: dict):
-    """``sharded_training_step`` over two bands on the card against phase
-    5's first unsharded step, same scene, target and seed. On the card the
-    bands are coherence-sorted on their own (B2's products may differ in
-    the last bits) and the dense shadow replay takes other chunks, so the
-    gate is a tolerance: loss to rtol 1e-4 and the updated parameters to
-    1e-4 of their max |step|."""
+    """``sharded_training_step`` over two bands on the card (eager, with
+    the B2-grad backward) against phase 5's first graph step, same scene,
+    target and seed. On the card the bands are coherence-sorted on their
+    own (B2's products may differ in the last bits) and B2-grad's atomics
+    add in no fixed order, so the gate is a tolerance: loss to rtol 1e-4
+    and the updated parameters to 1e-4 of their max |step|."""
     import torch
     from rayzath_tpu_torch.engine.state import init_state
     from rayzath_tpu_torch.parallel.mesh import sharded_training_step
@@ -2077,7 +2454,7 @@ def phase_sharded_train(card: str, dev, train: dict):
           f"{RES}^2 depth 3, {train['passes']} passes, remat: loss "
           f"{float(loss):.6f} against {ref_loss:.6f}, update within "
           f"{worst:.2e} of the step; seconds per step "
-          f"{[f'{x:.3f}' for x in times]} (unsharded "
+          f"{[f'{x:.3f}' for x in times]} (unsharded, graph "
           f"{[f'{x:.3f}' for x in train['seconds']]}) [{card}]", flush=True)
 
 
@@ -2216,6 +2593,7 @@ def main() -> int:
     phase_shadow_tables(dev)
     phase_massive(card, dev)
     backward = phase_backward(card, dev)
+    grads = phase_grad_kernels(card, dev)
     print(f"phase 2 (kernel vs plain, backward) "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
@@ -2268,6 +2646,26 @@ def main() -> int:
         if name in backward:
             record[-1].update(backward_max_rel_err=backward[name],
                               backward_rtol=BACKWARD_RTOL)
+    # the shadow backwards replace the JAX package's custom_vjp bwd rules
+    # (a dense replay compiled by XLA, not a Pallas kernel); B2-grad on
+    # mesh_heavy, B4-grad on instanced_field, bounce-like rays, dist = BIG
+    for label, name, line in (("B2-grad", "cluster_shadow_grad", 1327),
+                              ("B4-grad", "cluster_shadow_inst_grad", 1957)):
+        m = grads[name]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": f"rayzath_tpu_torch/csrc/{name}.cu",
+            "replaces": f"rayzath_tpu/ops/traverse_cluster.py:{line}",
+            "launches": launches[label], "max_abs_err": m["err"],
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+            "library_ms": None, "scene": m["scene"], "rays": m["rays"],
+            "plain_rays": m["plain_rays"],
+            "needed_visits_per_ray": m["needed_visits_per_ray"],
+            "visits_per_ray": m["visits_per_ray"], "max_rel_err": m["rel_err"],
+            "rtol": BACKWARD_RTOL, "same_bits_twice": m["same_bits"],
+            "training_step_max_rel_err": max(
+                c["rel_err"] for c in train["step_grads"][name].values())})
     # the draw replaces no TPU kernel (the JAX package draws in XLA); both
     # entries timed on one 512^2 pass at ns = 14, bit for bit to the plain
     # draw; the keyed entry (the render cycle's) folds the pass key on the

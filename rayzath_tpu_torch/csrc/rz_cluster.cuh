@@ -1,6 +1,7 @@
 // Shared device helpers of the cluster traversal kernels
 // (cluster_closest.cu, cluster_shadow.cu, cluster_closest_inst.cu,
-// cluster_shadow_inst.cu).
+// cluster_shadow_inst.cu) and of the shadow backwards
+// (cluster_shadow_grad.cu, cluster_shadow_inst_grad.cu).
 //
 // Table layouts (built on the host by ops/traverse_cluster.py
 // build_cluster_tables / build_instance_tables and
@@ -35,6 +36,13 @@
 // each ray that needs it is tested by a whole warp, one triangle slot per
 // lane. The per-ray test is the kernel's: closest hit reduces a (t, slot)
 // minimum, shadow a product of rgba opacities.
+//
+// The shadow backwards (B2-grad, B4-grad) walk the same way twice with no
+// alpha stop: the first walk keeps each ray's product of non-zero factors
+// and its count of zero factors (grad_test_ray), the second visits the same
+// clusters and adds each hit's share of the gradient (scatter_test_ray)
+// into a block accumulator in shared memory, which flush_acc adds to the
+// gradient table with one atomicAdd per entry per visit.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -154,6 +162,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BATCH = 32;            // candidates per block vote (one mask bit each)
 constexpr int RANK_MAX = 4096;       // table rows per ranked window (8 B each)
+constexpr int B2_GRAD = 5;           // kernel_smem's number of B2-grad
+constexpr int B4_GRAD = 6;           // and of B4-grad
 constexpr int SWEEP_MAX = 8;         // B3/B4: meshes of <= 8 clusters are swept in order
 constexpr int CL_WINDOW = 512;       // B3/B4: cluster rows per ranked window of one mesh
 constexpr u64 NO_CAND = ~0ull;       // empty slot of a candidate list
@@ -163,6 +173,11 @@ constexpr float ALPHA_STOP = 1e-4f;  // B2/B4: a ray whose alpha is below it is 
 constexpr int B2_SIDE = 4 * CT;      // B2: the cluster's rgba opacity block op_tab[c]
 constexpr int B4_SIDE = CT;          // B4: the cluster's slot row cl_slot[s]
 constexpr int OP_ROW = 4 * SLOTS;    // B4: the visited instance's opacity row
+// the backwards' region: each ray's two coefficient rows [2][4][THREADS]
+// and the block accumulator of one visit (B2-grad: [4][CT]; B4-grad:
+// [4][SLOTS] of the visited instance)
+constexpr int GRAD_ACC = 4 * CT;
+constexpr int GRAD_BYTES = 2 * 4 * THREADS * 4 + GRAD_ACC * 4;
 
 // The closest-hit gate's t limit: a box is entered no later than best_t,
 // widened by GATE_PAD of |best_t|. The slack only adds visits; it keeps a
@@ -200,7 +215,8 @@ __device__ __forceinline__ int pow2_at_least(int n) {
 // Shared memory of a block: two frame buffers, the vote words, the
 // feasible-candidate counter, the block's rays and their per-visit results
 // for the cooperative tests; for a shadow kernel two side-row buffers, the
-// per-visit products and (B4) the instance's opacity row; then the
+// per-visit products and (B4) the instance's opacity row; for a shadow
+// backward the coefficients and the accumulator (GRAD_BYTES); then the
 // candidate lists (8 B per row).
 struct Shared {
   float* ring;          // [2][FRAME_FLOATS]
@@ -214,6 +230,8 @@ struct Shared {
   float* side;          // shadow: [2][side floats], beside the two frame buffers
   float4* prod;         // shadow: [THREADS]: each tested ray's rgba product
   float* op_row;        // B4: [OP_ROW]: the visited instance's opacity row
+  float* coef;          // backward: [2][4][THREADS]: each ray's A and B rows
+  float* acc;           // backward: [GRAD_ACC]: one visit's gradient sums
   u64* keys;            // candidate lists
 };
 
@@ -231,8 +249,10 @@ __host__ __device__ constexpr int shadow_bytes(int side, int op_row) {
   return side == 0 ? 0 : 2 * side * 4 + THREADS * 16 + op_row * 4;
 }
 
+// grad_bytes: GRAD_BYTES for a shadow backward, else 0.
 __device__ __forceinline__ Shared shared_layout(unsigned char* smem,
-                                                int side = 0, int op_row = 0) {
+                                                int side = 0, int op_row = 0,
+                                                int grad_bytes = 0) {
   Shared s;
   s.ring = reinterpret_cast<float*>(smem);
   s.votes = reinterpret_cast<unsigned*>(smem + OFF_VOTES);
@@ -245,7 +265,10 @@ __device__ __forceinline__ Shared shared_layout(unsigned char* smem,
   s.prod = reinterpret_cast<float4*>(smem + SHARED_HEAD + 2 * side * 4);
   s.op_row = reinterpret_cast<float*>(smem + SHARED_HEAD + 2 * side * 4 +
                                       THREADS * 16);
-  s.keys = reinterpret_cast<u64*>(smem + SHARED_HEAD + shadow_bytes(side, op_row));
+  unsigned char* grad = smem + SHARED_HEAD + shadow_bytes(side, op_row);
+  s.coef = reinterpret_cast<float*>(grad);
+  s.acc = reinterpret_cast<float*>(grad + 2 * 4 * THREADS * 4);
+  s.keys = reinterpret_cast<u64*>(grad + grad_bytes);
   return s;
 }
 
@@ -573,6 +596,135 @@ __device__ __forceinline__ void shadow_test_ray(const Shared& sh,
   if (lane == 0) sh.prod[r] = make_float4(m[0], m[1], m[2], m[3]);
 }
 
+// The first walk of a shadow backward: one ray's tests against the staged
+// cluster, by one warp, as shadow_test_ray, with no alpha stop and zeros
+// kept apart: per channel the product of the non-zero factors of its hits
+// with t in (0, dist) and the number of zero factors. Lane 0 writes the
+// product to prod[r] and the four counts, 16 bits each, to res[r] (at most
+// 128 a cluster).
+template <class Factor>
+__device__ __forceinline__ void grad_test_ray(const Shared& sh,
+                                              const float* fr,
+                                              const float* ctr, int cnt,
+                                              int r, Factor factor) {
+  const int lane = threadIdx.x & 31;
+  float p[3], d[3];
+  const float dist = ray_slot(sh, ctr, r, p, d);
+  float m[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  unsigned z[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < CT / 32; ++q) {
+    const int j = lane + 32 * q;
+    if (j < cnt) {
+      bool inside;
+      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2], inside);
+      if (inside && t > 0.0f && t < dist) {
+        float f[4];
+        factor(j, f);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (f[k] == 0.0f)
+            ++z[k];
+          else
+            m[k] = m[k] * f[k];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = m[k] * __shfl_xor_sync(FULL, m[k], s);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) z[k] = __reduce_add_sync(FULL, z[k]);
+  if (lane == 0) {
+    sh.prod[r] = make_float4(m[0], m[1], m[2], m[3]);
+    sh.res[r] = (u64)z[0] | ((u64)z[1] << 16) | ((u64)z[2] << 32) |
+                ((u64)z[3] << 48);
+  }
+}
+
+// Count k (0-3) of a ray's packed zero counts (grad_test_ray).
+__device__ __forceinline__ unsigned zero_count(u64 packed, int k) {
+  return (unsigned)(packed >> (16 * k)) & 0xffffu;
+}
+
+// The coefficients of a ray with cotangent g, product of non-zero factors
+// P and zero count z (per channel k), published in coef for the second
+// walk: A = g P when the ray has no zero factor (a hit of factor f != 0
+// then gets A / f, the product of the other factors times g), B = g P when
+// it has exactly one (that zero factor gets B, the others nothing), else
+// 0. Returns whether either is non-zero on some channel.
+__device__ __forceinline__ bool store_coef(const Shared& sh, const float* g,
+                                           const float* P, const unsigned* z) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float gp = g[k] * P[k];
+    const float a = z[k] == 0u ? gp : 0.0f;
+    const float b = z[k] == 1u ? gp : 0.0f;
+    sh.coef[k * THREADS + threadIdx.x] = a;
+    sh.coef[(4 + k) * THREADS + threadIdx.x] = b;
+    any = any || a != 0.0f || b != 0.0f;
+  }
+  return any;
+}
+
+// The second walk of a shadow backward: one ray's tests against the staged
+// cluster, by one warp; for each hit j with t in (0, dist), per channel k
+// of factor f, the lane adds A / f (f != 0) or B (f == 0) of the ray's
+// coefficients (store_coef), where non-zero, with add(j, k, value) into
+// the block accumulator (a shared-memory atomicAdd: other warps test other
+// rays against the same slots).
+template <class Factor, class Add>
+__device__ __forceinline__ void scatter_test_ray(const Shared& sh,
+                                                 const float* fr,
+                                                 const float* ctr, int cnt,
+                                                 int r, Factor factor,
+                                                 Add add) {
+  const int lane = threadIdx.x & 31;
+  float p[3], d[3];
+  const float dist = ray_slot(sh, ctr, r, p, d);
+  float a[4], b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k] = sh.coef[k * THREADS + r];
+    b[k] = sh.coef[(4 + k) * THREADS + r];
+  }
+#pragma unroll
+  for (int q = 0; q < CT / 32; ++q) {
+    const int j = lane + 32 * q;
+    if (j < cnt) {
+      bool inside;
+      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2], inside);
+      if (inside && t > 0.0f && t < dist) {
+        float f[4];
+        factor(j, f);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float v = f[k] != 0.0f ? a[k] / f[k] : b[k];
+          if (v != 0.0f) add(j, k, v);
+        }
+      }
+    }
+  }
+}
+
+// Add the block accumulator's n floats to dst, one atomicAdd per non-zero
+// entry, and clear them, the block's threads in turn. Every thread calls
+// it after the barrier that ends a visit's tests (the next visit's tests
+// start after their own barrier); thread i owns entries i, i + THREADS, ...
+__device__ __forceinline__ void flush_acc(float* acc, float* __restrict__ dst,
+                                          int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float v = acc[i];
+    if (v != 0.0f) {
+      atomicAdd(dst + i, v);
+      acc[i] = 0.0f;
+    }
+  }
+}
+
 // The cooperative tests of one visit: the rays marked in mask[] are dealt
 // to the warps in turn (the i-th marked ray to warp i % WARPS), and the
 // warp runs test_one(r) for each of its rays.
@@ -595,6 +747,11 @@ __device__ __forceinline__ void test_rays(const Shared& sh, TestOne test_one) {
 struct NoSide {
   __device__ void operator()(int, int) const {}
 };
+// No block-wide step after a visit (every kernel but the backwards' second
+// walk).
+struct NoAfter {
+  __device__ void operator()(int) const {}
+};
 struct ClosestTest {
   const Shared& sh;
   __device__ void operator()(const float* fr, int, const float* ctr, int cnt,
@@ -613,10 +770,11 @@ struct ClosestTest {
 // retires the other buffer, the warps test the marked rays cooperatively
 // (test(frames, buf, ctr, cnt, r), against the rays' slots of store_ray
 // and the box centre center(row, ctr)), and after a second barrier each
-// marked thread takes its result with apply(row). Every thread calls this
-// with the same n and list (block-uniform).
+// marked thread takes its result with apply(row) and every thread runs
+// after(row). Every thread calls this with the same n and list
+// (block-uniform).
 template <class Need, class Reach, class Center, class Side, class Test,
-          class Apply>
+          class Apply, class After = NoAfter>
 __device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
                                               const u64* keys, int n,
                                               bool active,
@@ -624,7 +782,8 @@ __device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
                                               int* block_visits, Need need,
                                               Reach reach, Center center,
                                               Side side, Test test,
-                                              Apply apply) {
+                                              Apply apply,
+                                              After after = After()) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   auto stage = [&](int buf, int row) {
     stage_rows(sh.ring + buf * FRAME_FLOATS, frames + (size_t)row * FRAME_FLOATS,
@@ -659,6 +818,7 @@ __device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
       test_rays(sh, [&](int r) { test(fr, buf, ctr, cnt, r); });
       __syncthreads();  // results visible
       if (mine) apply(cur);
+      after(cur);
     }
   }
 }
@@ -688,16 +848,21 @@ inline int rank_rows_for(int table_rows) {
   return p;
 }
 
-// Host: dynamic shared memory of kernel B<kernel> (1-4) over table_rows
-// rows: the candidate list of one window of them (B1/B2: cluster rows;
-// B3/B4: instance rows, plus one window of a mesh's clusters) and the
-// kernel's shadow regions.
+// Host: dynamic shared memory of kernel B<kernel> (1-4; 5: B2-grad, 6:
+// B4-grad) over table_rows rows: the candidate list of one window of them
+// (B1/B2: cluster rows; B3/B4: instance rows, plus one window of a mesh's
+// clusters) and the kernel's shadow and backward regions.
 inline size_t kernel_smem(int kernel, int table_rows) {
-  const int rows = rank_rows_for(table_rows) + (kernel >= 3 ? CL_WINDOW : 0);
-  const int shadow = kernel == 2   ? shadow_bytes(B2_SIDE, 0)
-                     : kernel == 4 ? shadow_bytes(B4_SIDE, OP_ROW)
-                                   : 0;
-  return (size_t)SHARED_HEAD + (size_t)shadow + (size_t)rows * sizeof(u64);
+  const bool inst = kernel == 3 || kernel == 4 || kernel == B4_GRAD;
+  const int rows = rank_rows_for(table_rows) + (inst ? CL_WINDOW : 0);
+  const int shadow = (kernel == 2 || kernel == B2_GRAD)
+                         ? shadow_bytes(B2_SIDE, 0)
+                     : (kernel == 4 || kernel == B4_GRAD)
+                         ? shadow_bytes(B4_SIDE, OP_ROW)
+                         : 0;
+  const int grad = (kernel == B2_GRAD || kernel == B4_GRAD) ? GRAD_BYTES : 0;
+  return (size_t)SHARED_HEAD + (size_t)shadow + (size_t)grad +
+         (size_t)rows * sizeof(u64);
 }
 
 // Host: launch-side opt-in above the default 48 KB of shared memory.

@@ -61,6 +61,37 @@ _CAMERA = ("position", "rot", "fov", "near_far", "focal_distance", "aperture",
            "exposure_time")
 
 
+def capture(warm_up, body, what: str, counted=COUNTED):
+    """Capture ``body()`` into a CUDA graph on a side stream of the current
+    device, after ``warm_up()`` there, as PyTorch's graph rules ask (the
+    first launch of every kernel, and the kernel build, run outside the
+    capture); ``thread_local`` capture, so other threads, autograd's device
+    thread among them, may launch into the capturing stream. The launch
+    counters of the wrappers ``counted`` are left as they were before the
+    capture. Returns (graph, ((wrapper, launches per replay), ...)); raises
+    ``RuntimeError`` naming ``what`` when the capture fails."""
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        warm_up()
+        before = [f.launches for f in counted]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                body()
+        except RuntimeError as e:
+            raise RuntimeError(f"{what} could not be captured into a CUDA "
+                               f"graph: {e}") from e
+        finally:
+            gained = [f.launches - b for f, b in zip(counted, before)]
+            for f, b in zip(counted, before):
+                f.launches = b      # capture launches nothing
+    current.wait_stream(side)       # the warm-up read the static buffers
+    return graph, tuple((f, k) for f, k in zip(counted, gained) if k)
+
+
 def _int32(v: int) -> int:
     """``v`` wrapped to int32, as the device pass counter holds it."""
     return ((int(v) + 2 ** 31) % 2 ** 32) - 2 ** 31
@@ -176,30 +207,12 @@ class RenderCycle:
             return self._graph
         self._drop_graph()      # and its memory pool, before capturing anew
         t0 = time.perf_counter()
-        current = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            # warm-up, as PyTorch's graph rules ask: the first launch of
-            # every kernel (and the kernel build) runs outside the capture;
-            # its result is dropped
-            bounce_step(scene, self.camera, cfg, st,
-                        rng.DeviceKey(self._words, self._pass), row0=row0)
-            before = [f.launches for f in COUNTED]
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self._step(scene, cfg, row0)
-            except RuntimeError as e:
-                raise RuntimeError(f"render cycle: the pass could not be "
-                                   f"captured into a CUDA graph: {e}") from e
-            finally:
-                gained = [f.launches - b for f, b in zip(COUNTED, before)]
-                for f, b in zip(COUNTED, before):
-                    f.launches = b      # capture launches nothing
-        current.wait_stream(side)       # the warm-up read the static state
-        self._per_replay = tuple((f, k) for f, k in zip(COUNTED, gained) if k)
+        # the warm-up pass's result is dropped: the static state stays
+        graph, self._per_replay = capture(
+            lambda: bounce_step(scene, self.camera, cfg, st,
+                                rng.DeviceKey(self._words, self._pass),
+                                row0=row0),
+            lambda: self._step(scene, cfg, row0), "render cycle: the pass")
         self._graph, self._graph_scene, self._graph_key = graph, scene, key
         self.captures += 1
         torch.cuda.synchronize()

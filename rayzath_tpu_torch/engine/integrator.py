@@ -37,11 +37,12 @@ runs: the captured render cycle of ``engine/cycle.py``), or injected
 Differentiable, as the JAX package is: discrete hit ids from the traversal
 kernels carry no gradient, and (t, b1, b2) are re-derived differentiably by
 ``refine_tri`` on the hit's triangle (path replay); the shadow kernels'
-autograd Functions replay their test densely in the backward; the
-free-flight scatter decision carries the JAX package's score-function
-ratios (forward value exactly 1). ``Renderer.render`` runs under
-``torch.no_grad``, so the serve path records no graph; ``render_steps(...,
-remat=True)`` checkpoints each bounce for training (parallel/train.py).
+autograd Functions take their gradient with the B2-grad / B4-grad kernels
+(ops/traverse_cluster.py); the free-flight scatter decision carries the
+JAX package's score-function ratios (forward value exactly 1).
+``Renderer.render`` runs under ``torch.no_grad``, so the serve path records
+no graph; ``render_steps(..., remat=True)`` checkpoints each bounce for
+training (parallel/train.py).
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ from ..ops.traverse_cluster import (cluster_closest, cluster_shadow,
 from ..ops.vec import (dot, normalize, lerp, reflect, halfway,
                        cosine_sample_hemisphere, sample_sphere,
                        sample_hemisphere, sample_disk, fresnel_specular_ratio,
-                       cross)
+                       cross, prod)
 from .config import RenderConfig
 from .state import RenderState, BIG, PATH_LIMIT
 
@@ -313,8 +314,8 @@ def texture_shadow_factor(scene: TorchScene, o, d, dist, chunk: int = 512):
         mid = scene.cut_map[sl][None].expand(r, c)
         tex = tex_ops.fetch_scene(scene, mid.reshape(-1), uv.reshape(-1, 2),
                                   atlas=0).reshape(r, c, 4)
-        rgb = rgb * torch.where(valid[..., None], tex[..., :3], 1.0).prod(dim=1)
-        a = a * torch.where(valid, 1.0 - tex[..., 3], 1.0).prod(dim=1)
+        rgb = rgb * prod(torch.where(valid[..., None], tex[..., :3], 1.0), 1)
+        a = a * prod(torch.where(valid, 1.0 - tex[..., 3], 1.0), 1)
     return rgb, a
 
 
@@ -797,12 +798,16 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
 # ---------------------------------------------------------------------------
 
 def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
-                 state: RenderState, key: rng.Key, n_steps: int,
+                 state: RenderState, key, n_steps: int,
                  row0: int = 0, remat: bool = False, u=None) -> RenderState:
     """Run ``n_steps`` cumulative bounce passes (the analog of the reference
     render cycle, cuda_engine_renderer.cu:125-186). Never mutates ``state``.
     Each pass runs under ``rng.fold_in(key, state.pass_idx)``, as the JAX
-    package's ``_render_steps_impl`` does; ``key`` is ``rng.key(seed)``.
+    package's ``_render_steps_impl`` does; ``key`` is ``rng.key(seed)``, or
+    an ``rng.DeviceKey`` whose counter holds ``state.pass_idx`` on the
+    device (the captured training step of ``parallel/train.py``: each
+    pass's key is then folded where the draw runs, from the counter plus
+    the pass's offset).
 
     ``remat``: one ``torch.utils.checkpoint`` per bounce, so a backward
     keeps only each bounce's input state and recomputes its graph. That is
@@ -811,11 +816,15 @@ def render_steps(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
     ``n_steps`` injected [R, ns] uniform tensors (see :func:`bounce_step`)."""
     for i in range(n_steps):
         ui = None if u is None else u[i]
-        k = rng.fold_in(key, state.pass_idx)
+        k = (rng.DeviceKey(key.words, key.pass_idx + i)
+             if isinstance(key, rng.DeviceKey)
+             else rng.fold_in(key, state.pass_idx))
         if remat and torch.is_grad_enabled():
+            # the pass draws no torch random numbers, so there is no RNG
+            # state to restore (and a captured step could not read it)
             state = torch.utils.checkpoint.checkpoint(
                 bounce_step, scene, cam, cfg, state, k, ui, row0,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
         else:
             state = bounce_step(scene, cam, cfg, state, k, u=ui, row0=row0)
     return state

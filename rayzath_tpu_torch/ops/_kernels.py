@@ -53,7 +53,16 @@ _SIGNATURES = {
     # n_rays, ip, rgb, a, visits (null: not counted), stream
     "rz_cluster_shadow_inst": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                _P, _P, _P],
-    # table rows, kernel (1-4: B1-B4) -> bytes of its dynamic shared memory
+    # origin, direction, dist, g_rgb, g_a, box_tab, frames, op_tab, n_rays,
+    # cp, d_op, visits (null: not counted), stream
+    "rz_cluster_shadow_grad": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                               _P, _P],
+    # origin, direction, dist, g_rgb, g_a, ti_rows, cl_obox, frames,
+    # cl_slot, op_tab, n_rays, ip, d_op, visits (null: not counted), stream
+    "rz_cluster_shadow_inst_grad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _P, _P, _P],
+    # table rows, kernel (1-4: B1-B4; 5, 6: B2-grad, B4-grad) -> bytes of
+    # its dynamic shared memory
     "rz_ranked_smem": [_I, _I],
     # out, pass key words k0, k1, row0, height, width, ns, stream
     "rz_threefry_uniform": [_P, _U, _U, _I, _I, _I, _I, _P],

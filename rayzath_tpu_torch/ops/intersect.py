@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from .vec import dot, cross
+from .vec import cross, dot, prod
 
 DET_EPS = 1e-7
 BIG = 3.402823466e38
@@ -130,7 +130,7 @@ def _shadow_block(origin, direction, dist, w, c, op):
     t, b1, b2, _ = _project_terms(origin, direction, w, c)
     valid = ((b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
              & (t > 0.0) & (t < dist[:, None]))                  # [R, chunk]
-    return torch.where(valid[:, :, None], op[None], 1.0).prod(dim=1)
+    return prod(torch.where(valid[:, :, None], op[None], 1.0), 1)
 
 
 def project_shadow(origin, direction, dist, tri_w, tri_c, op_rgb, op_a,
@@ -156,8 +156,9 @@ def project_shadow(origin, direction, dist, tri_w, tri_c, op_rgb, op_a,
         args = (origin, direction, dist, w3[:, :, sl].reshape(3, -1),
                 c3[:, sl].reshape(-1), op[sl])
         if grad:
-            blk = torch.utils.checkpoint.checkpoint(_shadow_block, *args,
-                                                    use_reentrant=False)
+            blk = torch.utils.checkpoint.checkpoint(
+                _shadow_block, *args, use_reentrant=False,
+                preserve_rng_state=False)         # it draws no torch numbers
         else:
             blk = _shadow_block(*args)
         m = m * blk

@@ -46,8 +46,17 @@ conservatively, so both return the same hits.
 The closest-hit entries return discrete hits and carry no gradient. The
 shadow entries are ``torch.autograd.Function``s when an input requires
 grad: the forward is the kernel (or the plain version on the CPU), the
-backward replays the shadow test densely through ``ops/intersect.py``
-``project_shadow``, as the JAX package's custom_vjp rules do.
+backward the hand-written B2-grad or B4-grad kernel
+(``csrc/cluster_shadow_grad.cu``, ``csrc/cluster_shadow_inst_grad.cu``;
+:func:`cluster_shadow_grad`, :func:`cluster_shadow_inst_grad`, which take
+:func:`cluster_shadow_grad_plain` / :func:`cluster_shadow_inst_grad_plain`
+on the CPU and count their launches too). They give the result of the JAX
+package's custom_vjp rules, a dense replay of the shadow test through
+``ops/intersect.py`` ``project_shadow`` (kept here as :func:`_soup_replay`
+and :func:`_inst_replay`, the tests' oracle), by walking the cluster
+tables twice: only the opacity table gets a gradient, and each hit's share
+is the product of the ray's other factors times its cotangent, over every
+hit (no alpha stop).
 """
 from __future__ import annotations
 
@@ -502,46 +511,11 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
 cluster_closest.launches = 0
 
 
+
 # ---------------------------------------------------------------------------
-# backward: dense replay (the JAX package's custom_vjp rules)
+# backward: the dense replays of the JAX package's custom_vjp rules (the
+# tests' oracle) and the plain versions of B2-grad and B4-grad
 # ---------------------------------------------------------------------------
-
-class _ShadowReplay(torch.autograd.Function):
-    """Forward: ``run()``, the kernel or its plain version, on ``xs``.
-    Backward: the VJP of ``replay(*xs)``, the dense differentiable shadow
-    test over the same inputs (path replay: the transmission product does
-    not depend on the order of its factors, so the gradient is exact
-    wherever the kernel's alpha < 1e-4 stop has not cut the product, and
-    beyond it the light term is ~0 either way)."""
-
-    @staticmethod
-    def forward(ctx, run, replay, *xs):
-        ctx.replay = replay
-        ctx.save_for_backward(*xs)
-        return run()
-
-    @staticmethod
-    def backward(ctx, g_rgb, g_a):
-        need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(n)
-                  for x, n in zip(ctx.saved_tensors, need)]
-            outs = [(y, g) for y, g in zip(ctx.replay(*xs), (g_rgb, g_a))
-                    if y.requires_grad]
-            if not outs:
-                # the product is piecewise constant in the rays and the
-                # triangles: only the opacities carry a gradient
-                return (None,) * (2 + len(need))
-            wrt = [x for x, n in zip(xs, need) if n]
-            grads = iter(torch.autograd.grad([y for y, _ in outs], wrt,
-                                             [g for _, g in outs],
-                                             allow_unused=True))
-        return (None, None) + tuple(next(grads) if n else None for n in need)
-
-
-def _needs_grad(*xs) -> bool:
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
-
 
 def _soup_replay(origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a):
     """B2's replay (JAX ``_make_cluster_shadow`` bwd): the dense shadow test
@@ -581,39 +555,101 @@ def _replay_chunk(r: int, f: int) -> int:
     return max(1, min(512, f, max(32, 2 ** 25 // max(r, 1))))
 
 
-def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
-                   count, op_rgb, op_a, *, tris=None, visits=None):
-    """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
-    product of the live material opacity over every hit in (0, dist).
-    CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
-    B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
-    block of 128 rays that stops a ray once its alpha is below 1e-4.
-    ``visits`` as for :func:`cluster_closest` (CUDA only, off the render
-    path).
+def _fold_hits(hit, op, prod, zeros):
+    """Walk 1 of the backward over one cluster: the hits ``hit`` [R, ct]
+    with factors ``op`` [4, ct] multiply the non-zero ones into ``prod``
+    [R, 4] and count the zero ones into ``zeros`` [R, 4]."""
+    zero = op == 0.0
+    f = torch.where(hit[:, None, :] & ~zero[None], op[None], 1.0)    # [R,4,ct]
+    return (prod * f.prod(dim=2),
+            zeros + (hit[:, None, :] & zero[None]).sum(dim=2))
 
-    Differentiable when grad mode is on and an input requires grad: the
-    backward replays the test densely (:func:`_soup_replay`) over ``tris``
-    = (tri_v0, tri_e1, tri_e2), the soup triangles in the order of
-    ``op_rgb`` / ``op_a``. Only the opacities get a non-zero gradient: the
-    product is piecewise constant in the rays and the triangles, which only
-    decide which factors enter (as in the JAX package)."""
-    if tris is not None and _needs_grad(origin, direction, *tris, op_rgb, op_a):
-        return _ShadowReplay.apply(
-            lambda: cluster_shadow(origin.detach(), direction.detach(),
-                                   dist.detach(), box_tab, frames, order, base,
-                                   count, op_rgb.detach(), op_a.detach(),
-                                   visits=visits),
-            _soup_replay, origin, direction, dist, *tris, op_rgb, op_a)
-    if _needs_grad(origin, direction, op_rgb, op_a):
-        raise ValueError("cluster_shadow needs tris=(tri_v0, tri_e1, tri_e2) "
-                         "to differentiate")
-    op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
-    if origin.device.type == "cpu":
-        return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
-                                    op_tab)
-    lib = _kernels.load()
-    dev = origin.device
-    r = origin.shape[0]
+
+def _coefficients(g_rgb, g_a, prod, zeros):
+    """Each ray's (A, B) [R, 4] from its cotangent and walk 1: A = g P where
+    the ray has no zero factor, B = g P where it has exactly one, else 0."""
+    gp = torch.cat([g_rgb, g_a[:, None]], dim=1) * prod
+    zero = torch.zeros((), dtype=gp.dtype, device=gp.device)
+    return torch.where(zeros == 0, gp, zero), torch.where(zeros == 1, gp, zero)
+
+
+def _slot_grad(hit, coef, op):
+    """Walk 2 over one cluster: [4, ct] gradient of its factors ``op``
+    [4, ct] from the rays that hit each slot (``hit`` [R, ct]): the summed
+    A over op where op != 0 (the product of the other factors), the summed
+    B where op == 0."""
+    a, b = coef
+    v = hit.to(a.dtype)
+    nz = op != 0.0
+    return torch.where(nz, (a.t() @ v) / torch.where(nz, op, 1.0), b.t() @ v)
+
+
+def cluster_shadow_grad_plain(origin, direction, dist, box_tab, frames, op_tab,
+                              g_rgb, g_a):
+    """The vector-Jacobian product of :func:`cluster_shadow_plain` with
+    respect to ``op_tab`` for the cotangents (g_rgb [R,3], g_a [R]):
+    d_op_tab [Cp, 4, 128]. Every hit with t in (0, dist) counts (no alpha
+    stop, as in the JAX package's dense replay). Per ray and channel, P is
+    the product of its non-zero factors and z the number of zero ones; a hit
+    of factor f gets g P / f when f != 0 and z = 0, g P when f = 0 and
+    z = 1, else 0: the product of the ray's other factors times g, with no
+    division by zero. Two walks over every real cluster."""
+    clusters = _real_clusters(box_tab)
+
+    def hits(c):
+        t, b1, b2 = _project(origin, direction, box_tab, frames, c)
+        return _inside(b1, b2) & (t > 0.0) & (t < dist[:, None])
+
+    prod = torch.ones((origin.shape[0], 4), dtype=torch.float32,
+                      device=origin.device)
+    zeros = torch.zeros(prod.shape, dtype=torch.int64, device=origin.device)
+    for c, _ in clusters:
+        prod, zeros = _fold_hits(hits(c), op_tab[c], prod, zeros)
+    coef = _coefficients(g_rgb, g_a, prod, zeros)
+    out = torch.zeros_like(op_tab)
+    for c, _ in clusters:
+        out[c] = _slot_grad(hits(c), coef, op_tab[c])
+    return out
+
+
+def cluster_shadow_inst_grad_plain(origin, direction, dist, ti_rows, cl_obox,
+                                   frames, cl_slot, op_tab, g_rgb, g_a):
+    """The vector-Jacobian product of :func:`cluster_shadow_inst_plain` with
+    respect to the instance slot table ``op_tab`` [I, 4, 64] for the
+    cotangents (g_rgb [R,3], g_a [R]): d_op_tab [I, 4, 64], each hit's share
+    as in :func:`cluster_shadow_grad_plain` added to its instance's entry of
+    its triangle's slot. Two walks over every real instance and cluster."""
+    box = cl_obox.t()
+    slots = cl_slot.long()
+
+    def visits():
+        for k, gid, clusters in _real_instances(ti_rows, cl_obox):
+            o, d = _object_rays(origin, direction, ti_rows, k)
+            for s, _ in clusters:
+                t, b1, b2 = _project(o, d, box, frames, s)
+                yield (gid, s, _inside(b1, b2) & (t > 0.0) & (t < dist[:, None]),
+                       op_tab[gid][:, slots[s]])
+
+    prod = torch.ones((origin.shape[0], 4), dtype=torch.float32,
+                      device=origin.device)
+    zeros = torch.zeros(prod.shape, dtype=torch.int64, device=origin.device)
+    for _, _, hit, op in visits():
+        prod, zeros = _fold_hits(hit, op, prod, zeros)
+    coef = _coefficients(g_rgb, g_a, prod, zeros)
+    out = torch.zeros_like(op_tab)
+    for gid, s, hit, op in visits():
+        out[gid].index_add_(1, slots[s], _slot_grad(hit, coef, op))
+    return out
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _check_soup_shadow(origin, direction, dist, box_tab, frames, op_tab):
+    """The argument checks of B2 and B2-grad on a CUDA device. Returns
+    (device, rays, table rows)."""
+    dev, r = origin.device, origin.shape[0]
     _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
            dist=(dist, torch.float32), box_tab=(box_tab, torch.float32),
            frames=(frames, torch.float32), op_tab=(op_tab, torch.float32))
@@ -621,6 +657,159 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
         ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
         ("dist", dist, (r,)), ("op_tab", op_tab, (box_tab.shape[1], 4, CLUSTER_T))))
     _aligned(frames=frames, op_tab=op_tab)
+    return dev, r, cp
+
+
+def _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox, frames,
+                       cl_slot, op_tab):
+    """The argument checks of B4 and B4-grad on a CUDA device. Returns
+    (device, rays, instance rows)."""
+    dev, r = origin.device, origin.shape[0]
+    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
+           dist=(dist, torch.float32), ti_rows=(ti_rows, torch.float32),
+           cl_obox=(cl_obox, torch.float32), frames=(frames, torch.float32),
+           cl_slot=(cl_slot, torch.float32), op_tab=(op_tab, torch.float32))
+    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("dist", dist, (r,)), ("cl_slot", cl_slot, (cl_obox.shape[0], CLUSTER_T)),
+        ("op_tab", op_tab, (op_tab.shape[0], 4, SLOTS))))
+    _aligned(frames=frames, cl_slot=cl_slot, op_tab=op_tab)
+    return dev, r, ip
+
+
+def _check_cotangents(dev, r, g_rgb, g_a):
+    _check(dev, g_rgb=(g_rgb, torch.float32), g_a=(g_a, torch.float32))
+    _check_shapes((("g_rgb", g_rgb, (r, 3)), ("g_a", g_a, (r,))))
+
+
+def cluster_shadow_grad(origin, direction, dist, box_tab, frames, op_tab,
+                        g_rgb, g_a, *, visits=None):
+    """B2-grad: d_op_tab [Cp, 4, 128], the gradient of B2's product with
+    respect to its opacity table for the cotangents (g_rgb [R,3], g_a [R])
+    (:func:`cluster_shadow_grad_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the B2-grad kernel
+    (``csrc/cluster_shadow_grad.cu``): B2's ranked walk twice per block of
+    128 rays with no alpha stop, the block's contributions summed in shared
+    memory and added with one atomicAdd per entry per visit (so the last
+    bits vary from call to call). ``visits`` as for :func:`cluster_closest`,
+    counting both walks' cluster tests (CUDA only, off the training
+    path)."""
+    if origin.device.type == "cpu":
+        return cluster_shadow_grad_plain(origin, direction, dist, box_tab,
+                                         frames, op_tab, g_rgb, g_a)
+    lib = _kernels.load()
+    dev, r, cp = _check_soup_shadow(origin, direction, dist, box_tab, frames,
+                                    op_tab)
+    _check_cotangents(dev, r, g_rgb, g_a)
+    _ranked_smem(lib, dev, cp, kernel=5)
+    counts = _visit_buffer(visits, dev, r)
+    d_op = torch.zeros_like(op_tab)
+    if r:
+        _launch("cluster_shadow_grad", lib.rz_cluster_shadow_grad, dev,
+                _ptr(origin), _ptr(direction), _ptr(dist), _ptr(g_rgb),
+                _ptr(g_a), _ptr(box_tab), _ptr(frames), _ptr(op_tab), r, cp,
+                _ptr(d_op), counts)
+        cluster_shadow_grad.launches += 1
+    return d_op
+
+
+cluster_shadow_grad.launches = 0
+
+
+def cluster_shadow_inst_grad(origin, direction, dist, ti_rows, cl_obox, frames,
+                             cl_slot, op_tab, g_rgb, g_a, *, visits=None):
+    """B4-grad: d_op_tab [I, 4, 64], the gradient of B4's product with
+    respect to the instance slot table of :func:`instance_opacity` for the
+    cotangents (g_rgb [R,3], g_a [R])
+    (:func:`cluster_shadow_inst_grad_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the B4-grad kernel
+    (``csrc/cluster_shadow_inst_grad.cu``): B4's ranked walk at both levels
+    twice per block of 128 rays with no alpha stop, a visited instance's
+    contributions summed in shared memory and added with one atomicAdd per
+    entry. ``visits`` as for :func:`cluster_closest_inst`, counting both
+    walks (CUDA only, off the training path)."""
+    if origin.device.type == "cpu":
+        return cluster_shadow_inst_grad_plain(origin, direction, dist, ti_rows,
+                                              cl_obox, frames, cl_slot, op_tab,
+                                              g_rgb, g_a)
+    lib = _kernels.load()
+    dev, r, ip = _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox,
+                                    frames, cl_slot, op_tab)
+    _check_cotangents(dev, r, g_rgb, g_a)
+    _ranked_smem(lib, dev, ip, kernel=6)
+    counts = _visit_buffer(visits, dev, r)
+    d_op = torch.zeros_like(op_tab)
+    if r:
+        _launch("cluster_shadow_inst_grad", lib.rz_cluster_shadow_inst_grad,
+                dev, _ptr(origin), _ptr(direction), _ptr(dist), _ptr(g_rgb),
+                _ptr(g_a), _ptr(ti_rows), _ptr(cl_obox), _ptr(frames),
+                _ptr(cl_slot), _ptr(op_tab), r, ip, _ptr(d_op), counts)
+        cluster_shadow_inst_grad.launches += 1
+    return d_op
+
+
+cluster_shadow_inst_grad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the shadow entry points and their autograd Functions
+# ---------------------------------------------------------------------------
+
+class _Shadow(torch.autograd.Function):
+    """B2 and its backward: forward :func:`_shadow` on the opacity table
+    ``op_tab``; backward :func:`cluster_shadow_grad`, the gradient of
+    ``op_tab`` (the product is piecewise constant in the rays and dist:
+    they get none)."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, dist, op_tab, box_tab, frames, visits):
+        ctx.save_for_backward(origin, direction, dist, op_tab)
+        ctx.tables = (box_tab, frames)
+        return _shadow(origin, direction, dist, box_tab, frames, op_tab, visits)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_a):
+        d_op = None
+        if ctx.needs_input_grad[3]:
+            o, d, dist, op_tab = ctx.saved_tensors
+            d_op = cluster_shadow_grad(o, d, dist, *ctx.tables, op_tab,
+                                       g_rgb.contiguous(), g_a.contiguous())
+        return None, None, None, d_op, None, None, None
+
+
+class _ShadowInst(torch.autograd.Function):
+    """B4 and its backward: forward :func:`_shadow_inst` on the instance
+    slot table ``op_tab``; backward :func:`cluster_shadow_inst_grad`, the
+    gradient of ``op_tab`` only."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, dist, op_tab, ti_rows, cl_obox, frames,
+                cl_slot, visits):
+        ctx.save_for_backward(origin, direction, dist, op_tab)
+        ctx.tables = (ti_rows, cl_obox, frames, cl_slot)
+        return _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
+                            cl_slot, op_tab, visits)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_a):
+        d_op = None
+        if ctx.needs_input_grad[3]:
+            o, d, dist, op_tab = ctx.saved_tensors
+            d_op = cluster_shadow_inst_grad(o, d, dist, *ctx.tables, op_tab,
+                                            g_rgb.contiguous(),
+                                            g_a.contiguous())
+        return None, None, None, d_op, None, None, None, None, None
+
+
+def _shadow(origin, direction, dist, box_tab, frames, op_tab, visits=None):
+    """B2 on an opacity table: the plain version on the CPU, the kernel on
+    a card."""
+    if origin.device.type == "cpu":
+        return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
+                                    op_tab)
+    lib = _kernels.load()
+    dev, r, cp = _check_soup_shadow(origin, direction, dist, box_tab, frames,
+                                    op_tab)
     _ranked_smem(lib, dev, cp, kernel=2)
     counts = _visit_buffer(visits, dev, r)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
@@ -631,6 +820,36 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                 _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts)
         cluster_shadow.launches += 1
     return rgb, a
+
+
+def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
+                   count, op_rgb, op_a, *, tris=None, visits=None):
+    """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
+    product of the live material opacity over every hit in (0, dist).
+    CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
+    B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
+    block of 128 rays that stops a ray once its alpha is below 1e-4.
+    ``visits`` as for :func:`cluster_closest` (CUDA only, off the render
+    path).
+
+    Differentiable when grad mode is on and an input requires grad; as in
+    the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2),
+    the soup triangles in the order of ``op_rgb`` / ``op_a``, which its
+    dense replay reads. Here the backward is B2-grad
+    (:func:`cluster_shadow_grad`: that replay's result, computed by the
+    walk). Only the opacities get a gradient: the product is piecewise
+    constant in the rays and the triangles, which only decide which
+    factors enter."""
+    grad = tris is not None and _needs_grad(origin, direction, *tris, op_rgb,
+                                            op_a)
+    if not grad and _needs_grad(origin, direction, op_rgb, op_a):
+        raise ValueError("cluster_shadow needs tris=(tri_v0, tri_e1, tri_e2) "
+                         "to differentiate")
+    op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
+    if grad:
+        return _Shadow.apply(origin, direction, dist, op_tab, box_tab, frames,
+                             visits)
+    return _shadow(origin, direction, dist, box_tab, frames, op_tab, visits)
 
 
 cluster_shadow.launches = 0
@@ -687,6 +906,29 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
 cluster_closest_inst.launches = 0
 
 
+def _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames, cl_slot,
+                 op_tab, visits=None):
+    """B4 on an instance slot table: the plain version on the CPU, the
+    kernel on a card."""
+    if origin.device.type == "cpu":
+        return cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
+                                         cl_obox, frames, cl_slot, op_tab)
+    lib = _kernels.load()
+    dev, r, ip = _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox,
+                                    frames, cl_slot, op_tab)
+    _ranked_smem(lib, dev, ip, kernel=4)
+    counts = _visit_buffer(visits, dev, r)
+    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    a = torch.empty(r, dtype=torch.float32, device=dev)
+    if r:
+        _launch("cluster_shadow_inst", lib.rz_cluster_shadow_inst, dev,
+                _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
+                _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
+                _ptr(rgb), _ptr(a), counts)
+        cluster_shadow_inst.launches += 1
+    return rgb, a
+
+
 def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
                         cl_slot, inst_slot_map, mat_color, *, tris=None,
                         expanded=None, visits=None):
@@ -700,54 +942,27 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
     1e-4. ``visits`` as for :func:`cluster_closest_inst` (CUDA only, off
     the render path).
 
-    Differentiable when grad mode is on and an input requires grad: the
-    backward replays the test densely over the expanded (instance,
-    triangle) set (:func:`_inst_replay`), from ``tris`` = (tri_v0, tri_e1,
-    tri_e2) in object space and device order and ``expanded`` = (tri_slot,
-    exp_tri, exp_inst, inst_fwd); as for :func:`cluster_shadow`, only
-    ``mat_color`` gets a non-zero gradient."""
-    if tris is not None and _needs_grad(origin, direction, *tris, mat_color):
-        if expanded is None:
-            raise ValueError("cluster_shadow_inst needs expanded=(tri_slot, "
-                             "exp_tri, exp_inst, inst_fwd) to differentiate; "
-                             "compile the world with differentiable=True")
-        replay = functools.partial(_inst_replay, *expanded, inst_slot_map)
-        return _ShadowReplay.apply(
-            lambda: cluster_shadow_inst(origin.detach(), direction.detach(),
-                                        dist.detach(), ti_rows, cl_obox,
-                                        frames, cl_slot, inst_slot_map,
-                                        mat_color.detach(), visits=visits),
-            replay, origin, direction, dist, *tris, mat_color)
-    if _needs_grad(origin, direction, mat_color):
+    Differentiable when grad mode is on and an input requires grad; as in
+    the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2)
+    in object space and device order and ``expanded`` = (tri_slot, exp_tri,
+    exp_inst, inst_fwd), which its dense replay over the expanded
+    (instance, triangle) set reads. Here the backward is B4-grad
+    (:func:`cluster_shadow_inst_grad`); as for :func:`cluster_shadow`, only
+    ``mat_color`` gets a gradient, through :func:`instance_opacity`."""
+    grad = tris is not None and _needs_grad(origin, direction, *tris, mat_color)
+    if grad and expanded is None:
+        raise ValueError("cluster_shadow_inst needs expanded=(tri_slot, "
+                         "exp_tri, exp_inst, inst_fwd) to differentiate; "
+                         "compile the world with differentiable=True")
+    if not grad and _needs_grad(origin, direction, mat_color):
         raise ValueError("cluster_shadow_inst needs tris= and expanded= to "
                          "differentiate")
     op_tab = instance_opacity(mat_color, inst_slot_map)
-    if origin.device.type == "cpu":
-        return cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
-                                         cl_obox, frames, cl_slot, op_tab)
-    lib = _kernels.load()
-    dev = origin.device
-    r = origin.shape[0]
-    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
-           dist=(dist, torch.float32), ti_rows=(ti_rows, torch.float32),
-           cl_obox=(cl_obox, torch.float32), frames=(frames, torch.float32),
-           cl_slot=(cl_slot, torch.float32), op_tab=(op_tab, torch.float32))
-    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
-        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
-        ("dist", dist, (r,)), ("cl_slot", cl_slot, (cl_obox.shape[0], CLUSTER_T)),
-        ("op_tab", op_tab, (op_tab.shape[0], 4, SLOTS))))
-    _aligned(frames=frames, cl_slot=cl_slot, op_tab=op_tab)
-    _ranked_smem(lib, dev, ip, kernel=4)
-    counts = _visit_buffer(visits, dev, r)
-    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
-    a = torch.empty(r, dtype=torch.float32, device=dev)
-    if r:
-        _launch("cluster_shadow_inst", lib.rz_cluster_shadow_inst, dev,
-                _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
-                _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
-                _ptr(rgb), _ptr(a), counts)
-        cluster_shadow_inst.launches += 1
-    return rgb, a
+    if grad:
+        return _ShadowInst.apply(origin, direction, dist, op_tab, ti_rows,
+                                 cl_obox, frames, cl_slot, visits)
+    return _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
+                        cl_slot, op_tab, visits)
 
 
 cluster_shadow_inst.launches = 0

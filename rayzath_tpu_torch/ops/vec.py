@@ -40,6 +40,37 @@ def lerp(a, b, t):
     return a + (b - a) * t
 
 
+class _Prod(torch.autograd.Function):
+    """``x.prod(dim)`` whose backward reads nothing on the host. Torch's
+    own rule counts the zero factors on the host to choose between
+    ``g * prod / x`` and a zero-safe form, which a captured CUDA graph
+    cannot do (parallel/train.py); this one always takes the zero-safe
+    form: each factor's gradient is g times the products of the factors
+    before and after it (exclusive cumulative products from both ends)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.save_for_backward(x)
+        ctx.dim = dim
+        return x.prod(dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        dim, n = ctx.dim, x.shape[ctx.dim]
+        ones = torch.ones_like(x.narrow(dim, 0, 1))
+        before = torch.cat([ones, x.narrow(dim, 0, n - 1).cumprod(dim)], dim)
+        after = torch.cat([x.narrow(dim, 1, n - 1).flip(dim).cumprod(dim)
+                           .flip(dim), ones], dim)
+        return g.unsqueeze(dim) * before * after, None
+
+
+def prod(x, dim: int):
+    """``x.prod(dim)``, the same bits, with a backward that a CUDA graph
+    can capture (:class:`_Prod`)."""
+    return _Prod.apply(x, dim)
+
+
 def reflect(vi, vn):
     """Reflect incident vi about normal vn (reference reflectVector)."""
     return vi - 2.0 * dot1(vn, vi) * vn

@@ -24,7 +24,9 @@ opacities for the shadow walks (B2, B4).
 
 :func:`needed_soup` / :func:`needed_inst` count the visits a walk needs
 (the ray and (instance,) cluster pairs whose exact slab interval meets
-[t0, t1]), for the bounds and the made-against-needed checks.
+[t0, t1]), for the bounds and the made-against-needed checks;
+:func:`shadow_hits` / :func:`shadow_hits_inst` count the hits a shadow
+backward scatters (the ray and triangle pairs with t in (0, dist)).
 """
 from __future__ import annotations
 
@@ -337,3 +339,28 @@ def needed_inst(o, d, t0, t1, ti_rows, cl_obox):
         tests += t
         clusters[s] |= need
     return pairs, tests, inst_pairs, int(clusters.sum()), insts, len(real)
+
+
+def shadow_hits(o, d, dist, box_tab, frames) -> int:
+    """Hits with t in (0, dist) of the rays (o, d) over every real cluster
+    of a soup table (the plain versions' projection): each one a share that
+    B2-grad adds."""
+    hits = 0
+    for c, _ in tc._real_clusters(box_tab):
+        t, b1, b2 = tc._project(o, d, box_tab, frames, c)
+        hits += int((tc._inside(b1, b2) & (t > 0.0) & (t < dist[:, None])).sum())
+    return hits
+
+
+def shadow_hits_inst(o, d, dist, ti_rows, cl_obox, frames) -> int:
+    """:func:`shadow_hits` over every real instance and cluster of the
+    two-level tables (B4-grad)."""
+    box = cl_obox.t()
+    hits = 0
+    for k, _, clusters in tc._real_instances(ti_rows, cl_obox):
+        oo, dd = tc._object_rays(o, d, ti_rows, k)
+        for s, _ in clusters:
+            t, b1, b2 = tc._project(oo, dd, box, frames, s)
+            hits += int((tc._inside(b1, b2) & (t > 0.0)
+                         & (t < dist[:, None])).sum())
+    return hits

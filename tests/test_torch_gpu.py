@@ -27,7 +27,15 @@ draw; graph renders bit for bit as eager ``render_steps`` across a camera
 move, a material edit and a checkpoint resume (``utils/check_cycle.py``),
 one capture per scene and config; launch counters that count replays;
 ``render(block=False)`` returning before the device finishes; and a pass
-that cannot be captured raising instead of rendering eagerly.
+that cannot be captured raising instead of rendering eagerly. The shadow
+backwards B2-grad and B4-grad against their plain versions (to rtol 1e-4
+of the max |g|: the same hits, the sums in another order); the compiled
+training step (``parallel/train.py``): the graph step's loss bit for bit
+as the eager step's and its parameters within 1e-4 of the max |step|, on
+textured_room, two-level instanced_field and the cutout world at 64^2,
+one capture for several steps, launch counters that count replays, and a
+step that reads the device on the host raising instead of stepping
+eagerly.
 """
 import numpy as np
 import pytest
@@ -365,8 +373,8 @@ def test_fetch_cuda_matches_cpu(cuda, rotate):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["b2", "b4"])
 def test_shadow_backward_matches_plain_twin(cuda, kind):
-    """The B2/B4 autograd.Functions on the card (kernel forward, dense
-    replay backward) against autograd through the plain twins on the card:
+    """The B2/B4 autograd.Functions on the card (kernel forward, B2-grad
+    / B4-grad backward) against autograd through the plain twins on the card:
     rgba to the forward rules, the gradients of rays and opacities to rtol
     1e-3 of their max |g| (rays whose alpha is below 1e-4 get no
     cotangent: the kernel stops there). Half the materials are translucent."""
@@ -944,3 +952,176 @@ def test_pass_that_cannot_be_captured_raises(cuda, monkeypatch):
     monkeypatch.setattr(I, "mat_pack", mat_pack)
     r.render(rpp=2)                                  # captures again
     assert cv.cycle.captures == 1 and cv.state.pass_idx == 2
+
+
+# ---------------------------------------------------------------------------
+# the shadow backwards and the compiled training step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["b2", "b4"])
+def test_shadow_grad_kernels_match_plain(cuda, kind):
+    """B2-grad / B4-grad against cluster_shadow_grad_plain /
+    cluster_shadow_inst_grad_plain on 64^2 bounce-like rays with dist =
+    BIG, half the materials translucent, random cotangents (every fifth ray
+    zero); a zero cotangent gives a zero table; the launch counters count."""
+    rng = np.random.default_rng(21)
+    world = (rt.scenes.mesh_heavy(8, 8, resolution=40) if kind == "b2"
+             else _two_level_world("instanced_field", 8))
+    for m in list(world.materials)[::2]:
+        m.color = np.asarray([*m.color[:3], 0.5], np.float32)
+    scene = tds.compile_world(world, two_level=kind == "b4", device=cuda)
+    if kind == "b2":
+        o, d = _rays(scene, world, cuda, 64)[1]
+        mat = scene.mat_color[scene.tri_mat.long()]
+        tabs = (scene.cl_box, scene.cl_lw,
+                tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                                   scene.cl_base, scene.cl_count))
+        kernel, plain = tc.cluster_shadow_grad, tc.cluster_shadow_grad_plain
+    else:
+        cam = tds.compile_camera(world.cameras[0], cuda)
+        o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(64, 64, device=cuda),
+                                     torch.full((4096, 4), 0.5, device=cuda))
+        v = rng.normal(size=(4096, 3)).astype(np.float32)
+        o, d = (o + d * 2.0).contiguous(), torch.as_tensor(
+            v / np.linalg.norm(v, axis=1, keepdims=True), device=cuda)
+        tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot,
+                tc.instance_opacity(scene.mat_color, scene.inst_slot_map))
+        kernel, plain = tc.cluster_shadow_inst_grad, tc.cluster_shadow_inst_grad_plain
+    r = o.shape[0]
+    dist = torch.full((r,), 3e38, device=cuda)
+    g = torch.as_tensor(rng.normal(size=(r, 4)).astype(np.float32), device=cuda)
+    g[::5] = 0.0
+    g_rgb, g_a = g[:, :3].contiguous(), g[:, 3].contiguous()
+    before = kernel.launches
+    got = kernel(o, d, dist, *tabs, g_rgb, g_a)
+    ref = plain(o, d, dist, *tabs, g_rgb, g_a)
+    zero = kernel(o, d, dist, *tabs, torch.zeros_like(g_rgb), torch.zeros_like(g_a))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert float(ref.abs().max()) > 0
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-4, err
+    assert float(zero.abs().max()) == 0.0
+
+
+def _train_setup(name, res, dev):
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng
+    two_level = name == "instanced_field"
+    world = (_two_level_world(name, res) if two_level
+             else _cycle_world(name, res))
+    scene = tds.compile_world(world, two_level=two_level or None,
+                              differentiable=two_level, device=dev)
+    cam = tds.compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=3),
+                          two_level=two_level or None)
+    dim = scene.mat_color.clone()
+    dim[2:, :3] *= 0.8
+    import dataclasses
+    with torch.no_grad():
+        st = render_steps(dataclasses.replace(scene, mat_color=dim), cam, cfg,
+                          init_state(res, res, dev), rng.key(5), 4)
+    target = st.accum[..., :3] / torch.clamp(st.accum[..., 3:4], min=1.0)
+    return scene, cam, cfg, target
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["textured_room", "instanced_field",
+                                  "cutout world"])
+def test_graph_step_equals_eager_step(cuda, name):
+    """training_step on the card (one captured graph per step) against the
+    eager step from the same scene, seed and target at 64^2, depth 3, 4
+    passes, remat: the loss bit for bit, the parameters within 1e-4 of the
+    max |step| (B2-grad's and B4-grad's atomics add in no fixed order);
+    later steps replay the same graph. The cutout world's step captures
+    the cutout pass's product, whose backward reads nothing on the host
+    (``ops/vec.prod``)."""
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.parallel import train
+    scene, cam, cfg, target = _train_setup(name, 64, cuda)
+    train._STEPS.clear()
+    args = (cam, cfg)
+    ref, _, ref_loss = train._eager_step(scene, *args, init_state(64, 64, cuda),
+                                         7, target, 0.01, 4, remat=True)
+    got, st, loss = train.training_step(scene, *args, init_state(64, 64, cuda),
+                                        7, target, 0.01, 4, remat=True)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, ref_loss)
+    assert st.pass_idx == 4 and float(st.accum[..., 3].sum()) > 0
+    moved = 0.0
+    for k in train.DIFF_PARAMS:
+        step = float((getattr(ref, k) - getattr(scene, k)).abs().max())
+        diff = float((getattr(got, k) - getattr(ref, k)).abs().max())
+        assert diff <= 1e-4 * max(step, 1e-30), (k, diff, step)
+        moved = max(moved, step)
+    assert moved > 0
+    step_obj = train._STEPS[torch.device("cuda", torch.cuda.current_device())]
+    for seed in (8, 9):
+        got, _, loss = train.training_step(got, *args, init_state(64, 64, cuda),
+                                           seed, target, 0.01, 4, remat=True)
+    torch.cuda.synchronize()
+    assert step_obj.captures == 1 and bool(torch.isfinite(loss))
+    train._STEPS.clear()
+
+
+@pytest.mark.gpu
+def test_step_replays_count_launches(cuda):
+    """Each replayed step adds the captured step's launches to the
+    counters, as many as an eager step makes (no remat: one draw and one
+    forward per pass): the forward kernels, B2-grad and, in place of the
+    by-value draw, the keyed draw."""
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.parallel import train
+    scene, cam, cfg, target = _train_setup("multi_light", 32, cuda)
+    wrappers = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_shadow_grad,
+                rng.uniform_rows, rng.uniform_rows_keyed)
+
+    def counts(fn):
+        start = [f.launches for f in wrappers]
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches - s for f, s in zip(wrappers, start)]
+
+    def step(fn):
+        return lambda: fn(scene, cam, cfg, init_state(32, 32, cuda), 3, target,
+                          0.01, 2)
+
+    eager = counts(step(train._eager_step))
+    assert eager[0] >= 2 and eager[1] >= 2 and eager[2] == eager[1]
+    assert eager[3] == 2 and eager[4] == 0
+    train._STEPS.clear()
+    step(train.training_step)()                      # capture
+    got = counts(lambda: [step(train.training_step)() for _ in range(3)])
+    assert got == [3 * eager[0], 3 * eager[1], 3 * eager[2], 0, 3 * 2]
+    train._STEPS.clear()
+
+
+@pytest.mark.gpu
+def test_step_that_cannot_be_captured_raises(cuda, monkeypatch):
+    """A step that reads a device value on the host (a ``.item()``
+    monkeypatched into the projected update) cannot be captured: the call
+    raises RuntimeError and returns nothing computed eagerly instead; once
+    the read is gone the step captures."""
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.parallel import train
+    scene, cam, cfg, target = _train_setup("cornell_box_nee", 32, cuda)
+    project = train._project
+
+    def reads_the_device(name, value):
+        float(value.max().item())
+        return project(name, value)
+
+    train._STEPS.clear()
+    monkeypatch.setattr(train, "_project", reads_the_device)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        train.training_step(scene, cam, cfg, init_state(32, 32, cuda), 1,
+                            target, 0.01, 2)
+    monkeypatch.setattr(train, "_project", project)
+    _, _, loss = train.training_step(scene, cam, cfg, init_state(32, 32, cuda),
+                                     1, target, 0.01, 2)
+    assert bool(torch.isfinite(loss))
+    assert next(iter(train._STEPS.values())).captures == 1
+    train._STEPS.clear()

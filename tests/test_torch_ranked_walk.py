@@ -27,6 +27,17 @@ versions' structure), and the walk stops when no live ray reaches the next
 batch. It must meet ``cluster_shadow_plain`` / ``cluster_shadow_inst_plain``
 to rtol 1e-5 / atol 1e-6 where the plain alpha is at least 1e-4, and both
 be below 1e-4 elsewhere: the rank changes only the order of the factors.
+
+The backward model (B2-grad ``csrc/cluster_shadow_grad.cu``, B4-grad
+``csrc/cluster_shadow_inst_grad.cu``) walks the same way twice with no
+alpha stop: walk 1 keeps each ray's product of non-zero factors and its
+zero count, walk 2 (only the rays with a non-zero coefficient) visits the
+same clusters and sums each visit's shares over the block's rays into an
+accumulator that is then added to the gradient table (per cluster visit
+for B2-grad, per instance visit for B4-grad). It must give
+``cluster_shadow_grad_plain`` / ``cluster_shadow_inst_grad_plain`` to rtol
+1e-5 of their max |g| (the sums' order differs), testing every needed
+cluster in walk 1.
 """
 import numpy as np
 import pytest
@@ -775,3 +786,246 @@ def test_model_shadow_stops_at_the_opaque_wall(kernel):
     assert bool((ref[1] == 0).all())              # every ray meets the wall
     assert on_line >= 5 * needed > 0, (on_line, needed)
     assert int(tests.sum()) <= 2 * needed, (int(tests.sum()), needed)
+
+
+# ---------------------------------------------------------------------------
+# the shadow backwards' walks (B2-grad, B4-grad)
+# ---------------------------------------------------------------------------
+
+class GradBlock(ShadowBlock):
+    """The per-ray state of one block of a shadow backward: no alpha stop (a
+    ray with a non-zero cotangent walks while its dist reaches), walk 1's
+    product of the non-zero factors P and zero count z per channel, walk
+    2's coefficients (A, B), and the cluster tests of both walks."""
+
+    def __init__(self, dist, g):
+        super().__init__(dist)
+        self.active = (dist > 0) & (g != 0).any(1)
+        self.g = g
+        self.P = torch.ones((len(dist), 4))
+        self.z = torch.zeros((len(dist), 4), dtype=torch.int64)
+        self.coef = None
+
+    def live(self):
+        return self.active
+
+    def take(self, t, b1, b2, rays, op):
+        """Walk 1 over one cluster for the rays ``rays``."""
+        hit = (tc._inside(b1, b2) & (t > 0.0) & (t < self.dist[:, None])
+               & rays[:, None])
+        zero = op == 0.0
+        f = torch.where(hit[:, None, :] & ~zero[None], op[None], 1.0)
+        self.P = self.P * f.prod(dim=2)
+        self.z = self.z + (hit[:, None, :] & zero[None]).sum(dim=2)
+        self.tests += rays.to(torch.int32)
+
+    def second_walk(self):
+        """The coefficients of store_coef; the rays without one walk no
+        more."""
+        gp = self.g * self.P
+        a = torch.where(self.z == 0, gp, torch.zeros(()))
+        b = torch.where(self.z == 1, gp, torch.zeros(()))
+        self.coef = (a, b)
+        self.active = self.active & ((a != 0) | (b != 0)).any(1)
+
+    def scatter(self, t, b1, b2, rays, op):
+        """Walk 2 over one cluster: the block accumulator [4, ct] of the
+        rays ``rays``' shares (scatter_test_ray)."""
+        hit = (tc._inside(b1, b2) & (t > 0.0) & (t < self.dist[:, None])
+               & rays[:, None])
+        a, b = self.coef
+        share = torch.where(op[None] != 0.0, a[:, :, None] / op[None],
+                            b[:, :, None])
+        self.tests += rays.to(torch.int32)
+        return torch.where(hit[:, None, :], share, torch.zeros(())).sum(0)
+
+
+def model_shadow_grad(o, d, dist, box_tab, frames, op_tab, g,
+                      window=ct.RANK_WINDOW):
+    """B2-grad's walks, block by block: B2's ranked walk twice without the
+    stop, each visit of walk 2 adding its block accumulator to the table.
+    Returns (d_op_tab, cluster tests per ray of walk 1, of walk 2)."""
+    cp = box_tab.shape[1]
+    lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
+    cnt = box_tab[tc.B_CNT]
+    d_op = torch.zeros_like(op_tab)
+    tests = ([], [])
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = GradBlock(dist[sl], g[sl])
+        zero = torch.zeros(len(ob))
+
+        def need(c):
+            return blk.gate(*slab(lo[c], hi[c], ob, inv), blk.active)
+
+        def visit1(c):
+            blk.take(*tc._project(ob, db, box_tab, frames, c), need(c), op_tab[c])
+
+        def visit2(c):
+            d_op[c] += blk.scatter(*tc._project(ob, db, box_tab, frames, c),
+                                   need(c), op_tab[c])
+
+        for second, visit in ((False, visit1), (True, visit2)):
+            if second:
+                tests[0].append(blk.tests.clone())
+                blk.tests.zero_()
+                blk.second_walk()
+            if not bool(blk.active.any()):
+                continue
+            for w0 in range(0, cp, window):
+                rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
+                b = bounds(ob, db, blk.live(), zero, blk.dist)
+                walk(rank(rows, lambda c: (lo[c], hi[c]), b), blk.reach,
+                     blk.active, need, visit)
+        tests[1].append(blk.tests)
+    return d_op, torch.cat(tests[0]), torch.cat(tests[1])
+
+
+def model_shadow_inst_grad(o, d, dist, ti_rows, cl_obox, frames, cl_slot,
+                           op_tab, g, window=ct.RANK_WINDOW,
+                           mesh_window=ct.MESH_WINDOW):
+    """B4-grad's walks, block by block: B4's two-level walk twice without
+    the stop, each visited instance's accumulator [4, 64] of walk 2 (slots
+    resolved through cl_slot) added to its table row after its mesh walk.
+    Returns (d_op_tab, cluster tests per ray of walk 1, of walk 2)."""
+    box = cl_obox.t().contiguous()
+    slots = cl_slot.long()
+    d_op = torch.zeros_like(op_tab)
+    tests = ([], [])
+    for b0 in range(0, len(o), THREADS):
+        sl = slice(b0, b0 + THREADS)
+        ob, db = o[sl], d[sl]
+        inv = safe_inv(db)
+        blk = GradBlock(dist[sl], g[sl])
+        zero = torch.zeros(len(ob))
+        second = [False]
+
+        def ineed(k):
+            row = ti_rows[k]
+            return blk.gate(*slab(row[0:3], row[3:6], ob, inv, pad=True),
+                            blk.active)
+
+        def visit_inst(k):
+            row = ti_rows[k]
+            in_k = ineed(k)
+            oo, dd = tc._object_rays(ob, db, ti_rows, k)
+            invl = safe_inv(dd)
+            cl0, ncl, gid = (int(row[tc.TI_CL0]), int(row[tc.TI_NCL]),
+                             int(row[tc.TI_ID]))
+            acc = torch.zeros((4, tc.SLOTS))
+
+            def cneed(s):
+                return blk.gate(*slab(cl_obox[s, 0:3], cl_obox[s, 3:6], oo,
+                                      invl, pad=True), in_k)
+
+            def cvisit(s):
+                proj = tc._project(oo, dd, box, frames, s)
+                op = op_tab[gid][:, slots[s]]
+                if second[0]:
+                    acc.index_add_(1, slots[s], blk.scatter(*proj, cneed(s), op))
+                else:
+                    blk.take(*proj, cneed(s), op)
+
+            for s0 in range(cl0, cl0 + ncl, mesh_window):
+                rows = list(range(s0, min(cl0 + ncl, s0 + mesh_window)))
+                if ncl <= SWEEP_MAX:
+                    cands = [(-float("inf"), s) for s in rows]
+                else:
+                    cands = rank(rows, lambda s: (cl_obox[s, 0:3],
+                                                  cl_obox[s, 3:6]),
+                                 bounds(oo, dd, in_k & blk.live(), zero,
+                                        blk.dist))
+                walk(cands, blk.reach, in_k, cneed, cvisit)
+            d_op[gid] += acc                        # flush_acc
+
+        for w2 in (False, True):
+            if w2:
+                tests[0].append(blk.tests.clone())
+                blk.tests.zero_()
+                blk.second_walk()
+                second[0] = True
+            if not bool(blk.active.any()):
+                continue
+            ip = ti_rows.shape[0]
+            for w0 in range(0, ip, window):
+                rows = [k for k in range(w0, min(ip, w0 + window))
+                        if ti_rows[k, tc.TI_NCL] > 0]
+                b = bounds(ob, db, blk.live(), zero, blk.dist)
+                walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
+                          b), blk.reach, blk.active, ineed, visit_inst)
+        tests[1].append(blk.tests)
+    return d_op, torch.cat(tests[0]), torch.cat(tests[1])
+
+
+def _cotangent(r, seed):
+    """Random (g_rgb, g_a) with every fifth ray's zero (it takes no part)."""
+    rng_ = np.random.default_rng(seed)
+    g = torch.as_tensor(rng_.normal(size=(r, 4)).astype(np.float32))
+    g[::5] = 0.0
+    return g
+
+
+def assert_grad_close(got, ref, rtol=1e-5):
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= rtol, err
+
+
+@pytest.mark.parametrize("alpha", ["opaque", "half"])
+def test_model_b2_grad_matches_plain_on_mesh_heavy_like_rays(alpha):
+    """B2-grad's two walks against ``cluster_shadow_grad_plain`` (every
+    cluster, no gate) on camera and bounce-like rays with dist = BIG, where
+    opaque walls give rays one and several zero factors: the same
+    gradient (the sums' order aside), walk 1 testing exactly the needed
+    clusters of each ray (no stop), walk 2 no more."""
+    world = rt.scenes.mesh_heavy(24, 24, resolution=40)
+    scene = tds.compile_world(world, device="cpu")
+    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    op_tab = _soup_op(scene, mc)
+    sets, near, far = scene_rays(scene, world, 24, seed=3)
+    zero = torch.zeros(len(near))
+    for i, (o, d) in enumerate(sets):
+        g = _cotangent(len(o), seed=i)
+        dist = torch.full((len(o),), float(BIG))
+        ref = tc.cluster_shadow_grad_plain(o, d, dist, scene.cl_box,
+                                           scene.cl_lw, op_tab, g[:, :3], g[:, 3])
+        got, t1, t2 = model_shadow_grad(o, d, dist, scene.cl_box, scene.cl_lw,
+                                        op_tab, g)
+        assert_grad_close(got, ref)
+        live = (g != 0).any(1)
+        needed = ct.needed_soup(o[live], d[live], zero[live], dist[live],
+                                scene.cl_box)[0]
+        assert int(t1.sum()) == needed and int(t1[~live].sum()) == 0
+        assert int(t2.sum()) <= int(t1.sum())
+        assert float(ref.abs().max()) > 0
+
+
+@pytest.mark.parametrize("alpha", ["opaque", "half"])
+@pytest.mark.parametrize("resolution", [8, 48])
+def test_model_b4_grad_matches_plain_on_instanced_field_like_rays(resolution,
+                                                                  alpha):
+    """B4-grad's two walks (resolution 8: swept meshes; 48: ranked) against
+    ``cluster_shadow_inst_grad_plain`` on camera and bounce-like rays with
+    dist = BIG: the same gradient (the sums' order aside); walk 1 tests at
+    least the needed (instance, cluster) pairs (the gates are widened),
+    walk 2 no more than walk 1."""
+    world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
+    scene = tds.compile_world(world, two_level=True, device="cpu")
+    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    op_tab = tc.instance_opacity(mc, scene.inst_slot_map)
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot, op_tab)
+    sets, near, far = scene_rays(scene, world, 16, seed=4)
+    for i, (o, d) in enumerate(sets):
+        g = _cotangent(len(o), seed=10 + i)
+        dist = torch.full((len(o),), float(BIG))
+        ref = tc.cluster_shadow_inst_grad_plain(o, d, dist, *tabs, g[:, :3],
+                                                g[:, 3])
+        got, t1, t2 = model_shadow_inst_grad(o, d, dist, *tabs, g)
+        assert_grad_close(got, ref)
+        live = (g != 0).any(1)
+        needed = ct.needed_inst(o[live], d[live], torch.zeros(int(live.sum())),
+                                dist[live], scene.ti_rows, scene.cl_obox)[0]
+        assert int(t1.sum()) >= needed and int(t1[~live].sum()) == 0
+        assert int(t2.sum()) <= int(t1.sum())
+        assert float(ref.abs().max()) > 0

@@ -236,3 +236,146 @@ def test_two_level_grads_match_jax(exact_gathers):
     assert tl == pytest.approx(jl, rel=1e-5)
     assert_grads_match(jg, tg, expect=("mat_color", "mat_roughness",
                                        "spot_emission", "dir_emission"))
+
+
+# ---------------------------------------------------------------------------
+# B2-grad and B4-grad: the Functions' backwards (their plain versions here)
+# against the dense replay and jax.vjp, and the cases of zero factors
+# ---------------------------------------------------------------------------
+
+def _mat_op(mc, tri_mat):
+    """(op_rgb, op_a) of a soup's triangles from a material table, as the
+    integrator forms them."""
+    mat = mc[tri_mat]
+    return mat[:, :3], 1.0 - mat[:, 3]
+
+
+def _port_and_replay_grads(ts, o, d, dist, g):
+    """The mat_color gradient of the cotangents ``g`` through the port's
+    shadow Function (B2 on a soup scene, B4 on a two-level one) and through
+    the dense replay of the JAX package's backward rule."""
+    mc = ts.mat_color.clone().requires_grad_(True)
+    mc_r = ts.mat_color.clone().requires_grad_(True)
+    tris = (ts.tri_v0, ts.tri_e1, ts.tri_e2)
+    tri_mat = ts.tri_mat.long()
+    if ts.two_level:
+        expanded = (ts.tri_slot, ts.exp_tri, ts.exp_inst, ts.inst_fwd)
+        fn = ttc.cluster_shadow_inst(o, d, dist, ts.ti_rows, ts.cl_obox,
+                                     ts.cl_lw, ts.cl_slot, ts.inst_slot_map,
+                                     mc, tris=tris, expanded=expanded)
+        ref = ttc._inst_replay(*expanded, ts.inst_slot_map, o, d, dist, *tris,
+                               mc_r)
+    else:
+        fn = ttc.cluster_shadow(o, d, dist, ts.cl_box, ts.cl_lw, ts.cl_order,
+                                ts.cl_base, ts.cl_count, *_mat_op(mc, tri_mat),
+                                tris=tris)
+        ref = ttc._soup_replay(o, d, dist, *tris, *_mat_op(mc_r, tri_mat))
+    got, = torch.autograd.grad(fn, mc, g)
+    want, = torch.autograd.grad(ref, mc_r, g)
+    return fn[1].detach(), got.numpy(), want.numpy()
+
+
+@pytest.mark.parametrize("kind,case", [("b2", "multi_light"),
+                                       ("b4", "field_ranked"),
+                                       ("b4", "multi_light")])
+def test_function_grads_match_dense_replay_and_jax(kind, case):
+    """mat_color gradients of the B2 / B4 Functions (B2-grad / B4-grad's
+    plain versions: two walks of the cluster tables, no alpha stop) against
+    autograd through the dense replay (``_soup_replay`` / ``_inst_replay``)
+    and ``jax.vjp`` of the JAX entry points, on translucent worlds; the
+    cotangent is zero only on f64-chaotic rays, so blocked rays (alpha below
+    1e-4) and the products behind opaque hits count too."""
+    two_level = kind == "b4"
+    jw = translucent(WORLDS[case](rz, 16))
+    tw = translucent(WORLDS[case](__import__("rayzath_tpu_torch"), 16))
+    js = jds.compile_world(jw, two_level=two_level)
+    ts = port_scene(js)
+    if two_level:
+        o, d = sample_rays(ts, tw, seed=6)
+        v0, e1, e2, _, _ = expand_instances(ts.ti_rows, ts.cl_obox, ts.inst_fwd,
+                                            ts.tri_v0, ts.tri_e1, ts.tri_e2)
+    else:
+        n = ts.n_triangles
+        v0, e1, e2 = (x[:n].numpy() for x in (ts.tri_v0, ts.tri_e1, ts.tri_e2))
+        o, d = aimed_rays(v0, e1, e2, 512, seed=6)
+    r = len(o)
+    dist = np.full(r, 30.0, np.float32)
+    _, chaotic = closest_f64(o, d, v0, e1, e2, None, dist)
+    g_rgb, g_a = cotangents(chaotic, np.random.default_rng(7))
+    g = (torch.as_tensor(g_rgb), torch.as_tensor(g_a))
+    a, got, want = _port_and_replay_grads(ts, *map(torch.as_tensor, (o, d, dist)), g)
+    assert_close_rel(got, want, f"{kind} {case}: Function against the replay")
+    assert int(((a < 1e-4).numpy() & ~chaotic).sum()) > 0     # blocked rays count
+    assert np.abs(got).max() > 0
+
+    if two_level:
+        def jf(mc):
+            return jtc.cluster_shadow_inst(
+                jnp.asarray(o), jnp.asarray(d), jnp.asarray(dist), js.ti_box,
+                js.ti_rows, js.cl_obox, js.cl_lw, js.cl_slot, js.tri_slot,
+                js.inst_slot_map, mc, js.tri_v0, js.tri_e1, js.tri_e2,
+                js.exp_tri, js.exp_inst, js.inst_fwd, max_ncl=js.max_ncl)
+    else:
+        def jf(mc):
+            return jtc.cluster_shadow(
+                jnp.asarray(o), jnp.asarray(d), jnp.asarray(dist), js.cl_box,
+                js.cl_lw, js.cl_order, js.cl_base, js.cl_count, js.tri_v0,
+                js.tri_e1, js.tri_e2, *_mat_op(mc, js.tri_mat),
+                n_real=js.n_clusters)
+
+    _, vjp = jax.vjp(jf, js.mat_color)
+    ref, = vjp((jnp.asarray(g_rgb), jnp.asarray(g_a)))
+    assert_close_rel(got, np.asarray(ref), f"{kind} {case}: Function against jax.vjp")
+
+
+def layer_scene(alphas, two_level):
+    """Quads 2 wide at z = 1, 2, ..., one instance each, of materials of
+    colour (0.9, 0.7, 0.5) and the given alphas (1 - alpha is the factor),
+    compiled as a soup (B2) or two-level (B4) scene on the CPU; and the
+    material index of each layer."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.models import device_scene as tds
+    from rayzath_tpu_torch.models.mesh import Mesh
+    from rayzath_tpu_torch.utils.hostmath import Transform
+    w = rt.World()
+    verts = np.asarray([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                       np.float32)
+    mesh = w.meshes.create(Mesh("quad", vertices=verts,
+                                tri_v=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)))
+    for i, a in enumerate(alphas):
+        m = w.create_material(f"layer {i}", color=(0.9, 0.7, 0.5, a))
+        w.create_instance(name=f"layer {i}", mesh=mesh, materials=[m],
+                          transform=Transform(position=(0.0, 0.0, 1.0 + i)))
+    names = [m.name for m in w.materials]
+    scene = tds.compile_world(w, two_level=two_level,
+                              differentiable=two_level, device="cpu")
+    return scene, [names.index(f"layer {i}") + 2 for i in range(len(alphas))]
+
+
+@pytest.mark.parametrize("kind", ["b2", "b4"])
+@pytest.mark.parametrize("case,alphas,want", [
+    # one opaque hit (factor 0) before a translucent one (0.5): the opaque
+    # factor's gradient is the other factor, the translucent one's is 0
+    ("opaque+translucent", (1.0, 0.5), (-0.5, 0.0)),
+    # two opaque hits: each one's gradient is the other factor, 0
+    ("two opaque", (1.0, 1.0), (0.0, 0.0)),
+    # three factors of 0.01: alpha 1e-6, below the forward's 1e-4 stop, and
+    # each factor's gradient the product of the other two, 1e-4
+    ("below the stop", (0.99, 0.99, 0.99), (-1e-4, -1e-4, -1e-4))])
+def test_zero_factors_and_no_stop(kind, case, alphas, want):
+    """A ray through stacked layers: d alpha_out / d alpha_material of each
+    layer (the mat_color alpha column) from the Function's backward equals
+    the product of the other factors, without a division by a zero factor
+    and without the alpha stop, and equals the dense replay's."""
+    scene, mats = layer_scene(alphas, kind == "b4")
+    o = torch.tensor([[0.1, 0.2, 0.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]])
+    dist = torch.tensor([100.0])
+    g = (torch.zeros(1, 3), torch.ones(1))
+    a, got, replay = _port_and_replay_grads(scene, o, d, dist, g)
+    ref_a = np.prod([np.float32(1.0) - np.float32(x) for x in alphas])
+    np.testing.assert_allclose(float(a), ref_a, rtol=1e-5)
+    np.testing.assert_allclose(got[mats, 3], want, rtol=1e-4, atol=1e-12)
+    np.testing.assert_allclose(got, replay, rtol=1e-5, atol=1e-12)
+    if case == "below the stop":
+        assert float(a) < 1e-4 and np.abs(got[mats, 3]).min() > 9e-5

@@ -45,10 +45,31 @@ its call and its kernel's median device duration in a ``torch.profiler``
 trace of 20 calls, as one JSON line:
 
     python3 tools/profile_torch.py --scenes "" --parent build/parent
+
+``--train`` times the training step instead (:func:`train_turn`) in the
+training cell of ``rayzath_tpu_torch/utils/check_train.py`` (also
+``chip_smoke.py`` phase 5's): textured_room at ``--res``^2, depth 3, 4
+passes per step, remat, lr 0.01, against the same scene with its panel's
+emission halved. The tree's eager step (``train._eager_step``, or
+``training_step`` in a tree without the compiled step): a warm-up step,
+three timed steps (s per step, peak GiB) and one step under
+``torch.profiler`` split into device ms of the forward passes, the
+checkpointed recompute, the shadow backward (everything under a
+``backward`` of an autograd Function of ``ops/traverse_cluster.py``), the
+rest of the backward and the projected update, with the step's wall ms and
+idle share (:func:`split_step`); then, where the tree has it, the compiled
+step (``training_step``: one captured CUDA graph per step): the capture
+call's s and ms, three timed steps, peak GiB. With ``--parent DIR`` the
+turns run parent, change, change, parent, one process each:
+
+    python3 tools/profile_torch.py --scenes "" --train --parent build/parent
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
+import importlib.util
 import json
 import os
 import statistics
@@ -219,14 +240,187 @@ def kernel_times(res: int) -> dict:
     return out
 
 
-def parent_turns(parent: str, res: int) -> list:
-    """Kernel times of the parent tree and this one, in turns (parent,
-    change, change, parent), one process per turn."""
+# ---------------------------------------------------------------------------
+# the training step
+# ---------------------------------------------------------------------------
+
+SPLIT = ("forward", "recompute", "shadow backward", "other backward", "update")
+
+
+def train_cell():
+    """``rayzath_tpu_torch.utils.check_train`` (the training cell) of the
+    imported tree or, for a tree without that module, this tree's file
+    bound to the imported package."""
+    name = "rayzath_tpu_torch.utils.check_train"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, *name.split(".")) + ".py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+        return module
+
+
+LABELS = {"rz::forward": "forward", "rz::bounce": "recompute",
+          "rz::shadow_backward": "shadow backward", "rz::update": "update"}
+
+
+@contextlib.contextmanager
+def step_labels():
+    """Wrap the pieces of a training step in profiler ranges, in whichever
+    tree is imported: ``train.image_loss`` (rz::forward), the integrator's
+    ``bounce_step`` (rz::bounce: inside rz::forward a forward pass, else
+    the checkpointed recompute under autograd's backward), the ``backward``
+    of every autograd Function of ``ops/traverse_cluster.py``
+    (rz::shadow_backward) and ``train._project`` (rz::update)."""
+    from torch.profiler import record_function
+    from rayzath_tpu_torch.engine import integrator
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.parallel import train
+
+    def labelled(fn, label):
+        def run(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    saved = []
+
+    def patch(owner, name, label, wrap=lambda f: f):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrap(labelled(getattr(owner, name), label)))
+
+    patch(train, "image_loss", "rz::forward")
+    patch(integrator, "bounce_step", "rz::bounce")
+    patch(train, "_project", "rz::update")
+    for cls in vars(tc).values():
+        if (isinstance(cls, type) and issubclass(cls, torch.autograd.Function)
+                and "backward" in cls.__dict__):
+            patch(cls, "backward", "rz::shadow_backward", staticmethod)
+    try:
+        yield
+    finally:
+        for owner, name, value in reversed(saved):
+            setattr(owner, name, value)
+
+
+def split_step(fn, dev) -> dict:
+    """``fn()`` (one training step) under torch.profiler with
+    :func:`step_labels`: its wall ms, device busy ms (the union of the
+    device events) and idle share, and the device ms of each part of
+    :data:`SPLIT`. Each device event goes to the innermost part whose range
+    holds its launch on the host (the CUDA runtime call with its
+    correlation id; else the torch op it is linked to): the shadow backward
+    before the update, the update before the forward, a bounce outside the
+    forward is the recompute, and the rest is the rest of the backward.
+    The ranges' own spans on the device timeline are left out. Also the 12
+    device kernels of most ms, with their part."""
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with step_labels(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, LABELS[e.name])
+              for e in events if e.name in LABELS]
+    host = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            host.setdefault(("op", e.id), e.time_range.start)
+            if e.name.startswith("cu"):
+                host[("runtime", e.id)] = e.time_range.start
+    parts = dict.fromkeys(SPLIT, 0.0)
+    kernels: dict = {}
+    unattributed, device = 0, []
+    for e in events:
+        # the ranges' own spans on the device timeline are no device work
+        if (e.device_type != DeviceType.CUDA or e.name in LABELS
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        device.append((e.time_range.start, e.time_range.end))
+        t = host.get(("runtime", e.id),
+                     host.get(("op", getattr(e, "linked_correlation_id", None))))
+        inside = (set() if t is None
+                  else {label for a, b, label in ranges if a <= t <= b})
+        unattributed += t is None
+        part = next((p for p in ("shadow backward", "update", "forward",
+                                 "recompute") if p in inside), "other backward")
+        parts[part] += ms
+        k = kernels.setdefault((part, e.name[:80]), [0.0, 0])
+        k[0] += ms
+        k[1] += 1
+    busy_ms = union_us(device) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "device_ms": parts,
+            "device_events": len(device), "unattributed_events": unattributed,
+            "top": [[part, name, ms, n] for (part, name), (ms, n) in top]}
+
+
+def train_turn(dev, res: int) -> dict:
+    """The training record of the imported tree (see the module
+    docstring)."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.parallel import train
+    cell = train_cell()
+    setup = cell.train_setup(dev, res)
+    compiled = hasattr(train, "_eager_step")
+    eager = train._eager_step if compiled else train.training_step
+    rec = {"package": os.path.dirname(os.path.abspath(rt.__file__)),
+           "res": res, **{k: cell.TRAIN[k] for k in ("depth", "passes", "lr")}}
+    rec["eager"] = cell.timed_steps(eager, setup, dev)
+    scene = rec["eager"].pop("scene")
+    rec["eager"].pop("first")
+    rec["split"] = split_step(lambda: cell.step_call(eager, setup, scene, dev),
+                              dev)
+    if compiled:
+        train._STEPS.clear()
+        rec["graph"] = cell.timed_steps(train.training_step, setup, dev)
+        rec["graph"].pop("scene")
+        rec["graph"].pop("first")
+        step = next(iter(train._STEPS.values()))
+        rec["graph"].update(capture_ms=step.capture_ms, captures=step.captures)
+        train._STEPS.clear()
+    return rec
+
+
+def train_line(rec: dict) -> str:
+    e, sp = rec["eager"], rec["split"]
+    line = (f"eager s per step {', '.join(f'{x:.3f}' for x in e['seconds'])} "
+            f"(first {e['first_s']:.2f}), peak {e['peak_gib']} GiB; split of a "
+            f"profiled step: wall {sp['wall_ms']:.1f} ms, busy "
+            f"{sp['busy_ms']:.1f} ms, idle {100 * sp['idle_share']:.1f}%, "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sp["device_ms"].items())
+            + f" device ms ({sp['unattributed_events']} of "
+            f"{sp['device_events']} events unattributed); top kernels "
+            + "; ".join(f"{part}: {name} {ms:.2f} ms x{n}"
+                        for part, name, ms, n in sp["top"]))
+    if "graph" in rec:
+        g = rec["graph"]
+        line += (f"; graph s per step {', '.join(f'{x:.3f}' for x in g['seconds'])}"
+                 f" (capture call {g['first_s']:.2f} s, capture "
+                 f"{g['capture_ms']:.1f} ms), peak {g['peak_gib']} GiB")
+    return line
+
+
+def parent_turns(parent: str, res: int, train: bool = False,
+                 device: str = "cuda") -> list:
+    """Kernel times (or, with ``train``, the training records on
+    ``device``) of the parent tree and this one, in turns (parent, change,
+    change, parent), one process per turn."""
     recs = []
     for label, root in (("parent", parent), ("change", ROOT),
                         ("change", ROOT), ("parent", parent)):
+        turn = (["--train-turn", "--device", device] if train
+                else ["--kernel-times"])
         p = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--kernel-times",
+            [sys.executable, os.path.abspath(__file__), *turn,
              "--root", os.path.abspath(root), "--res", str(res)],
             capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
@@ -373,6 +567,10 @@ def main(argv=None) -> int:
                     help="another checkout: time its kernels against this one's")
     ap.add_argument("--kernel-times", action="store_true",
                     help="one --parent turn: kernel times of the --root tree")
+    ap.add_argument("--train", action="store_true",
+                    help="time the training step (with --parent: in turns)")
+    ap.add_argument("--train-turn", action="store_true",
+                    help="one --parent --train turn: the --root tree's record")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
@@ -381,12 +579,24 @@ def main(argv=None) -> int:
             print(json.dumps(kernel_times(args.res)), flush=True)
         return 0
     dev = torch.device(args.device)
+    if args.train_turn:
+        print(json.dumps(train_turn(dev, args.res)), flush=True)
+        return 0
     print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
     with torch.no_grad():
         for name in filter(None, args.scenes.split(",")):
             profile_scene(name, dev, args.res, args.repeats,
                           args.profile_passes, args.top)
-    if args.parent:
+    if args.train and not args.parent:
+        rec = train_turn(dev, args.res)
+        print(f"training step [{card_line()}]: {train_line(rec)}", flush=True)
+        print(json.dumps(rec), flush=True)
+    elif args.train:
+        for rec in parent_turns(args.parent, args.res, train=True,
+                                device=args.device):
+            print(f"{rec['tree']} training step [{card_line()}]: "
+                  f"{train_line(rec)}", flush=True)
+    elif args.parent:
         recs = parent_turns(args.parent, args.res)
         for key in ("b1_ms", "b2_ms", "b3_ms", "b4_ms", "b3_small_ms",
                     "draw_ms", "draw_call_ms"):
