@@ -142,10 +142,20 @@ Phases, each of which raises on failure (exit code != 0):
    with half the materials translucent in the opacity table (the scene is
    opaque, so the gradient as given may be 0 throughout; with the
    translucent table some call must have one). Then, through
-   ``tools/profile_torch.py``, one eager step under torch.profiler, split
-   into device ms of the forward passes, the checkpointed recompute, the
-   shadow backward (B2-grad), the rest of the backward and the update,
-   with its wall ms and idle share. Then one
+   ``rayzath_tpu_torch/utils/profiling.py``, one eager step under
+   torch.profiler, split into device ms of the forward passes, the
+   checkpointed recompute, the shadow backward (B2-grad), the gathers'
+   backward (G2, per call site), the rest of the backward and the update,
+   with its wall ms and idle share; it fails if torch's index backward
+   (``indexing_backward_kernel*``) ran in that step: a differentiable
+   gather that bypasses ``ops/gather.py``. Then G1 and G2 on the arguments
+   of every gather of one more eager step: G1 bit for bit as
+   ``gather_rows_plain``, G2 within 1e-6 of the max |g| of
+   ``gather_rows_grad_plain`` (the float64 sum rounded once) and, on a
+   table that fits in shared memory, the same bits twice; the material
+   table's call and the largest colour atlas call timed (device and call
+   ms, bound, plain ms, and ``table[idx]``, ``index_add_`` and
+   ``index_put_(accumulate=True)`` on the same arguments). Then one
    two-level ``training_step`` on instanced_field at 512^2
    (``differentiable=True``): the loss finite, the materials' update
    non-zero, B4-grad launched; and B4-grad against its plain version on
@@ -185,7 +195,7 @@ Phases, each of which raises on failure (exit code != 0):
    rpp 1, 3, 2, a reprojecting camera move (no new capture), a material
    edit (a new capture) and a checkpoint resumed in a fresh renderer
    (``utils/check_cycle.py``); then the turns eager, graph, graph, eager
-   of ``tools/profile_torch.py`` ``cycle_turn``: Mrays/s, device busy ms
+   of ``utils/profiling.py`` ``cycle_turn``: Mrays/s, device busy ms
    per pass (a torch.profiler trace) and device ms per pass (passes queued
    behind a sleep), the idle share of the trace and (graph) of the timed
    renders, device events per pass, capture ms, peak MiB, and the host ms
@@ -196,12 +206,14 @@ The last lines of standard output are the render cycle's JSON record
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4, the
 threefry kernel's two entries (``"replaces": null``: the JAX package draws
-in XLA) and B2-grad and B4-grad (``replaces``: the custom_vjp bwd rules,
-a dense replay in XLA), each with its launches in the paths driven with
-the counters set to 0 just before and read just after: phase 4's renders
-(B1-B4 and the keyed draw), the skip-link renders (the keyed draw), phase
-5's training steps (B1, B2, B2-grad and both draws; the two-level step
-B3, B4 and B4-grad), phase 6's headless run and phase 7's turns;
+in XLA), B2-grad and B4-grad (``replaces``: the custom_vjp bwd rules,
+a dense replay in XLA) and the table gather's G1 and G2 (``replaces``:
+``rayzath_tpu/ops/gather.py`` ``gather_rows``), each with its launches in
+the paths driven with the counters set to 0 just before and read just
+after: phase 4's renders (B1-B4, G1 and the keyed draw), the skip-link
+renders (the keyed draw), phase 5's training steps (B1, B2, B2-grad, G1,
+G2 and both draws; the two-level step B3, B4 and B4-grad), phase 6's
+headless run and phase 7's turns;
 ``ms`` its device time and ``call_ms`` its call's time. It fails if a
 kernel never launched. Needs one CUDA device and nvcc; there is no CPU
 fallback.
@@ -1454,14 +1466,15 @@ def phase_seeded(dev):
 def path_wrappers() -> dict:
     """{label: wrapper} of the main path's kernels; each wrapper counts
     the launches of its kernel in its ``launches`` attribute."""
-    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.ops import gather, rng
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
             "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
             "B2-grad": tc.cluster_shadow_grad,
             "B4-grad": tc.cluster_shadow_inst_grad,
             "threefry": rng.uniform_rows,
-            "threefry_keyed": rng.uniform_rows_keyed}
+            "threefry_keyed": rng.uniform_rows_keyed,
+            "G1": gather.gather_rows_fwd, "G2": gather.gather_rows_grad}
 
 
 def phase_slice(card: str, dev):
@@ -1490,7 +1503,7 @@ def phase_slice(card: str, dev):
         dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
         path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
-            "threefry_keyed",)
+            "threefry_keyed", "G1")
         if name == "instanced_field" and not r.scene.two_level:
             raise AssertionError("instanced_field did not compile two-level")
         if name == "textured_room" and r.scene.map_kinds_used != (True,) * 5:
@@ -1557,7 +1570,7 @@ def phase_files(card: str, dev, launches: dict):
         if ns not in THREEFRY_NS:
             raise AssertionError(f"{name}: n_streams {ns} not checked")
         path_k = (("B3", "B4") if two_level else ("B1", "B2")) + (
-            "threefry_keyed",)
+            "threefry_keyed", "G1")
         for f in wrappers.values():
             f.launches = 0
         t0 = time.perf_counter()
@@ -1936,6 +1949,129 @@ def grad_case_text(rec: dict) -> str:
             f"{b['rel_err']:.3e} (max abs {b['err']:.3e})")
 
 
+# G2 against its plain version (the float64 sum rounded once), of the max
+# |g| of each call: G2 adds in another order (a tree over warps and blocks,
+# or float atomics on the atlases)
+GATHER_RTOL = 1e-6
+
+
+def gather_timing(kernel, plain, library: dict, n_bytes: float,
+                  n_ops: float) -> dict:
+    """Device and call ms of ``kernel()`` (``utils/cuda_timing``), the
+    plain version's ms, each ``library`` call's device ms, and the bound
+    of the call's bytes and operations."""
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    out = dict(ms=device_ms(kernel), call_ms=call_ms(kernel, 20),
+               plain_ms=plain_runs(plain)[0], bound=bound(n_bytes, n_ops))
+    out.update({k: device_ms(f) for k, f in library.items()})
+    return out
+
+
+def phase_gather(card: str, dev, setup: dict, scene) -> dict:
+    """G1 and G2 (``ops/gather.py``) on the arguments of one eager training
+    step's own gathers, every call recorded: G1 bit for bit as
+    ``gather_rows_plain`` in every call, G2 within GATHER_RTOL of the max
+    |g| of ``gather_rows_grad_plain`` in every call (0 exactly where that
+    is 0), and every call on a table that fits in shared memory the same
+    bits twice. Then, on the calls of the material table ``mp`` (262,144
+    rays x 14: G1 and G2's fixed-order path) and the step's largest colour
+    atlas call (G2's atomic path): device and call ms, the plain version's
+    ms, the bound (the indices, the table or cotangent and the output, each
+    once, over HBM_BYTES_S; G2 also its adds) and the library calls:
+    ``table[idx]`` for G1, ``index_add_`` and ``index_put_(accumulate=True)``
+    for G2. The comparisons' launches are left out of the counters."""
+    import torch
+    from rayzath_tpu_torch.ops import _kernels, gather
+    from rayzath_tpu_torch.parallel import train
+    from rayzath_tpu_torch.utils import check_train as ctr
+    t0 = time.perf_counter()
+    wrappers = path_wrappers()
+    held = {k: f.launches for k, f in wrappers.items()}
+    with recorded_calls(gather, "gather_rows_fwd") as fwd, \
+            recorded_calls(gather, "gather_rows_grad") as bwd:
+        ctr.step_call(train._eager_step, setup, scene, dev)
+    lib = _kernels.load()
+    for table, idx in fwd:
+        got = gather.gather_rows_fwd(table, idx)
+        if not torch.equal(got.view(torch.int32),
+                           gather.gather_rows_plain(table, idx).view(torch.int32)):
+            raise AssertionError(f"G1 on a training step's {tuple(table.shape)} "
+                                 f"table, {tuple(idx.shape)} indices: not bit "
+                                 f"for bit as its plain version")
+    worst, worst_abs, fixed, twice = 0.0, 0.0, 0, True
+    for idx, g, n in bwd:
+        got = gather.gather_rows_grad(idx, g, n)
+        ref = gather.gather_rows_grad_plain(idx, g, n)
+        diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        if scale > 0.0:
+            worst = max(worst, diff / scale)
+        elif diff != 0.0:
+            raise AssertionError(f"G2 on a training step's arguments: {diff} "
+                                 f"where the plain gradient is 0")
+        worst_abs = max(worst_abs, diff)
+        if lib.rz_gather_grad_partials(idx.numel(), n, got.shape[1]):
+            fixed += 1
+            twice &= torch.equal(got, gather.gather_rows_grad(idx, g, n))
+    if not worst <= GATHER_RTOL:
+        raise AssertionError(f"G2 on a training step's arguments: max rel err "
+                             f"{worst:.3e} (rtol {GATHER_RTOL})")
+    if not (fixed and twice):
+        raise AssertionError(f"G2: {fixed} calls on tables that fit in shared "
+                             f"memory, the same bits twice: {twice}")
+    m_rows = scene.n_materials
+    mp_fwd = next((t, i) for t, i in fwd if tuple(t.shape) == (m_rows, 14))
+    mp_bwd = next((i, g, n) for i, g, n in bwd
+                  if n == m_rows and g.shape[-1] == 14)
+    hc, wc = scene.color_atlas.shape[:2]
+    atlas = max((c for c in bwd if c[2] == hc * wc), key=lambda c: c[0].numel())
+
+    def g1_record(table, idx):
+        r = idx.numel()
+        return dict(rows=r, table=list(table.shape), **gather_timing(
+            lambda: gather.gather_rows_fwd(table, idx),
+            lambda: gather.gather_rows_plain(table, idx),
+            {"library_ms": lambda: table[idx]},
+            idx.element_size() * r + table.numel() * 4 * (1 + r / table.shape[0]),
+            0))
+
+    def g2_record(idx, g, n):
+        m, k = idx.numel(), g.numel() // idx.numel()
+        flat, flat64, g2 = idx.reshape(-1), idx.reshape(-1).long(), g.reshape(m, k)
+        return dict(rows=m, table=[n, k], **gather_timing(
+            lambda: gather.gather_rows_grad(idx, g, n),
+            lambda: gather.gather_rows_grad_plain(idx, g, n),
+            {"library_ms": lambda: torch.zeros(
+                (n, k), device=dev).index_add_(0, flat, g2),
+             "index_put_ms": lambda: torch.zeros((n, k), device=dev).index_put_(
+                 (flat64,), g2, accumulate=True)},
+            idx.element_size() * m + g.numel() * 4 + n * k * 4, m * k))
+
+    out = {"G1": dict(g1_record(*mp_fwd), calls=len(fwd)),
+           "G2": dict(g2_record(*mp_bwd), calls=len(bwd), rel_err=worst,
+                      err=worst_abs, fixed_order_calls=fixed,
+                      same_bits_twice=twice),
+           "G2_atlas": g2_record(*atlas)}
+    del fwd, bwd
+    for k, f in wrappers.items():
+        f.launches = held[k]
+    for key, rec in out.items():
+        lib_text = (f"table[idx] {rec['library_ms']:.4f}" if key == "G1" else
+                    f"index_add_ {rec['library_ms']:.4f}, index_put_(accumulate"
+                    f"=True) {rec['index_put_ms']:.4f}")
+        print(f"  {key} on a training step's {rec['table']} table, "
+              f"{rec['rows']} rows [{card}]: {rec['ms']:.4f} ms on the device "
+              f"(call {rec['call_ms']:.4f}), bound {rec['bound'][0]:.4f} ms "
+              f"({rec['bound'][1]}), plain {rec['plain_ms']:.4f} ms, "
+              f"{lib_text} ms", flush=True)
+    print(f"G1/G2 on one eager training step's own arguments [{card}]: G1 "
+          f"{out['G1']['calls']} calls bit for bit; G2 {out['G2']['calls']} "
+          f"calls, max rel err {worst:.3e} (max abs {worst_abs:.3e}), "
+          f"{fixed} on tables in shared memory the same bits twice: "
+          f"{'yes' if twice else 'no'} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+
 def check_steps(label: str, rec: dict) -> None:
     """Every step of a ``check_train.timed_steps`` record left the
     parameters finite and moved the atlas, and its losses are finite and
@@ -1965,9 +2101,10 @@ def phase_train(card: str, dev, launches: dict):
     parameters finite and moves the atlas; the losses finite and
     descending. Then B2-grad against its plain version on the arguments of
     every shadow backward of one more eager step (all rays; as given and
-    with half the materials translucent), and the split
-    of one eager step under torch.profiler (``tools/profile_torch.py``,
-    whose range wrappers are in place only for that step). Then one
+    with half the materials translucent), the split of one eager step
+    under torch.profiler (``utils/profiling.py``, whose range wrappers are
+    in place only for that step; no index backward may run in it) and
+    :func:`phase_gather`. Then one
     two-level step on instanced_field at 512^2 (compiled with
     ``differentiable=True``, B4-grad's path): a finite loss and a non-zero
     update of the materials; and B4-grad against its plain version on one
@@ -1986,6 +2123,7 @@ def phase_train(card: str, dev, launches: dict):
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.parallel import train
     from rayzath_tpu_torch.utils import check_train as ctr
+    from rayzath_tpu_torch.utils import profiling
     setup = ctr.train_setup(dev, RES)
     scene = setup["scene"]
     passes, lr = ctr.TRAIN["passes"], ctr.TRAIN["lr"]
@@ -2020,10 +2158,13 @@ def phase_train(card: str, dev, launches: dict):
         worst = max(worst, diff / change if change else 0.0)
     check_steps("eager", eager)
     check_steps("graph", graph)
-    sys.path.insert(0, str(ROOT / "tools"))
-    import profile_torch as pt
-    split = pt.split_step(lambda: ctr.step_call(train._eager_step, setup, scene,
-                                                dev), dev)
+    split = profiling.split_step(
+        lambda: ctr.step_call(train._eager_step, setup, scene, dev), dev)
+    if split["index_backward_kernels"]:
+        raise AssertionError(
+            f"training: {split['index_backward_kernels']} kernels of torch's "
+            f"index backward ({split['index_backward_ms']:.2f} ms) in the "
+            f"profiled step: a differentiable gather bypasses gather_rows")
     for k, f in wrappers.items():
         launches[k] += f.launches
     held = {k: f.launches for k, f in wrappers.items()}
@@ -2056,7 +2197,12 @@ def phase_train(card: str, dev, launches: dict):
           f"graph step: parameters finite, atlas moved (min "
           f"{min(c['atlas_step'] for c in eager['checks'] + graph['checks']):.3e}"
           f"); launches per graph run {counts}; B2-grad on an eager step's "
-          f"own arguments ({grad_case_text(b2)}", flush=True)
+          f"own arguments ({grad_case_text(b2)}; torch's index backward: "
+          f"none; the gathers' backward by call site: "
+          + "; ".join(f"{site} {ms:.3f} ms x{n}"
+                      for site, (ms, n) in split["gather_sites"].items()),
+          flush=True)
+    gathers = phase_gather(card, dev, setup, scene)
 
     # two-level: instanced_field at full width, B4-grad's path
     world = rt.scenes.instanced_field(RES, RES)
@@ -2115,7 +2261,7 @@ def phase_train(card: str, dev, launches: dict):
                 seconds=graph["seconds"], split=split,
                 eager_seconds=eager["seconds"],
                 step_grads={"cluster_shadow_grad": b2,
-                            "cluster_shadow_inst_grad": b4})
+                            "cluster_shadow_inst_grad": b4}, gathers=gathers)
 
 
 # ---------------------------------------------------------------------------
@@ -2487,21 +2633,20 @@ CYCLE_KEYS = ("mrays_s", "busy_ms_per_pass", "device_ms_per_pass",
 
 def phase_cycle(card: str, dev, launches: dict) -> dict:
     """``Renderer.render`` replays one captured graph per pass
-    (``engine/cycle.py``). On the six scenes of ``tools/profile_torch.py``
+    (``engine/cycle.py``). On the six scenes of ``utils/profiling.py``
     at 512^2, depth 8: ``utils/check_cycle.against_eager`` (every state
     array bit for bit as eager ``render_steps`` from one seed, so sample
     counts equal: an rpp sequence 1, 3, 2, a reprojecting camera move, a
     material edit that captures again, a checkpoint resumed in a fresh
     renderer), then the turns eager, graph, graph, eager of
-    ``profile_torch.cycle_turn`` (Mrays/s, busy and device ms per pass,
+    ``profiling.cycle_turn`` (Mrays/s, busy and device ms per pass,
     idle share, events per pass, capture ms, peak MiB, the host ms of
     ``render(rpp=16, block=False)``). Adds the turns' launches to
     ``launches``; returns the ``render_cycle`` record."""
     import torch
     import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.utils import profiling as pt
     from rayzath_tpu_torch.utils.check_cycle import against_eager
-    sys.path.insert(0, str(ROOT / "tools"))
-    import profile_torch as pt
     cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
     wrappers = path_wrappers()
     record = {"card": card, "res": RES, "max_depth": 8, "seed": CYCLE_SEED,
@@ -2666,6 +2811,31 @@ def main() -> int:
             "rtol": BACKWARD_RTOL, "same_bits_twice": m["same_bits"],
             "training_step_max_rel_err": max(
                 c["rel_err"] for c in train["step_grads"][name].values())})
+    # the table gather replaces the JAX package's gather_rows (a one-hot MXU
+    # product for tables of at most 128 rows, not a Pallas kernel); timed on
+    # a training step's material-table call (262,144 x 14), G2's atomic path
+    # on its largest colour atlas call
+    gathers = train["gathers"]
+    for label, name, key in (("G1", "gather_rows", "G1"),
+                             ("G2", "gather_rows_grad", "G2")):
+        m = gathers[key]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "rayzath_tpu_torch/csrc/gather_rows.cu",
+            "replaces": "rayzath_tpu/ops/gather.py:16",
+            "launches": launches[label],
+            "max_abs_err": m.get("err", 0.0), "ms": m["ms"],
+            "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+            "library_ms": m["library_ms"], "rows": m["rows"],
+            "table": m["table"], "calls_per_step": m["calls"]})
+    g2 = record[-1]
+    g2.update(index_put_ms=gathers["G2"]["index_put_ms"],
+              max_rel_err=gathers["G2"]["rel_err"], rtol=GATHER_RTOL,
+              same_bits_twice=gathers["G2"]["same_bits_twice"],
+              atlas={k: gathers["G2_atlas"][k] for k in (
+                  "ms", "call_ms", "plain_ms", "bound", "library_ms",
+                  "index_put_ms", "rows", "table")})
     # the draw replaces no TPU kernel (the JAX package draws in XLA); both
     # entries timed on one 512^2 pass at ns = 14, bit for bit to the plain
     # draw; the keyed entry (the render cycle's) folds the pass key on the

@@ -47,7 +47,7 @@ from typing import Optional
 import torch
 
 from ..models.device_scene import TorchCamera, TorchScene
-from ..ops import rng
+from ..ops import gather, rng
 from ..ops import traverse_cluster as tc
 from .config import RenderConfig
 from .integrator import bounce_step, host_reads, n_streams
@@ -55,7 +55,8 @@ from .state import _ARRAYS, RenderState, init_state
 
 #: the kernel wrappers whose ``launches`` counters a replay advances
 COUNTED = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_closest_inst,
-           tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed)
+           tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed,
+           gather.gather_rows_fwd)
 
 _CAMERA = ("position", "rot", "fov", "near_far", "focal_distance", "aperture",
            "exposure_time")

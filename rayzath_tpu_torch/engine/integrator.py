@@ -38,8 +38,11 @@ Differentiable, as the JAX package is: discrete hit ids from the traversal
 kernels carry no gradient, and (t, b1, b2) are re-derived differentiably by
 ``refine_tri`` on the hit's triangle (path replay); the shadow kernels'
 autograd Functions take their gradient with the B2-grad / B4-grad kernels
-(ops/traverse_cluster.py); the free-flight scatter decision carries the
-JAX package's score-function ratios (forward value exactly 1).
+(ops/traverse_cluster.py); every table gather goes through
+``ops/gather.py`` ``gather_rows`` (the G1 gather, its backward the per-row
+sum G2) where the JAX package calls its ``gather_rows``; the free-flight
+scatter decision carries the JAX package's score-function ratios (forward
+value exactly 1).
 ``Renderer.render`` runs under ``torch.no_grad``, so the serve path records
 no graph; ``render_steps(..., remat=True)`` checkpoints each bounce for
 training (parallel/train.py).
@@ -53,6 +56,7 @@ import torch.utils.checkpoint
 
 from ..models.device_scene import TorchScene, TorchCamera, WORLD_MATERIAL_ID
 from ..ops import camera as cam_ops
+from ..ops.gather import gather_rows
 from ..ops import rng
 from ..ops import texture as tex_ops
 from ..ops.intersect import (_project_terms, project_closest, project_shadow,
@@ -105,7 +109,7 @@ def material_fetch(scene: TorchScene, mp, mat_id, texcrd) -> MatProps:
     Material::color/emission/metalness/roughness with maps,
     cuda_material.cuh:70-123). ``mp`` is :func:`mat_pack`'s table; the
     fetch of a map kind no material references is skipped."""
-    row = mp[torch.clamp(mat_id, 0, scene.n_materials - 1).long()]
+    row = gather_rows(mp, torch.clamp(mat_id, 0, scene.n_materials - 1))
     rgb, alpha_op = row[:, 0:3], 1.0 - row[:, 3]
     metal, rough, emis = row[:, 4], row[:, 5], row[:, 6]
     normal_map = None
@@ -240,12 +244,13 @@ def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
             lambda o, d, near, far: cluster_closest_inst(
                 o, d, near, far, scene.ti_rows, scene.cl_obox, scene.cl_lw),
             sort=sort)
-        tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
+        tp = gather_rows(scene.tri_pack, torch.clamp(tid, min=0))
         # object -> world (the reference moves the ray instead,
         # cuda_instance.cuh:186-229: the same hit, shaded in world space);
         # normals through the inverse-transpose rows
-        ii = torch.clamp(inst, min=0).long()
-        fwd, nrm = scene.inst_fwd[ii], scene.inst_nrm[ii]
+        ii = torch.clamp(inst, min=0)
+        fwd = gather_rows(scene.inst_fwd, ii)
+        nrm = gather_rows(scene.inst_nrm, ii)
         parts = [_apply_fwd(fwd, tp[:, 0:3], True),
                  _apply_fwd(fwd, tp[:, 3:6], False),
                  _apply_fwd(fwd, tp[:, 6:9], False)]
@@ -270,7 +275,7 @@ def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
                                  scene.node_count, scene.leaf_tri,
                                  scene.tri_v0, scene.tri_e1, scene.tri_e2)
         inst = None
-        tp = scene.tri_pack[torch.clamp(tid, min=0).long()]
+        tp = gather_rows(scene.tri_pack, torch.clamp(tid, min=0))
     t_r, b1_r, b2_r, det = refine_tri(o, d, tp[:, 0:3], tp[:, 3:6], tp[:, 6:9])
     ext = det > 0.0
     hit_mask = tid >= 0
@@ -344,7 +349,7 @@ def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
                 scene.cl_slot, scene.inst_slot_map, scene.mat_color,
                 tris=tris, expanded=expanded),
             sort=_sort_traversal(cfg, scene))
-    mat = scene.mat_color[scene.tri_mat.long()]
+    mat = gather_rows(scene.mat_color, scene.tri_mat)
     op_rgb = mat[:, :3]
     op_a = 1.0 - mat[:, 3]
     if _dense(cfg, scene):
@@ -453,13 +458,13 @@ def _nee_spot(scene, cfg, point, next_dir, d_in, mapped_normal, surf_scattering,
     for s in range(n_samples):
         us = u[:, 3 * s:3 * s + 3]
         li = torch.clamp((us[:, 0] * n_lights).to(torch.int32),
-                         max=n_lights - 1).long()
-        lpos = scene.spot_pos[li]
-        ldir = scene.spot_dir[li]
-        lcol = scene.spot_color[li]
-        lsize = scene.spot_size[li]
-        lemit = scene.spot_emission[li]
-        lcos = scene.spot_cos_angle[li]
+                         max=n_lights - 1)
+        lpos = gather_rows(scene.spot_pos, li)
+        ldir = gather_rows(scene.spot_dir, li)
+        lcol = gather_rows(scene.spot_color, li)
+        lsize = gather_rows(scene.spot_size, li)
+        lemit = gather_rows(scene.spot_emission, li)
+        lcos = gather_rows(scene.spot_cos_angle, li)
 
         # sampleDirection (cuda_spot_light.cuh:56-80)
         v_pl0 = lpos - point
@@ -505,11 +510,11 @@ def _nee_direct(scene, cfg, point, next_dir, d_in, mapped_normal, surf_scatterin
     for s in range(n_samples):
         us = u[:, 3 * s:3 * s + 3]
         li = torch.clamp((us[:, 0] * n_lights).to(torch.int32),
-                         max=n_lights - 1).long()
-        ldir = scene.dir_dir[li]
-        lcol = scene.dir_color[li]
-        lemit = scene.dir_emission[li]
-        lcos = scene.dir_cos[li]
+                         max=n_lights - 1)
+        ldir = gather_rows(scene.dir_dir, li)
+        lcol = gather_rows(scene.dir_color, li)
+        lemit = gather_rows(scene.dir_emission, li)
+        lcos = gather_rows(scene.dir_cos, li)
 
         # sampleDirection (cuda_direct_light.cuh:50-67)
         would_hit = dot(next_dir, -ldir) > lcos
@@ -602,7 +607,7 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
 
     mp = mat_pack(scene)
     med = torch.clamp(state.medium, 0, scene.n_materials - 1)
-    med_row = mp[med.long()]
+    med_row = gather_rows(mp, med)
     med_color = med_row[:, 0:4]
     med_ior = med_row[:, 7]
     med_scatter = med_row[:, 8]
@@ -647,7 +652,7 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
         # Instance::analyzeIntersection, cuda_instance.cuh:231-264)
         slot = torch.round(tp[:, 24]).to(torch.int32)
         flat = torch.clamp(inst_id, min=0) * SLOTS + slot
-        tri_mat_hit = scene.inst_slot_map.reshape(-1)[flat.long()]
+        tri_mat_hit = gather_rows(scene.inst_slot_map.reshape(-1), flat)
     else:
         tri_mat_hit = torch.round(tp[:, 24]).to(torch.int32)
 
@@ -710,7 +715,8 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
                             torch.full_like(depth0, PATH_LIMIT))
 
     # --- fresnel / reflectance ---
-    n2 = mp[torch.clamp(behind_mat, 0, scene.n_materials - 1).long()][:, 7]
+    behind = torch.clamp(behind_mat, 0, scene.n_materials - 1)
+    n2 = gather_rows(mp, behind)[:, 7]
     fresnel, refr_ratio, refr_b = fresnel_specular_ratio(mapped_normal, d,
                                                          med_ior, n2)
     reflectance = lerp(fresnel, 1.0, mat.metalness)

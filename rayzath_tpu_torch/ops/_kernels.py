@@ -38,6 +38,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH, "-fmad=false", "-prec-div=true",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id,
     # visits (null: not counted), stream
@@ -69,7 +70,18 @@ _SIGNATURES = {
     # out, key words (uint32[2]), pass index (int32[1]), row0, height,
     # width, ns, stream
     "rz_threefry_uniform_keyed": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # table, idx, idx is int64, rows m, row width k, table rows n, out,
+    # stream
+    "rz_gather_rows": [_P, _P, _I, _L, _I, _I, _P, _P],
+    # rows m, table rows n, row width k -> doubles of G2's partials (0: the
+    # atomic path)
+    "rz_gather_grad_partials": [_L, _I, _I],
+    # idx, idx is int64, g, m, k, n, scratch (the partials, or the atomic
+    # path's zeroed [n, k] doubles), out, stream
+    "rz_gather_rows_grad": [_P, _I, _P, _L, _I, _I, _P, _P, _P],
 }
+#: return types other than the error code
+_RESTYPES = {"rz_gather_grad_partials": _L}
 
 
 def _nvcc() -> str:
@@ -149,7 +161,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.rz_error_string.argtypes = [ctypes.c_int]
     lib.rz_error_string.restype = ctypes.c_char_p
     return lib
@@ -157,3 +169,19 @@ def load() -> ctypes.CDLL:
 
 def error_string(code: int) -> str:
     return f"{code} ({load().rz_error_string(code).decode()})"
+
+
+def ptr(x) -> ctypes.c_void_p:
+    """A tensor's data pointer as a ctypes argument."""
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def launch(name: str, fn, dev, *args) -> None:
+    """Call the library function ``fn(*args, stream)`` on CUDA device
+    ``dev`` and that device's current stream, whatever device is current in
+    the calling thread; raise when it reports an error."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {error_string(err)}")

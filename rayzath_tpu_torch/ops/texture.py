@@ -12,12 +12,16 @@ static 2x2 block tables of :func:`block_indices` (built once per atlas at
 scene compile), as in the JAX package's blocked fetch: one row of the table
 gives the four texel indices of a corner block, with the +1 neighbours
 clamped inside the map's rect. The texels are then read from the live atlas,
-so gradients reach the atlas leaves.
+so gradients reach the atlas leaves. Every lookup, of the map tables, the
+block tables and the atlases, goes through ``ops/gather.py``
+``gather_rows`` (the G1 kernel on a card; G2 takes the atlases' gradient).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .gather import gather_rows
 
 FILTER_POINT = 0
 FILTER_LINEAR = 1
@@ -45,7 +49,7 @@ def _apply_address(x, mode):
 
 def _transform_uv(uv, map_uv, map_id):
     """uv += translation; rotate; *= scale (reference render_parts.hpp:209-212)."""
-    prm = map_uv[map_id]                      # [R,5]: sx, sy, rot, tx, ty
+    prm = gather_rows(map_uv, map_id)         # [R,5]: sx, sy, rot, tx, ty
     u = uv[:, 0] + prm[:, 3]
     v = uv[:, 1] + prm[:, 4]
     c, s = torch.cos(prm[:, 2]), torch.sin(prm[:, 2])
@@ -80,11 +84,11 @@ def fetch(atlas, blk_idx, map_rect, map_flags, map_uv, map_id, uv):
     :func:`block_indices` table, ``map_id`` [R] int (< 0 reads map 0; the
     caller masks it), ``uv`` [R, 2]. Returns [R, 4]: RGBA, or the scalar
     broadcast to four channels."""
-    mid = torch.clamp(map_id, min=0).long()
+    mid = torch.clamp(map_id, min=0)
     u, v = _transform_uv(uv, map_uv, mid)
-    flags = map_flags[mid]
+    flags = gather_rows(map_flags, mid)
     filt, addr = flags[:, 0], flags[:, 1]
-    rect = map_rect[mid].long()
+    rect = gather_rows(map_rect, mid).long()
     y0, x0, h, w = rect[:, 0], rect[:, 1], rect[:, 2], rect[:, 3]
 
     un, ub = _apply_address(u, addr)
@@ -103,11 +107,11 @@ def fetch(atlas, blk_idx, map_rect, map_flags, map_uv, map_id, uv):
     ay = torch.where(y_lo < 0, zero, fy - y_lo)[:, None]
     xc = torch.minimum(torch.clamp(x_lo.long(), min=0), w - 1) + x0
     yc = torch.minimum(torch.clamp(y_lo.long(), min=0), h - 1) + y0
-    corners = blk_idx[yc * atlas.shape[1] + xc].long()          # [R, 4]
+    corners = gather_rows(blk_idx, yc * atlas.shape[1] + xc)    # [R, 4]
     if atlas.dim() == 3:
-        vals = atlas.reshape(-1, 4)[corners]                     # [R, 4, 4]
+        vals = gather_rows(atlas.reshape(-1, 4), corners)        # [R, 4, 4]
     else:
-        vals = atlas.reshape(-1)[corners][..., None]             # [R, 4, 1]
+        vals = gather_rows(atlas.reshape(-1), corners)[..., None]  # [R, 4, 1]
     v00, v10, v01, v11 = vals.unbind(1)
     linear = (v00 * (1 - ax) + v10 * ax) * (1 - ay) + (v01 * (1 - ax) + v11 * ax) * ay
     # point sample = the corner picked by rounding the fractional parts

@@ -67,6 +67,8 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ._kernels import launch as _launch, ptr as _ptr
+from .gather import gather_rows
 from .bvh import build_bvh, triangle_aabbs
 from .intersect import (BIG, DET_EPS, project_shadow, triangle_frames,
                         triangle_frames_torch)
@@ -171,12 +173,12 @@ def cluster_opacity(op_rgb, op_a, order, base, count,
     """[Cp, 4, cluster_t] per-cluster rgba opacity from the live material
     opacity tables (original triangle order), rebuilt on every call so that
     material edits are never stale. Padding slots get 1."""
-    ops = torch.cat([op_rgb, op_a[:, None]], dim=1)[order]          # [T,4]
+    ops = gather_rows(torch.cat([op_rgb, op_a[:, None]], dim=1), order)  # [T,4]
     lanes = torch.arange(cluster_t, device=op_rgb.device)
     idx = base[:, None].long() + lanes[None, :]                      # [C,ct]
     valid = lanes[None, :] < count[:, None]
     idx = torch.clamp(idx, 0, max(ops.shape[0] - 1, 0))
-    vals = torch.where(valid[:, :, None], ops[idx],
+    vals = torch.where(valid[:, :, None], gather_rows(ops, idx),
                        torch.ones((), dtype=ops.dtype, device=ops.device))
     return vals.permute(0, 2, 1).contiguous()                        # [C,4,ct]
 
@@ -214,7 +216,7 @@ def instance_opacity(mat_color, inst_slot_map):
     """[I, 4, SLOTS] per-instance slot opacity (rgb, 1 - alpha), resolved
     from the live material table on every call, so edits are never
     stale."""
-    mc = mat_color[inst_slot_map.long()]                             # [I,64,4]
+    mc = gather_rows(mat_color, inst_slot_map)                       # [I,64,4]
     ops = torch.cat([mc[..., :3], 1.0 - mc[..., 3:4]], dim=-1)
     return ops.permute(0, 2, 1).contiguous()
 
@@ -407,22 +409,6 @@ def _check_tables(box_tab, frames, extra=()):
                          f", frames {tuple(frames.shape)}")
     _check_shapes(extra)
     return cp
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _launch(name, fn, dev, *args):
-    """Call the library function ``fn(*args, stream)`` on CUDA device
-    ``dev`` and that device's current stream, whatever device is current in
-    the calling thread; raise when it reports an error."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_kernels.error_string(err)}")
 
 
 def _aligned(**tensors):

@@ -6,7 +6,8 @@ projected SGD step on the material properties, texture atlases and light
 emissions. Gradients flow through the wavefront integrator: discrete hit
 ids carry none, hit coordinates are re-derived differentiably
 (engine/integrator.py), the shadow kernels' backwards are the B2-grad and
-B4-grad kernels (ops/traverse_cluster.py), the total-internal-reflection
+B4-grad kernels (ops/traverse_cluster.py), the table gathers' backward is
+the per-row sum G2 (ops/gather.py), the total-internal-reflection
 branch is straight-through with a sigmoid-relaxed gradient (ops/vec.py)
 and the free-flight scatter decision carries a score-function ratio.
 
@@ -60,7 +61,7 @@ from ..engine import cycle
 from ..engine.cycle import _int32, capture
 from ..engine.integrator import host_reads, render_steps_preserve
 from ..engine.state import _ARRAYS, RenderState
-from ..ops import rng
+from ..ops import gather, rng
 from ..ops import traverse_cluster as tc
 
 #: Scene leaves that receive gradients (the JAX package's list; each is
@@ -73,8 +74,9 @@ DIFF_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "mat_emission",
 _UNIT_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "color_atlas")
 
 #: the kernel wrappers whose ``launches`` counters a replay advances: a
-#: render pass's and the shadow backwards
-COUNTED = cycle.COUNTED + (tc.cluster_shadow_grad, tc.cluster_shadow_inst_grad)
+#: render pass's, the shadow backwards and the gathers' backward
+COUNTED = cycle.COUNTED + (tc.cluster_shadow_grad, tc.cluster_shadow_inst_grad,
+                           gather.gather_rows_grad)
 
 
 def image_loss(scene, cam, cfg, state: RenderState, seed: int, target,

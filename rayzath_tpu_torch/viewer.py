@@ -42,7 +42,7 @@ the same interactive-feel machinery the reference drives from its viewport.
 Threads: the render thread and the server's request threads share the
 world, the camera and the renderer; every access to them holds
 :attr:`Viewer.lock`. Kernel launches go to the renderer's device from any
-thread (``ops/traverse_cluster.py`` ``_launch``). A render cycle that raises
+thread (``ops/_kernels.py`` ``launch``). A render cycle that raises
 stops the render thread and is kept in ``stats()["error"]``; :meth:`stop`
 joins the thread.
 

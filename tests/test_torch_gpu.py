@@ -35,7 +35,12 @@ as the eager step's and its parameters within 1e-4 of the max |step|, on
 textured_room, two-level instanced_field and the cutout world at 64^2,
 one capture for several steps, launch counters that count replays, and a
 step that reads the device on the host raising instead of stepping
-eagerly.
+eagerly. The table gather (``ops/gather.py``): G1 bit for bit as its plain
+version and G2 to 1e-6 of the max |g| of its plain version (the float64
+sum rounded once) on 262,144 rays over 8 rows, on atlas-sized tables and
+with int64 indices, the same G2 bits twice on a table that fits in shared
+memory, autograd through both against the CPU's, and a graph step
+counting both per replay.
 """
 import numpy as np
 import pytest
@@ -1124,4 +1129,122 @@ def test_step_that_cannot_be_captured_raises(cuda, monkeypatch):
                                      1, target, 0.01, 2)
     assert bool(torch.isfinite(loss))
     assert next(iter(train._STEPS.values())).captures == 1
+    train._STEPS.clear()
+
+
+# ---------------------------------------------------------------------------
+# the table gather: G1 and G2 (ops/gather.py)
+# ---------------------------------------------------------------------------
+
+def _coherent_idx(rng, r, n, run=64):
+    """[r] indices into n rows in runs of ``run`` equal ones (neighbouring
+    rays on one material or texel), int32."""
+    starts = rng.integers(0, n, size=-(-r // run))
+    return np.repeat(starts, run)[:r].astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["materials", "one_row", "light", "atlas",
+                                  "scalar_atlas", "int64", "empty"])
+def test_gather_kernels_match_plain(cuda, case):
+    """G1 bit for bit as gather_rows_plain and G2 to 1e-6 of the max |g| of
+    gather_rows_grad_plain (the float64 sum rounded once): few distinct
+    indices (262,144 rays over the 8 rows of a [8, 14] material table, in
+    runs and at random; all on one row; a 2-row light table), atlas-sized
+    tables ([8192, 4] colour, [12288] scalar) with [R, 4] corner indices,
+    int64 indices, and no rays. A table that fits in shared memory gives
+    the same G2 bits twice. The counters count one launch per call."""
+    from rayzath_tpu_torch.ops import gather
+    rng = np.random.default_rng(sum(map(ord, case)))
+    r = 262144
+    shape = {"materials": ((8, 14), (r,)), "one_row": ((8, 14), (r,)),
+             "light": ((2,), (r,)), "atlas": ((8192, 4), (r // 4, 4)),
+             "scalar_atlas": ((12288,), (r // 4, 4)),
+             "int64": ((8, 14), (r,)), "empty": ((8, 14), (0,))}[case]
+    (tab_shape, idx_shape), n = shape, shape[0][0]
+    table = torch.as_tensor(rng.uniform(-10, 10, size=tab_shape)
+                            .astype(np.float32), device=cuda)
+    if case == "one_row":
+        idx = np.full(idx_shape, 3, np.int32)
+    elif case in ("atlas", "scalar_atlas"):
+        idx = _coherent_idx(rng, int(np.prod(idx_shape)), n, run=16)
+    else:
+        idx = np.where(rng.uniform(size=idx_shape) < 0.5,
+                       _coherent_idx(rng, idx_shape[0], n),
+                       rng.integers(0, n, size=idx_shape)).astype(np.int32)
+    idx = torch.as_tensor(idx.reshape(idx_shape), device=cuda)
+    if case == "int64":
+        idx = idx.long()
+    g = torch.as_tensor(rng.normal(size=idx_shape + tab_shape[1:])
+                        .astype(np.float32), device=cuda)
+    before = (gather.gather_rows_fwd.launches, gather.gather_rows_grad.launches)
+    got = gather.gather_rows_fwd(table, idx)
+    d1 = gather.gather_rows_grad(idx, g, n)
+    d2 = gather.gather_rows_grad(idx, g, n)
+    torch.cuda.synchronize()
+    ran = int(idx.numel() > 0)
+    assert (gather.gather_rows_fwd.launches - before[0],
+            gather.gather_rows_grad.launches - before[1]) == (ran, 2 * ran)
+    ref = gather.gather_rows_plain(table, idx)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    d_ref = gather.gather_rows_grad_plain(idx, g, n)
+    assert d1.shape == d_ref.shape
+    if ran:
+        err = float((d1 - d_ref).abs().max() / d_ref.abs().max())
+        assert err <= 1e-6, err
+    else:
+        assert not d1.any()
+    k = int(np.prod(tab_shape[1:]))
+    from rayzath_tpu_torch.ops import _kernels
+    if _kernels.load().rz_gather_grad_partials(idx.numel(), n, k):
+        assert torch.equal(d1, d2)
+    # an int32 table (a slot map) is copied bit for bit too
+    ints = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, size=(320,))
+                           .astype(np.int32), device=cuda)
+    small = torch.clamp(idx.reshape(-1)[:1000], max=319)
+    assert torch.equal(gather.gather_rows_fwd(ints, small),
+                       gather.gather_rows_plain(ints, small))
+
+
+@pytest.mark.gpu
+def test_gather_autograd_on_the_card(cuda):
+    """gather_rows on a table that needs a gradient: G1 forward, G2
+    backward, the same as the plain twins' autograd (the clamped indices
+    included); a graph step replays both, counted per replay."""
+    from rayzath_tpu_torch.ops import gather
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(rng.normal(size=(6, 4)).astype(np.float32),
+                            device=cuda).requires_grad_(True)
+    idx = torch.as_tensor(rng.integers(-2, 8, size=(5000,)).astype(np.int32),
+                          device=cuda)
+    g = torch.as_tensor(rng.normal(size=(5000, 4)).astype(np.float32),
+                        device=cuda)
+    out = gather.gather_rows(table, idx)
+    (d,) = torch.autograd.grad(out, table, g)
+    t_cpu = table.detach().cpu().requires_grad_(True)
+    out_cpu = gather.gather_rows(t_cpu, idx.cpu())
+    (d_cpu,) = torch.autograd.grad(out_cpu, t_cpu, g.cpu())
+    assert torch.equal(out.detach().cpu(), out_cpu.detach())
+    assert float((d.cpu() - d_cpu).abs().max()) <= 1e-6 * float(d_cpu.abs().max())
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.parallel import train
+    scene, cam, cfg, target = _train_setup("textured_room", 32, cuda)
+    wrappers = (gather.gather_rows_fwd, gather.gather_rows_grad)
+
+    def counts(fn):
+        start = [f.launches for f in wrappers]
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches - s for f, s in zip(wrappers, start)]
+
+    def step(fn):
+        return lambda: fn(scene, cam, cfg, init_state(32, 32, cuda), 3, target,
+                          0.01, 2)
+
+    eager = counts(step(train._eager_step))
+    assert eager[0] > 0 and eager[1] > 0
+    train._STEPS.clear()
+    step(train.training_step)()                      # capture
+    assert counts(lambda: [step(train.training_step)() for _ in range(2)]) == [
+        2 * eager[0], 2 * eager[1]]
     train._STEPS.clear()

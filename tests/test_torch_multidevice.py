@@ -45,6 +45,7 @@ from rayzath_tpu_torch.engine.state import (init_state, load_state,  # noqa: E40
                                             save_state, _ARRAYS)
 from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
 from rayzath_tpu_torch.ops import rng  # noqa: E402
+from rayzath_tpu_torch.ops import gather  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as tc  # noqa: E402
 from rayzath_tpu_torch.parallel import distributed as D  # noqa: E402
 from rayzath_tpu_torch.parallel import mesh as M  # noqa: E402
@@ -334,9 +335,10 @@ def test_single_process_initializes_nothing(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_launches_go_to_the_tensors_device(monkeypatch):
-    """Each of B1-B4 launches inside ``torch.cuda.device(d)`` on
+    """Each of B1-B4, and each G1 gather of the shadow kernels' opacity
+    tables, launches inside ``torch.cuda.device(d)`` on
     ``torch.cuda.current_stream(d)``, d the device of its tensors. The
-    tensors live on the meta device; the kernel library, the device check,
+    tensors live on the meta device; the kernel library, the device checks,
     the shared-memory query, the device context and the stream lookup are
     recorders."""
     seen = {"ctx": [], "stream": [], "calls": []}
@@ -362,6 +364,7 @@ def test_launches_go_to_the_tensors_device(monkeypatch):
 
     monkeypatch.setattr(tc._kernels, "load", lambda: Lib())
     monkeypatch.setattr(tc, "_check", lambda dev, **tensors: None)
+    monkeypatch.setattr(gather, "_check_device", lambda dev: None)
     monkeypatch.setattr(tc, "_ranked_smem", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "device", device_ctx)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
@@ -385,9 +388,11 @@ def test_launches_go_to_the_tensors_device(monkeypatch):
                            inst.cl_lw.to(meta), inst.cl_slot.to(meta),
                            inst.inst_slot_map.to(meta),
                            inst.mat_color.to(meta))
+    # cluster_opacity gathers twice, instance_opacity once
     assert [c[0] for c in seen["calls"]] == [
-        "rz_cluster_closest", "rz_cluster_shadow", "rz_cluster_closest_inst",
+        "rz_cluster_closest", "rz_gather_rows", "rz_gather_rows",
+        "rz_cluster_shadow", "rz_cluster_closest_inst", "rz_gather_rows",
         "rz_cluster_shadow_inst"]
     assert all(stream == 0x5EED for _, stream in seen["calls"])
-    assert seen["ctx"] == [meta] * 4
-    assert seen["stream"] == [meta] * 4
+    assert seen["ctx"] == [meta] * 7
+    assert seen["stream"] == [meta] * 7

@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch/CUDA port (``rayzath_tpu_torch``).
 
 For each scene, on one device, at ``--res``^2 and depth 8, four turns in
-the order eager, graph, graph, eager (:func:`cycle_turn`). An eager turn
+the order eager, graph, graph, eager (``cycle_turn`` of
+``rayzath_tpu_torch/utils/profiling.py``). An eager turn
 runs ``render_steps`` pass by pass from Python, as ``Renderer.render`` did
 before the render cycle; a graph turn runs ``Renderer.render``, which
 replays the view's captured CUDA graph (``engine/cycle.py``; each graph turn
@@ -17,16 +18,15 @@ block=False)``. From the trace it prints the wall time, the device's busy
 time, the idle share (and, in a graph turn, the timed renders' idle share
 against the device ms of as many passes), the device events per pass, the
 busy time by group
-(B1 closest kernel, B2 shadow kernel, B3/B4 their instanced twins, ray
-sort, everything else) and the top device kernels. ``cutout_world`` is the
-texture-alpha cutout scene of ``rayzath_tpu_torch/utils/check_worlds.py``.
-
-Busy time is the union of the device-side intervals (kernels, memcpy,
-memset). The host-side ``aten::*`` rows of ``key_averages()`` carry the
-device time of the kernels they launched, so summing every row would count
-those kernels twice; only device-side events are read here.
+(B1 closest kernel, B2 shadow kernel, B3/B4 their instanced twins, the
+G1 gather, ray sort, everything else) and the top device kernels.
+``cutout_world`` is the texture-alpha cutout scene of
+``rayzath_tpu_torch/utils/check_worlds.py``.
 
     python3 tools/profile_torch.py [--scenes a,b] [--res 512] [--repeats 3]
+
+``--root DIR`` renders with the package of another checkout instead (the
+turns of ``utils/profiling.py``, this tree's file where DIR has none).
 
 ``--device cpu`` at a small ``--res`` runs the eager turns without a card
 (the trace then holds no device events; there are no graph turns). The
@@ -56,8 +56,14 @@ three timed steps (s per step, peak GiB) and one step under
 ``torch.profiler`` split into device ms of the forward passes, the
 checkpointed recompute, the shadow backward (everything under a
 ``backward`` of an autograd Function of ``ops/traverse_cluster.py``), the
-rest of the backward and the projected update, with the step's wall ms and
-idle share (:func:`split_step`); then, where the tree has it, the compiled
+gathers' backward per call site (where the tree has ``ops/gather.py``), the
+rest of the backward and the projected update, with the step's wall ms,
+idle share and the device ms of torch's index backward (``split_step`` of
+``utils/profiling.py``, this tree's file for a tree without it); where the
+tree has ``ops/gather.py``, the same split again with each gather's
+backward taken by torch's index backward on the same call sites (what the
+step ran before the gather's port, site by site); then, where the tree has
+it, the compiled
 step (``training_step``: one captured CUDA graph per step): the capture
 call's s and ms, three timed steps, peak GiB. With ``--parent DIR`` the
 turns run parent, change, change, parent, one process each:
@@ -67,7 +73,6 @@ turns run parent, change, change, parent, one process each:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib
 import importlib.util
 import json
@@ -75,7 +80,6 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = 20        # timed launches per kernel in a --parent turn
@@ -83,14 +87,6 @@ RUNS = 20        # timed launches per kernel in a --parent turn
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
-
-PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8,
-          "instanced_field": 8, "textured_room": 8, "cutout_world": 8}
-GROUPS = (("B1", ("closest_kernel",)),
-          ("B2", ("shadow_kernel",)),
-          ("B3", ("closest_inst_kernel",)),
-          ("B4", ("shadow_inst_kernel",)),
-          ("ray sort", ("topk", "TopK", "Sort", "sort")))
 
 
 def card_line() -> str:
@@ -101,39 +97,6 @@ def card_line() -> str:
     except (OSError, subprocess.SubprocessError):
         return "no nvidia-smi"
     return out.strip().splitlines()[0].strip()
-
-
-def group_of(name: str) -> str:
-    for group, keys in GROUPS:
-        if any(k in name for k in keys):
-            return group
-    return "other"
-
-
-def union_us(intervals) -> float:
-    """Length of the union of (start, end) intervals, in microseconds."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
-
-
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def make_world(name: str, res: int):
-    import rayzath_tpu_torch as rt
-    if name == "cutout_world":
-        from rayzath_tpu_torch.utils.check_worlds import cutout_world
-        return cutout_world(res)
-    return rt.scenes.SCENES[name](res, res)
 
 
 def cuda_ms(fn, runs: int) -> float:
@@ -229,7 +192,7 @@ def kernel_times(res: int) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(RUNS):
             draw()
-        sync(dev)
+        torch.cuda.synchronize(dev)
     kernel = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
               if e.device_type == DeviceType.CUDA and "uniform_kernel" in e.name]
     if len(kernel) != RUNS:
@@ -244,123 +207,28 @@ def kernel_times(res: int) -> dict:
 # the training step
 # ---------------------------------------------------------------------------
 
-SPLIT = ("forward", "recompute", "shadow backward", "other backward", "update")
-
-
-def train_cell():
-    """``rayzath_tpu_torch.utils.check_train`` (the training cell) of the
-    imported tree or, for a tree without that module, this tree's file
+def tree_module(name: str, needs: str):
+    """Module ``name`` of the imported tree or, where that tree's module is
+    missing or lacks ``needs`` (an older checkout), this tree's file of it
     bound to the imported package."""
-    name = "rayzath_tpu_torch.utils.check_train"
     try:
-        return importlib.import_module(name)
+        module = importlib.import_module(name)
+        if hasattr(module, needs):
+            return module
     except ModuleNotFoundError:
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(ROOT, *name.split(".")) + ".py")
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[name] = module
-        spec.loader.exec_module(module)
-        return module
+        pass
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, *name.split(".")) + ".py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
 
 
-LABELS = {"rz::forward": "forward", "rz::bounce": "recompute",
-          "rz::shadow_backward": "shadow backward", "rz::update": "update"}
-
-
-@contextlib.contextmanager
-def step_labels():
-    """Wrap the pieces of a training step in profiler ranges, in whichever
-    tree is imported: ``train.image_loss`` (rz::forward), the integrator's
-    ``bounce_step`` (rz::bounce: inside rz::forward a forward pass, else
-    the checkpointed recompute under autograd's backward), the ``backward``
-    of every autograd Function of ``ops/traverse_cluster.py``
-    (rz::shadow_backward) and ``train._project`` (rz::update)."""
-    from torch.profiler import record_function
-    from rayzath_tpu_torch.engine import integrator
-    from rayzath_tpu_torch.ops import traverse_cluster as tc
-    from rayzath_tpu_torch.parallel import train
-
-    def labelled(fn, label):
-        def run(*args, **kw):
-            with record_function(label):
-                return fn(*args, **kw)
-        return run
-
-    saved = []
-
-    def patch(owner, name, label, wrap=lambda f: f):
-        saved.append((owner, name, owner.__dict__[name]))
-        setattr(owner, name, wrap(labelled(getattr(owner, name), label)))
-
-    patch(train, "image_loss", "rz::forward")
-    patch(integrator, "bounce_step", "rz::bounce")
-    patch(train, "_project", "rz::update")
-    for cls in vars(tc).values():
-        if (isinstance(cls, type) and issubclass(cls, torch.autograd.Function)
-                and "backward" in cls.__dict__):
-            patch(cls, "backward", "rz::shadow_backward", staticmethod)
-    try:
-        yield
-    finally:
-        for owner, name, value in reversed(saved):
-            setattr(owner, name, value)
-
-
-def split_step(fn, dev) -> dict:
-    """``fn()`` (one training step) under torch.profiler with
-    :func:`step_labels`: its wall ms, device busy ms (the union of the
-    device events) and idle share, and the device ms of each part of
-    :data:`SPLIT`. Each device event goes to the innermost part whose range
-    holds its launch on the host (the CUDA runtime call with its
-    correlation id; else the torch op it is linked to): the shadow backward
-    before the update, the update before the forward, a bounce outside the
-    forward is the recompute, and the rest is the rest of the backward.
-    The ranges' own spans on the device timeline are left out. Also the 12
-    device kernels of most ms, with their part."""
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with step_labels(), profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end, LABELS[e.name])
-              for e in events if e.name in LABELS]
-    host = {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            host.setdefault(("op", e.id), e.time_range.start)
-            if e.name.startswith("cu"):
-                host[("runtime", e.id)] = e.time_range.start
-    parts = dict.fromkeys(SPLIT, 0.0)
-    kernels: dict = {}
-    unattributed, device = 0, []
-    for e in events:
-        # the ranges' own spans on the device timeline are no device work
-        if (e.device_type != DeviceType.CUDA or e.name in LABELS
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        ms = e.time_range.elapsed_us() / 1e3
-        device.append((e.time_range.start, e.time_range.end))
-        t = host.get(("runtime", e.id),
-                     host.get(("op", getattr(e, "linked_correlation_id", None))))
-        inside = (set() if t is None
-                  else {label for a, b, label in ranges if a <= t <= b})
-        unattributed += t is None
-        part = next((p for p in ("shadow backward", "update", "forward",
-                                 "recompute") if p in inside), "other backward")
-        parts[part] += ms
-        k = kernels.setdefault((part, e.name[:80]), [0.0, 0])
-        k[0] += ms
-        k[1] += 1
-    busy_ms = union_us(device) / 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms, "device_ms": parts,
-            "device_events": len(device), "unattributed_events": unattributed,
-            "top": [[part, name, ms, n] for (part, name), (ms, n) in top]}
+def profiling():
+    """``rayzath_tpu_torch.utils.profiling`` (the render turns and the
+    step's split) of the imported tree, or this tree's."""
+    return tree_module("rayzath_tpu_torch.utils.profiling", "split_step")
 
 
 def train_turn(dev, res: int) -> dict:
@@ -368,7 +236,8 @@ def train_turn(dev, res: int) -> dict:
     docstring)."""
     import rayzath_tpu_torch as rt
     from rayzath_tpu_torch.parallel import train
-    cell = train_cell()
+    cell = tree_module("rayzath_tpu_torch.utils.check_train", "timed_steps")
+    prof = profiling()
     setup = cell.train_setup(dev, res)
     compiled = hasattr(train, "_eager_step")
     eager = train._eager_step if compiled else train.training_step
@@ -377,8 +246,12 @@ def train_turn(dev, res: int) -> dict:
     rec["eager"] = cell.timed_steps(eager, setup, dev)
     scene = rec["eager"].pop("scene")
     rec["eager"].pop("first")
-    rec["split"] = split_step(lambda: cell.step_call(eager, setup, scene, dev),
-                              dev)
+    rec["split"] = prof.split_step(
+        lambda: cell.step_call(eager, setup, scene, dev), dev)
+    if "rayzath_tpu_torch.ops.gather" in sys.modules:
+        rec["split_index"] = prof.split_step(
+            lambda: cell.step_call(eager, setup, scene, dev), dev,
+            index_backward=True)
     if compiled:
         train._STEPS.clear()
         rec["graph"] = cell.timed_steps(train.training_step, setup, dev)
@@ -390,17 +263,30 @@ def train_turn(dev, res: int) -> dict:
     return rec
 
 
-def train_line(rec: dict) -> str:
-    e, sp = rec["eager"], rec["split"]
-    line = (f"eager s per step {', '.join(f'{x:.3f}' for x in e['seconds'])} "
-            f"(first {e['first_s']:.2f}), peak {e['peak_gib']} GiB; split of a "
-            f"profiled step: wall {sp['wall_ms']:.1f} ms, busy "
-            f"{sp['busy_ms']:.1f} ms, idle {100 * sp['idle_share']:.1f}%, "
+def split_line(sp: dict) -> str:
+    """One split of ``utils/profiling.split_step`` as text."""
+    return (f"wall {sp['wall_ms']:.1f} ms, busy {sp['busy_ms']:.1f} ms, idle "
+            f"{100 * sp['idle_share']:.1f}%, "
             + ", ".join(f"{k} {v:.2f}" for k, v in sp["device_ms"].items())
             + f" device ms ({sp['unattributed_events']} of "
-            f"{sp['device_events']} events unattributed); top kernels "
+            f"{sp['device_events']} events unattributed); torch's index "
+            f"backward {sp.get('index_backward_ms', 0.0):.2f} ms in "
+            f"{sp.get('index_backward_kernels', 0)} kernels; gather backward "
+            "by site: " + "; ".join(f"{site} {ms:.2f} ms x{n}" for site, (ms, n)
+                                    in sp.get("gather_sites", {}).items())
+            + "; top kernels "
             + "; ".join(f"{part}: {name} {ms:.2f} ms x{n}"
                         for part, name, ms, n in sp["top"]))
+
+
+def train_line(rec: dict) -> str:
+    e = rec["eager"]
+    line = (f"eager s per step {', '.join(f'{x:.3f}' for x in e['seconds'])} "
+            f"(first {e['first_s']:.2f}), peak {e['peak_gib']} GiB; split of a "
+            f"profiled step: {split_line(rec['split'])}")
+    if "split_index" in rec:
+        line += (f"; the same step with torch's index backward at every "
+                 f"gather: {split_line(rec['split_index'])}")
     if "graph" in rec:
         g = rec["graph"]
         line += (f"; graph s per step {', '.join(f'{x:.3f}' for x in g['seconds'])}"
@@ -432,118 +318,22 @@ def parent_turns(parent: str, res: int, train: bool = False,
     return recs
 
 
-def trace_device(fn, dev) -> tuple:
-    """``fn()`` under ``torch.profiler`` (CPU and, on a card, CUDA
-    activity), then a synchronize. Returns (wall ms, the device-side
-    events)."""
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return wall_ms, events
-
-
-def cycle_turn(renderer, mode: str, dev, res: int, passes: int, repeats: int,
-               trace_passes: int, top: int = 0, seed: int = 0) -> dict:
-    """One turn of ``mode`` ("eager" or "graph") on ``renderer``'s world
-    (its compiled scene and first camera; depth as its config). Returns the
-    turn's record; prints the top ``top`` device kernels of its trace."""
-    from rayzath_tpu_torch.engine.integrator import render_steps
-    from rayzath_tpu_torch.engine.state import init_state
-    from rayzath_tpu_torch.models.device_scene import compile_camera
-    from rayzath_tpu_torch.ops import rng
-    from rayzath_tpu_torch.utils.cuda_timing import device_ms
-    scene, cfg = renderer.update_scene(), renderer.config
-    cam = renderer.world.cameras[0]
-    rec = {"mode": mode, "res": res, "passes": passes}
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    if mode == "graph":
-        renderer.views.clear()                  # a new view: a new capture
-        renderer.render(rpp=1)
-        view = renderer.views[id(cam)]
-
-        def run(n, block=True):
-            renderer.render(rpp=n, block=block)
-    else:
-        tcam = compile_camera(cam, dev)
-        key = rng.key(seed)
-        state = [init_state(cam.width, cam.height, dev)]
-
-        def run(n, block=True):
-            state[0] = render_steps(scene, tcam, cfg, state[0], key, n)
-            if block:
-                sync(dev)
-        run(1)
-    rec["first_ms"] = (time.perf_counter() - t0) * 1e3
-    rec["capture_ms"] = view.cycle.capture_ms if mode == "graph" else None
-    reps, walls = [], []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        run(passes)
-        dt = time.perf_counter() - t0
-        walls.append(dt * 1e3)
-        reps.append(passes * res * res / dt / 1e6)
-    rec["mrays_s"] = reps
-    rec["peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
-                       if dev.type == "cuda" else None)
-    wall_ms, events = trace_device(lambda: run(trace_passes), dev)
-    busy_ms = union_us([(e.time_range.start, e.time_range.end)
-                        for e in events]) / 1e3
-    groups = {g: 0.0 for g, _ in GROUPS}
-    groups["other"] = 0.0
-    per_kernel: dict[str, list] = {}
-    for e in events:
-        ms = e.time_range.elapsed_us() / 1e3
-        groups[group_of(e.name)] += ms
-        k = per_kernel.setdefault(e.name, [0.0, 0])
-        k[0] += ms
-        k[1] += 1
-    rec.update(profiled_passes=trace_passes, wall_ms=wall_ms, busy_ms=busy_ms,
-               busy_ms_per_pass=busy_ms / trace_passes,
-               idle_share=1.0 - busy_ms / wall_ms,
-               events_per_pass=len(events) / trace_passes, groups_ms=groups)
-    # an eager pass's ~1,000 launches fill the launch queue behind the
-    # sleep of device_ms, so only a graph pass (one launch) is timed so
-    rec["device_ms_per_pass"] = rec["timed_idle_share"] = None
-    if dev.type == "cuda" and mode == "graph":
-        rec["device_ms_per_pass"] = device_ms(
-            lambda: run(1, block=False), launches=4, repeats=3)
-        # the timed renders' idle share: their wall time against the
-        # device's own time of as many passes
-        rec["timed_idle_share"] = [1.0 - rec["device_ms_per_pass"] * passes / w
-                                   for w in walls]
-        sync(dev)
-        t0 = time.perf_counter()
-        run(16, block=False)
-        rec["nonblocking_host_ms"] = (time.perf_counter() - t0) * 1e3
-        sync(dev)
-    for kname, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"   {ms:9.3f} ms  x{n:5d}  {kname[:90]}")
-    return rec
-
-
 def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
                   top: int) -> list:
     """The turns eager, graph, graph, eager on one scene (eager only on the
     CPU); prints a line and a JSON record per turn."""
     import rayzath_tpu_torch as rt
-    r = rt.Renderer(make_world(name, res),
+    prof = profiling()
+    r = rt.Renderer(prof.make_world(name, res),
                     rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
                     device=dev)
     modes = (("eager", "graph", "graph", "eager") if dev.type == "cuda"
              else ("eager",))
     recs = []
     for mode in modes:
-        rec = dict(scene=name, **cycle_turn(r, mode, dev, res, PASSES[name],
-                                            repeats, passes, top))
+        rec = dict(scene=name, **prof.cycle_turn(r, mode, dev, res,
+                                                 prof.PASSES[name], repeats,
+                                                 passes, top))
         print(f"{name} {mode}: {rec['passes']} passes at "
               + ", ".join(f"{x:.3f}" for x in rec["mrays_s"])
               + f" Mrays/s; traced {passes} passes: wall {rec['wall_ms']:.2f} "
@@ -557,7 +347,9 @@ def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenes", default=",".join(PASSES))
+    ap.add_argument("--scenes", default=None,
+                    help="comma-separated scenes (default: utils/profiling.py "
+                         "PASSES)")
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--profile-passes", type=int, default=4)
@@ -583,8 +375,10 @@ def main(argv=None) -> int:
         print(json.dumps(train_turn(dev, args.res)), flush=True)
         return 0
     print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
+    scenes = (",".join(profiling().PASSES) if args.scenes is None
+              else args.scenes)
     with torch.no_grad():
-        for name in filter(None, args.scenes.split(",")):
+        for name in filter(None, scenes.split(",")):
             profile_scene(name, dev, args.res, args.repeats,
                           args.profile_passes, args.top)
     if args.train and not args.parent:
