@@ -1974,12 +1974,15 @@ def phase_gather(card: str, dev, setup: dict, scene) -> dict:
     |g| of ``gather_rows_grad_plain`` in every call (0 exactly where that
     is 0), and every call on a table that fits in shared memory the same
     bits twice. Then, on the calls of the material table ``mp`` (262,144
-    rays x 14: G1 and G2's fixed-order path) and the step's largest colour
-    atlas call (G2's atomic path): device and call ms, the plain version's
-    ms, the bound (the indices, the table or cotangent and the output, each
-    once, over HBM_BYTES_S; G2 also its adds) and the library calls:
-    ``table[idx]`` for G1, ``index_add_`` and ``index_put_(accumulate=True)``
-    for G2. The comparisons' launches are left out of the counters."""
+    rays x 14: G1 and G2's fixed-order path), the texture fetch's two
+    width-4 calls on the step's largest colour atlas (G1 on the int32 block
+    lookup ``blk_idx[texel]`` and on the texels ``atlas[corners]``) and that
+    atlas call's backward (G2's atomic path): device and call ms, the plain
+    version's ms, the bound (the indices, the table or cotangent and the
+    output, each once, over HBM_BYTES_S; G2 also its adds) and the library
+    calls: ``table[idx]`` for G1, ``index_add_`` and
+    ``index_put_(accumulate=True)`` for G2. The comparisons' launches are
+    left out of the counters."""
     import torch
     from rayzath_tpu_torch.ops import _kernels, gather
     from rayzath_tpu_torch.parallel import train
@@ -2025,6 +2028,14 @@ def phase_gather(card: str, dev, setup: dict, scene) -> dict:
     hc, wc = scene.color_atlas.shape[:2]
     atlas = max((c for c in bwd if c[2] == hc * wc), key=lambda c: c[0].numel())
 
+    def largest_fwd(dtype, idx_dim):
+        return max((c for c in fwd if tuple(c[0].shape) == (hc * wc, 4)
+                    and c[0].dtype == dtype and c[1].dim() == idx_dim),
+                   key=lambda c: c[1].numel())
+
+    blk_fwd = largest_fwd(torch.int32, 1)          # ops/texture.py blk_idx
+    texel_fwd = largest_fwd(torch.float32, 2)      # the atlas at the corners
+
     def g1_record(table, idx):
         r = idx.numel()
         return dict(rows=r, table=list(table.shape), **gather_timing(
@@ -2047,6 +2058,8 @@ def phase_gather(card: str, dev, setup: dict, scene) -> dict:
             idx.element_size() * m + g.numel() * 4 + n * k * 4, m * k))
 
     out = {"G1": dict(g1_record(*mp_fwd), calls=len(fwd)),
+           "G1_blk": g1_record(*blk_fwd),
+           "G1_texel": g1_record(*texel_fwd),
            "G2": dict(g2_record(*mp_bwd), calls=len(bwd), rel_err=worst,
                       err=worst_abs, fixed_order_calls=fixed,
                       same_bits_twice=twice),
@@ -2055,7 +2068,8 @@ def phase_gather(card: str, dev, setup: dict, scene) -> dict:
     for k, f in wrappers.items():
         f.launches = held[k]
     for key, rec in out.items():
-        lib_text = (f"table[idx] {rec['library_ms']:.4f}" if key == "G1" else
+        lib_text = (f"table[idx] {rec['library_ms']:.4f}"
+                    if key.startswith("G1") else
                     f"index_add_ {rec['library_ms']:.4f}, index_put_(accumulate"
                     f"=True) {rec['index_put_ms']:.4f}")
         print(f"  {key} on a training step's {rec['table']} table, "
@@ -2829,8 +2843,13 @@ def main() -> int:
             "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
             "library_ms": m["library_ms"], "rows": m["rows"],
             "table": m["table"], "calls_per_step": m["calls"]})
-    g2 = record[-1]
-    g2.update(index_put_ms=gathers["G2"]["index_put_ms"],
+    g1, g2 = record[-2:]
+    timed = ("ms", "call_ms", "plain_ms", "bound", "library_ms", "rows",
+             "table")
+    g1.update(redesigned=True,
+              blk={k: gathers["G1_blk"][k] for k in timed},
+              texel={k: gathers["G1_texel"][k] for k in timed})
+    g2.update(redesigned=True, index_put_ms=gathers["G2"]["index_put_ms"],
               max_rel_err=gathers["G2"]["rel_err"], rtol=GATHER_RTOL,
               same_bits_twice=gathers["G2"]["same_bits_twice"],
               atlas={k: gathers["G2_atlas"][k] for k in (

@@ -19,6 +19,16 @@ two calls give the same bits, as the JAX product does; a larger table
 to call (the float32 result only where a sum lies within ~1e-16 of a
 rounding boundary).
 
+What bounds them on an H100 (the ``.cu`` file's header says more): both
+are bound by bytes, G1 also by the latency of its dependent loads (an
+index, then that row) and G2 by the instructions each ray costs. G1
+writes a 16-byte word per thread, one uint4 row vector where the width is
+a multiple of 4. G2 shuffles no value: on a small table its lanes are
+columns that keep a running sum per row over consecutive rays and add it
+to their own shared slice when the row changes; on an atlas each warp
+groups its 32 rays by row and each lane sums one (row, column) pair
+before one atomic add.
+
 The one-hot product's bf16 limb split is left out: a gather is a copy, so
 G1 returns ``table[idx]``'s bits; the JAX package's table gradients are
 rounded to bf16 by its transpose (ROADMAP C), the port's are not.

@@ -42,7 +42,7 @@ GROUPS = (("B1", ("closest_kernel",)),
           ("B2", ("shadow_kernel",)),
           ("B3", ("closest_inst_kernel",)),
           ("B4", ("shadow_inst_kernel",)),
-          ("G1", ("::gather_kernel<",)),
+          ("G1", ("::gather_kernel<", "::gather_vec_kernel<")),
           ("ray sort", ("topk", "TopK", "Sort", "sort")))
 #: the parts of a training step's device time
 SPLIT = ("forward", "recompute", "shadow backward", "gather backward",

@@ -80,6 +80,8 @@ def jax_rows(table, idx):
     (40, (), np.int32, (50, 4)),
     (8, (14,), np.float32, (0,)),            # no rays
     (300, (3,), np.float32, (0, 4)),
+    (200, (32,), np.float32, (301,)),        # tri_pack's width: the plain take
+    (20, (5,), np.float32, (77, 4)),         # an odd width: one-hot
 ])
 def test_forward_bit_for_bit_as_jax(n, row, dtype, idx_shape):
     rng = np.random.default_rng(n + len(idx_shape))
@@ -132,6 +134,9 @@ GRAD_CASES = [
     (8192, (4,), (3000, 4)),                 # an atlas
     (12288, (), (3000, 4)),
     (8, (14,), (0,)),
+    (3, (3,), (1999,)),                      # a light's colour
+    (200, (32,), (1000,)),                   # tri_pack's width
+    (20, (5,), (333, 4)),                    # an odd width
 ]
 
 

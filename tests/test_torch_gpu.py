@@ -40,7 +40,11 @@ version and G2 to 1e-6 of the max |g| of its plain version (the float64
 sum rounded once) on 262,144 rays over 8 rows, on atlas-sized tables and
 with int64 indices, the same G2 bits twice on a table that fits in shared
 memory, autograd through both against the CPU's, and a graph step
-counting both per replay.
+counting both per replay; and at the main path's widths (1, 3, 4, 14,
+32) and others (2, 5, 8), row counts off the warp, word,
+tile and block, one-row tables, warps on one row and on 32 rows, a
+[65536, 4] atlas at random, a table off the 16-byte grid, and int64
+indices on each path.
 """
 import numpy as np
 import pytest
@@ -1143,62 +1147,104 @@ def _coherent_idx(rng, r, n, run=64):
     return np.repeat(starts, run)[:r].astype(np.int32)
 
 
+#: name -> (table rows n, row shape, index shape, pattern, int64 indices):
+#: few distinct indices (262,144 rays over the 8 rows of a [8, 14]
+#: material table; all on one row; a 2-row light table), atlas-sized tables
+#: ([8192, 4] colour, [12288] scalar) with [R, 4] corner indices in runs of
+#: 16, no rays; the main path's widths (1, 3, 4, 14, tri_pack's 32, where
+#: G1 and G2 take different branches) and others (5, 8 and 2), row counts
+#: that are no multiple of the warp, the 16-byte word, the tile or the
+#: block, a one-row table, warps wholly on one row and warps of 32
+#: distinct rows, an atlas larger than the fixed-order path's tables at
+#: random, and int64 indices on each path
+GATHER_CASES = {
+    "materials": (8, (14,), (262144,), "mixed", False),
+    "one_row": (8, (14,), (262144,), "one", False),
+    "light": (2, (), (262144,), "mixed", False),
+    "atlas": (8192, (4,), (65536, 4), "runs16", False),
+    "scalar_atlas": (12288, (), (65536, 4), "runs16", False),
+    "int64": (8, (14,), (262144,), "mixed", True),
+    "empty": (8, (14,), (0,), "mixed", False),
+    "w1": (3, (), (262144 + 7,), "mixed", False),
+    "w3": (4, (3,), (100003,), "mixed", False),
+    "w4": (6, (4,), (65536 + 33,), "mixed", False),
+    "w14": (6, (14,), (262144 + 17,), "mixed", False),
+    "w32": (300, (32,), (50001,), "mixed", False),
+    "w5": (7, (5,), (33333,), "mixed", False),
+    "w8": (40, (8,), (4097,), "mixed", False),
+    "w2": (9, (2,), (31,), "mixed", False),
+    "one_ray": (6, (14,), (1,), "mixed", False),
+    "n1": (1, (14,), (10007,), "mixed", False),
+    "n1_atlas": (1, (4,), (513, 4), "mixed", True),
+    "one_row_warps": (6, (4,), (262144 + 5,), "one", False),
+    "distinct_warps": (64, (14,), (262144 + 3,), "distinct", False),
+    "distinct_atlas": (8192, (4,), (65536 + 9, 4), "distinct", False),
+    "random_atlas": (65536, (4,), (262144, 4), "random", False),
+    "random_atlas_int64": (65536, (4,), (262144, 4), "random", True),
+    "scalar_atlas_int64": (12288, (), (65536 + 1, 4), "random", True),
+    "w14_int64": (6, (14,), (262144 + 17,), "mixed", True),
+    "w5_int64": (7, (5,), (33333,), "one", True),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["materials", "one_row", "light", "atlas",
-                                  "scalar_atlas", "int64", "empty"])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
 def test_gather_kernels_match_plain(cuda, case):
     """G1 bit for bit as gather_rows_plain and G2 to 1e-6 of the max |g| of
-    gather_rows_grad_plain (the float64 sum rounded once): few distinct
-    indices (262,144 rays over the 8 rows of a [8, 14] material table, in
-    runs and at random; all on one row; a 2-row light table), atlas-sized
-    tables ([8192, 4] colour, [12288] scalar) with [R, 4] corner indices,
-    int64 indices, and no rays. A table that fits in shared memory gives
-    the same G2 bits twice. The counters count one launch per call."""
-    from rayzath_tpu_torch.ops import gather
+    gather_rows_grad_plain (the float64 sum rounded once) on every case of
+    GATHER_CASES (indices half in runs of 64, half at random with some out
+    of range, to be clamped; in runs of 16; all on one row; each warp's 32
+    rays on 32 distinct rows; all at random). A table that fits in shared
+    memory gives the same G2 bits twice. The counters count one launch per
+    call. G1 on a table whose rows start off the 16-byte grid (a view one
+    element in) and on an int32 table (a slot map) is bit for bit too."""
+    from rayzath_tpu_torch.ops import _kernels, gather
+    n, row, idx_shape, pattern, wide = GATHER_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    r = 262144
-    shape = {"materials": ((8, 14), (r,)), "one_row": ((8, 14), (r,)),
-             "light": ((2,), (r,)), "atlas": ((8192, 4), (r // 4, 4)),
-             "scalar_atlas": ((12288,), (r // 4, 4)),
-             "int64": ((8, 14), (r,)), "empty": ((8, 14), (0,))}[case]
-    (tab_shape, idx_shape), n = shape, shape[0][0]
-    table = torch.as_tensor(rng.uniform(-10, 10, size=tab_shape)
-                            .astype(np.float32), device=cuda)
-    if case == "one_row":
-        idx = np.full(idx_shape, 3, np.int32)
-    elif case in ("atlas", "scalar_atlas"):
-        idx = _coherent_idx(rng, int(np.prod(idx_shape)), n, run=16)
+    r = int(np.prod(idx_shape))
+    if pattern == "one":
+        idx = np.full(r, n // 2)
+    elif pattern == "runs16":
+        idx = _coherent_idx(rng, r, n, run=16)
+    elif pattern == "distinct":
+        idx = (np.arange(r) * 7 + 3) % max(n, 1)
+        assert n >= 32
+    elif pattern == "random":
+        idx = rng.integers(0, n, size=r)
     else:
-        idx = np.where(rng.uniform(size=idx_shape) < 0.5,
-                       _coherent_idx(rng, idx_shape[0], n),
-                       rng.integers(0, n, size=idx_shape)).astype(np.int32)
-    idx = torch.as_tensor(idx.reshape(idx_shape), device=cuda)
-    if case == "int64":
-        idx = idx.long()
-    g = torch.as_tensor(rng.normal(size=idx_shape + tab_shape[1:])
-                        .astype(np.float32), device=cuda)
+        idx = np.where(rng.uniform(size=r) < 0.5, _coherent_idx(rng, r, n),
+                       rng.integers(-2, n + 2, size=r))
+    idx = torch.as_tensor(idx.reshape(idx_shape).astype(
+        np.int64 if wide else np.int32), device=cuda)
+    table = torch.as_tensor(rng.uniform(-10, 10, size=(n,) + row)
+                            .astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.normal(size=idx_shape + row).astype(np.float32),
+                        device=cuda)
     before = (gather.gather_rows_fwd.launches, gather.gather_rows_grad.launches)
     got = gather.gather_rows_fwd(table, idx)
     d1 = gather.gather_rows_grad(idx, g, n)
     d2 = gather.gather_rows_grad(idx, g, n)
     torch.cuda.synchronize()
-    ran = int(idx.numel() > 0)
+    ran = int(r > 0)
     assert (gather.gather_rows_fwd.launches - before[0],
             gather.gather_rows_grad.launches - before[1]) == (ran, 2 * ran)
-    ref = gather.gather_rows_plain(table, idx)
-    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       gather.gather_rows_plain(table, idx).view(torch.int32))
+    k = int(np.prod(row))
+    flat = torch.empty(n * k + 1, dtype=torch.float32, device=cuda)
+    off = flat[1:].view((n,) + row)                 # 4 bytes off the grid
+    off.copy_(table)
+    assert torch.equal(gather.gather_rows_fwd(off, idx).view(torch.int32),
+                       got.view(torch.int32))
     d_ref = gather.gather_rows_grad_plain(idx, g, n)
-    assert d1.shape == d_ref.shape
+    assert d1.shape == d_ref.shape == (n, k)
     if ran:
         err = float((d1 - d_ref).abs().max() / d_ref.abs().max())
         assert err <= 1e-6, err
     else:
         assert not d1.any()
-    k = int(np.prod(tab_shape[1:]))
-    from rayzath_tpu_torch.ops import _kernels
-    if _kernels.load().rz_gather_grad_partials(idx.numel(), n, k):
+    if _kernels.load().rz_gather_grad_partials(r, n, k):
         assert torch.equal(d1, d2)
-    # an int32 table (a slot map) is copied bit for bit too
     ints = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, size=(320,))
                            .astype(np.int32), device=cuda)
     small = torch.clamp(idx.reshape(-1)[:1000], max=319)

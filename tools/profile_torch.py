@@ -32,11 +32,13 @@ turns of ``utils/profiling.py``, this tree's file where DIR has none).
 (the trace then holds no device events; there are no graph turns). The
 last line per turn is one JSON object with the numbers above.
 
-``--parent DIR`` then times the traversal kernels of two trees on the same
-card in turns (parent, change, change, parent): DIR holds another checkout
-of the repository (``git archive <commit> | tar -x -C DIR``), and each turn
-is one process that imports ``rayzath_tpu_torch`` from its tree, builds that
-tree's kernels, and prints the median ms of 20 launches of B1 and B2 on
+``--parent DIR`` then times the kernels of two trees on the same card in
+turns (parent, change, change, parent): DIR holds another checkout of the
+repository (``git archive <commit> | tar -x -C DIR``), and each turn is one
+process that imports ``rayzath_tpu_torch`` from its tree, builds that
+tree's kernels, times the table gathers G1 and G2 on the seeded calls of
+:data:`GATHER_CASES` (:func:`gather_times`) and prints them and the
+median ms of 20 launches of B1 and B2 on
 mesh_heavy's, B3 and B4 on instanced_field's and B3 on two-level
 multi_light's bounce-like rays (``chip_smoke.py`` phase 2's rays, in the
 integrator's order; the shadow kernels with dist = BIG and the scene's
@@ -66,7 +68,8 @@ step ran before the gather's port, site by site); then, where the tree has
 it, the compiled
 step (``training_step``: one captured CUDA graph per step): the capture
 call's s and ms, three timed steps, peak GiB. With ``--parent DIR`` the
-turns run parent, change, change, parent, one process each:
+turns run parent, change, change, parent (or the order ``--order`` names),
+one process each:
 
     python3 tools/profile_torch.py --scenes "" --train --parent build/parent
 """
@@ -116,12 +119,13 @@ def cuda_ms(fn, runs: int) -> float:
 
 
 def kernel_times(res: int) -> dict:
-    """Median ms of B1 and B2 on mesh_heavy's, of B3 and B4 on
-    instanced_field's and of B3 on two-level multi_light's (whose meshes
-    have at most 8 clusters) bounce-like rays at ``res``^2: from just before
-    each camera ray's first hit, in uniform-sphere directions from a numpy
-    seed, in the order the integrator hands them to the kernels; the shadow
-    kernels with dist = BIG and the scene's opacities. Uses the
+    """:func:`gather_times` and the median ms of B1 and B2 on mesh_heavy's,
+    of B3 and B4 on instanced_field's and of B3 on two-level multi_light's
+    (whose meshes have at most 8 clusters) bounce-like rays at ``res``^2:
+    from just before each camera ray's first hit, in uniform-sphere
+    directions from a numpy seed, in the order the integrator hands them
+    to the kernels; the shadow kernels with dist = BIG and the scene's
+    opacities. Uses the
     ``rayzath_tpu_torch`` found first on ``sys.path`` and only the API every
     tree since the two-level port has."""
     import numpy as np
@@ -133,7 +137,8 @@ def kernel_times(res: int) -> dict:
     from rayzath_tpu_torch.ops.intersect import BIG
     dev = torch.device("cuda")
     cfg = rt.RenderConfig()
-    out = {"package": os.path.dirname(os.path.abspath(rt.__file__))}
+    out = {"package": os.path.dirname(os.path.abspath(rt.__file__)),
+           "gathers": gather_times()}
     for key, shadow_key, name, two_level in (
             ("b1", "b2", "mesh_heavy", None),
             ("b3", "b4", "instanced_field", None),
@@ -189,17 +194,118 @@ def kernel_times(res: int) -> dict:
         return rng.uniform_rows(k, 0, res, res, 14, dev)
 
     out["draw_call_ms"] = cuda_ms(draw, RUNS)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(RUNS):
-            draw()
-        torch.cuda.synchronize(dev)
-    kernel = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-              if e.device_type == DeviceType.CUDA and "uniform_kernel" in e.name]
+    kernel = [ms for name, t in trace_kernels(draw, RUNS).items()
+              if "uniform_kernel" in name for ms in t]
     if len(kernel) != RUNS:
         raise RuntimeError(f"{len(kernel)} threefry kernels in the trace of "
                            f"{RUNS} draws")
     out["draw_ms"] = statistics.median(kernel)
     out["draw_sum"] = int(draw().view(torch.int32).long().sum())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the table gathers, G1 and G2
+# ---------------------------------------------------------------------------
+
+#: the gather calls a --parent turn times, on fixed seeded arguments:
+#: name -> (table shape, table dtype, index shape, index pattern, index
+#: dtype, kernels). "mat": a training step's material table (262,144 rays
+#: over [6, 14]: G1 and G2's fixed-order path), indices half in runs of 64,
+#: half at random; "mat_one": the same table, every index on one row (the
+#: medium row and n2 of a world medium); "blk": the texture fetch's block
+#: lookup (``ops/texture.py`` ``blk_idx``, [8192, 4] int32, 262,144 int64
+#: texel indices, as the fetch computes them); "corners": its texel fetch
+#: on a [8192, 4] colour atlas, 262,144 rays x 4 bilinear corners =
+#: 1,048,576 int32 rows (G1, and G2's atomic path)
+GATHER_CASES = {
+    "mat": ((6, 14), "float32", (262144,), "mixed", "int32", ("G1", "G2")),
+    "mat_one": ((6, 14), "float32", (262144,), "one", "int32", ("G1", "G2")),
+    "blk": ((8192, 4), "int32", (262144,), "runs", "int64", ("G1",)),
+    "corners": ((8192, 4), "float32", (262144, 4), "corners", "int32",
+                ("G1", "G2")),
+}
+
+
+def gather_args(case: str, dev):
+    """(table, idx, cotangent) of a GATHER_CASES entry, from a numpy seed."""
+    import numpy as np
+    tab_shape, dtype, idx_shape, pattern, idx_dtype, _ = GATHER_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n, r = tab_shape[0], idx_shape[0]
+    if dtype == "int32":
+        table = rng.integers(0, n, size=tab_shape).astype(np.int32)
+    else:
+        table = rng.uniform(-10, 10, size=tab_shape).astype(np.float32)
+    runs = np.repeat(rng.integers(0, n, size=-(-r // 64)), 64)[:r]
+    if pattern == "one":
+        idx = np.full(r, 3)
+    elif pattern == "mixed":
+        idx = np.where(rng.uniform(size=r) < 0.5, runs,
+                       rng.integers(0, n, size=r))
+    elif pattern == "runs":
+        idx = runs
+    else:       # bilinear corners of a 64 x 128 texel map, coherent texels
+        x = np.repeat(rng.integers(0, 127, size=-(-r // 16)), 16)[:r]
+        y = np.repeat(rng.integers(0, 63, size=-(-r // 16)), 16)[:r]
+        x = np.minimum(x + rng.integers(0, 2, size=r), 126)
+        base = y * 128 + x
+        idx = base[:, None] + np.array([0, 1, 128, 129])
+    idx = torch.as_tensor(idx.astype(idx_dtype).reshape(idx_shape), device=dev)
+    g = torch.as_tensor(rng.normal(size=idx_shape + tab_shape[1:])
+                        .astype(np.float32), device=dev)
+    return torch.as_tensor(table, device=dev), idx, g
+
+
+def trace_kernels(fn, runs: int) -> dict:
+    """The device ms of each kernel launch of ``runs`` calls of ``fn()``
+    (after a warm-up call) in one ``torch.profiler`` trace: kernel name ->
+    list of ms."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+    return by_name
+
+
+def gather_times() -> dict:
+    """G1 and G2 of the imported tree on GATHER_CASES: per call, the
+    device ms (``utils/cuda_timing.device_ms``), the device ms of each
+    kernel it launches (a ``torch.profiler`` trace, so a fill of scratch
+    shows apart), the library call's device ms (``table[idx]`` for G1,
+    ``index_add_`` for G2) and a checksum of the result's bits, equal in
+    two trees when both are right (G2's atomic path aside: its sum's
+    order varies)."""
+    from rayzath_tpu_torch.ops import gather
+    timing = tree_module("rayzath_tpu_torch.utils.cuda_timing", "device_ms")
+    dev = torch.device("cuda")
+    out = {}
+    for case, (tab_shape, *_, kernels) in GATHER_CASES.items():
+        table, idx, g = gather_args(case, dev)
+        n, k = tab_shape[0], g.numel() // idx.numel()
+        flat, g2 = idx.reshape(-1), g.reshape(-1, k)
+        calls = {"G1": (lambda: gather.gather_rows_fwd(table, idx),
+                        lambda: table[idx]),
+                 "G2": (lambda: gather.gather_rows_grad(idx, g, n),
+                        lambda: torch.zeros((n, k), device=dev).index_add_(
+                            0, flat, g2))}
+        for kernel in kernels:
+            fn, library = calls[kernel]
+            bits = fn().reshape(-1).view(torch.int32).long()
+            out[f"{kernel}_{case}"] = {
+                "ms": timing.device_ms(fn),
+                "library_ms": timing.device_ms(library),
+                "kernels": {name: statistics.median(t) * len(t) / RUNS
+                            for name, t in trace_kernels(fn, RUNS).items()},
+                "sum": int((bits * torch.arange(1, bits.numel() + 1,
+                                                device=dev)).sum())}
     return out
 
 
@@ -296,13 +402,14 @@ def train_line(rec: dict) -> str:
 
 
 def parent_turns(parent: str, res: int, train: bool = False,
-                 device: str = "cuda") -> list:
+                 device: str = "cuda",
+                 order: str = "parent,change,change,parent") -> list:
     """Kernel times (or, with ``train``, the training records on
-    ``device``) of the parent tree and this one, in turns (parent, change,
-    change, parent), one process per turn."""
+    ``device``) of the parent tree and this one, in turns (``order``: by
+    default parent, change, change, parent), one process per turn."""
     recs = []
-    for label, root in (("parent", parent), ("change", ROOT),
-                        ("change", ROOT), ("parent", parent)):
+    for label in order.split(","):
+        root = {"parent": parent, "change": ROOT}[label]
         turn = (["--train-turn", "--device", device] if train
                 else ["--kernel-times"])
         p = subprocess.run(
@@ -363,6 +470,8 @@ def main(argv=None) -> int:
                     help="time the training step (with --parent: in turns)")
     ap.add_argument("--train-turn", action="store_true",
                     help="one --parent --train turn: the --root tree's record")
+    ap.add_argument("--order", default="parent,change,change,parent",
+                    help="with --parent --train: the trees' turns in order")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
@@ -387,7 +496,7 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
     elif args.train:
         for rec in parent_turns(args.parent, args.res, train=True,
-                                device=args.device):
+                                device=args.device, order=args.order):
             print(f"{rec['tree']} training step [{card_line()}]: "
                   f"{train_line(rec)}", flush=True)
     elif args.parent:
@@ -396,6 +505,13 @@ def main(argv=None) -> int:
                     "draw_ms", "draw_call_ms"):
             print(f"{key} parent / change / change / parent [{card_line()}]: "
                   + ", ".join(f"{r[key]:.4f}" for r in recs), flush=True)
+        for key in recs[0]["gathers"]:
+            print(f"{key} device ms parent / change / change / parent "
+                  f"[{card_line()}]: "
+                  + ", ".join(f"{r['gathers'][key]['ms']:.4f}" for r in recs)
+                  + "; library " + ", ".join(
+                      f"{r['gathers'][key]['library_ms']:.4f}" for r in recs),
+                  flush=True)
     return 0
 
 
