@@ -194,12 +194,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``render_steps`` from the same seed, so sample counts are equal, over
    rpp 1, 3, 2, a reprojecting camera move (no new capture), a material
    edit (a new capture) and a checkpoint resumed in a fresh renderer
-   (``utils/check_cycle.py``); then the turns eager, graph, graph, eager
-   of ``utils/profiling.py`` ``cycle_turn``: Mrays/s, device busy ms
-   per pass (a torch.profiler trace) and device ms per pass (passes queued
-   behind a sleep), the idle share of the trace and (graph) of the timed
-   renders, device events per pass, capture ms, peak MiB, and the host ms
-   of ``render(rpp=16, block=False)``.
+   (``utils/check_cycle.py``). Where the render's time goes is the
+   benchmark's (``benchmark/``), read from the renderer's spans.
 
 The last lines of standard output are the render cycle's JSON record
 (``{"render_cycle": ...}``), the kernels' JSON record, the card's
@@ -213,7 +209,7 @@ the paths driven with the counters set to 0 just before and read just
 after: phase 4's renders (B1-B4, G1 and the keyed draw), the skip-link
 renders (the keyed draw), phase 5's training steps (B1, B2, B2-grad, G1,
 G2 and both draws; the two-level step B3, B4 and B4-grad), phase 6's
-headless run and phase 7's turns;
+headless run and phase 7's checks;
 ``ms`` its device time and ``call_ms`` its call's time. It fails if a
 kernel never launched. Needs one CUDA device and nvcc; there is no CPU
 fallback.
@@ -2639,78 +2635,42 @@ def phase_front_ends(card: str, dev, train: dict) -> dict:
 CYCLE_SCENES = ("cornell_box_nee", "multi_light", "mesh_heavy",
                 "instanced_field", "textured_room", "cutout_world")
 CYCLE_SEED = 6
-CYCLE_TURNS = ("eager", "graph", "graph", "eager")
-CYCLE_KEYS = ("mrays_s", "busy_ms_per_pass", "device_ms_per_pass",
-              "idle_share", "timed_idle_share", "events_per_pass",
-              "capture_ms", "peak_mib", "first_ms", "nonblocking_host_ms")
 
 
 def phase_cycle(card: str, dev, launches: dict) -> dict:
     """``Renderer.render`` replays one captured graph per pass
-    (``engine/cycle.py``). On the six scenes of ``utils/profiling.py``
-    at 512^2, depth 8: ``utils/check_cycle.against_eager`` (every state
-    array bit for bit as eager ``render_steps`` from one seed, so sample
-    counts equal: an rpp sequence 1, 3, 2, a reprojecting camera move, a
-    material edit that captures again, a checkpoint resumed in a fresh
-    renderer), then the turns eager, graph, graph, eager of
-    ``profiling.cycle_turn`` (Mrays/s, busy and device ms per pass,
-    idle share, events per pass, capture ms, peak MiB, the host ms of
-    ``render(rpp=16, block=False)``). Adds the turns' launches to
-    ``launches``; returns the ``render_cycle`` record."""
+    (``engine/cycle.py``). On the six scenes of :data:`CYCLE_SCENES` at
+    512^2, depth 8: ``utils/check_cycle.against_eager`` (every state array
+    bit for bit as eager ``render_steps`` from one seed, so sample counts
+    equal: an rpp sequence 1, 3, 2, a reprojecting camera move, a material
+    edit that captures again, a checkpoint resumed in a fresh renderer).
+    Adds the checks' launches to ``launches``; returns the
+    ``render_cycle`` record."""
     import torch
     import rayzath_tpu_torch as rt
-    from rayzath_tpu_torch.utils import profiling as pt
-    from rayzath_tpu_torch.utils.check_cycle import against_eager
+    from rayzath_tpu_torch.utils.check_cycle import against_eager, make_world
     cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
     wrappers = path_wrappers()
     record = {"card": card, "res": RES, "max_depth": 8, "seed": CYCLE_SEED,
-              "turns": list(CYCLE_TURNS), "scenes": {}}
+              "scenes": {}}
     for name in CYCLE_SCENES:
+        for f in wrappers.values():
+            f.launches = 0
         t0 = time.perf_counter()
-        out = against_eager(pt.make_world(name, RES), cfg, dev,
-                            seed=CYCLE_SEED)
+        out = against_eager(make_world(name, RES), cfg, dev, seed=CYCLE_SEED)
+        check_s = time.perf_counter() - t0
+        for k, f in wrappers.items():
+            launches[k] += f.launches
         if out["captures"] != [1, 1, 1, 1, 2, 1]:
             raise AssertionError(f"{name}: captures after each stage "
                                  f"{out['captures']}, not [1, 1, 1, 1, 2, 1]")
         samples = {label: n for label, _, n in out["stages"]}
         if not samples["camera move"] > RES * RES:
             raise AssertionError(f"{name}: the reprojection seeded no samples")
-        check_s = time.perf_counter() - t0
-        renderer = rt.Renderer(pt.make_world(name, RES), cfg, device=dev)
-        turns = []
-        for mode in CYCLE_TURNS:
-            for f in wrappers.values():
-                f.launches = 0
-            turns.append(pt.cycle_turn(renderer, mode, dev, RES,
-                                       pt.PASSES[name], repeats=2,
-                                       trace_passes=4))
-            for k, f in wrappers.items():
-                launches[k] += f.launches
-        rec = {"passes": pt.PASSES[name], "check_s": check_s,
-               "samples": samples}
-        for mode in ("eager", "graph"):
-            mine = [t for t in turns if t["mode"] == mode]
-            rec[mode] = {k: [t.get(k) for t in mine] for k in CYCLE_KEYS}
-            rec[mode]["mrays_s"] = [x for t in mine for x in t["mrays_s"]]
-        for t in turns:
-            if not (t["busy_ms"] > 0 and t["events_per_pass"] > 0):
-                raise AssertionError(f"{name} {t['mode']}: the trace holds no "
-                                     f"device events")
-        record["scenes"][name] = rec
-        e, g = rec["eager"], rec["graph"]
+        record["scenes"][name] = {"check_s": check_s, "samples": samples}
         print(f"{name} render cycle [{card}]: graph bit for bit as eager "
               f"render_steps at {RES}^2 depth 8 over rpp 1, 3, 2, a camera "
-              f"move, an edit and a resume ({check_s:.1f} s); Mrays/s eager "
-              f"{', '.join(f'{x:.3f}' for x in e['mrays_s'])}, graph "
-              f"{', '.join(f'{x:.3f}' for x in g['mrays_s'])}; busy ms per "
-              f"pass eager {e['busy_ms_per_pass']}, graph "
-              f"{g['busy_ms_per_pass']}; idle eager {e['idle_share']}, graph "
-              f"{g['idle_share']}; events per pass eager "
-              f"{e['events_per_pass']}, graph {g['events_per_pass']}; "
-              f"capture ms {g['capture_ms']}; peak MiB eager {e['peak_mib']}, "
-              f"graph {g['peak_mib']}; render(rpp=16, block=False) host ms "
-              f"{g['nonblocking_host_ms']}", flush=True)
-        del renderer
+              f"move, an edit and a resume ({check_s:.1f} s)", flush=True)
         torch.cuda.empty_cache()
     return record
 

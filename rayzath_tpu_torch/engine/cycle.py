@@ -41,7 +41,6 @@ the counters count the launches that ran.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
@@ -49,6 +48,7 @@ import torch
 from ..models.device_scene import TorchCamera, TorchScene
 from ..ops import gather, rng
 from ..ops import traverse_cluster as tc
+from ..utils.timing import span
 from .config import RenderConfig
 from .integrator import bounce_step, host_reads, n_streams
 from .state import _ARRAYS, RenderState, init_state
@@ -115,10 +115,9 @@ class RenderCycle:
         self._graph_scene: Optional[TorchScene] = None
         self._graph_key: Optional[tuple] = None
         self._per_replay: tuple = ()    # (wrapper, launches per replay)
-        #: captures made and the milliseconds of the last one (its warm-up
-        #: pass included)
+        #: captures made (each one's host time, its warm-up pass included,
+        #: is the ``capture`` span of ``utils/timing.totals``)
         self.captures = 0
-        self.capture_ms = 0.0
 
     # -- static buffers -------------------------------------------------------
     def load(self, state: RenderState) -> None:
@@ -173,17 +172,19 @@ class RenderCycle:
             # device: the view's, whatever device the calling thread has
             with torch.cuda.device(self.device):
                 graph = self._captured(scene, cfg, row0)
-                try:
-                    for _ in range(n):
-                        graph.replay()
-                except RuntimeError as e:
-                    raise RuntimeError(f"render cycle: a replay failed: "
-                                       f"{e}") from e
+                with span("replay"):
+                    try:
+                        for _ in range(n):
+                            graph.replay()
+                    except RuntimeError as e:
+                        raise RuntimeError(f"render cycle: a replay failed: "
+                                           f"{e}") from e
             for f, k in self._per_replay:
                 f.launches += n * k
         else:
-            for _ in range(n):
-                self._step(scene, cfg, row0)
+            with span("replay"):
+                for _ in range(n):
+                    self._step(scene, cfg, row0)
         self.state.pass_idx += n
 
     def _step(self, scene, cfg, row0) -> None:
@@ -207,15 +208,14 @@ class RenderCycle:
                 and key == self._graph_key):
             return self._graph
         self._drop_graph()      # and its memory pool, before capturing anew
-        t0 = time.perf_counter()
-        # the warm-up pass's result is dropped: the static state stays
-        graph, self._per_replay = capture(
-            lambda: bounce_step(scene, self.camera, cfg, st,
-                                rng.DeviceKey(self._words, self._pass),
-                                row0=row0),
-            lambda: self._step(scene, cfg, row0), "render cycle: the pass")
-        self._graph, self._graph_scene, self._graph_key = graph, scene, key
-        self.captures += 1
-        torch.cuda.synchronize()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with span("capture"):
+            # the warm-up pass's result is dropped: the static state stays
+            graph, self._per_replay = capture(
+                lambda: bounce_step(scene, self.camera, cfg, st,
+                                    rng.DeviceKey(self._words, self._pass),
+                                    row0=row0),
+                lambda: self._step(scene, cfg, row0), "render cycle: the pass")
+            self._graph, self._graph_scene, self._graph_key = graph, scene, key
+            self.captures += 1
+            torch.cuda.synchronize()
         return graph

@@ -18,10 +18,16 @@ captured CUDA graph per pass, so ``render(block=False)`` returns once the
 replays are enqueued, as the JAX renderer's jitted step does. The state's
 arrays are those buffers: a caller that keeps one across a render sees it
 change (copy it to keep it).
+
+The layer boundaries of a render are spans (``utils/timing.span``):
+``rz::render``, ``rz::compile_world``, ``rz::reset``, ``rz::reproject``,
+``rz::cycle`` (in it ``rz::capture``, ``rz::replay``, ``rz::wait``) and
+``rz::image`` (``rz::tonemap``, ``rz::readback``); four of them feed the
+``time_table`` entries "update world", "temporal reproject", "trace" and
+"tone mapping".
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,7 +37,7 @@ from ..models.device_scene import (TorchScene, TorchCamera, compile_world,
                                    compile_camera)
 from ..models.world import World
 from ..utils.device import DEFAULT, resolve
-from ..utils.timing import TimeTable
+from ..utils.timing import TimeTable, span
 from ..ops import rng
 from ..ops.reproject import primary_hits, reproject_accum
 from ..ops.tonemap import final_color, to_u8
@@ -68,19 +74,20 @@ class CameraView:
         if (st is None or self.camera_version != self.camera.version
                 or st.width != self.camera.width
                 or st.height != self.camera.height):
-            if (st is not None and st.width == self.camera.width
-                    and st.height == self.camera.height
-                    and self.camera.temporal_blend > 0.0):
-                # snapshots: the reset below rewrites the static buffers
-                self.pending_reprojection = (self.device_camera,
-                                             st.accum.clone(),
-                                             st.depth_buf.clone())
-            self.device_camera = compile_camera(self.camera, self.device)
-            self.cycle.set_camera(self.device_camera)
-            self.cycle.reset(self.camera.width, self.camera.height)
-            self.camera_version = self.camera.version
-            self.ray_count = 0
-            self.pass_count = 0
+            with span("reset"):
+                if (st is not None and st.width == self.camera.width
+                        and st.height == self.camera.height
+                        and self.camera.temporal_blend > 0.0):
+                    # snapshots: the reset below rewrites the static buffers
+                    self.pending_reprojection = (self.device_camera,
+                                                 st.accum.clone(),
+                                                 st.depth_buf.clone())
+                self.device_camera = compile_camera(self.camera, self.device)
+                self.cycle.set_camera(self.device_camera)
+                self.cycle.reset(self.camera.width, self.camera.height)
+                self.camera_version = self.camera.version
+                self.ray_count = 0
+                self.pass_count = 0
 
 
 class Renderer:
@@ -100,22 +107,21 @@ class Renderer:
     def update_scene(self) -> TorchScene:
         v = self.world.content_version()
         if self.scene is None or v != self._scene_version:
-            self.time_table.reset()
-            self.scene = compile_world(self.world,
-                                       leaf_size=self.config.bvh_leaf_size,
-                                       two_level=self.config.two_level,
-                                       cache=self._compile_cache,
-                                       device=self.device)
-            self._scene_version = v
-            # a world change invalidates progressive accumulation (reference
-            # update-flag path, cuda_engine_renderer.cu:91-113)
-            for view in self.views.values():
-                if view.state is not None:
-                    view.cycle.reset(view.camera.width, view.camera.height)
-                    view.ray_count = 0
-                    view.pass_count = 0
-                    view.pending_reprojection = None  # stale: scene changed
-            self.time_table.update("update world")
+            with span("compile_world", self.time_table, "update world"):
+                self.scene = compile_world(self.world,
+                                           leaf_size=self.config.bvh_leaf_size,
+                                           two_level=self.config.two_level,
+                                           cache=self._compile_cache,
+                                           device=self.device)
+                self._scene_version = v
+                # a world change invalidates progressive accumulation (reference
+                # update-flag path, cuda_engine_renderer.cu:91-113)
+                for view in self.views.values():
+                    if view.state is not None:
+                        view.cycle.reset(view.camera.width, view.camera.height)
+                        view.ray_count = 0
+                        view.pass_count = 0
+                        view.pending_reprojection = None  # stale: scene changed
         return self.scene
 
     def view(self, camera) -> CameraView:
@@ -135,38 +141,37 @@ class Renderer:
         (default: every enabled camera / config rpp). On a card the passes
         replay the view's captured graph (``engine/cycle.py``); with
         ``block=False`` the call returns once they are enqueued."""
-        scene = self.update_scene()
-        cameras = [camera] if camera is not None else [
-            c for c in self.world.cameras if c.enabled]
-        n = rpp if rpp is not None else self.config.tracing.rpp
-        sync = block and self.device.type == "cuda"
-        for cam in cameras:
-            cv = self.view(cam)
-            if cv.pending_reprojection is not None:
-                # temporal reuse across the camera move (reference
-                # spacialReprojection, cuda_engine_renderer.cu:139)
-                prev_cam, prev_accum, prev_depth = cv.pending_reprojection
-                cv.pending_reprojection = None
-                t0 = time.perf_counter()
-                with torch.no_grad():
-                    depth, space = primary_hits(scene, cv.device_camera,
-                                                self.config)
-                    accum = reproject_accum(space, prev_cam, prev_accum,
-                                            prev_depth, cam.temporal_blend)
-                cv.cycle.load(cv.state.replace(accum=accum, depth_buf=depth,
-                                               space_buf=space))
-                if sync:
-                    torch.cuda.synchronize(self.device)
-                self.time_table.set("temporal reproject",
-                                    (time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            with torch.no_grad():       # serving records no autograd graph
-                cv.cycle.run(scene, self.config, self.key, n)
-            if sync:
-                torch.cuda.synchronize(self.device)
-            self.time_table.set("trace", (time.perf_counter() - t0) * 1e3)
-            cv.pass_count += n
-            cv.ray_count += n * cam.width * cam.height
+        with span("render"):
+            scene = self.update_scene()
+            cameras = [camera] if camera is not None else [
+                c for c in self.world.cameras if c.enabled]
+            n = rpp if rpp is not None else self.config.tracing.rpp
+            sync = block and self.device.type == "cuda"
+            for cam in cameras:
+                cv = self.view(cam)
+                if cv.pending_reprojection is not None:
+                    # temporal reuse across the camera move (reference
+                    # spacialReprojection, cuda_engine_renderer.cu:139)
+                    prev_cam, prev_accum, prev_depth = cv.pending_reprojection
+                    cv.pending_reprojection = None
+                    with span("reproject", self.time_table,
+                              "temporal reproject"), torch.no_grad():
+                        depth, space = primary_hits(scene, cv.device_camera,
+                                                    self.config)
+                        accum = reproject_accum(space, prev_cam, prev_accum,
+                                                prev_depth, cam.temporal_blend)
+                        cv.cycle.load(cv.state.replace(
+                            accum=accum, depth_buf=depth, space_buf=space))
+                        if sync:
+                            torch.cuda.synchronize(self.device)
+                with span("cycle", self.time_table, "trace"):
+                    with torch.no_grad():   # serving records no autograd graph
+                        cv.cycle.run(scene, self.config, self.key, n)
+                    if sync:
+                        with span("wait"):
+                            torch.cuda.synchronize(self.device)
+                cv.pass_count += n
+                cv.ray_count += n * cam.width * cam.height
 
     @torch.no_grad()
     def image_f32(self, camera=None, operator: str = "hyper") -> np.ndarray:
@@ -179,12 +184,14 @@ class Renderer:
     def image(self, camera=None, operator: str = "hyper") -> np.ndarray:
         """Tone-mapped uint8 image [H,W,3] for a camera."""
         cv = self.view(self._camera(camera))
-        t0 = time.perf_counter()
-        rgb = final_color(cv.state.accum, cv.device_camera.aperture,
-                          cv.device_camera.exposure_time, operator)
-        out = to_u8(rgb).cpu().numpy()
-        self.time_table.set("tone mapping", (time.perf_counter() - t0) * 1e3)
-        return out
+        with span("image", self.time_table, "tone mapping"):
+            with span("tonemap"):
+                u8 = to_u8(final_color(cv.state.accum,
+                                       cv.device_camera.aperture,
+                                       cv.device_camera.exposure_time,
+                                       operator))
+            with span("readback"):
+                return u8.cpu().numpy()
 
     def depth(self, camera=None) -> np.ndarray:
         # a copy: the state's buffer changes with the next render

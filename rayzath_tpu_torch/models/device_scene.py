@@ -52,6 +52,10 @@ Not built, because no path of the port reads them: the per-vertex
 normal/texcoord columns outside ``tri_pack`` and the cutouts' raw geometry
 (``cut_v0``/``cut_e1``/``cut_e2``, read only by the JAX package's NumPy
 oracle).
+
+``compile_world``'s parts are spans (``utils/timing.span``): ``rz::geometry``
+(the soup or two-level geometry, BVH builds included), ``rz::atlas`` (the
+atlases and map tables) and ``rz::upload`` (``scene_from_arrays``).
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ from ..ops.traverse_cluster import (build_cluster_tables,
                                     B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
 from ..utils.device import DEFAULT, resolve
 from ..utils.hostmath import normalize as nrm, transform_matrices
+from ..utils.timing import span
 from .material import Material
 from .texture import TextureMap
 from .world import World
@@ -333,8 +338,9 @@ def compile_world(world: World, leaf_size: int = DEFAULT_LEAF_SIZE,
         mat_emission=np.array([m.emission for m in materials], np.float32),
         mat_ior=np.array([m.ior for m in materials], np.float32),
         mat_scattering=np.array([m.scattering for m in materials], np.float32),
-        mat_maps=mat_maps, **_light_fields(world),
-        **_atlas_fields(all_maps, len(color_maps), cache))
+        mat_maps=mat_maps, **_light_fields(world))
+    with span("atlas"):
+        common.update(_atlas_fields(all_maps, len(color_maps), cache))
     statics = dict(n_materials=len(materials),
                    n_spot_lights=len(world.spot_lights),
                    n_direct_lights=len(world.direct_lights),
@@ -345,15 +351,19 @@ def compile_world(world: World, leaf_size: int = DEFAULT_LEAF_SIZE,
 
     if two_level:
         cut = _cutout_fields(world, mat_index, mat_color, mat_maps)
-        geo = _two_level_arrays(world, mat_index, cache, differentiable)
+        with span("geometry"):
+            geo = _two_level_arrays(world, mat_index, cache, differentiable)
         max_ncl = geo.pop("max_ncl")
         n_tri = geo.pop("n_tri")
-        return scene_from_arrays(
-            dict(**geo, **common, **cut),
-            dict(statics, n_triangles=n_tri, n_clusters=0, max_ncl=max_ncl,
-                 n_cutout=len(cut.get("cut_map", ())), two_level=True), device)
+        with span("upload"):
+            return scene_from_arrays(
+                dict(**geo, **common, **cut),
+                dict(statics, n_triangles=n_tri, n_clusters=0,
+                     max_ncl=max_ncl, n_cutout=len(cut.get("cut_map", ())),
+                     two_level=True), device)
 
-    geo = _soup_geometry(world, leaf_size, cache)
+    with span("geometry"):
+        geo = _soup_geometry(world, leaf_size, cache)
     n_tri = geo["n_tri"]
 
     # material binding: instance slot tables -> per-triangle global ids
@@ -377,10 +387,12 @@ def compile_world(world: World, leaf_size: int = DEFAULT_LEAF_SIZE,
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
         tri_pw=geo["tri_pw"], tri_pc=geo["tri_pc"],
         **common, **geo["cl_fields"], **geo["skip_fields"], **cut)
-    return scene_from_arrays(
-        arrays, dict(statics, n_triangles=n_tri, n_clusters=geo["n_clusters"],
-                     max_ncl=0, n_cutout=len(cut.get("cut_map", ())),
-                     two_level=False), device)
+    with span("upload"):
+        return scene_from_arrays(
+            arrays, dict(statics, n_triangles=n_tri,
+                         n_clusters=geo["n_clusters"], max_ncl=0,
+                         n_cutout=len(cut.get("cut_map", ())),
+                         two_level=False), device)
 
 
 # ---------------------------------------------------------------------------

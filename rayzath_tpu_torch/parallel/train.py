@@ -52,7 +52,6 @@ capture and adds it per replay.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import torch
@@ -63,6 +62,7 @@ from ..engine.integrator import host_reads, render_steps_preserve
 from ..engine.state import _ARRAYS, RenderState
 from ..ops import gather, rng
 from ..ops import traverse_cluster as tc
+from ..utils.timing import span
 
 #: Scene leaves that receive gradients (the JAX package's list; each is
 #: held against ``jax.grad`` and finite differences in
@@ -284,14 +284,14 @@ class _Step:
         use."""
         if self._graph is not None:
             return self._graph
-        t0 = time.perf_counter()
-        # the warm-up's step (it also starts autograd's device thread) goes
-        # into the output buffers, which the replay overwrites
-        self._graph, self._per_replay = capture(
-            self._body, self._body, "training step: the step", COUNTED)
-        self.captures += 1
-        torch.cuda.synchronize()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with span("capture") as timed:
+            # the warm-up's step (it also starts autograd's device thread)
+            # goes into the output buffers, which the replay overwrites
+            self._graph, self._per_replay = capture(
+                self._body, self._body, "training step: the step", COUNTED)
+            self.captures += 1
+            torch.cuda.synchronize()
+        self.capture_ms = timed.ms
         return self._graph
 
 

@@ -16,7 +16,7 @@ bit after every step:
    more passes.
 
 Used by ``tests/test_torch_render_cycle.py``, ``tests/test_torch_gpu.py``
-and ``chip_smoke.py`` phase 7.
+and ``chip_smoke.py`` phase 7, on the worlds of :func:`make_world`.
 """
 from __future__ import annotations
 
@@ -32,6 +32,16 @@ from ..engine.state import _ARRAYS, init_state
 from ..models.device_scene import compile_camera
 from ..ops import rng
 from ..ops.reproject import primary_hits, reproject_accum
+
+
+def make_world(name: str, res: int):
+    """The built-in scene ``name`` at ``res``^2, or ``cutout_world``: the
+    texture-alpha cutout scene of ``utils/check_worlds.py``."""
+    from .. import scenes
+    if name == "cutout_world":
+        from .check_worlds import cutout_world
+        return cutout_world(res)
+    return scenes.SCENES[name](res, res)
 
 
 def assert_same_state(label: str, got, ref) -> None:

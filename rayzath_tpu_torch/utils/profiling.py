@@ -1,27 +1,27 @@
-"""Where the time goes: a traced render-cycle turn and the split of a
-training step, under ``torch.profiler``.
+"""Where a training step's time goes: the split of one step under
+``torch.profiler``.
 
-* :func:`cycle_turn`: one turn of a render, eager ``render_steps`` pass by
-  pass or graph replays of ``Renderer.render``: timed renders, one trace
-  (busy ms, idle share, events per pass, device ms by group), the device's
-  own ms per graph pass, capture ms, peak MiB and the host ms of
-  ``render(rpp=16, block=False)``.
-* :func:`split_step`: one training step under :func:`step_labels`, its
-  device ms split into the forward passes, the checkpointed recompute, the
-  shadow backward, the gathers' backward (per call site), the rest of the
-  backward and the update, with the top device kernels and the device ms
-  of torch's index backward (``indexing_backward_kernel*``, which no
-  differentiable gather of the port should reach).
+:func:`split_step` runs one training step under :func:`step_labels`, its
+device ms split into the forward passes, the checkpointed recompute, the
+shadow backward, the gathers' backward (per call site), the rest of the
+backward and the update, with the top device kernels and the device ms of
+torch's index backward (``indexing_backward_kernel*``, which no
+differentiable gather of the port should reach).
+
+The training step has no benchmark cell yet, so this split is where its
+time is read: render time is read by the benchmark's cells from the
+renderer's own spans (``utils/timing.span``). The labels here wrap package
+functions from outside, so they also work on an older checkout's package.
 
 Busy time is the union of the device-side intervals (kernels, memcpy,
 memset). The host-side ``aten::*`` rows of ``key_averages()`` carry the
 device time of the kernels they launched, so summing every row would count
 those kernels twice; only device-side events are read here.
 
-Used by ``chip_smoke.py`` phases 5 and 7 and by ``tools/profile_torch.py``,
-which also runs this file against an older checkout's package: it reads
-only modules that every tree since the compiled training step has, and
-the gather module where the imported tree has one.
+Used by ``chip_smoke.py`` phase 5 and by ``tools/profile_torch.py
+--train``, which also runs this file against an older checkout's package:
+it reads only modules that every tree since the compiled training step
+has, and the gather module where the imported tree has one.
 """
 from __future__ import annotations
 
@@ -34,16 +34,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-#: passes of a timed render per scene (the six scenes of phase 7)
-PASSES = {"cornell_box_nee": 16, "multi_light": 8, "mesh_heavy": 8,
-          "instanced_field": 8, "textured_room": 8, "cutout_world": 8}
-#: device-time groups of a render trace, by kernel name
-GROUPS = (("B1", ("closest_kernel",)),
-          ("B2", ("shadow_kernel",)),
-          ("B3", ("closest_inst_kernel",)),
-          ("B4", ("shadow_inst_kernel",)),
-          ("G1", ("::gather_kernel<", "::gather_vec_kernel<")),
-          ("ray sort", ("topk", "TopK", "Sort", "sort")))
 #: the parts of a training step's device time
 SPLIT = ("forward", "recompute", "shadow backward", "gather backward",
          "other backward", "update")
@@ -59,13 +49,6 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def group_of(name: str) -> str:
-    for group, keys in GROUPS:
-        if any(k in name for k in keys):
-            return group
-    return "other"
-
-
 def union_us(intervals) -> float:
     """Length of the union of (start, end) intervals, in microseconds."""
     total, end = 0.0, float("-inf")
@@ -78,118 +61,6 @@ def union_us(intervals) -> float:
             end = b
     return total
 
-
-def make_world(name: str, res: int):
-    """A scene of :data:`PASSES` at ``res``^2 (``cutout_world``: the
-    texture-alpha cutout scene of ``utils/check_worlds.py``)."""
-    from .. import scenes
-    if name == "cutout_world":
-        from .check_worlds import cutout_world
-        return cutout_world(res)
-    return scenes.SCENES[name](res, res)
-
-
-def trace_device(fn, dev) -> tuple:
-    """``fn()`` under ``torch.profiler`` (CPU and, on a card, CUDA
-    activity), then a synchronize. Returns (wall ms, the device-side
-    events)."""
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return wall_ms, events
-
-
-def cycle_turn(renderer, mode: str, dev, res: int, passes: int, repeats: int,
-               trace_passes: int, top: int = 0, seed: int = 0) -> dict:
-    """One turn of ``mode`` ("eager" or "graph") on ``renderer``'s world
-    (its compiled scene and first camera; depth as its config). Returns the
-    turn's record; prints the top ``top`` device kernels of its trace."""
-    from ..engine.integrator import render_steps
-    from ..engine.state import init_state
-    from ..models.device_scene import compile_camera
-    from ..ops import rng
-    from .cuda_timing import device_ms
-    scene, cfg = renderer.update_scene(), renderer.config
-    cam = renderer.world.cameras[0]
-    rec = {"mode": mode, "res": res, "passes": passes}
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    if mode == "graph":
-        renderer.views.clear()                  # a new view: a new capture
-        renderer.render(rpp=1)
-        view = renderer.views[id(cam)]
-
-        def run(n, block=True):
-            renderer.render(rpp=n, block=block)
-    else:
-        tcam = compile_camera(cam, dev)
-        key = rng.key(seed)
-        state = [init_state(cam.width, cam.height, dev)]
-
-        def run(n, block=True):
-            state[0] = render_steps(scene, tcam, cfg, state[0], key, n)
-            if block:
-                sync(dev)
-        run(1)
-    rec["first_ms"] = (time.perf_counter() - t0) * 1e3
-    rec["capture_ms"] = view.cycle.capture_ms if mode == "graph" else None
-    reps, walls = [], []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        run(passes)
-        dt = time.perf_counter() - t0
-        walls.append(dt * 1e3)
-        reps.append(passes * res * res / dt / 1e6)
-    rec["mrays_s"] = reps
-    rec["peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
-                       if dev.type == "cuda" else None)
-    wall_ms, events = trace_device(lambda: run(trace_passes), dev)
-    busy_ms = union_us([(e.time_range.start, e.time_range.end)
-                        for e in events]) / 1e3
-    groups = {g: 0.0 for g, _ in GROUPS}
-    groups["other"] = 0.0
-    per_kernel: dict[str, list] = {}
-    for e in events:
-        ms = e.time_range.elapsed_us() / 1e3
-        groups[group_of(e.name)] += ms
-        k = per_kernel.setdefault(e.name, [0.0, 0])
-        k[0] += ms
-        k[1] += 1
-    rec.update(profiled_passes=trace_passes, wall_ms=wall_ms, busy_ms=busy_ms,
-               busy_ms_per_pass=busy_ms / trace_passes,
-               idle_share=1.0 - busy_ms / wall_ms,
-               events_per_pass=len(events) / trace_passes, groups_ms=groups)
-    # an eager pass's ~1,000 launches fill the launch queue behind the
-    # sleep of device_ms, so only a graph pass (one launch) is timed so
-    rec["device_ms_per_pass"] = rec["timed_idle_share"] = None
-    if dev.type == "cuda" and mode == "graph":
-        rec["device_ms_per_pass"] = device_ms(
-            lambda: run(1, block=False), launches=4, repeats=3)
-        # the timed renders' idle share: their wall time against the
-        # device's own time of as many passes
-        rec["timed_idle_share"] = [1.0 - rec["device_ms_per_pass"] * passes / w
-                                   for w in walls]
-        sync(dev)
-        t0 = time.perf_counter()
-        run(16, block=False)
-        rec["nonblocking_host_ms"] = (time.perf_counter() - t0) * 1e3
-        sync(dev)
-    for kname, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"   {ms:9.3f} ms  x{n:5d}  {kname[:90]}")
-    return rec
-
-
-# ---------------------------------------------------------------------------
-# the training step
-# ---------------------------------------------------------------------------
 
 def _site(frame) -> str:
     """A gather's call site: the caller's file, line and function, and,

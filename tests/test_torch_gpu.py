@@ -44,7 +44,8 @@ counting both per replay; and at the main path's widths (1, 3, 4, 14,
 32) and others (2, 5, 8), row counts off the warp, word,
 tile and block, one-row tables, warps on one row and on 32 rows, a
 [65536, 4] atlas at random, a table off the 16-byte grid, and int64
-indices on each path.
+indices on each path. The renderer's spans in a profiler trace, their
+mirrors on the device's timeline marked as annotations.
 """
 import numpy as np
 import pytest
@@ -961,6 +962,38 @@ def test_pass_that_cannot_be_captured_raises(cuda, monkeypatch):
     monkeypatch.setattr(I, "mat_pack", mat_pack)
     r.render(rpp=2)                                  # captures again
     assert cv.cycle.captures == 1 and cv.state.pass_idx == 2
+
+
+@pytest.mark.gpu
+def test_render_spans_on_the_card(cuda):
+    """The renderer's spans in a profiler trace on the card: the cycle's
+    capture, replays and synchronise as ``rz::capture``, ``rz::replay``
+    and ``rz::wait`` inside ``rz::cycle``, and each range's mirror on the
+    device's timeline marked as an annotation, not an operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    world = rt.scenes.cornell_box_nee(64, 64)
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)),
+                    device=cuda)
+    cam = world.cameras[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.render(rpp=2)
+        cam.look_at((0.1, 0.0, 1.0))
+        r.render(rpp=1)
+        r.image()
+    host = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name.startswith("rz::") and e.device_type == DeviceType.CPU]
+    names = [n for n, _, _ in host]
+    for name, n in (("rz::render", 2), ("rz::capture", 1), ("rz::replay", 2),
+                    ("rz::wait", 2), ("rz::reproject", 1), ("rz::readback", 1)):
+        assert names.count(name) == n, name
+    cycles = [(a, b) for n, a, b in host if n == "rz::cycle"]
+    for n, a, b in host:
+        if n in ("rz::capture", "rz::replay", "rz::wait"):
+            assert any(s <= a and b <= e for s, e in cycles), n
+    mirrors = [e for e in prof.events()
+               if e.name.startswith("rz::") and e.device_type == DeviceType.CUDA]
+    assert all(getattr(e, "is_user_annotation", False) for e in mirrors)
 
 
 # ---------------------------------------------------------------------------

@@ -1,38 +1,12 @@
-"""Where the time goes in the PyTorch/CUDA port (``rayzath_tpu_torch``).
+"""Kernel times and the training step of the PyTorch/CUDA port
+(``rayzath_tpu_torch``), on one card. Where a render's time goes is the
+benchmark's (``benchmark/``: its traced runs read the renderer's spans).
 
-For each scene, on one device, at ``--res``^2 and depth 8, four turns in
-the order eager, graph, graph, eager (``cycle_turn`` of
-``rayzath_tpu_torch/utils/profiling.py``). An eager turn
-runs ``render_steps`` pass by pass from Python, as ``Renderer.render`` did
-before the render cycle; a graph turn runs ``Renderer.render``, which
-replays the view's captured CUDA graph (``engine/cycle.py``; each graph turn
-starts from a new view, so it captures anew). Each turn: one warm-up pass
-(the graph turn's capture, its ms reported), ``--repeats`` timed renders of
-the scene's pass count (wall clock, each ending in
-``torch.cuda.synchronize``), one ``torch.profiler`` trace of
-``--profile-passes`` passes, the device's own ms per pass
-(``utils/cuda_timing.device_ms``: passes queued behind a sleep, so no host
-time), the peak device memory from the warm-up to the end of the timed
-renders and, in a graph turn, the host ms of ``render(rpp=16,
-block=False)``. From the trace it prints the wall time, the device's busy
-time, the idle share (and, in a graph turn, the timed renders' idle share
-against the device ms of as many passes), the device events per pass, the
-busy time by group
-(B1 closest kernel, B2 shadow kernel, B3/B4 their instanced twins, the
-G1 gather, ray sort, everything else) and the top device kernels.
-``cutout_world`` is the texture-alpha cutout scene of
-``rayzath_tpu_torch/utils/check_worlds.py``.
+    python3 tools/profile_torch.py [--res 512]
 
-    python3 tools/profile_torch.py [--scenes a,b] [--res 512] [--repeats 3]
+prints the kernel times below for this tree, as one JSON line.
 
-``--root DIR`` renders with the package of another checkout instead (the
-turns of ``utils/profiling.py``, this tree's file where DIR has none).
-
-``--device cpu`` at a small ``--res`` runs the eager turns without a card
-(the trace then holds no device events; there are no graph turns). The
-last line per turn is one JSON object with the numbers above.
-
-``--parent DIR`` then times the kernels of two trees on the same card in
+``--parent DIR`` times the kernels of two trees on the same card in
 turns (parent, change, change, parent): DIR holds another checkout of the
 repository (``git archive <commit> | tar -x -C DIR``), and each turn is one
 process that imports ``rayzath_tpu_torch`` from its tree, builds that
@@ -46,7 +20,7 @@ opacities), and of the threefry draw of one pass at ``--res``^2 x 14, both
 its call and its kernel's median device duration in a ``torch.profiler``
 trace of 20 calls, as one JSON line:
 
-    python3 tools/profile_torch.py --scenes "" --parent build/parent
+    python3 tools/profile_torch.py --parent build/parent
 
 ``--train`` times the training step instead (:func:`train_turn`) in the
 training cell of ``rayzath_tpu_torch/utils/check_train.py`` (also
@@ -71,7 +45,7 @@ call's s and ms, three timed steps, peak GiB. With ``--parent DIR`` the
 turns run parent, change, change, parent (or the order ``--order`` names),
 one process each:
 
-    python3 tools/profile_torch.py --scenes "" --train --parent build/parent
+    python3 tools/profile_torch.py --train --parent build/parent
 """
 from __future__ import annotations
 
@@ -332,8 +306,8 @@ def tree_module(name: str, needs: str):
 
 
 def profiling():
-    """``rayzath_tpu_torch.utils.profiling`` (the render turns and the
-    step's split) of the imported tree, or this tree's."""
+    """``rayzath_tpu_torch.utils.profiling`` (the step's split) of the
+    imported tree, or this tree's."""
     return tree_module("rayzath_tpu_torch.utils.profiling", "split_step")
 
 
@@ -410,8 +384,7 @@ def parent_turns(parent: str, res: int, train: bool = False,
     recs = []
     for label in order.split(","):
         root = {"parent": parent, "change": ROOT}[label]
-        turn = (["--train-turn", "--device", device] if train
-                else ["--kernel-times"])
+        turn = ["--train-turn", "--device", device] if train else []
         p = subprocess.run(
             [sys.executable, os.path.abspath(__file__), *turn,
              "--root", os.path.abspath(root), "--res", str(res)],
@@ -425,47 +398,12 @@ def parent_turns(parent: str, res: int, train: bool = False,
     return recs
 
 
-def profile_scene(name: str, dev, res: int, repeats: int, passes: int,
-                  top: int) -> list:
-    """The turns eager, graph, graph, eager on one scene (eager only on the
-    CPU); prints a line and a JSON record per turn."""
-    import rayzath_tpu_torch as rt
-    prof = profiling()
-    r = rt.Renderer(prof.make_world(name, res),
-                    rt.RenderConfig(tracing=rt.Tracing(max_depth=8)),
-                    device=dev)
-    modes = (("eager", "graph", "graph", "eager") if dev.type == "cuda"
-             else ("eager",))
-    recs = []
-    for mode in modes:
-        rec = dict(scene=name, **prof.cycle_turn(r, mode, dev, res,
-                                                 prof.PASSES[name], repeats,
-                                                 passes, top))
-        print(f"{name} {mode}: {rec['passes']} passes at "
-              + ", ".join(f"{x:.3f}" for x in rec["mrays_s"])
-              + f" Mrays/s; traced {passes} passes: wall {rec['wall_ms']:.2f} "
-              f"ms, device busy {rec['busy_ms']:.2f} ms, idle "
-              f"{100 * rec['idle_share']:.1f}%, {rec['events_per_pass']:.1f} "
-              f"device events per pass", flush=True)
-        print(json.dumps(rec), flush=True)
-        recs.append(rec)
-    return recs
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenes", default=None,
-                    help="comma-separated scenes (default: utils/profiling.py "
-                         "PASSES)")
     ap.add_argument("--res", type=int, default=512)
-    ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--profile-passes", type=int, default=4)
-    ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--parent", default=None,
                     help="another checkout: time its kernels against this one's")
-    ap.add_argument("--kernel-times", action="store_true",
-                    help="one --parent turn: kernel times of the --root tree")
     ap.add_argument("--train", action="store_true",
                     help="time the training step (with --parent: in turns)")
     ap.add_argument("--train-turn", action="store_true",
@@ -475,21 +413,10 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
-    if args.kernel_times:
-        with torch.no_grad():
-            print(json.dumps(kernel_times(args.res)), flush=True)
-        return 0
     dev = torch.device(args.device)
     if args.train_turn:
         print(json.dumps(train_turn(dev, args.res)), flush=True)
         return 0
-    print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
-    scenes = (",".join(profiling().PASSES) if args.scenes is None
-              else args.scenes)
-    with torch.no_grad():
-        for name in filter(None, scenes.split(",")):
-            profile_scene(name, dev, args.res, args.repeats,
-                          args.profile_passes, args.top)
     if args.train and not args.parent:
         rec = train_turn(dev, args.res)
         print(f"training step [{card_line()}]: {train_line(rec)}", flush=True)
@@ -512,6 +439,9 @@ def main(argv=None) -> int:
                   + "; library " + ", ".join(
                       f"{r['gathers'][key]['library_ms']:.4f}" for r in recs),
                   flush=True)
+    else:
+        with torch.no_grad():
+            print(json.dumps(kernel_times(args.res)), flush=True)
     return 0
 
 
