@@ -21,7 +21,11 @@ Phases, each of which raises on failure (exit code != 0):
    the call's time with its Python wrapper and the plain version's (CUDA
    events around one call, median of 20), and its bound from the bytes
    written and the fewest instructions of the function (70 per float) over
-   the SM's issue rate. Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
+   the SM's issue rate. The coherence key's kernels
+   (``csrc/sort_keys.cu``) bit for bit as ``ops/sort_rays.py``
+   ``coherence_keys_plain`` on every kind of ``utils/check_keys.py`` and
+   on 720p bounce-like rays, timed there as the draw is (plain: one call)
+   against their bound (32 bytes a ray). Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
    against their plain PyTorch versions on the card, for cornell_box_nee,
    multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
    bounce-like rays from the first hits (uniform-sphere directions from a
@@ -203,10 +207,12 @@ The last lines of standard output are the render cycle's JSON record
 ``{"ok": true, "device": {...}}``. The kernels' record lists B1-B4, the
 threefry kernel's two entries (``"replaces": null``: the JAX package draws
 in XLA), B2-grad and B4-grad (``replaces``: the custom_vjp bwd rules,
-a dense replay in XLA) and the table gather's G1 and G2 (``replaces``:
-``rayzath_tpu/ops/gather.py`` ``gather_rows``), each with its launches in
+a dense replay in XLA), the table gather's G1 and G2 (``replaces``:
+``rayzath_tpu/ops/gather.py`` ``gather_rows``) and the coherence key
+(``ray_sort_keys``, ``"replaces": null``: XLA), each with its launches in
 the paths driven with the counters set to 0 just before and read just
-after: phase 4's renders (B1-B4, G1 and the keyed draw), the skip-link
+after: phase 4's renders (B1-B4, G1, the keyed draw and, on scenes of
+at least 16 clusters or instances, the key), the skip-link
 renders (the keyed draw), phase 5's training steps (B1, B2, B2-grad, G1,
 G2 and both draws; the two-level step B3, B4 and B4-grad), phase 6's
 headless run and phase 7's checks;
@@ -1337,6 +1343,44 @@ def phase_threefry(card: str, dev):
     return out
 
 
+#: rays of the timed coherence key: a 720p wavefront
+SORT_KEY_RAYS = 1280 * 720
+
+
+def phase_sort_keys(card: str, dev):
+    """The coherence key's kernels (``csrc/sort_keys.cu``) bit for bit
+    against ``coherence_keys_plain`` on every kind of
+    ``utils/check_keys.CARD_KINDS`` (5,000 rays) and on 720p bounce-like
+    rays, then the kernels and the plain key timed on those, and the
+    kernels' bound (each ray's origin and direction read once, its key
+    written once)."""
+    import torch
+    from rayzath_tpu_torch.ops import sort_rays
+    from rayzath_tpu_torch.utils.check_keys import CARD_KINDS, key_rays
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    for kind, n in [(k, 5000) for k in CARD_KINDS] + [("bounce", SORT_KEY_RAYS)]:
+        o, d = (torch.as_tensor(x, device=dev) for x in key_rays(kind, n))
+        differ = int((sort_rays.coherence_keys(o, d)
+                      != sort_rays.coherence_keys_plain(o, d)).sum())
+        if differ:
+            raise AssertionError(f"sort keys, {kind} x {n}: {differ} keys "
+                                 "differ from the plain key")
+
+    def keys():
+        return sort_rays.coherence_keys(o, d)
+
+    ms, call = device_ms(keys, 50), call_ms(keys, 20)
+    plain_ms = call_ms(lambda: sort_rays.coherence_keys_plain(o, d), 20)
+    b = bound(SORT_KEY_RAYS * (24 + 8), 0)
+    print(f"  sort keys [{card}]: {len(CARD_KINDS) + 1} sets bit for bit as "
+          f"the plain key; {SORT_KEY_RAYS} rays, kernels {ms:.4f} ms on the "
+          f"device (50 calls behind a sleep, median of 5), the call "
+          f"{call:.4f} ms (median of 20), plain {plain_ms:.3f} ms (median of "
+          f"20), bound {b[0]:.4f} ms ({b[1]}): the device time is "
+          f"{ms / b[0]:.2f}x the bound", flush=True)
+    return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound=b, err=0.0)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end on the card against the CPU plain path
 # ---------------------------------------------------------------------------
@@ -1462,7 +1506,7 @@ def phase_seeded(dev):
 def path_wrappers() -> dict:
     """{label: wrapper} of the main path's kernels; each wrapper counts
     the launches of its kernel in its ``launches`` attribute."""
-    from rayzath_tpu_torch.ops import gather, rng
+    from rayzath_tpu_torch.ops import gather, rng, sort_rays
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
             "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
@@ -1470,13 +1514,15 @@ def path_wrappers() -> dict:
             "B4-grad": tc.cluster_shadow_inst_grad,
             "threefry": rng.uniform_rows,
             "threefry_keyed": rng.uniform_rows_keyed,
-            "G1": gather.gather_rows_fwd, "G2": gather.gather_rows_grad}
+            "G1": gather.gather_rows_fwd, "G2": gather.gather_rows_grad,
+            "sort_keys": sort_rays.coherence_keys}
 
 
 def phase_slice(card: str, dev):
     """Returns the launches per kernel label of the six renders."""
     import torch
     import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
     from rayzath_tpu_torch.utils import check_worlds
     wrappers = path_wrappers()
     launches = dict.fromkeys(wrappers, 0)
@@ -1500,6 +1546,8 @@ def phase_slice(card: str, dev):
         counts = {k: f.launches for k, f in wrappers.items()}
         path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
             "threefry_keyed", "G1")
+        if I._sort_traversal(r.config, r.scene):
+            path += ("sort_keys",)
         if name == "instanced_field" and not r.scene.two_level:
             raise AssertionError("instanced_field did not compile two-level")
         if name == "textured_room" and r.scene.map_kinds_used != (True,) * 5:
@@ -2706,6 +2754,7 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     threefry = phase_threefry(card, dev)
+    sort_keys = phase_sort_keys(card, dev)
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
     phase_tables(dev)
@@ -2829,6 +2878,16 @@ def main() -> int:
             "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
             "library_ms": None, "rows": RES, "width": RES,
             "ns": THREEFRY_NS[-1]})
+    # the coherence key replaces no TPU kernel (the JAX package computes it
+    # in XLA); timed on 720p bounce-like rays, bit for bit to the plain key
+    record.append({
+        "name": "ray_sort_keys", "route": "cuda",
+        "source": "rayzath_tpu_torch/csrc/sort_keys.cu", "replaces": None,
+        "launches": launches["sort_keys"], "max_abs_err": sort_keys["err"],
+        "ms": sort_keys["ms"], "call_ms": sort_keys["call_ms"],
+        "plain_ms": sort_keys["plain_ms"], "bound_ms": sort_keys["bound"][0],
+        "bound_by": sort_keys["bound"][1], "library_ms": None,
+        "rays": SORT_KEY_RAYS})
     idle = [r["name"] for r in record if not r["launches"]]
     if idle:
         return fail(f"kernels of the path never launched: {idle}")

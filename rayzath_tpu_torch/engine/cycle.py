@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from ..models.device_scene import TorchCamera, TorchScene
-from ..ops import gather, rng
+from ..ops import gather, rng, sort_rays
 from ..ops import traverse_cluster as tc
 from ..utils.timing import span
 from .config import RenderConfig
@@ -56,7 +56,7 @@ from .state import _ARRAYS, RenderState, init_state
 #: the kernel wrappers whose ``launches`` counters a replay advances
 COUNTED = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_closest_inst,
            tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed,
-           gather.gather_rows_fwd)
+           gather.gather_rows_fwd, sort_rays.coherence_keys)
 
 _CAMERA = ("position", "rot", "fov", "near_far", "focal_distance", "aperture",
            "exposure_time")

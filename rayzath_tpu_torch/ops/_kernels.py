@@ -79,9 +79,13 @@ _SIGNATURES = {
     # idx, idx is int64, g, m, k, n, scratch (the partials, or the atomic
     # path's zeroed [n, k] doubles), out, stream
     "rz_gather_rows_grad": [_P, _I, _P, _L, _I, _I, _P, _P, _P],
+    # rays n -> floats of the partials that rz_ray_sort_keys takes
+    "rz_ray_sort_partials": [_L],
+    # origin, direction, n, partials, keys (int64), stream
+    "rz_ray_sort_keys": [_P, _P, _L, _P, _P, _P],
 }
 #: return types other than the error code
-_RESTYPES = {"rz_gather_grad_partials": _L}
+_RESTYPES = {"rz_gather_grad_partials": _L, "rz_ray_sort_partials": _L}
 
 
 def _nvcc() -> str:

@@ -12,10 +12,21 @@ Origins are normalized by the batch's own min/max, so no scene bounds are
 needed. A traversal result is a per-ray function, so sorting changes which
 rays share a thread block and never what a ray returns; the results are put
 back in the original order afterwards.
+
+:func:`coherence_keys` takes the plain version :func:`coherence_keys_plain`
+(torch ops) for tensors on the CPU and, for tensors on a CUDA device, the
+hand-written kernels of ``csrc/sort_keys.cu`` (the batch's bounds, then a
+key per ray: two launches, the same bits), counting its calls in a
+``launches`` attribute; any other device raises (after the kernel
+library's load, which raises without a card or nvcc), and there is no
+fallback.
 """
 from __future__ import annotations
 
 import torch
+
+from . import _kernels
+from ._kernels import launch as _launch, ptr as _ptr
 
 
 def _spread3(x):
@@ -34,9 +45,9 @@ def _quant(v, lo, hi, levels: float):
     return torch.clamp(q, 0.0, levels - 1.0).to(torch.int64)
 
 
-def coherence_keys(origin, direction):
+def coherence_keys_plain(origin, direction):
     """Coherence key per ray as int64 holding the uint32 bit pattern (see
-    module docstring)."""
+    module docstring), in torch ops."""
     lo = origin.amin(dim=0)
     hi = origin.amax(dim=0)
     qc = _quant(origin, lo, hi, 4.0)                        # [R,3] 2-bit
@@ -58,6 +69,41 @@ def coherence_keys(origin, direction):
               | ((direction[:, 1] < 0).to(torch.int64) << 1)
               | ((direction[:, 2] < 0).to(torch.int64) << 2))
     return (coarse << 26) | (octant << 23) | (db << 15) | fine
+
+
+def coherence_keys(origin, direction):
+    """Coherence key per ray as int64 holding the uint32 bit pattern (see
+    module docstring): origin and direction [R, 3] float32. CPU tensors take
+    :func:`coherence_keys_plain`; CUDA tensors launch the kernels, which
+    give its keys bit for bit. The keys carry no gradient."""
+    if origin.device.type == "cpu":
+        return coherence_keys_plain(origin, direction)
+    lib = _kernels.load()
+    dev = origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"the sort-key kernels run on a CUDA device, got {dev}")
+    for name, x in (("origin", origin), ("direction", direction)):
+        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 \
+                or x.shape[1] != 3:
+            raise ValueError(f"{name} must be [R, 3] float32 on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if direction.shape[0] != origin.shape[0]:
+        raise ValueError(f"{origin.shape[0]} origins, {direction.shape[0]} "
+                         "directions")
+    n = origin.shape[0]
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        o = origin.detach().contiguous()
+        d = direction.detach().contiguous()
+        parts = torch.empty(lib.rz_ray_sort_partials(n), dtype=torch.float32,
+                            device=dev)
+        _launch("ray_sort_keys", lib.rz_ray_sort_keys, dev, _ptr(o), _ptr(d),
+                n, _ptr(parts), _ptr(keys))
+        coherence_keys.launches += 1
+    return keys
+
+
+coherence_keys.launches = 0
 
 
 def sort_payload(origin, direction, extras):

@@ -45,7 +45,14 @@ counting both per replay; and at the main path's widths (1, 3, 4, 14,
 tile and block, one-row tables, warps on one row and on 32 rows, a
 [65536, 4] atlas at random, a table off the 16-byte grid, and int64
 indices on each path. The renderer's spans in a profiler trace, their
-mirrors on the device's timeline marked as annotations.
+mirrors on the device's timeline marked as annotations. The coherence key
+(``ops/sort_rays.py``): the kernels of ``csrc/sort_keys.cu`` bit for bit
+as ``coherence_keys_plain`` on the card, on every kind of
+``utils/check_keys.py`` (ties, signed zeros, zero, infinite and NaN
+lanes), from one ray to past the kernels' widest grid, inside a replayed
+CUDA graph and on mesh_heavy's bounce states; ``sort_payload``'s order
+that of the stable sort of the plain keys; one key per sorted traversal
+call of a ``bounce_step`` and none on a scene that does not sort.
 """
 import numpy as np
 import pytest
@@ -57,6 +64,7 @@ from rayzath_tpu_torch.ops import camera as cam_ops
 from rayzath_tpu_torch.ops import traverse_cluster as tc
 from rayzath_tpu_torch.models.mesh import Mesh
 from rayzath_tpu_torch.utils import check_tables as ct
+from rayzath_tpu_torch.utils.check_keys import CARD_KINDS, key_rays
 from rayzath_tpu_torch.utils.hostmath import Transform
 from rayzath_tpu_torch.utils.parity import (closest_f64, expand_instances,
                                             images_match)
@@ -1327,3 +1335,104 @@ def test_gather_autograd_on_the_card(cuda):
     assert counts(lambda: [step(train.training_step)() for _ in range(2)]) == [
         2 * eager[0], 2 * eager[1]]
     train._STEPS.clear()
+
+
+# ---------------------------------------------------------------------------
+# the coherence key (ops/sort_rays.py, csrc/sort_keys.cu)
+# ---------------------------------------------------------------------------
+
+def _keys_match_plain(o, d):
+    """The kernels' keys equal coherence_keys_plain's bit for bit on the
+    same card, and sort_payload orders the rays as the stable sort of the
+    plain keys does."""
+    from rayzath_tpu_torch.ops import sort_rays
+    plain = sort_rays.coherence_keys_plain(o, d)
+    keys = sort_rays.coherence_keys(o, d)
+    assert keys.dtype == torch.int64 and keys.shape == plain.shape
+    differ = int((keys != plain).sum())
+    assert differ == 0, f"{differ} of {keys.numel()} keys differ"
+    o_s, d_s, (ids_s,), idx = sort_rays.sort_payload(
+        o, d, (torch.arange(o.shape[0], device=o.device),))
+    assert torch.equal(idx, torch.sort(plain, stable=True).indices)
+    assert torch.equal(ids_s, idx)
+    assert torch.equal(o_s.view(torch.int32), o[idx].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n", [
+    *((k, 5_000) for k in CARD_KINDS),
+    ("bounce", 1), ("camera", 1), ("bounce", 768), ("bounce", 67_585),
+    ("bounce", 921_600), ("two_equal", 1_000_003)])
+def test_sort_keys_match_plain(cuda, kind, n):
+    """csrc/sort_keys.cu bit for bit as coherence_keys_plain, counted once
+    a call: random rays, one shared origin, tie-heavy and zero directions,
+    signed zeros, infs and NaNs; ray counts off the block, one ray, one
+    block, the bounds launch's widest grid plus a ray and 720p."""
+    from rayzath_tpu_torch.ops import sort_rays
+    o, d = (torch.as_tensor(x, device=cuda) for x in key_rays(kind, n, seed=n))
+    before = sort_rays.coherence_keys.launches
+    _keys_match_plain(o, d)
+    assert sort_rays.coherence_keys.launches == before + 2   # keys, payload
+
+
+@pytest.mark.gpu
+def test_sort_keys_in_a_graph(cuda):
+    """The two launches capture into a CUDA graph: replays give the plain
+    keys of whatever the static inputs hold when they run."""
+    from rayzath_tpu_torch.ops import sort_rays
+    n = 70_001
+    o, d = (torch.as_tensor(x, device=cuda) for x in key_rays("bounce", n))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sort_rays.coherence_keys(o, d)                # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keys = sort_rays.coherence_keys(o, d)
+    for kind in ("bounce", "two_equal", "camera"):
+        o2, d2 = key_rays(kind, n, seed=5)
+        o.copy_(torch.as_tensor(o2))
+        d.copy_(torch.as_tensor(d2))
+        graph.replay()
+        assert torch.equal(keys, sort_rays.coherence_keys_plain(o, d)), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mesh_heavy", "cornell_box_nee"])
+def test_sort_keys_in_bounce_steps(cuda, name, monkeypatch):
+    """On the o and d of real bounce states (three eager passes at 64^2)
+    the kernels give the plain keys; a pass computes one key per sorted
+    traversal call (mesh_heavy: 719 clusters) and none where the scene
+    has under 16 clusters (cornell_box_nee)."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng, sort_rays
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    world = rt.scenes.SCENES[name](64, 64)
+    scene = tds.compile_world(world, device=cuda)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    seen = []
+    keys_of, sort_payload = sort_rays.coherence_keys, I.sort_payload
+
+    def checked(o, d, extras):
+        assert torch.equal(keys_of(o, d), sort_rays.coherence_keys_plain(o, d))
+        seen.append(o.shape[0])
+        return sort_payload(o, d, extras)
+
+    monkeypatch.setattr(I, "sort_payload", checked)
+    state = init_state(64, 64, cuda)
+    traversals = (tc.cluster_closest, tc.cluster_shadow)
+    for p in range(3):
+        start = ([f.launches for f in traversals], keys_of.launches, len(seen))
+        with torch.no_grad():
+            state = I.bounce_step(scene, cam, cfg, state,
+                                  rng.fold_in(rng.key(6), p))
+        walks = sum(f.launches - s for f, s in zip(traversals, start[0]))
+        calls = len(seen) - start[2]
+        assert walks >= 2
+        if name == "mesh_heavy":
+            # a checked call computes the key twice: here and in sort_payload
+            assert calls == walks and keys_of.launches - start[1] == 2 * calls
+        else:
+            assert calls == 0 and keys_of.launches == start[1]

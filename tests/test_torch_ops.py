@@ -31,6 +31,7 @@ from rayzath_tpu_torch.ops import sort_rays as tsort  # noqa: E402
 from rayzath_tpu_torch.ops import tonemap as ttm  # noqa: E402
 from rayzath_tpu_torch.ops import vec as tvec  # noqa: E402
 from rayzath_tpu_torch.engine import state as tstate  # noqa: E402
+from rayzath_tpu_torch.utils.check_keys import KEY_KINDS, key_rays  # noqa: E402
 
 N = 512
 
@@ -169,17 +170,29 @@ def test_refine_tri_matches():
         assert (err <= 1e-6 * s).all(), (err / s).max()
 
 
-@pytest.mark.parametrize("kind", ["bounce", "camera"])
+@pytest.mark.parametrize("kind", KEY_KINDS)
 def test_coherence_keys_bit_equal(kind):
-    rng = np.random.default_rng(16)
-    if kind == "camera":
-        o = np.tile(np.asarray([[0.3, 1.0, -4.0]], np.float32), (N, 1))
-    else:
-        o = rng.uniform(-5, 5, (N, 3)).astype(np.float32)
-    d = _unit(rng)
+    """The plain key (the CPU path, and the reference of the CUDA kernels)
+    against the JAX package's, also on ties of the dominant lane, signed
+    zeros and zero directions."""
+    o, d = key_rays(kind, N, seed=16)
     ours = tsort.coherence_keys(torch.as_tensor(o), torch.as_tensor(d))
     ref = np.asarray(jsort.coherence_keys(jnp.asarray(o), jnp.asarray(d)))
     assert np.array_equal(ours.numpy(), ref.astype(np.int64))
+
+
+def test_coherence_keys_take_the_plain_path_on_the_cpu():
+    """CPU tensors take coherence_keys_plain and launch nothing; a tensor
+    on another device than the CPU launches the kernels or raises (here:
+    no card, no nvcc)."""
+    o, d = (torch.as_tensor(x) for x in key_rays("bounce", 7, seed=3))
+    before = tsort.coherence_keys.launches
+    keys = tsort.coherence_keys(o, d)
+    assert torch.equal(keys, tsort.coherence_keys_plain(o, d))
+    assert keys.dtype == torch.int64
+    assert tsort.coherence_keys.launches == before
+    with pytest.raises(ValueError if torch.cuda.is_available() else RuntimeError):
+        tsort.coherence_keys(o.to("meta"), d.to("meta"))
 
 
 def test_sort_unsort_identity():

@@ -18,7 +18,8 @@ multi_light's bounce-like rays (``chip_smoke.py`` phase 2's rays, in the
 integrator's order; the shadow kernels with dist = BIG and the scene's
 opacities), and of the threefry draw of one pass at ``--res``^2 x 14, both
 its call and its kernel's median device duration in a ``torch.profiler``
-trace of 20 calls, as one JSON line:
+trace of 20 calls, and the ray sort's key on 921,600 rays
+(:func:`sort_key_times`), as one JSON line:
 
     python3 tools/profile_torch.py --parent build/parent
 
@@ -175,7 +176,39 @@ def kernel_times(res: int) -> dict:
                            f"{RUNS} draws")
     out["draw_ms"] = statistics.median(kernel)
     out["draw_sum"] = int(draw().view(torch.int32).long().sum())
+    out["sort_keys"] = sort_key_times()
     return out
+
+
+def sort_key_times(n: int = 1280 * 720) -> dict:
+    """The ray sort's key (``ops/sort_rays.py`` ``coherence_keys``) of the
+    imported tree on ``n`` seeded bounce-like rays (origins in a box, unit
+    directions; 720p by default): the call's median ms, the device ms of
+    each kernel it launches and their sum per call (a ``torch.profiler``
+    trace of 20 calls), the median ms of a whole ``sort_payload`` call
+    without extras, and a checksum of the keys, equal in two trees when
+    both give the same keys."""
+    import numpy as np
+    from rayzath_tpu_torch.ops import sort_rays
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    v = rng.normal(size=(n, 3))
+    o = torch.as_tensor(rng.uniform(-5.0, 5.0, (n, 3)).astype(np.float32),
+                        device=dev)
+    d = torch.as_tensor((v / np.linalg.norm(v, axis=1, keepdims=True))
+                        .astype(np.float32), device=dev)
+
+    def keys():
+        return sort_rays.coherence_keys(o, d)
+
+    kernels = {name: sum(t) / RUNS
+               for name, t in trace_kernels(keys, RUNS).items()}
+    k = keys()
+    return {"rays": n, "call_ms": cuda_ms(keys, RUNS),
+            "device_ms": sum(kernels.values()), "kernels": kernels,
+            "payload_call_ms": cuda_ms(
+                lambda: sort_rays.sort_payload(o, d, ()), RUNS),
+            "sum": int((k * torch.arange(1, n + 1, device=dev)).sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +465,11 @@ def main(argv=None) -> int:
                     "draw_ms", "draw_call_ms"):
             print(f"{key} parent / change / change / parent [{card_line()}]: "
                   + ", ".join(f"{r[key]:.4f}" for r in recs), flush=True)
+        for key in ("call_ms", "device_ms", "payload_call_ms", "sum"):
+            print(f"sort key {key} parent / change / change / parent "
+                  f"[{card_line()}]: "
+                  + ", ".join(str(r["sort_keys"][key]) for r in recs),
+                  flush=True)
         for key in recs[0]["gathers"]:
             print(f"{key} device ms parent / change / change / parent "
                   f"[{card_line()}]: "
