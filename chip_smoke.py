@@ -49,7 +49,10 @@ Phases, each of which raises on failure (exit code != 0):
    input read once (rays, needed frame blocks, box and instance rows,
    opacity rows) and each output written once, the operations the needed
    triangle tests at 49 f32 operations each (plus 33 per needed instance
-   for the object transform). Then B1 and B3 bit for bit on the tables of
+   for the object transform). Then one 1280x720 cycle of 8 passes of
+   instanced_field through ``Renderer.render``, the benchmark cell's
+   settings: B3's and B4's work counters (``rays``, instance visits,
+   cluster tests) beside their launches. Then B1 and B3 bit for bit on the tables of
    ``utils/check_tables.py``: exact ties across cluster and instance rows
    (also with near < 0 on every other ray), and walks of several windows
    of rows; B2 and B4 with dist = BIG on those window tables with
@@ -708,6 +711,52 @@ def phase_inst_kernels(card: str, dev):
         del scene, cam_set, bounce_set, timing
         torch.cuda.empty_cache()
     return out
+
+
+def phase_inst_cycle(card: str, dev):
+    """One 1280x720 cycle of 8 passes, depth 16, of instanced_field at its
+    builder's defaults through ``Renderer.render`` (the benchmark's
+    ``instanced_field.progressive`` settings): B3's and B4's work counters
+    beside their launches. Each launch takes the whole wavefront, and the
+    cycle's capture runs one warm-up pass, so both kernels launch 9 times on
+    921,600 rays; the phase fails unless ``rays`` is launches x pixels and
+    the device counters moved."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    w, h = 1280, 720
+    world = rt.scenes.instanced_field(w, h)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=16, rpp=8),
+                          light_sampling=rt.LightSampling(spot_light=1,
+                                                          direct_light=1))
+    wrappers = {"B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst}
+    before = {k: (f.launches, f.rays, f.work.read())
+              for k, f in wrappers.items()}
+    t0 = time.perf_counter()
+    r = rt.Renderer(world, cfg, seed=7, device=dev)
+    r.render(rpp=8)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    if not r.scene.two_level:
+        raise AssertionError("instanced_field did not compile two-level")
+    parts = []
+    for k, f in wrappers.items():
+        l0, r0, c0 = before[k]
+        c = {n: v - c0[n] for n, v in f.work.read().items()}
+        launches, rays = f.launches - l0, f.rays - r0
+        if (rays != launches * w * h or not launches or not c["cluster_tests"]
+                or not c["instance_visits"]):
+            raise AssertionError(f"{k} counters: launches {launches}, rays "
+                                 f"{rays}, {c}")
+        parts.append(f"{k} launches {launches}, rays {rays}, instance visits "
+                     f"{c['instance_visits']}, cluster tests "
+                     f"{c['cluster_tests']} ({c['cluster_tests'] / rays:.4f} "
+                     f"a ray)")
+    print(f"instanced_field 720p cycle through Renderer.render [{card}]: "
+          f"{'; '.join(parts)}; {took:.1f} s with the scene build and the "
+          f"capture", flush=True)
+    del r, world
+    torch.cuda.empty_cache()
 
 
 def phase_tables(dev):
@@ -2757,6 +2806,7 @@ def main() -> int:
     sort_keys = phase_sort_keys(card, dev)
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
+    phase_inst_cycle(card, dev)
     phase_tables(dev)
     phase_shadow_tables(dev)
     phase_massive(card, dev)

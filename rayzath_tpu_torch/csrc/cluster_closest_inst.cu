@@ -68,7 +68,8 @@ closest_inst_kernel(const float* __restrict__ origin,
                     const float* __restrict__ frames, int n_rays, int ip,
                     int list_i, int list_c, float* __restrict__ t_out,
                     int* __restrict__ id_out, int* __restrict__ inst_out,
-                    int* __restrict__ visits) {
+                    int* __restrict__ visits,
+                    unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem);
   u64* keys_i = sh.keys;
@@ -93,6 +94,7 @@ closest_inst_kernel(const float* __restrict__ origin,
   int best_id = -1;
   int best_inst = -1;
   int n_tests = 0;
+  int n_inst = 0;  // instances this ray moved into (to_object calls)
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
@@ -112,7 +114,10 @@ closest_inst_kernel(const float* __restrict__ origin,
     const float* row = ti_rows + (size_t)k * TI_W;
     const bool in_k = active && ineed(k);
     float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
-    if (in_k) to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+    if (in_k) {
+      to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+      ++n_inst;
+    }
     const float ixl = safe_inv(d[0]), iyl = safe_inv(d[1]),
                 izl = safe_inv(d[2]);
     const int cl0 = (int)row[TI_CL0];
@@ -192,12 +197,16 @@ closest_inst_kernel(const float* __restrict__ origin,
     inst_out[ray] = best_inst;
     if (visits) visits[ray] = n_tests;
   }
+  if (work) add_walk_counts(sh, work, n_inst, n_tests);
 }
 
 }  // namespace
 
 // visits: null on the render path; else int[n_rays + blocks] that receives
 // each ray's (instance, cluster) tests and each block's staged clusters.
+// work: null, or int64[2] that the launch adds its instance visits and its
+// (instance, cluster) tests to (add_walk_counts); the render path's
+// counters, which a captured graph advances on every replay.
 extern "C" int rz_cluster_closest_inst(const float* origin,
                                        const float* direction,
                                        const float* near, const float* far,
@@ -206,7 +215,9 @@ extern "C" int rz_cluster_closest_inst(const float* origin,
                                        const float* frames, int n_rays,
                                        int ip, float* t_out,
                                        int* id_out, int* inst_out,
-                                       int* visits, void* stream) {
+                                       int* visits,
+                                       unsigned long long* work,
+                                       void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_i = rank_rows_for(ip);
@@ -216,6 +227,6 @@ extern "C" int rz_cluster_closest_inst(const float* origin,
   if (err != cudaSuccess) return (int)err;
   closest_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
-      list_i, list_c, t_out, id_out, inst_out, visits);
+      list_i, list_c, t_out, id_out, inst_out, visits, work);
   return (int)cudaGetLastError();
 }

@@ -73,7 +73,8 @@ shadow_inst_kernel(const float* __restrict__ origin,
                    const float* __restrict__ cl_slot,
                    const float* __restrict__ op_tab, int n_rays, int ip,
                    int list_i, int list_c, float* __restrict__ rgb_out,
-                   float* __restrict__ a_out, int* __restrict__ visits) {
+                   float* __restrict__ a_out, int* __restrict__ visits,
+                   unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem, B4_SIDE, OP_ROW);
   u64* keys_i = sh.keys;
@@ -94,6 +95,7 @@ shadow_inst_kernel(const float* __restrict__ origin,
   const bool active = in_range && dist > 0.0f;
   float mr = 1.0f, mg = 1.0f, mb = 1.0f, ma = 1.0f;
   int n_tests = 0;
+  int n_inst = 0;  // instances this ray moved into (to_object calls)
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
@@ -153,7 +155,10 @@ shadow_inst_kernel(const float* __restrict__ origin,
     const float* row = ti_rows + (size_t)k * TI_W;
     const bool in_k = ineed(k);
     float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
-    if (in_k) to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+    if (in_k) {
+      to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+      ++n_inst;
+    }
     const float ixl = safe_inv(d[0]), iyl = safe_inv(d[1]),
                 izl = safe_inv(d[2]);
     const int cl0 = (int)row[TI_CL0];
@@ -215,12 +220,15 @@ shadow_inst_kernel(const float* __restrict__ origin,
     a_out[ray] = ma;
     if (visits) visits[ray] = n_tests;
   }
+  if (work) add_walk_counts(sh, work, n_inst, n_tests);
 }
 
 }  // namespace
 
 // visits: null on the render path; else int[n_rays + blocks] that receives
 // each ray's (instance, cluster) tests and each block's staged clusters.
+// work: null, or int64[2] that the launch adds its instance visits and its
+// (instance, cluster) tests to, as B3's.
 extern "C" int rz_cluster_shadow_inst(const float* origin,
                                       const float* direction,
                                       const float* dist, const float* ti_rows,
@@ -229,7 +237,9 @@ extern "C" int rz_cluster_shadow_inst(const float* origin,
                                       const float* cl_slot,
                                       const float* op_tab, int n_rays, int ip,
                                       float* rgb_out, float* a_out,
-                                      int* visits, void* stream) {
+                                      int* visits,
+                                      unsigned long long* work,
+                                      void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_i = rank_rows_for(ip);
@@ -239,6 +249,6 @@ extern "C" int rz_cluster_shadow_inst(const float* origin,
   if (err != cudaSuccess) return (int)err;
   shadow_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
-      n_rays, ip, list_i, list_c, rgb_out, a_out, visits);
+      n_rays, ip, list_i, list_c, rgb_out, a_out, visits, work);
   return (int)cudaGetLastError();
 }

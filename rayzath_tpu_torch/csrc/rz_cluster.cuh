@@ -842,6 +842,37 @@ __device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
   }
 }
 
+// B3/B4's work counters: add the block's instance visits (its rays' calls
+// of to_object) and (instance, cluster) tests to work[0] and work[1], a
+// warp sum each, then one atomicAdd per counter from thread 0. Every thread
+// calls it once, after its walk; the per-warp partials reuse the scratch
+// of block_bounds, whose last readers are done once the first barrier
+// passes.
+__device__ __forceinline__ void add_walk_counts(const Shared& sh,
+                                                unsigned long long* work,
+                                                int inst_visits,
+                                                int tests) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  inst_visits = __reduce_add_sync(FULL, inst_visits);
+  tests = __reduce_add_sync(FULL, tests);
+  int* part = reinterpret_cast<int*>(sh.scratch);
+  __syncthreads();
+  if (lane == 0) {
+    part[warp] = inst_visits;
+    part[WARPS + warp] = tests;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long v = 0, t = 0;
+    for (int k = 0; k < WARPS; ++k) {
+      v += (unsigned)part[k];
+      t += (unsigned)part[WARPS + k];
+    }
+    if (v) atomicAdd(work, v);
+    if (t) atomicAdd(work + 1, t);
+  }
+}
+
 inline int rank_rows_for(int table_rows) {
   int p = BATCH;
   while (p < table_rows && p < RANK_MAX) p <<= 1;

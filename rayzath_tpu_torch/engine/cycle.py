@@ -34,9 +34,11 @@ buffers and replays the same graph. Capture never falls back: when capture
 or a replay fails, :meth:`RenderCycle.run` raises ``RuntimeError``.
 
 A captured kernel launches on every replay, but its wrapper's Python
-launch counter ran only while the pass was captured. The cycle records
-what each counter gained over the captured pass and adds it per replay, so
-the counters count the launches that ran.
+counters (``launches``, and B3's and B4's ``rays``) ran only while the pass
+was captured. The cycle records what each counter gained over the captured
+pass and adds it per replay, so the counters count the launches that ran.
+B3's and B4's device-side work counters (``traverse_cluster.WorkCounter``)
+are added to by the kernels themselves, on every replay.
 """
 from __future__ import annotations
 
@@ -53,10 +55,13 @@ from .config import RenderConfig
 from .integrator import bounce_step, host_reads, n_streams
 from .state import _ARRAYS, RenderState, init_state
 
-#: the kernel wrappers whose ``launches`` counters a replay advances
+#: the kernel wrappers whose host counters a replay advances
 COUNTED = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_closest_inst,
            tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed,
            gather.gather_rows_fwd, sort_rays.coherence_keys)
+#: a wrapper's host counters, where it has them: its kernel launches, and
+#: the rays launched into B3 and B4
+COUNTERS = ("launches", "rays")
 
 _CAMERA = ("position", "rot", "fov", "near_far", "focal_distance", "aperture",
            "exposure_time")
@@ -67,16 +72,18 @@ def capture(warm_up, body, what: str, counted=COUNTED):
     device, after ``warm_up()`` there, as PyTorch's graph rules ask (the
     first launch of every kernel, and the kernel build, run outside the
     capture); ``thread_local`` capture, so other threads, autograd's device
-    thread among them, may launch into the capturing stream. The launch
-    counters of the wrappers ``counted`` are left as they were before the
-    capture. Returns (graph, ((wrapper, launches per replay), ...)); raises
-    ``RuntimeError`` naming ``what`` when the capture fails."""
+    thread among them, may launch into the capturing stream. The host
+    counters (:data:`COUNTERS`) of the wrappers ``counted`` are left as
+    they were before the capture. Returns (graph, ((wrapper, counter, gain
+    per replay), ...)) for :func:`advance`; raises ``RuntimeError`` naming
+    ``what`` when the capture fails."""
+    counters = [(f, c) for f in counted for c in COUNTERS if hasattr(f, c)]
     current = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(current)
     with torch.cuda.stream(side):
         warm_up()
-        before = [f.launches for f in counted]
+        before = [getattr(f, c) for f, c in counters]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=side,
@@ -86,11 +93,17 @@ def capture(warm_up, body, what: str, counted=COUNTED):
             raise RuntimeError(f"{what} could not be captured into a CUDA "
                                f"graph: {e}") from e
         finally:
-            gained = [f.launches - b for f, b in zip(counted, before)]
-            for f, b in zip(counted, before):
-                f.launches = b      # capture launches nothing
+            gained = [getattr(f, c) - b for (f, c), b in zip(counters, before)]
+            for (f, c), b in zip(counters, before):
+                setattr(f, c, b)    # capture launches nothing
     current.wait_stream(side)       # the warm-up read the static buffers
-    return graph, tuple((f, k) for f, k in zip(counted, gained) if k)
+    return graph, tuple((f, c, k) for (f, c), k in zip(counters, gained) if k)
+
+
+def advance(per_replay, n: int) -> None:
+    """Add ``n`` replays' gains of :func:`capture` to the host counters."""
+    for f, c, k in per_replay:
+        setattr(f, c, getattr(f, c) + n * k)
 
 
 def _int32(v: int) -> int:
@@ -114,7 +127,7 @@ class RenderCycle:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_scene: Optional[TorchScene] = None
         self._graph_key: Optional[tuple] = None
-        self._per_replay: tuple = ()    # (wrapper, launches per replay)
+        self._per_replay: tuple = ()    # (wrapper, counter, gain per replay)
         #: captures made (each one's host time, its warm-up pass included,
         #: is the ``capture`` span of ``utils/timing.totals``)
         self.captures = 0
@@ -179,8 +192,7 @@ class RenderCycle:
                     except RuntimeError as e:
                         raise RuntimeError(f"render cycle: a replay failed: "
                                            f"{e}") from e
-            for f, k in self._per_replay:
-                f.launches += n * k
+            advance(self._per_replay, n)
         else:
             with span("replay"):
                 for _ in range(n):

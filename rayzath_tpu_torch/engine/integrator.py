@@ -174,8 +174,9 @@ def _sort_traversal(cfg: RenderConfig, scene: TorchScene) -> bool:
     """Effective ray-sort decision: ``cfg.ray_sort``, or (None = auto) sort
     when the scene has at least 16 traversal candidates (instances on a
     two-level scene, real clusters on a soup), as in the JAX package.
-    Whether sorting pays for a per-ray walk on the GPU is not measured yet
-    (PERF.md, open questions)."""
+    Whether sorting pays on the GPU is measured in PERF.md, open question
+    3: it halves mesh_massive's pass, takes 8% off instanced_field's (145
+    instances) and costs textured_room (21 clusters) about 1%."""
     if cfg.ray_sort is not None:
         return cfg.ray_sort
     n_cand = scene.n_instances if scene.two_level else scene.n_clusters

@@ -47,13 +47,14 @@ _SIGNATURES = {
     # visits (null: not counted), stream
     "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
-    # t, id, inst, visits (null: not counted), stream
+    # t, id, inst, visits (null: not counted), work (int64[2]: instance
+    # visits, cluster tests; null: not counted), stream
     "rz_cluster_closest_inst": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                                _P, _P, _P],
+                                _P, _P, _P, _P],
     # origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
-    # n_rays, ip, rgb, a, visits (null: not counted), stream
+    # n_rays, ip, rgb, a, visits (null: not counted), work (as B3's), stream
     "rz_cluster_shadow_inst": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                               _P, _P, _P],
+                               _P, _P, _P, _P],
     # origin, direction, dist, g_rgb, g_a, box_tab, frames, op_tab, n_rays,
     # cp, d_op, visits (null: not counted), stream
     "rz_cluster_shadow_grad": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,

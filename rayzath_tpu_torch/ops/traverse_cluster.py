@@ -39,8 +39,12 @@ version for a tensor on the CPU and launches the hand-written CUDA kernel
 (``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``,
 ``csrc/cluster_closest_inst.cu``, ``csrc/cluster_shadow_inst.cu``) for a
 tensor on a CUDA device; any other device raises. Each counts its kernel
-launches in a ``launches`` attribute. The plain versions visit every real
-cluster (of every real instance) with no culling; the kernels cull
+launches in a ``launches`` attribute. The instanced entries also count the
+work of their walk: ``rays`` (host: the rays handed to the walk) and
+``work`` (a :class:`WorkCounter`: per device the instance visits and the
+(instance, cluster) tests, added to by the kernels themselves, so that a
+captured graph counts on every replay). The plain versions visit every
+real cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
 
 The closest-hit entries return discrete hits and carry no gradient. The
@@ -449,6 +453,66 @@ def _visit_buffer(visits, dev, r):
     _check(dev, visits=(visits, torch.int32))
     _check_shapes([("visits", visits, (r + -(-r // KERNEL_BLOCK),))])
     return _ptr(visits)
+
+
+class WorkCounter:
+    """What B3 or B4 walked since the process started: per device an
+    int64 pair [instance visits, (instance, cluster) tests]. An instance
+    visit is one ray moved into one instance's object space
+    (``to_object``, 33 operations); a test is one ray against one cluster
+    of 128 triangle slots. The kernels add their
+    launch's totals to the pair, one atomicAdd per counter per block of
+    128 rays, with no host sync and no allocation, so a captured graph
+    counts on every replay; on the CPU the wrapper adds what the plain
+    version tests (every real pair, for each ray that walks)."""
+
+    def __init__(self):
+        self._pairs: dict = {}
+
+    def pair(self, dev) -> torch.Tensor:
+        """The device's pair, made on its first use, which has to come
+        before any graph capture (the render cycle and the training step
+        run every launch once before they capture)."""
+        pair = self._pairs.get(dev)
+        if pair is None:
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the instanced walk's work counter has to "
+                                   "be made before a graph is captured")
+            pair = self._pairs[dev] = torch.zeros(2, dtype=torch.int64,
+                                                  device=dev)
+        return pair
+
+    def read(self) -> dict:
+        """``{"instance_visits", "cluster_tests"}`` summed over the devices
+        (a host read: it waits for each device's work so far)."""
+        visits = tests = 0
+        for pair in list(self._pairs.values()):
+            v, t = pair.tolist()
+            visits, tests = visits + v, tests + t
+        return {"instance_visits": visits, "cluster_tests": tests}
+
+
+def _count_plain(wrapper, active, ti_rows, visits) -> None:
+    """Count a plain two-level walk on the CPU as the kernels count theirs:
+    ``wrapper.rays`` gains the rays, ``wrapper.work`` every real instance
+    and every (instance, cluster) pair for each ray that walks
+    (``active``); ``visits`` (optional, as for the kernels) receives each
+    ray's tests, then the pairs each block of 128 rays walks (all of them
+    when one of its rays walks)."""
+    r = active.shape[0]
+    ncl = ti_rows[:, TI_NCL]
+    n_inst, n_pairs = int((ncl > 0).sum()), int(ncl.sum())
+    n = int(active.sum())
+    wrapper.rays += r
+    wrapper.work.pair(active.device).add_(
+        torch.tensor([n * n_inst, n * n_pairs], dtype=torch.int64))
+    if visits is not None:
+        blocks = -(-r // KERNEL_BLOCK)
+        _check_shapes([("visits", visits, (r + blocks,))])
+        walks = torch.zeros(blocks * KERNEL_BLOCK, dtype=torch.bool)
+        walks[:r] = active
+        visits[:r] = active.to(torch.int32) * n_pairs
+        visits[r:] = walks.reshape(blocks, -1).any(1).to(torch.int32) * n_pairs
 
 
 def _map_ids(rid, order):
@@ -860,10 +924,14 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     the B3 kernel (``csrc/cluster_closest_inst.cu``), a ranked front-to-back
     walk of the instances and of each visited mesh's clusters per block of
     128 rays (near < 0 as for :func:`cluster_closest`). ``visits`` as for
-    :func:`cluster_closest`, counting (instance, cluster) tests."""
+    :func:`cluster_closest`, counting (instance, cluster) tests (on the CPU
+    too, as :func:`_count_plain` counts). Adds to ``rays`` and ``work``
+    (:class:`WorkCounter`) on every call."""
     if origin.device.type == "cpu":
-        return cluster_closest_inst_plain(origin, direction, near, far,
-                                          ti_rows, cl_obox, frames)
+        out = cluster_closest_inst_plain(origin, direction, near, far,
+                                         ti_rows, cl_obox, frames)
+        _count_plain(cluster_closest_inst, far > 0.0, ti_rows, visits)
+        return out
     lib = _kernels.load()
     dev = origin.device
     r = origin.shape[0]
@@ -877,6 +945,7 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     _aligned(frames=frames)
     _ranked_smem(lib, dev, ip, kernel=3)
     counts = _visit_buffer(visits, dev, r)
+    work = cluster_closest_inst.work.pair(dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     tid = torch.empty(r, dtype=torch.int32, device=dev)
     inst = torch.empty(r, dtype=torch.int32, device=dev)
@@ -884,34 +953,42 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
         _launch("cluster_closest_inst", lib.rz_cluster_closest_inst, dev,
                 _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
                 _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
-                _ptr(tid), _ptr(inst), counts)
+                _ptr(tid), _ptr(inst), counts, _ptr(work))
         cluster_closest_inst.launches += 1
+        cluster_closest_inst.rays += r
     return t, tid, inst
 
 
 cluster_closest_inst.launches = 0
+cluster_closest_inst.rays = 0
+cluster_closest_inst.work = WorkCounter()
 
 
 def _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames, cl_slot,
                  op_tab, visits=None):
     """B4 on an instance slot table: the plain version on the CPU, the
-    kernel on a card."""
+    kernel on a card; either adds to ``cluster_shadow_inst``'s ``rays``
+    and ``work``."""
     if origin.device.type == "cpu":
-        return cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
-                                         cl_obox, frames, cl_slot, op_tab)
+        out = cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
+                                        cl_obox, frames, cl_slot, op_tab)
+        _count_plain(cluster_shadow_inst, dist > 0.0, ti_rows, visits)
+        return out
     lib = _kernels.load()
     dev, r, ip = _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox,
                                     frames, cl_slot, op_tab)
     _ranked_smem(lib, dev, ip, kernel=4)
     counts = _visit_buffer(visits, dev, r)
+    work = cluster_shadow_inst.work.pair(dev)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
         _launch("cluster_shadow_inst", lib.rz_cluster_shadow_inst, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
                 _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
-                _ptr(rgb), _ptr(a), counts)
+                _ptr(rgb), _ptr(a), counts, _ptr(work))
         cluster_shadow_inst.launches += 1
+        cluster_shadow_inst.rays += r
     return rgb, a
 
 
@@ -925,8 +1002,8 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
     tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), a
     ranked front-to-back walk of the instances and of each visited mesh's
     clusters per block of 128 rays that stops a ray once its alpha is below
-    1e-4. ``visits`` as for :func:`cluster_closest_inst` (CUDA only, off
-    the render path).
+    1e-4. ``visits``, ``rays`` and ``work`` as for
+    :func:`cluster_closest_inst`.
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2)
@@ -952,3 +1029,5 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
 
 
 cluster_shadow_inst.launches = 0
+cluster_shadow_inst.rays = 0
+cluster_shadow_inst.work = WorkCounter()

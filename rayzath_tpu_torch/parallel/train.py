@@ -73,7 +73,7 @@ DIFF_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "mat_emission",
 
 _UNIT_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "color_atlas")
 
-#: the kernel wrappers whose ``launches`` counters a replay advances: a
+#: the kernel wrappers whose host counters a replay advances: a
 #: render pass's, the shadow backwards and the gathers' backward
 COUNTED = cycle.COUNTED + (tc.cluster_shadow_grad, tc.cluster_shadow_inst_grad,
                            gather.gather_rows_grad)
@@ -176,7 +176,7 @@ class _Step:
         self.graphed = self.device.type == "cuda"
         self._baked: Optional[tuple] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._per_replay: tuple = ()    # (wrapper, launches per replay)
+        self._per_replay: tuple = ()    # (wrapper, counter, gain per replay)
         self.params: Dict[str, torch.Tensor] = {}
         #: captures made and the milliseconds of the last one (its warm-up
         #: step included)
@@ -198,8 +198,7 @@ class _Step:
                 except RuntimeError as e:
                     raise RuntimeError(f"training step: the replay failed: "
                                        f"{e}") from e
-            for f, k in self._per_replay:
-                f.launches += k
+            cycle.advance(self._per_replay, 1)
         else:
             self._body()
         new = {k: t.clone() for k, t in self.out_params.items()}
