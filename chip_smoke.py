@@ -25,7 +25,14 @@ Phases, each of which raises on failure (exit code != 0):
    (``csrc/sort_keys.cu``) bit for bit as ``ops/sort_rays.py``
    ``coherence_keys_plain`` on every kind of ``utils/check_keys.py`` and
    on 720p bounce-like rays, timed there as the draw is (plain: one call)
-   against their bound (32 bytes a ray). Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
+   against their bound (32 bytes a ray). The bounce's three kernels
+   (``csrc/bounce.cu``, ``ops/bounce.py``): on a 921,600-ray bounce of
+   textured_room and of instanced_field at 720p (the benchmark's config,
+   after three passes), each stage bit for bit as its plain stage
+   (``integrator._head``, ``_surface`` from ``_hit_row``, ``_tail``) on
+   the same inputs, then timed as the draw is against the plain stage and
+   its byte bound (each tensor argument read or written once, a table at
+   most the rows its rays read). Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
    against their plain PyTorch versions on the card, for cornell_box_nee,
    multi_light and mesh_heavy, on 512^2 camera rays (u = 0.5) and 512^2
    bounce-like rays from the first hits (uniform-sphere directions from a
@@ -211,8 +218,10 @@ The last lines of standard output are the render cycle's JSON record
 threefry kernel's two entries (``"replaces": null``: the JAX package draws
 in XLA), B2-grad and B4-grad (``replaces``: the custom_vjp bwd rules,
 a dense replay in XLA), the table gather's G1 and G2 (``replaces``:
-``rayzath_tpu/ops/gather.py`` ``gather_rows``) and the coherence key
-(``ray_sort_keys``, ``"replaces": null``: XLA), each with its launches in
+``rayzath_tpu/ops/gather.py`` ``gather_rows``), the coherence key
+(``ray_sort_keys``, ``"replaces": null``: XLA) and the bounce's three
+kernels (``bounce_head``, ``bounce_surface``, ``bounce_tail``,
+``"replaces": null``: XLA), each with its launches in
 the paths driven with the counters set to 0 just before and read just
 after: phase 4's renders (B1-B4, G1, the keyed draw and, on scenes of
 at least 16 clusters or instances, the key), the skip-link
@@ -1430,6 +1439,167 @@ def phase_sort_keys(card: str, dev):
     return dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound=b, err=0.0)
 
 
+BOUNCE_SCENES = ("textured_room", "instanced_field")
+BOUNCE_RES = (1280, 720)
+
+
+def _stage_bytes(args, rays: int) -> float:
+    """Bytes a stage's call must move: each tensor argument once, a table
+    (``(tensor, bytes a ray reads)``) at most its rays' rows."""
+    total = 0.0
+    for a in args:
+        if a is None:
+            continue
+        if isinstance(a, tuple):
+            t, per_ray = a
+            total += min(t.numel() * t.element_size(), rays * per_ray)
+        else:
+            total += a.numel() * a.element_size()
+    return total
+
+
+def _same(label, got: dict, ref: dict) -> None:
+    """Every tensor of ``ref`` equal to ``got``'s bit for bit (NaN to NaN);
+    raises naming the first that is not."""
+    import torch
+    for k in ref:
+        a, b = got[k], ref[k]
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        if not bool(same.all()):
+            raise AssertionError(f"{label}: {k} differs from the plain stage "
+                                 f"on {int((~same).sum())} of {b.numel()}")
+
+
+def stacked(sf) -> dict:
+    """A Surface's fields, each light sample's tensors stacked."""
+    import torch
+    return {k: torch.stack(v) if isinstance(v, tuple) else v
+            for k, v in sf._asdict().items()
+            if v is not None and not (isinstance(v, tuple) and not v)}
+
+
+def plain_surface(scene, cfg, st, u, hd, walk):
+    """The plain ``_surface`` from the walk's output, its hit re-derived
+    first (what ``bounce_surface`` does on the CPU)."""
+    from rayzath_tpu_torch.engine import integrator as I
+    t, b1, b2, ext, tp = I._hit_row(scene, st.origin, st.direction, *walk)
+    return I._surface(scene, cfg, st, u, hd,
+                      (t, walk[1], walk[2], b1, b2, ext, tp))
+
+
+def phase_bounce(card: str, dev) -> dict:
+    """The bounce's three kernels (``csrc/bounce.cu``, ``ops/bounce.py``)
+    on a 921,600-ray bounce of each of :data:`BOUNCE_SCENES` at 720p (the
+    state after three passes of the benchmark's config): each stage bit for
+    bit as its plain stage on the same inputs, then each kernel's device
+    time, its call's time, the plain stage's time and the stage's byte
+    bound (its tensor arguments read and written once, a table at most the
+    rows its rays read)."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import _ARRAYS, init_state
+    from rayzath_tpu_torch.models import device_scene as tds
+    from rayzath_tpu_torch.ops import bounce, rng
+    from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    out = {}
+    w, h = BOUNCE_RES
+    r = w * h
+    for name in BOUNCE_SCENES:
+        world = rt.scenes.SCENES[name](w, h)
+        scene = tds.compile_world(world, device=dev)
+        cam = tds.compile_camera(world.cameras[0], dev)
+        cfg = rt.RenderConfig()
+        st = init_state(w, h, dev)
+        key = rng.key(5)
+        with torch.no_grad():
+            for p in range(3):
+                st = I.bounce_step(scene, cam, cfg, st, rng.fold_in(key, p))
+            u = I.pass_uniforms(rng.fold_in(key, 3), 0, h, w,
+                                I.n_streams(cfg, scene), dev)
+            o, d = st.origin, st.direction
+            hd = bounce.bounce_head(scene, cam, st, u)
+            hd_p = I._head(scene, cam, st, u)
+            _same(f"{name} head", hd._asdict(), {k: v for k, v in
+                  hd_p._asdict().items() if k not in ("mp", "med_row")})
+            walk = I._closest_walk(scene, cfg, o, d, hd.near, hd.far_eff,
+                                   hw=(h, w))
+            sf = bounce.bounce_surface(scene, cfg, st, u, hd, walk)
+            sf_p = plain_surface(scene, cfg, st, u, hd_p, walk)
+            _same(f"{name} surface", stacked(sf), stacked(sf_p))
+            vis = I._shadows(scene, cfg, sf, (h, w))
+            nxt = bounce.bounce_tail(scene, cam, cfg, st, u, sf, vis)
+            nxt_p = I._tail(scene, cam, cfg, st, u, sf, vis, 0)
+            _same(f"{name} tail", {f: getattr(nxt, f) for f in _ARRAYS},
+                  {f: getattr(nxt_p, f) for f in _ARRAYS})
+            hits = int((walk[1] >= 0).sum())
+            ns = u.shape[1]
+            s = len(sf.shadow_d)
+            state_in = [st.path_depth, st.near, st.far, st.medium]
+            tables = [(hd.mp, 2 * 56), (scene.tri_pack, 100),
+                      (scene.color_atlas, 4 * 5 * 16),
+                      (scene.scalar_atlas, 4 * 3 * 4),
+                      (scene.col_blk_idx, 2 * 16), (scene.sc_blk_idx, 3 * 16),
+                      (scene.map_uv, 5 * 20), (scene.map_rect, 5 * 16),
+                      (scene.map_flags, 5 * 12)]
+            if scene.two_level:
+                tables += [(scene.inst_fwd, 48), (scene.inst_nrm, 36),
+                           (scene.inst_slot_map, 4)]
+            stages = {
+                "bounce_head": (
+                    lambda: bounce.bounce_head(scene, cam, st, u),
+                    lambda: I._head(scene, cam, st, u),
+                    state_in + [u[:, 0], hd.near, hd.far, hd.far_eff,
+                                hd.scat_dist, hd.has_scatter, hd.med,
+                                (hd.mp, 4)]),
+                "bounce_surface": (
+                    lambda: bounce.bounce_surface(scene, cfg, st, u, hd, walk),
+                    lambda: plain_surface(scene, cfg, st, u, hd_p, walk),
+                    [o, d, st.throughput, st.score, st.path_depth,
+                     u[:, [0, 1, 2, 3] + list(range(8, ns))], hd.far,
+                     hd.far_eff, hd.scat_dist, hd.has_scatter, hd.med,
+                     walk[1], walk[2] if scene.two_level else None]
+                    + [(t, per * hits / max(r, 1)) for t, per in tables]
+                    + [sf.t_final, sf.point, sf.next_dir, sf.throughput,
+                       sf.throughput_next, sf.contrib, sf.metallic_tint,
+                       sf.score, sf.any_hit, sf.new_medium, sf.new_depth,
+                       sf.shadow_o] + [torch.stack(x) for x in (
+                           sf.shadow_d, sf.shadow_dist, sf.shadow_w,
+                           sf.shadow_rad) if x]),
+                "bounce_tail": (
+                    lambda: bounce.bounce_tail(scene, cam, cfg, st, u, sf,
+                                               vis),
+                    lambda: I._tail(scene, cam, cfg, st, u, sf, vis, 0),
+                    [st.accum, st.depth_buf, st.space_buf, o, d,
+                     st.path_depth, u[:, 4:8], sf.t_final, sf.point,
+                     sf.next_dir, sf.throughput, sf.throughput_next,
+                     sf.contrib, sf.metallic_tint, sf.score, sf.any_hit,
+                     sf.new_medium, sf.new_depth]
+                    + [torch.stack(x) for x in (sf.shadow_w, sf.shadow_rad)
+                       if x]
+                    + [torch.stack([v[0] for v in vis]),
+                       torch.stack([v[1] for v in vis])] * (s > 0)
+                    + [getattr(nxt, f) for f in _ARRAYS])}
+            for stage, (fused, plain, args) in stages.items():
+                b = bound(_stage_bytes(args, r), 0)
+                ms, call = device_ms(fused, 20), call_ms(fused, 20)
+                plain_ms = call_ms(plain, 10)
+                out.setdefault(stage, {})[name] = dict(
+                    ms=ms, call_ms=call, plain_ms=plain_ms, bound=b,
+                    rays=r, hits=hits)
+                print(f"  {stage} on {name} [{card}]: bit for bit as the "
+                      f"plain stage; {r} rays, {ms:.4f} ms on the device, "
+                      f"call {call:.4f} ms, plain stage {plain_ms:.3f} ms, "
+                      f"bound {b[0]:.4f} ms ({b[1]}, "
+                      f"{_stage_bytes(args, r) / 1e6:.1f} MB): "
+                      f"{ms / b[0]:.2f}x the bound", flush=True)
+        del scene, st, sf, sf_p, vis, nxt, nxt_p
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end on the card against the CPU plain path
 # ---------------------------------------------------------------------------
@@ -1555,7 +1725,7 @@ def phase_seeded(dev):
 def path_wrappers() -> dict:
     """{label: wrapper} of the main path's kernels; each wrapper counts
     the launches of its kernel in its ``launches`` attribute."""
-    from rayzath_tpu_torch.ops import gather, rng, sort_rays
+    from rayzath_tpu_torch.ops import bounce, gather, rng, sort_rays
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     return {"B1": tc.cluster_closest, "B2": tc.cluster_shadow,
             "B3": tc.cluster_closest_inst, "B4": tc.cluster_shadow_inst,
@@ -1564,7 +1734,10 @@ def path_wrappers() -> dict:
             "threefry": rng.uniform_rows,
             "threefry_keyed": rng.uniform_rows_keyed,
             "G1": gather.gather_rows_fwd, "G2": gather.gather_rows_grad,
-            "sort_keys": sort_rays.coherence_keys}
+            "sort_keys": sort_rays.coherence_keys,
+            "bounce_head": bounce.bounce_head,
+            "bounce_surface": bounce.bounce_surface,
+            "bounce_tail": bounce.bounce_tail}
 
 
 def phase_slice(card: str, dev):
@@ -1594,7 +1767,8 @@ def phase_slice(card: str, dev):
         dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
         path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
-            "threefry_keyed", "G1")
+            "threefry_keyed", "G1", "bounce_head", "bounce_surface",
+            "bounce_tail")
         if I._sort_traversal(r.config, r.scene):
             path += ("sort_keys",)
         if name == "instanced_field" and not r.scene.two_level:
@@ -2550,10 +2724,15 @@ def phase_viewer(card: str):
         props = json.loads(http(port, "/props?type=material&idx=0")[1])
         if not tree["instance"] or not props["fields"]:
             raise AssertionError("viewer: empty /tree or /props")
-        wait_for(lambda: v.stats()["pass_count"] >= 12 or v.error, "12 passes")
+        # the count restarts from 0 and climbs 4 passes a cycle of a few
+        # milliseconds: from 400 passes on, a poll every 20 ms sees the
+        # restarted count long before it climbs back past the old one
+        wait_for(lambda: v.stats()["pass_count"] >= 400 or v.error,
+                 "400 passes")
+        before = v.stats()["pass_count"]
         http(port, "/edit", {"type": "material", "idx": 0,
                              "attr": "roughness", "value": 0.4})
-        wait_for(lambda: 0 < v.stats()["pass_count"] <= 8 or v.error,
+        wait_for(lambda: 0 < v.stats()["pass_count"] < before or v.error,
                  "the pass count to restart after /edit")
         if v.error:
             raise AssertionError(f"viewer: the render thread failed: {v.error}")
@@ -2804,6 +2983,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     threefry = phase_threefry(card, dev)
     sort_keys = phase_sort_keys(card, dev)
+    bounce = phase_bounce(card, dev)
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
     phase_inst_cycle(card, dev)
@@ -2938,6 +3118,23 @@ def main() -> int:
         "plain_ms": sort_keys["plain_ms"], "bound_ms": sort_keys["bound"][0],
         "bound_by": sort_keys["bound"][1], "library_ms": None,
         "rays": SORT_KEY_RAYS})
+    # the bounce's elementwise layer replaces no TPU kernel (the JAX package
+    # leaves it to XLA); each stage timed on a 720p bounce of each scene of
+    # BOUNCE_SCENES, bit for bit to its plain stage
+    for name in ("bounce_head", "bounce_surface", "bounce_tail"):
+        m = bounce[name]
+        first = m[BOUNCE_SCENES[0]]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "rayzath_tpu_torch/csrc/bounce.cu", "replaces": None,
+            "launches": launches[name], "max_abs_err": 0.0,
+            "ms": first["ms"], "call_ms": first["call_ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+            "bound_by": first["bound"][1], "library_ms": None,
+            "scene": BOUNCE_SCENES[0], "rays": first["rays"],
+            "scenes": {k: {f: v[f] for f in ("ms", "call_ms", "plain_ms",
+                                              "bound", "hits")}
+                       for k, v in m.items()}})
     idle = [r["name"] for r in record if not r["launches"]]
     if idle:
         return fail(f"kernels of the path never launched: {idle}")

@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 
 from ..models.device_scene import TorchCamera, TorchScene
-from ..ops import gather, rng, sort_rays
+from ..ops import bounce, gather, rng, sort_rays
 from ..ops import traverse_cluster as tc
 from ..utils.timing import span
 from .config import RenderConfig
@@ -58,7 +58,8 @@ from .state import _ARRAYS, RenderState, init_state
 #: the kernel wrappers whose host counters a replay advances
 COUNTED = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_closest_inst,
            tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed,
-           gather.gather_rows_fwd, sort_rays.coherence_keys)
+           gather.gather_rows_fwd, sort_rays.coherence_keys,
+           bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
 #: a wrapper's host counters, where it has them: its kernel launches, and
 #: the rays launched into B3 and B4
 COUNTERS = ("launches", "rays")

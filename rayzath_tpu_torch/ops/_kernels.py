@@ -84,6 +84,11 @@ _SIGNATURES = {
     "rz_ray_sort_partials": [_L],
     # origin, direction, n, partials, keys (int64), stream
     "rz_ray_sort_keys": [_P, _P, _L, _P, _P, _P],
+    # the bounce's three stages (ops/bounce.py): pointers (void*[np]), np,
+    # integers (int64[nv]), nv, stream
+    "rz_bounce_head": [_P, _I, _P, _I, _P],
+    "rz_bounce_surface": [_P, _I, _P, _I, _P],
+    "rz_bounce_tail": [_P, _I, _P, _I, _P],
 }
 #: return types other than the error code
 _RESTYPES = {"rz_gather_grad_partials": _L, "rz_ray_sort_partials": _L}

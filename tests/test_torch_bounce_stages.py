@@ -1,0 +1,141 @@
+"""The bounce's three stages (``engine/integrator.py`` ``_head``,
+``_surface``, ``_tail``) and their wrappers (``ops/bounce.py``) on the CPU.
+
+``bounce_step`` composes the stages around the walks; without autograd it
+calls the wrappers, which take the plain stages for CPU tensors and launch
+nothing. These tests hold:
+
+* the stages called one by one (``_head``, ``closest_hit``, ``_surface``,
+  the shadow walks, ``_tail``) equal to ``bounce_step`` bit for bit, with
+  autograd and without, on soup, textured, scattering, two-level and
+  cutout scenes;
+* the wrappers' CPU route equal to the plain stages, and their launch
+  counters unmoved on the CPU whatever the grad mode.
+
+That the stages equal the one-piece bounce they were cut from is held by
+the JAX parity tests (``test_torch_render.py``, ``test_torch_textures.py``,
+``test_torch_two_level.py``, ``test_torch_oracle_parity.py``), which run
+the port's ``bounce_step`` against the JAX package's.
+"""
+import numpy as np
+import pytest
+import torch
+
+import rayzath_tpu_torch as rt
+from rayzath_tpu_torch.engine import integrator as I
+from rayzath_tpu_torch.engine.state import _ARRAYS, init_state
+from rayzath_tpu_torch.models import device_scene as tds
+from rayzath_tpu_torch.ops import bounce
+from rayzath_tpu_torch.utils.check_worlds import cutout_world
+
+torch.set_num_threads(2)
+
+RES = 16
+WORLDS = ("cornell_box_nee", "multi_light", "glass_and_fog", "textured_room",
+          "instanced_field", "cutout world")
+STAGES = (bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
+
+
+def setup(name):
+    if name == "cutout world":
+        world = cutout_world(RES)
+    elif name == "instanced_field":
+        world = rt.scenes.instanced_field(RES, RES, n=3, resolution=12)
+    else:
+        world = rt.scenes.SCENES[name](RES, RES)
+    scene = tds.compile_world(world, device="cpu")
+    cam = tds.compile_camera(world.cameras[0], device="cpu")
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    return scene, cam, cfg
+
+
+def uniforms(scene, cfg, n, seed=3):
+    rng = np.random.default_rng(seed)
+    ns = I.n_streams(cfg, scene)
+    return [torch.as_tensor(rng.random((RES * RES, ns), dtype=np.float32))
+            for _ in range(n)]
+
+
+def by_hand(scene, cam, cfg, state, u):
+    """One bounce from the plain stages called one by one."""
+    hw = (state.height, state.width)
+    hd = I._head(scene, cam, state, u)
+    hit = I.closest_hit(scene, cfg, state.origin, state.direction, hd.near,
+                        hd.far_eff, hw=hw)
+    sf = I._surface(scene, cfg, state, u, hd, hit)
+    vis = I._shadows(scene, cfg, sf, hw)
+    assert len(vis) == len(sf.shadow_d) == len(sf.shadow_w)
+    return I._tail(scene, cam, cfg, state, u, sf, vis, 0)
+
+
+def assert_same(a, b):
+    for f in _ARRAYS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert torch.equal(x, y) or (
+            x.is_floating_point() and torch.equal(torch.isnan(x), torch.isnan(y))
+            and torch.equal(x[~torch.isnan(x)], y[~torch.isnan(y)])), f
+    assert a.pass_idx == b.pass_idx
+
+
+@pytest.mark.parametrize("grad", [True, False], ids=["autograd", "no_grad"])
+@pytest.mark.parametrize("name", WORLDS)
+def test_stages_compose_to_bounce_step(name, grad):
+    """_head -> closest_hit -> _surface -> shadows -> _tail, called by hand,
+    give bounce_step's state bit for bit over three bounces, and the
+    wrappers launch nothing on the CPU."""
+    scene, cam, cfg = setup(name)
+    state = init_state(RES, RES, "cpu")
+    start = [f.launches for f in STAGES]
+    with torch.set_grad_enabled(grad):
+        for u in uniforms(scene, cfg, 3):
+            got = I.bounce_step(scene, cam, cfg, state, u=u)
+            assert_same(got, by_hand(scene, cam, cfg, state, u))
+            state = got
+    assert [f.launches for f in STAGES] == start
+
+
+@pytest.mark.parametrize("name", ["textured_room", "instanced_field"])
+def test_wrappers_take_the_plain_stages_on_the_cpu(name):
+    """On CPU tensors each wrapper returns its plain stage's values, in the
+    plain stage's form, and counts no launch."""
+    scene, cam, cfg = setup(name)
+    state = init_state(RES, RES, "cpu")
+    us = uniforms(scene, cfg, 3, seed=5)
+    with torch.no_grad():
+        for u in us[:2]:
+            state = I.bounce_step(scene, cam, cfg, state, u=u)
+        u = us[2]
+        start = [f.launches for f in STAGES]
+        hd = bounce.bounce_head(scene, cam, state, u)
+        hd_p = I._head(scene, cam, state, u)
+        for f in I.Head._fields:
+            assert torch.equal(getattr(hd, f), getattr(hd_p, f)), f
+        o, d = state.origin, state.direction
+        walk = I._closest_walk(scene, cfg, o, d, hd.near, hd.far_eff,
+                               hw=(RES, RES))
+        sf = bounce.bounce_surface(scene, cfg, state, u, hd, walk)
+        sf_p = I._surface(scene, cfg, state, u, hd_p, I.closest_hit(
+            scene, cfg, o, d, hd.near, hd.far_eff, hw=(RES, RES)))
+        for f in I.Surface._fields:
+            a, b = getattr(sf, f), getattr(sf_p, f)
+            if isinstance(a, tuple):
+                assert len(a) == len(b) > 0 and all(
+                    torch.equal(x, y) for x, y in zip(a, b)), f
+            else:
+                assert torch.equal(a, b), f
+        vis = I._shadows(scene, cfg, sf, (RES, RES))
+        assert_same(bounce.bounce_tail(scene, cam, cfg, state, u, sf, vis),
+                    I._tail(scene, cam, cfg, state, u, sf, vis, 0))
+        assert [f.launches for f in STAGES] == start
+
+
+def test_renderer_on_the_cpu_launches_no_bounce_kernel():
+    """A Renderer on the CPU (its passes run without autograd, through the
+    wrappers) counts no bounce launch."""
+    world = rt.scenes.multi_light(RES, RES)
+    r = rt.Renderer(world, rt.RenderConfig(tracing=rt.Tracing(max_depth=4)),
+                    seed=1, device="cpu")
+    start = [f.launches for f in STAGES]
+    r.render(rpp=2)
+    assert [f.launches for f in STAGES] == start
+    assert float(r.views[id(world.cameras[0])].state.accum[..., 3].sum()) > 0

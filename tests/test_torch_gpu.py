@@ -52,7 +52,14 @@ as ``coherence_keys_plain`` on the card, on every kind of
 lanes), from one ray to past the kernels' widest grid, inside a replayed
 CUDA graph and on mesh_heavy's bounce states; ``sort_payload``'s order
 that of the stable sort of the plain keys; one key per sorted traversal
-call of a ``bounce_step`` and none on a scene that does not sort.
+call of a ``bounce_step`` and none on a scene that does not sort. The
+bounce's kernels (``csrc/bounce.cu``, ``ops/bounce.py``): a no-grad
+``bounce_step`` against the plain stages on six scenes (soup, spot and
+direct lights, media and refraction, all five map kinds, two-level,
+cutouts), the head's outputs bit for bit, the next state's direction,
+throughput, medium and depth different on at most ``BOUNCE_FLIP_SHARE``
+of the rays, the accumulations by ``images_match``; each wrapper counted
+once a replayed pass and not at all under autograd.
 """
 import numpy as np
 import pytest
@@ -1436,3 +1443,91 @@ def test_sort_keys_in_bounce_steps(cuda, name, monkeypatch):
             assert calls == walks and keys_of.launches - start[1] == 2 * calls
         else:
             assert calls == 0 and keys_of.launches == start[1]
+
+
+def _bounce_world(name, res):
+    from rayzath_tpu_torch.utils.check_worlds import cutout_world
+    if name == "cutout world":
+        return cutout_world(res)
+    if name == "instanced_field":
+        return rt.scenes.instanced_field(res, res, n=3, resolution=12)
+    return rt.scenes.SCENES[name](res, res)
+
+
+#: the largest share of rays whose next direction, throughput, medium or
+#: depth may differ between the bounce kernels and the plain stages on the
+#: card: a threshold or a lottery that one rounding flips (measured: none)
+BOUNCE_FLIP_SHARE = 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell_box_nee", "multi_light",
+                                  "glass_and_fog", "textured_room",
+                                  "instanced_field", "cutout world"])
+def test_bounce_kernels_match_plain_stages(cuda, name):
+    """The same numpy uniforms through bounce_step on the card without
+    autograd (the kernels of csrc/bounce.cu) and with it (the plain torch
+    stages), 5 bounces at 48^2: from each plain state the head kernel's
+    outputs equal ``_head``'s bit for bit and the next state's direction,
+    throughput, medium and path depth differ on at most
+    BOUNCE_FLIP_SHARE of the rays; the two chains' accumulations match by
+    ``images_match``."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import bounce
+    res = 48
+    world = _bounce_world(name, res)
+    scene = tds.compile_world(world, device=cuda)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=6))
+    ns = I.n_streams(cfg, scene)
+    rng = np.random.default_rng(8)
+    plain = fused = init_state(res, res, cuda)
+    stages = (bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
+    for _ in range(5):
+        u = torch.as_tensor(rng.random((res * res, ns), dtype=np.float32),
+                            device=cuda)
+        hd_p = I._head(scene, cam, plain, u)
+        start = [f.launches for f in stages]
+        with torch.no_grad():
+            hd = bounce.bounce_head(scene, cam, plain, u)
+            step = I.bounce_step(scene, cam, cfg, plain, u=u)
+            fused = I.bounce_step(scene, cam, cfg, fused, u=u)
+        assert [f.launches - s for f, s in zip(stages, start)] == [3, 2, 2]
+        for f in ("near", "far", "far_eff", "scat_dist", "has_scatter", "med"):
+            assert torch.equal(getattr(hd, f), getattr(hd_p, f)), f
+        start = [f.launches for f in stages]
+        nxt = I.bounce_step(scene, cam, cfg, plain, u=u)
+        assert [f.launches for f in stages] == start
+        for f in ("direction", "throughput", "medium", "path_depth"):
+            a, b = getattr(step, f), getattr(nxt, f)
+            differ = (a != b).reshape(res * res, -1).any(1).float().mean()
+            assert float(differ) <= BOUNCE_FLIP_SHARE, (f, float(differ))
+        plain = nxt
+    images_match(fused.accum.cpu().numpy(), plain.accum.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_replays_count_bounce_launches(cuda):
+    """A replayed render cycle advances each bounce wrapper's launches by
+    one a pass, as one eager no-grad pass does; a pass under autograd runs
+    the plain stages and launches none."""
+    from rayzath_tpu_torch.engine.integrator import render_steps
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import bounce, rng
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+    world = rt.scenes.multi_light(64, 64)
+    r = rt.Renderer(world, cfg, seed=2, device=cuda)
+    r.render(rpp=1)                                  # capture
+    wrappers = (bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
+    start = [f.launches for f in wrappers]
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    with torch.no_grad():
+        render_steps(r.scene, cam, cfg, init_state(64, 64, cuda), rng.key(2), 1)
+    assert [f.launches - s for f, s in zip(wrappers, start)] == [1, 1, 1]
+    start = [f.launches for f in wrappers]
+    render_steps(r.scene, cam, cfg, init_state(64, 64, cuda), rng.key(2), 1)
+    assert [f.launches for f in wrappers] == start
+    r.render(rpp=5)
+    assert [f.launches - s for f, s in zip(wrappers, start)] == [5, 5, 5]
+    assert r.views[id(world.cameras[0])].cycle.captures == 1

@@ -23,6 +23,16 @@ trace of 20 calls, and the ray sort's key on 921,600 rays
 
     python3 tools/profile_torch.py --parent build/parent
 
+``--bounce`` traces the bounce's device work op by op instead
+(:func:`bounce_turn`): one 1280x720 ``bounce_step`` of textured_room and
+of instanced_field (``RenderConfig()``, no autograd, eager, after three
+warm-up bounces), five of them in one ``torch.profiler`` trace, each
+kernel's device ms and launches a bounce, grouped as the benchmark groups
+them (``benchmark/lib/trace.py`` ``group_of``: the elementwise layer is
+``other``). With ``--parent DIR`` in turns, one process each:
+
+    python3 tools/profile_torch.py --bounce --parent build/parent
+
 ``--train`` times the training step instead (:func:`train_turn`) in the
 training cell of ``rayzath_tpu_torch/utils/check_train.py`` (also
 ``chip_smoke.py`` phase 5's): textured_room at ``--res``^2, depth 3, 4
@@ -408,16 +418,67 @@ def train_line(rec: dict) -> str:
     return line
 
 
-def parent_turns(parent: str, res: int, train: bool = False,
+BOUNCE_SCENES = ("textured_room", "instanced_field")
+BOUNCE_RUNS = 5
+
+
+def bounce_turn(dev) -> dict:
+    """Per scene of :data:`BOUNCE_SCENES` at 1280x720: the device ms and
+    launches a bounce of each kernel over :data:`BOUNCE_RUNS` eager
+    no-grad ``bounce_step`` calls in one trace, by the benchmark's groups,
+    and the ms a bounce of each group."""
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models import device_scene as tds
+    from rayzath_tpu_torch.ops import rng
+    sys.path.insert(0, ROOT)
+    from benchmark.lib.trace import group_of
+    out = {}
+    for name in BOUNCE_SCENES:
+        world = rt.scenes.SCENES[name](1280, 720)
+        scene = tds.compile_world(world, device=dev)
+        cam = tds.compile_camera(world.cameras[0], dev)
+        cfg = rt.RenderConfig()
+        state = init_state(1280, 720, dev)
+        key = rng.key(7)
+        with torch.no_grad():
+            for p in range(3):
+                state = integrator.bounce_step(scene, cam, cfg, state,
+                                               rng.fold_in(key, p))
+
+            def bounce():
+                integrator.bounce_step(scene, cam, cfg, state,
+                                       rng.fold_in(key, 3))
+
+            ops = trace_kernels(bounce, BOUNCE_RUNS)
+        kernels = {k: {"ms": sum(t) / BOUNCE_RUNS,
+                       "launches": len(t) / BOUNCE_RUNS, "group": group_of(k)}
+                   for k, t in ops.items()}
+        groups = {}
+        for k in kernels.values():
+            g = groups.setdefault(k["group"], {"ms": 0.0, "launches": 0.0})
+            g["ms"] += k["ms"]
+            g["launches"] += k["launches"]
+        top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12]
+        out[name] = {"groups": groups,
+                     "top": [[k[:90], round(v["ms"], 4), v["launches"],
+                              v["group"]] for k, v in top]}
+    return out
+
+
+def parent_turns(parent: str, res: int, kind: str = "kernels",
                  device: str = "cuda",
                  order: str = "parent,change,change,parent") -> list:
-    """Kernel times (or, with ``train``, the training records on
-    ``device``) of the parent tree and this one, in turns (``order``: by
-    default parent, change, change, parent), one process per turn."""
+    """The records of ``kind`` ("kernels": the kernel times; "train": the
+    training records on ``device``; "bounce": :func:`bounce_turn`'s) of
+    the parent tree and this one, in turns (``order``: by default parent,
+    change, change, parent), one process per turn."""
     recs = []
     for label in order.split(","):
         root = {"parent": parent, "change": ROOT}[label]
-        turn = ["--train-turn", "--device", device] if train else []
+        turn = {"kernels": [], "bounce": ["--bounce-turn"],
+                "train": ["--train-turn", "--device", device]}[kind]
         p = subprocess.run(
             [sys.executable, os.path.abspath(__file__), *turn,
              "--root", os.path.abspath(root), "--res", str(res)],
@@ -441,6 +502,10 @@ def main(argv=None) -> int:
                     help="time the training step (with --parent: in turns)")
     ap.add_argument("--train-turn", action="store_true",
                     help="one --parent --train turn: the --root tree's record")
+    ap.add_argument("--bounce", action="store_true",
+                    help="trace the bounce op by op (with --parent: in turns)")
+    ap.add_argument("--bounce-turn", action="store_true",
+                    help="one --parent --bounce turn: the --root tree's record")
     ap.add_argument("--order", default="parent,change,change,parent",
                     help="with --parent --train: the trees' turns in order")
     ap.add_argument("--root", default=ROOT)
@@ -450,12 +515,23 @@ def main(argv=None) -> int:
     if args.train_turn:
         print(json.dumps(train_turn(dev, args.res)), flush=True)
         return 0
+    if args.bounce_turn or (args.bounce and not args.parent):
+        print(json.dumps(bounce_turn(dev)), flush=True)
+        return 0
+    if args.bounce:
+        for rec in parent_turns(args.parent, args.res, kind="bounce",
+                                order=args.order):
+            for name, r in rec.items():
+                if name != "tree":
+                    print(f"{rec['tree']} {name} bounce [{card_line()}]: "
+                          + json.dumps(r), flush=True)
+        return 0
     if args.train and not args.parent:
         rec = train_turn(dev, args.res)
         print(f"training step [{card_line()}]: {train_line(rec)}", flush=True)
         print(json.dumps(rec), flush=True)
     elif args.train:
-        for rec in parent_turns(args.parent, args.res, train=True,
+        for rec in parent_turns(args.parent, args.res, kind="train",
                                 device=args.device, order=args.order):
             print(f"{rec['tree']} training step [{card_line()}]: "
                   f"{train_line(rec)}", flush=True)
