@@ -28,9 +28,9 @@ Phases, each of which raises on failure (exit code != 0):
    against their bound (32 bytes a ray). The bounce's three kernels
    (``csrc/bounce.cu``, ``ops/bounce.py``): on a 921,600-ray bounce of
    textured_room and of instanced_field at 720p (the benchmark's config,
-   after three passes), each stage bit for bit as its plain stage
-   (``integrator._head``, ``_surface`` from ``_hit_row``, ``_tail``) on
-   the same inputs, then timed as the draw is against the plain stage and
+   after three passes), each kernel stage (``integrator._head_kernel``,
+   ``_surface_kernel``, ``_tail_kernel``) bit for bit as its plain stage
+   (``_head``, ``_surface``, ``_tail``) on the same inputs, then timed as the draw is against the plain stage and
    its byte bound (each tensor argument read or written once, a table at
    most the rows its rays read). Then B1 ``cluster_closest`` and B2 ``cluster_shadow``
    against their plain PyTorch versions on the card, for cornell_box_nee,
@@ -118,8 +118,8 @@ Phases, each of which raises on failure (exit code != 0):
    per mesh and an HDR sky, loaded into a fresh ``World`` and rendered at
    512^2, depth 8, 8 passes with no injected uniforms; then
    ``Renderer.focus``, a camera move, the reprojection alone (it must seed
-   samples; its ``"temporal reproject"`` ms) and 8 more passes; Mrays/s,
-   warm-up and launches of both renders. Then the skip-link BVH walk
+   samples; its ``"temporal reproject"`` ms) and 8 more passes; warm-up
+   and launches of both renders (rates: the benchmark). Then the skip-link BVH walk
    (``packet_traversal=False``, ``ops/traverse.py``: torch ops, no
    kernel): on cornell_box_nee's 512^2 camera rays the walk on the card
    bit for bit as on the CPU (closest t and ids, shadow rgba toward the
@@ -180,7 +180,7 @@ Phases, each of which raises on failure (exit code != 0):
    with images saved, as ``-r``) on a task file of multi_light (soup) and
    instanced_field (two-level), each loaded from scene files, engine
    ``"CUDAGPU"``, rpp 64, timeout 30: the report's lines, a PNG per task
-   (signature, IHDR 512x512), rays/s per task, and the launches of B1/B2,
+   (signature, IHDR 512x512), and the launches of B1/B2,
    B3/B4 and the threefry kernel (all reset just before) at least one per
    pass; then ``python -m rayzath_tpu_torch --headless <tasks> <dir> -r``
    with rpp 8 in a subprocess, which must exit 0. ``Engine()`` on the
@@ -189,7 +189,7 @@ Phases, each of which raises on failure (exit code != 0):
    4 passes per cycle): the page, ``/frame``, ``/stats``, ``/orbit`` (the
    next cycle reprojects), ``/pick`` at the centre (an instance),
    ``/focus``, ``/zoom``, ``/tree``, ``/props`` and an ``/edit`` of a
-   roughness, which restarts the pass count; its rays/s. Row bands: 1, 2
+   roughness, which restarts the pass count. Row bands: 1, 2
    and 4 bands on the card against the unsharded render (4 passes) on
    cornell_box_nee and mesh_heavy, by ``images_match`` (sample counts
    equal; the bands' coherence sort changes B2's walk order, so shadow
@@ -1480,15 +1480,6 @@ def stacked(sf) -> dict:
             if v is not None and not (isinstance(v, tuple) and not v)}
 
 
-def plain_surface(scene, cfg, st, u, hd, walk):
-    """The plain ``_surface`` from the walk's output, its hit re-derived
-    first (what ``bounce_surface`` does on the CPU)."""
-    from rayzath_tpu_torch.engine import integrator as I
-    t, b1, b2, ext, tp = I._hit_row(scene, st.origin, st.direction, *walk)
-    return I._surface(scene, cfg, st, u, hd,
-                      (t, walk[1], walk[2], b1, b2, ext, tp))
-
-
 def phase_bounce(card: str, dev) -> dict:
     """The bounce's three kernels (``csrc/bounce.cu``, ``ops/bounce.py``)
     on a 921,600-ray bounce of each of :data:`BOUNCE_SCENES` at 720p (the
@@ -1502,7 +1493,7 @@ def phase_bounce(card: str, dev) -> dict:
     from rayzath_tpu_torch.engine import integrator as I
     from rayzath_tpu_torch.engine.state import _ARRAYS, init_state
     from rayzath_tpu_torch.models import device_scene as tds
-    from rayzath_tpu_torch.ops import bounce, rng
+    from rayzath_tpu_torch.ops import rng
     from rayzath_tpu_torch.utils.cuda_timing import call_ms, device_ms
     out = {}
     w, h = BOUNCE_RES
@@ -1520,17 +1511,17 @@ def phase_bounce(card: str, dev) -> dict:
             u = I.pass_uniforms(rng.fold_in(key, 3), 0, h, w,
                                 I.n_streams(cfg, scene), dev)
             o, d = st.origin, st.direction
-            hd = bounce.bounce_head(scene, cam, st, u)
+            hd = I._head_kernel(scene, cam, st, u)
             hd_p = I._head(scene, cam, st, u)
             _same(f"{name} head", hd._asdict(), {k: v for k, v in
                   hd_p._asdict().items() if k not in ("mp", "med_row")})
             walk = I._closest_walk(scene, cfg, o, d, hd.near, hd.far_eff,
                                    hw=(h, w))
-            sf = bounce.bounce_surface(scene, cfg, st, u, hd, walk)
-            sf_p = plain_surface(scene, cfg, st, u, hd_p, walk)
+            sf = I._surface_kernel(scene, cfg, st, u, hd, walk)
+            sf_p = I._surface(scene, cfg, st, u, hd_p, walk)
             _same(f"{name} surface", stacked(sf), stacked(sf_p))
             vis = I._shadows(scene, cfg, sf, (h, w))
-            nxt = bounce.bounce_tail(scene, cam, cfg, st, u, sf, vis)
+            nxt = I._tail_kernel(scene, cam, cfg, st, u, sf, vis, 0)
             nxt_p = I._tail(scene, cam, cfg, st, u, sf, vis, 0)
             _same(f"{name} tail", {f: getattr(nxt, f) for f in _ARRAYS},
                   {f: getattr(nxt_p, f) for f in _ARRAYS})
@@ -1549,14 +1540,14 @@ def phase_bounce(card: str, dev) -> dict:
                            (scene.inst_slot_map, 4)]
             stages = {
                 "bounce_head": (
-                    lambda: bounce.bounce_head(scene, cam, st, u),
+                    lambda: I._head_kernel(scene, cam, st, u),
                     lambda: I._head(scene, cam, st, u),
                     state_in + [u[:, 0], hd.near, hd.far, hd.far_eff,
                                 hd.scat_dist, hd.has_scatter, hd.med,
                                 (hd.mp, 4)]),
                 "bounce_surface": (
-                    lambda: bounce.bounce_surface(scene, cfg, st, u, hd, walk),
-                    lambda: plain_surface(scene, cfg, st, u, hd_p, walk),
+                    lambda: I._surface_kernel(scene, cfg, st, u, hd, walk),
+                    lambda: I._surface(scene, cfg, st, u, hd_p, walk),
                     [o, d, st.throughput, st.score, st.path_depth,
                      u[:, [0, 1, 2, 3] + list(range(8, ns))], hd.far,
                      hd.far_eff, hd.scat_dist, hd.has_scatter, hd.med,
@@ -1569,8 +1560,8 @@ def phase_bounce(card: str, dev) -> dict:
                            sf.shadow_d, sf.shadow_dist, sf.shadow_w,
                            sf.shadow_rad) if x]),
                 "bounce_tail": (
-                    lambda: bounce.bounce_tail(scene, cam, cfg, st, u, sf,
-                                               vis),
+                    lambda: I._tail_kernel(scene, cam, cfg, st, u, sf, vis,
+                                           0),
                     lambda: I._tail(scene, cam, cfg, st, u, sf, vis, 0),
                     [st.accum, st.depth_buf, st.space_buf, o, d,
                      st.path_depth, u[:, 4:8], sf.t_final, sf.point,
@@ -1761,10 +1752,8 @@ def phase_slice(card: str, dev):
         warm = time.perf_counter() - t0
         for f in wrappers.values():
             f.launches = 0
-        t0 = time.perf_counter()
         r.render(rpp=rpp)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
         path = (("B3", "B4") if r.scene.two_level else ("B1", "B2")) + (
             "threefry_keyed", "G1", "bounce_head", "bounce_surface",
@@ -1789,11 +1778,9 @@ def phase_slice(card: str, dev):
         mean = float(r.image().mean())
         if not 5.0 < mean < 220.0:
             raise AssertionError(f"{name}: image mean {mean} outside (5, 220)")
-        mrays = rpp * RES * RES / dt / 1e6
         shown = " ".join(f"{k} {counts[k]}" for k in path)
-        print(f"{name}: {RES}^2 depth 8, {rpp} passes in {dt:.3f} s = "
-              f"{mrays:.3f} Mrays/s, warm-up {warm:.2f} s, launches {shown}, "
-              f"image mean {mean:.1f} [{card}]", flush=True)
+        print(f"{name}: {RES}^2 depth 8, {rpp} passes, warm-up {warm:.2f} s, "
+              f"launches {shown}, image mean {mean:.1f} [{card}]", flush=True)
         del r, world
         torch.cuda.empty_cache()
     return launches
@@ -1840,10 +1827,8 @@ def phase_files(card: str, dev, launches: dict):
             "threefry_keyed", "G1")
         for f in wrappers.values():
             f.launches = 0
-        t0 = time.perf_counter()
         r.render(rpp=rpp)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         counts = {k: f.launches for k, f in wrappers.items()}
         r.focus(cam, cam.width // 2, cam.height // 2)
         cam.position = np.asarray(cam.position, np.float32) + (0.05, 0.02, 0.0)
@@ -1855,10 +1840,8 @@ def phase_files(card: str, dev, launches: dict):
         seeded = float(r.views[id(cam)].state.accum[..., 3].sum())
         if not seeded > 0.0:
             raise AssertionError(f"{name}: the reprojection seeded no samples")
-        t0 = time.perf_counter()
         r.render(rpp=rpp)
         torch.cuda.synchronize()
-        dt2 = time.perf_counter() - t0
         counts2 = {k: f.launches for k, f in wrappers.items()}
         for k in path_k:
             if min(counts[k], counts2[k]) < rpp:
@@ -1877,12 +1860,10 @@ def phase_files(card: str, dev, launches: dict):
         print(f"{name} from scene files ({len(world.meshes)} meshes, "
               f"{len(world.instances)} instances, "
               f"{'two-level' if two_level else 'soup'}): {RES}^2 depth 8, "
-              f"{rpp} passes in {dt:.3f} s = {rpp * RES * RES / dt / 1e6:.3f} "
-              f"Mrays/s, warm-up {warm:.2f} s; focus + camera move, temporal "
-              f"reproject {reproject_ms:.3f} ms, {rpp} passes in {dt2:.3f} s "
-              f"= {rpp * RES * RES / dt2 / 1e6:.3f} Mrays/s, reprojected "
-              f"samples {seeded:.0f} of {RES * RES} pixels; launches {shown}, "
-              f"image mean {mean:.1f} [{card}]", flush=True)
+              f"{rpp} passes, warm-up {warm:.2f} s; focus + camera move, "
+              f"temporal reproject {reproject_ms:.3f} ms, {rpp} more passes, "
+              f"reprojected samples {seeded:.0f} of {RES * RES} pixels; "
+              f"launches {shown}, image mean {mean:.1f} [{card}]", flush=True)
         del r, world
         torch.cuda.empty_cache()
 
@@ -2617,8 +2598,7 @@ def phase_headless(card: str, tmp: Path) -> dict:
         # the warm-up cycle renders one pass before the timed ones
         passes[name] = r.total_traced_rays // (RES * RES) + 1
         print(f"headless {name} (scene files, CUDAGPU): {RES}^2 depth 8, "
-              f"{passes[name] - 1} passes in {r.duration:.3f} s = "
-              f"{r.rays_per_second / 1e6:.3f} Mrays/s [{card}]", flush=True)
+              f"{passes[name] - 1} passes [{card}]", flush=True)
     pngs = sorted(report.glob("*.png"))
     if len(pngs) != 2 or any(png_size(p) != (RES, RES) for p in pngs):
         raise AssertionError(f"headless: PNGs {pngs}")
@@ -2707,7 +2687,6 @@ def phase_viewer(card: str):
         stats = json.loads(http(port, "/stats")[1])
         if stats["width"] != RES or not stats["pass_count"] > 0:
             raise AssertionError(f"viewer: stats {stats}")
-        rps = stats["rays_per_second"]
         http(port, "/orbit", {"dx": 40, "dy": 10})
         wait_for(lambda: "temporal reproject"
                  in v.renderer.time_table.entries() or v.error,
@@ -2736,14 +2715,13 @@ def phase_viewer(card: str):
                  "the pass count to restart after /edit")
         if v.error:
             raise AssertionError(f"viewer: the render thread failed: {v.error}")
-        rps = max(rps, v.stats()["rays_per_second"])
     finally:
         v.stop()
         server.shutdown()
         server.server_close()
         t.join(timeout=30)
     print(f"viewer on multi_light {RES}^2 depth 8, 4 passes per cycle: "
-          f"{rps / 1e6:.3f} Mrays/s (moving average); /orbit reprojected in "
+          f"/orbit reprojected in "
           f"{reproject_ms:.3f} ms; /pick {picked['name']!r} (instance "
           f"{picked['instance']}), /focus {fd['focal_distance']:.3f}, /zoom, "
           f"/tree, /props, /edit restarted the pass count [{card}]",

@@ -34,11 +34,12 @@ buffers and replays the same graph. Capture never falls back: when capture
 or a replay fails, :meth:`RenderCycle.run` raises ``RuntimeError``.
 
 A captured kernel launches on every replay, but its wrapper's Python
-counters (``launches``, and B3's and B4's ``rays``) ran only while the pass
-was captured. The cycle records what each counter gained over the captured
-pass and adds it per replay, so the counters count the launches that ran.
-B3's and B4's device-side work counters (``traverse_cluster.WorkCounter``)
-are added to by the kernels themselves, on every replay.
+counters (``launches``, and B3's and B4's ``rays``: the registry
+``ops/_kernels.py`` ``COUNTED``) ran only while the pass was captured. The
+cycle records what each counter gained over the captured pass and adds it
+per replay, so the counters count the launches that ran. B3's and B4's
+device-side work counters (``traverse_cluster.WorkCounter``) are added to
+by the kernels themselves, on every replay.
 """
 from __future__ import annotations
 
@@ -48,37 +49,28 @@ from typing import Optional
 import torch
 
 from ..models.device_scene import TorchCamera, TorchScene
-from ..ops import bounce, gather, rng, sort_rays
-from ..ops import traverse_cluster as tc
+from ..ops import _kernels, rng
 from ..utils.timing import span
 from .config import RenderConfig
 from .integrator import bounce_step, host_reads, n_streams
 from .state import _ARRAYS, RenderState, init_state
 
-#: the kernel wrappers whose host counters a replay advances
-COUNTED = (tc.cluster_closest, tc.cluster_shadow, tc.cluster_closest_inst,
-           tc.cluster_shadow_inst, rng.uniform_rows, rng.uniform_rows_keyed,
-           gather.gather_rows_fwd, sort_rays.coherence_keys,
-           bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
-#: a wrapper's host counters, where it has them: its kernel launches, and
-#: the rays launched into B3 and B4
-COUNTERS = ("launches", "rays")
-
 _CAMERA = ("position", "rot", "fov", "near_far", "focal_distance", "aperture",
            "exposure_time")
 
 
-def capture(warm_up, body, what: str, counted=COUNTED):
+def capture(warm_up, body, what: str):
     """Capture ``body()`` into a CUDA graph on a side stream of the current
     device, after ``warm_up()`` there, as PyTorch's graph rules ask (the
     first launch of every kernel, and the kernel build, run outside the
     capture); ``thread_local`` capture, so other threads, autograd's device
     thread among them, may launch into the capturing stream. The host
-    counters (:data:`COUNTERS`) of the wrappers ``counted`` are left as
+    counters of every kernel wrapper (``_kernels.COUNTED``) are left as
     they were before the capture. Returns (graph, ((wrapper, counter, gain
     per replay), ...)) for :func:`advance`; raises ``RuntimeError`` naming
     ``what`` when the capture fails."""
-    counters = [(f, c) for f in counted for c in COUNTERS if hasattr(f, c)]
+    counters = [(f, c) for f, names in _kernels.COUNTED.items()
+                for c in names]
     current = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(current)

@@ -48,11 +48,12 @@ no graph; ``render_steps(..., remat=True)`` checkpoints each bounce for
 training (parallel/train.py).
 
 A bounce's arithmetic is three stages cut at the walks (``_head``,
-``_surface``, ``_tail``). Without autograd :func:`bounce_step` runs them
-through ``ops/bounce.py``: one hand-written kernel each on a card
-(``csrc/bounce.cu``, the plain stages' values as torch computes them
-there), the plain stages on the CPU; under autograd it runs the plain
-stages, whose arithmetic is the JAX package's.
+``_surface``, ``_tail``). :func:`_stages` alone chooses how they run: on a
+card without autograd (every ``Renderer.render`` pass there) one
+hand-written kernel each (``ops/bounce.py``, ``csrc/bounce.cu``, the plain
+stages' values as torch computes them there); on the CPU and under
+autograd (training) the plain stages, whose arithmetic is the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -656,12 +657,16 @@ def _head(scene: TorchScene, cam: TorchCamera, state: RenderState,
 
 
 def _surface(scene: TorchScene, cfg: RenderConfig, state: RenderState, u,
-             hd: Head, hit) -> Surface:
-    """From the closest hit (``hit``: :func:`closest_hit`'s tuple) to the
-    shadow rays: the surface frame, the material with its maps, normal
-    mapping, Beer's law, the emission, the next direction, the hit point
-    and each light sample's shadow ray and unshadowed weight."""
+             hd: Head, walk) -> Surface:
+    """From the closest-hit walk (``walk``: :func:`_closest_walk`'s
+    (t, tri_id, inst_id), its hit re-derived by :func:`_hit_row` first, as
+    :func:`closest_hit` does) to the shadow rays: the surface frame, the
+    material with its maps, normal mapping, Beer's law, the emission, the
+    next direction, the hit point and each light sample's shadow ray and
+    unshadowed weight."""
     o, d = state.origin, state.direction
+    t, tri_id, inst_id = walk
+    t, b1, b2, external, tp = _hit_row(scene, o, d, t, tri_id, inst_id)
     dev = o.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
@@ -673,7 +678,6 @@ def _surface(scene: TorchScene, cfg: RenderConfig, state: RenderState, u,
     sigma = torch.clamp(med_scatter, min=1e-20)
     has_scatter, scat_dist, far_eff = hd.has_scatter, hd.scat_dist, hd.far_eff
 
-    t, tri_id, inst_id, b1, b2, external, tp = hit
     hit_obj = tri_id >= 0
     scatter_evt = has_scatter & ~hit_obj & (scat_dist < hd.far)
     any_hit = hit_obj | scatter_evt
@@ -893,6 +897,41 @@ def _tail(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
         pass_idx=state.pass_idx + 1)
 
 
+def _head_kernel(scene: TorchScene, cam: TorchCamera, state: RenderState,
+                 u) -> Head:
+    """:func:`_head` in one kernel launch (``ops/bounce.py``; no
+    ``med_row``)."""
+    mp = mat_pack(scene)
+    return Head(*bounce_ops.bounce_head(scene, cam, state, u, mp), mp, None)
+
+
+def _surface_kernel(scene: TorchScene, cfg: RenderConfig, state: RenderState,
+                    u, hd: Head, walk) -> Surface:
+    """:func:`_surface` in one kernel launch (``ops/bounce.py``)."""
+    return Surface(*bounce_ops.bounce_surface(scene, state, u, hd, walk,
+                                              light_samples(cfg, scene)))
+
+
+def _tail_kernel(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
+                 state: RenderState, u, sf: Surface, vis,
+                 row0: int) -> RenderState:
+    """:func:`_tail` in one kernel launch (``ops/bounce.py``)."""
+    out = bounce_ops.bounce_tail(scene, cam, state, u, sf, vis,
+                                 light_samples(cfg, scene),
+                                 cfg.tracing.max_depth, row0)
+    return state.replace(**out, pass_idx=state.pass_idx + 1)
+
+
+def _stages(state: RenderState):
+    """The bounce's (head, surface, tail): the kernel stages where the
+    state is on a CUDA device and autograd does not record (every
+    ``Renderer.render`` pass on a card, captured or eager), else the plain
+    stages (the CPU; training, captured or eager)."""
+    if state.accum.device.type == "cuda" and not torch.is_grad_enabled():
+        return _head_kernel, _surface_kernel, _tail_kernel
+    return _head, _surface, _tail
+
+
 def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
                 state: RenderState, key=None, u=None,
                 row0: int = 0) -> RenderState:
@@ -907,31 +946,23 @@ def bounce_step(scene: TorchScene, cam: TorchCamera, cfg: RenderConfig,
     of the draw. ``row0``: global image row of this wavefront's first
     row.
 
-    The arithmetic runs in three stages cut at the walks: :func:`_head`
-    before the closest-hit walk, :func:`_surface` between it and the
-    shadow walks, :func:`_tail` after them. Under autograd (training) the
-    stages are these plain functions; without it (every
-    ``Renderer.render`` pass) they are the wrappers of ``ops/bounce.py``,
-    one hand-written kernel each on a card and the plain functions on the
-    CPU."""
+    The arithmetic runs in three stages cut at the walks: head before the
+    closest-hit walk, surface between it and the shadow walks, tail after
+    them, as :func:`_stages` chooses them (the plain :func:`_head`,
+    :func:`_surface`, :func:`_tail` or one kernel each)."""
     H, W = state.height, state.width
     if u is None:
         if key is None:
             raise ValueError("bounce_step needs a pass key or uniforms u")
         u = pass_uniforms(key, row0, H, W, n_streams(cfg, scene),
                           state.accum.device)
-    o, d = state.origin, state.direction
-    if torch.is_grad_enabled():
-        hd = _head(scene, cam, state, u)
-        hit = closest_hit(scene, cfg, o, d, hd.near, hd.far_eff, hw=(H, W))
-        sf = _surface(scene, cfg, state, u, hd, hit)
-        return _tail(scene, cam, cfg, state, u, sf,
-                     _shadows(scene, cfg, sf, (H, W)), row0)
-    hd = bounce_ops.bounce_head(scene, cam, state, u)
-    walk = _closest_walk(scene, cfg, o, d, hd.near, hd.far_eff, hw=(H, W))
-    sf = bounce_ops.bounce_surface(scene, cfg, state, u, hd, walk)
-    return bounce_ops.bounce_tail(scene, cam, cfg, state, u, sf,
-                                  _shadows(scene, cfg, sf, (H, W)), row0)
+    head, surface, tail = _stages(state)
+    hd = head(scene, cam, state, u)
+    walk = _closest_walk(scene, cfg, state.origin, state.direction, hd.near,
+                         hd.far_eff, hw=(H, W))
+    sf = surface(scene, cfg, state, u, hd, walk)
+    return tail(scene, cam, cfg, state, u, sf,
+                _shadows(scene, cfg, sf, (H, W)), row0)
 
 
 # ---------------------------------------------------------------------------

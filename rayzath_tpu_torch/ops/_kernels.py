@@ -13,6 +13,13 @@ Flags: ``-O3`` for ``sm_90a``, IEEE division and square root, no fast math,
 and ``-fmad=false`` so that every multiply and add rounds on its own, as the
 plain PyTorch versions do; the kernels then return the plain versions' hits
 bit for bit wherever their culling lets a ray reach its triangle.
+
+This module is also the one seam of the kernel wrappers (``ops/``): each
+wrapper is registered with :func:`counted`, checks its tensors with
+:func:`card` and :func:`check` after :func:`load`, and launches through
+:func:`launch`, which counts the launch against it. The registry
+(:data:`COUNTED`) is what ``engine/cycle.py`` ``capture`` reads to keep the
+counters true under graph replay, so a new wrapper needs no edit there.
 """
 from __future__ import annotations
 
@@ -186,12 +193,56 @@ def ptr(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-def launch(name: str, fn, dev, *args) -> None:
+#: every kernel wrapper -> the names of its host counters (function
+#: attributes): ``launches`` on each, advanced by :func:`launch`, and
+#: ``rays`` on B3 and B4, advanced by the wrapper
+COUNTED: dict = {}
+
+
+def counted(*counters: str):
+    """Decorator: register a kernel wrapper in :data:`COUNTED` with its
+    counters, ``launches`` and ``counters``, each a function attribute
+    starting at 0."""
+    def register(wrapper):
+        names = ("launches",) + counters
+        for c in names:
+            setattr(wrapper, c, 0)
+        COUNTED[wrapper] = names
+        return wrapper
+    return register
+
+
+def card(dev: torch.device) -> torch.device:
+    """``dev``; raises ``ValueError`` unless it is a CUDA device."""
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels run on a CUDA device, got {dev}")
+    return dev
+
+
+def check(dev, name: str, x, dtype, shape=None) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous tensor on ``dev``
+    of ``dtype`` (or of one of a tuple of dtypes) and, where given, of
+    ``shape``."""
+    if x.device != dev:
+        raise ValueError(f"{name} must be on {dev}, got {x.device}")
+    if x.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if shape is not None and x.shape != shape:
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(wrapper, fn, dev, *args) -> None:
     """Call the library function ``fn(*args, stream)`` on CUDA device
     ``dev`` and that device's current stream, whatever device is current in
-    the calling thread; raise when it reports an error."""
+    the calling thread; raise when it reports an error, else count the
+    launch in ``wrapper.launches`` (a :func:`counted` wrapper)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {error_string(err)}")
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed: "
+                           f"{error_string(err)}")
+    wrapper.launches += 1

@@ -40,10 +40,11 @@ import math
 import torch
 
 from . import _kernels
-from ._kernels import launch as _launch, ptr as _ptr
+from ._kernels import counted, launch as _launch, ptr as _ptr
 
 #: element types G1 copies (as 4-byte words)
 _WORDS = (torch.float32, torch.int32)
+_INDEX = (torch.int32, torch.int64)
 
 
 def _clamped(idx, n: int):
@@ -69,18 +70,6 @@ def gather_rows_grad_plain(idx, g, n: int):
     return out.to(torch.float32)
 
 
-def _check_device(dev):
-    if dev.type != "cuda":
-        raise ValueError(f"the gather kernels run on a CUDA device, got {dev}")
-
-
-def _check_idx(dev, idx):
-    if idx.device != dev:
-        raise ValueError(f"idx must be on {dev}, got {idx.device}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"idx must be int32 or int64, got {idx.dtype}")
-
-
 def _cotangent_width(idx, g) -> int:
     """K of a cotangent idx.shape + K (raises on another shape)."""
     if g.shape[:idx.dim()] != idx.shape:
@@ -89,6 +78,7 @@ def _cotangent_width(idx, g) -> int:
     return math.prod(g.shape[idx.dim():])
 
 
+@counted()
 def gather_rows_fwd(table, idx):
     """G1: ``table[idx]`` (each index clamped into the table), shape
     idx.shape + table.shape[1:]. CPU tensors take
@@ -97,12 +87,10 @@ def gather_rows_fwd(table, idx):
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     lib = _kernels.load()
-    dev = table.device
-    _check_device(dev)
-    _check_idx(dev, idx)
-    if table.dtype not in _WORDS:
-        raise ValueError(f"gather_rows takes float32 or int32 tables, got "
-                         f"{table.dtype}")
+    dev = _kernels.card(table.device)
+    table, idx = table.contiguous(), idx.contiguous()
+    _kernels.check(dev, "idx", idx, _INDEX)
+    _kernels.check(dev, "table", table, _WORDS)
     n, k = table.shape[0], math.prod(table.shape[1:])
     out = torch.empty(tuple(idx.shape) + tuple(table.shape[1:]),
                       dtype=table.dtype, device=dev)
@@ -110,16 +98,12 @@ def gather_rows_fwd(table, idx):
     if m and k:
         if n == 0:
             raise ValueError("gather_rows from an empty table")
-        table, idx = table.contiguous(), idx.contiguous()
-        _launch("gather_rows", lib.rz_gather_rows, dev, _ptr(table), _ptr(idx),
-                int(idx.dtype == torch.int64), m, k, n, _ptr(out))
-        gather_rows_fwd.launches += 1
+        _launch(gather_rows_fwd, lib.rz_gather_rows, dev, _ptr(table),
+                _ptr(idx), int(idx.dtype == torch.int64), m, k, n, _ptr(out))
     return out
 
 
-gather_rows_fwd.launches = 0
-
-
+@counted()
 def gather_rows_grad(idx, g, n: int):
     """G2: [n, K] float32, the rows of ``g`` (idx.shape + K) summed per
     clamped index (:func:`gather_rows_grad_plain`). CPU tensors take the
@@ -130,12 +114,10 @@ def gather_rows_grad(idx, g, n: int):
     if g.device.type == "cpu":
         return gather_rows_grad_plain(idx, g, n)
     lib = _kernels.load()
-    dev = g.device
-    _check_device(dev)
-    _check_idx(dev, idx)
-    if g.dtype != torch.float32:
-        raise ValueError(f"gather_rows_grad takes a float32 cotangent, got "
-                         f"{g.dtype}")
+    dev = _kernels.card(g.device)
+    idx, g = idx.contiguous(), g.contiguous()
+    _kernels.check(dev, "idx", idx, _INDEX)
+    _kernels.check(dev, "g", g, torch.float32)
     m, k = idx.numel(), _cotangent_width(idx, g)
     if not (m and k and n):
         if m and k:
@@ -146,15 +128,10 @@ def gather_rows_grad(idx, g, n: int):
     # the small path's per-block partials, or the atomic path's accumulator
     scratch = torch.empty(parts, **f64) if parts else torch.zeros(n * k, **f64)
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx, g = idx.contiguous(), g.contiguous()
-    _launch("gather_rows_grad", lib.rz_gather_rows_grad, dev, _ptr(idx),
+    _launch(gather_rows_grad, lib.rz_gather_rows_grad, dev, _ptr(idx),
             int(idx.dtype == torch.int64), _ptr(g), m, k, n, _ptr(scratch),
             _ptr(out))
-    gather_rows_grad.launches += 1
     return out
-
-
-gather_rows_grad.launches = 0
 
 
 class _Gather(torch.autograd.Function):

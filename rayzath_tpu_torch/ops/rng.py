@@ -32,12 +32,12 @@ so a CUDA graph that captured the draw draws each replay's own pass
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _kernels
+from ._kernels import counted, launch as _launch, ptr as _ptr
 
 MASK = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA                      # threefry's key-schedule constant
@@ -125,6 +125,7 @@ def uniform_rows_plain(k: Key, row0: int, height: int, width: int, ns: int,
     return bits_to_unit(x0 ^ x1).reshape(height * width, ns)
 
 
+@counted()
 def uniform_rows(k: Key, row0: int, height: int, width: int, ns: int,
                  device) -> torch.Tensor:
     """The uniforms of :func:`uniform_rows_plain`, on ``device``: the plain
@@ -133,26 +134,17 @@ def uniform_rows(k: Key, row0: int, height: int, width: int, ns: int,
     dev = torch.device(device)
     if dev.type == "cpu":
         return uniform_rows_plain(k, row0, height, width, ns, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"uniform_rows: no kernel for device {dev}")
+    _kernels.card(dev)
     lib = _kernels.load()
     out = torch.empty((height * width, ns), dtype=torch.float32, device=dev)
     if out.numel():
-        with torch.cuda.device(out.device):
-            err = lib.rz_threefry_uniform(
-                ctypes.c_void_p(out.data_ptr()), int(k[0]) & MASK,
-                int(k[1]) & MASK, int(row0), height, width, ns,
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if err != 0:
-            raise RuntimeError(f"threefry kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
-        uniform_rows.launches += 1
+        _launch(uniform_rows, lib.rz_threefry_uniform, out.device, _ptr(out),
+                int(k[0]) & MASK, int(k[1]) & MASK, int(row0), height, width,
+                ns)
     return out
 
 
-uniform_rows.launches = 0
-
-
+@counted()
 def uniform_rows_keyed(dk: DeviceKey, row0: int, height: int, width: int,
                        ns: int, device) -> torch.Tensor:
     """The uniforms of :func:`uniform_rows` under the pass key
@@ -164,34 +156,16 @@ def uniform_rows_keyed(dk: DeviceKey, row0: int, height: int, width: int,
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     words, pass_idx = dk
-    for name, x, n in (("words", words, 2), ("pass_idx", pass_idx, 1)):
-        if x.device != dev or x.dtype != torch.int32 or x.numel() != n:
-            raise ValueError(f"uniform_rows_keyed: {name} must be {n} int32 "
-                             f"on {dev}, got {x.numel()} {x.dtype} on "
-                             f"{x.device}")
+    _kernels.check(dev, "words", words, torch.int32, (2,))
+    _kernels.check(dev, "pass_idx", pass_idx, torch.int32, ())
     if dev.type == "cpu":
-        return uniform_rows_plain(fold_in_tensor(words, pass_idx.reshape(())),
-                                  row0, height, width, ns, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"uniform_rows_keyed: no kernel for device {dev}")
-    if not (words.is_contiguous() and pass_idx.is_contiguous()):
-        raise ValueError("uniform_rows_keyed: words and pass_idx must be "
-                         "contiguous")
+        return uniform_rows_plain(fold_in_tensor(words, pass_idx), row0,
+                                  height, width, ns, dev)
+    _kernels.card(dev)
     lib = _kernels.load()
     out = torch.empty((height * width, ns), dtype=torch.float32, device=dev)
     if out.numel():
-        with torch.cuda.device(out.device):
-            err = lib.rz_threefry_uniform_keyed(
-                ctypes.c_void_p(out.data_ptr()),
-                ctypes.c_void_p(words.data_ptr()),
-                ctypes.c_void_p(pass_idx.data_ptr()), int(row0), height,
-                width, ns,
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if err != 0:
-            raise RuntimeError(f"threefry keyed kernel launch failed: "
-                               f"{_kernels.error_string(err)}")
-        uniform_rows_keyed.launches += 1
+        _launch(uniform_rows_keyed, lib.rz_threefry_uniform_keyed, dev,
+                _ptr(out), _ptr(words), _ptr(pass_idx), int(row0), height,
+                width, ns)
     return out
-
-
-uniform_rows_keyed.launches = 0

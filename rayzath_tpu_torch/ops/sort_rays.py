@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from ._kernels import launch as _launch, ptr as _ptr
+from ._kernels import counted, launch as _launch, ptr as _ptr
 
 
 def _spread3(x):
@@ -71,6 +71,7 @@ def coherence_keys_plain(origin, direction):
     return (coarse << 26) | (octant << 23) | (db << 15) | fine
 
 
+@counted()
 def coherence_keys(origin, direction):
     """Coherence key per ray as int64 holding the uint32 bit pattern (see
     module docstring): origin and direction [R, 3] float32. CPU tensors take
@@ -79,31 +80,18 @@ def coherence_keys(origin, direction):
     if origin.device.type == "cpu":
         return coherence_keys_plain(origin, direction)
     lib = _kernels.load()
-    dev = origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"the sort-key kernels run on a CUDA device, got {dev}")
-    for name, x in (("origin", origin), ("direction", direction)):
-        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 \
-                or x.shape[1] != 3:
-            raise ValueError(f"{name} must be [R, 3] float32 on {dev}, got "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    if direction.shape[0] != origin.shape[0]:
-        raise ValueError(f"{origin.shape[0]} origins, {direction.shape[0]} "
-                         "directions")
-    n = origin.shape[0]
+    dev = _kernels.card(origin.device)
+    o, d = origin.detach().contiguous(), direction.detach().contiguous()
+    n = o.shape[0] if o.dim() == 2 else -1      # -1: no [R, 3] matches
+    _kernels.check(dev, "origin", o, torch.float32, (n, 3))
+    _kernels.check(dev, "direction", d, torch.float32, (n, 3))
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
-        o = origin.detach().contiguous()
-        d = direction.detach().contiguous()
         parts = torch.empty(lib.rz_ray_sort_partials(n), dtype=torch.float32,
                             device=dev)
-        _launch("ray_sort_keys", lib.rz_ray_sort_keys, dev, _ptr(o), _ptr(d),
+        _launch(coherence_keys, lib.rz_ray_sort_keys, dev, _ptr(o), _ptr(d),
                 n, _ptr(parts), _ptr(keys))
-        coherence_keys.launches += 1
     return keys
-
-
-coherence_keys.launches = 0
 
 
 def sort_payload(origin, direction, extras):

@@ -39,11 +39,11 @@ version for a tensor on the CPU and launches the hand-written CUDA kernel
 (``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``,
 ``csrc/cluster_closest_inst.cu``, ``csrc/cluster_shadow_inst.cu``) for a
 tensor on a CUDA device; any other device raises. Each counts its kernel
-launches in a ``launches`` attribute. The instanced entries also count the
-work of their walk: ``rays`` (host: the rays handed to the walk) and
-``work`` (a :class:`WorkCounter`: per device the instance visits and the
-(instance, cluster) tests, added to by the kernels themselves, so that a
-captured graph counts on every replay). The plain versions visit every
+launches in a ``launches`` attribute (``ops/_kernels.py`` ``launch``). The
+instanced entries also count the work of their walk: ``rays`` (host: the
+rays handed to the walk) and ``work`` (a :class:`WorkCounter`: per device
+the instance visits and the (instance, cluster) tests, added to by the
+kernels themselves, so that a captured graph counts on every replay). The plain versions visit every
 real cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
 
@@ -56,11 +56,10 @@ backward the hand-written B2-grad or B4-grad kernel
 :func:`cluster_shadow_grad_plain` / :func:`cluster_shadow_inst_grad_plain`
 on the CPU and count their launches too). They give the result of the JAX
 package's custom_vjp rules, a dense replay of the shadow test through
-``ops/intersect.py`` ``project_shadow`` (kept here as :func:`_soup_replay`
-and :func:`_inst_replay`, the tests' oracle), by walking the cluster
-tables twice: only the opacity table gets a gradient, and each hit's share
-is the product of the ray's other factors times its cotangent, over every
-hit (no alpha stop).
+``ops/intersect.py`` ``project_shadow`` (kept as the tests' oracle in
+``utils/check_tables.py``), by walking the cluster tables twice: only the
+opacity table gets a gradient, and each hit's share is the product of the
+ray's other factors times its cotangent, over every hit (no alpha stop).
 """
 from __future__ import annotations
 
@@ -71,11 +70,10 @@ import numpy as np
 import torch
 
 from . import _kernels
-from ._kernels import launch as _launch, ptr as _ptr
+from ._kernels import counted, launch as _launch, ptr as _ptr
 from .gather import gather_rows
 from .bvh import build_bvh, triangle_aabbs
-from .intersect import (BIG, DET_EPS, project_shadow, triangle_frames,
-                        triangle_frames_torch)
+from .intersect import BIG, DET_EPS, triangle_frames
 
 CLUSTER_T = 128         # triangles per cluster
 KERNEL_BLOCK = 128      # rays per block of the CUDA kernels
@@ -387,31 +385,25 @@ def cluster_shadow_inst_plain(origin, direction, dist, ti_rows, cl_obox,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(dev, **tensors):
-    """Raise unless every tensor is a contiguous float32/int32 tensor on the
-    CUDA device ``dev``."""
-    for name, (x, dtype) in tensors.items():
-        if x.device != dev or x.device.type != "cuda":
-            raise ValueError(f"{name} must be on the CUDA device {dev}, "
-                             f"got {x.device}")
-        if x.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check_rays(dev, origin, direction, **per_ray) -> int:
+    """The rays' arguments on ``dev``: origin and direction [R, 3], each
+    of ``per_ray`` [R], all float32 and contiguous. Returns R."""
+    r = origin.shape[0]
+    for name, x in (("origin", origin), ("direction", direction)):
+        _kernels.check(dev, name, x, torch.float32, (r, 3))
+    for name, x in per_ray.items():
+        _kernels.check(dev, name, x, torch.float32, (r,))
+    return r
 
 
-def _check_shapes(extra):
-    for name, x, shape in extra:
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-
-
-def _check_tables(box_tab, frames, extra=()):
+def _check_tables(dev, box_tab, frames):
+    """B1's and B2's cluster tables on ``dev``; returns their rows Cp."""
     cp = box_tab.shape[1]
     if box_tab.shape != (8, cp) or frames.shape != (cp, 4, 3 * CLUSTER_T):
         raise ValueError(f"cluster tables disagree: box_tab {tuple(box_tab.shape)}"
                          f", frames {tuple(frames.shape)}")
-    _check_shapes(extra)
+    _kernels.check(dev, "box_tab", box_tab, torch.float32)
+    _kernels.check(dev, "frames", frames, torch.float32)
     return cp
 
 
@@ -450,8 +442,8 @@ def _visit_buffer(visits, dev, r):
     each block's staged clusters."""
     if visits is None:
         return ctypes.c_void_p(None)
-    _check(dev, visits=(visits, torch.int32))
-    _check_shapes([("visits", visits, (r + -(-r // KERNEL_BLOCK),))])
+    _kernels.check(dev, "visits", visits, torch.int32,
+                   (r + -(-r // KERNEL_BLOCK),))
     return _ptr(visits)
 
 
@@ -508,7 +500,8 @@ def _count_plain(wrapper, active, ti_rows, visits) -> None:
         torch.tensor([n * n_inst, n * n_pairs], dtype=torch.int64))
     if visits is not None:
         blocks = -(-r // KERNEL_BLOCK)
-        _check_shapes([("visits", visits, (r + blocks,))])
+        _kernels.check(active.device, "visits", visits, torch.int32,
+                       (r + blocks,))
         walks = torch.zeros(blocks * KERNEL_BLOCK, dtype=torch.bool)
         walks[:r] = active
         visits[:r] = active.to(torch.int32) * n_pairs
@@ -522,6 +515,7 @@ def _map_ids(rid, order):
                        torch.full_like(rid, -1))
 
 
+@counted()
 def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
                     visits=None):
     """Closest hit. Returns (t [R], tri_id [R] i32 in ORIGINAL order,
@@ -537,73 +531,24 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
                                        frames)
         return t, _map_ids(rid, order)
     lib = _kernels.load()
-    dev = origin.device
-    r = origin.shape[0]
-    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
-           near=(near, torch.float32), far=(far, torch.float32),
-           box_tab=(box_tab, torch.float32), frames=(frames, torch.float32))
-    cp = _check_tables(box_tab, frames, (
-        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
-        ("near", near, (r,)), ("far", far, (r,))))
+    dev = _kernels.card(origin.device)
+    r = _check_rays(dev, origin, direction, near=near, far=far)
+    cp = _check_tables(dev, box_tab, frames)
     _aligned(frames=frames)
     _ranked_smem(lib, dev, cp, kernel=1)
     counts = _visit_buffer(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
-        _launch("cluster_closest", lib.rz_cluster_closest, dev,
+        _launch(cluster_closest, lib.rz_cluster_closest, dev,
                 _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
                 _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), counts)
-        cluster_closest.launches += 1
     return t, _map_ids(rid, order.to(dev))
 
 
-cluster_closest.launches = 0
-
-
-
 # ---------------------------------------------------------------------------
-# backward: the dense replays of the JAX package's custom_vjp rules (the
-# tests' oracle) and the plain versions of B2-grad and B4-grad
+# backward: the plain versions of B2-grad and B4-grad
 # ---------------------------------------------------------------------------
-
-def _soup_replay(origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a):
-    """B2's replay (JAX ``_make_cluster_shadow`` bwd): the dense shadow test
-    over every soup triangle, frames built differentiably."""
-    w, c = triangle_frames_torch(tri_v0, tri_e1, tri_e2)
-    return project_shadow(origin, direction, dist, w, c, op_rgb, op_a,
-                          chunk=_replay_chunk(origin.shape[0], tri_v0.shape[0]))
-
-
-def _inst_replay(tri_slot, exp_tri, exp_inst, inst_fwd, inst_slot_map,
-                 origin, direction, dist, tri_v0, tri_e1, tri_e2, mat_color):
-    """B4's replay (JAX ``_make_cluster_shadow_inst`` bwd): the dense shadow
-    test over the expanded (instance, triangle) set, each triangle moved to
-    world space by its instance's object->world rows and its opacity
-    resolved through the instance's slot table."""
-    tri, inst = exp_tri.long(), exp_inst.long()
-    a = inst_fwd[inst].reshape(-1, 3, 4)
-    lin = a[:, :, :3]
-
-    def l2g(v):
-        v = v[tri]
-        return (lin[:, :, 0] * v[:, 0:1] + lin[:, :, 1] * v[:, 1:2]
-                + lin[:, :, 2] * v[:, 2:3])
-
-    w, c = triangle_frames_torch(l2g(tri_v0) + a[:, :, 3], l2g(tri_e1),
-                                 l2g(tri_e2))
-    mc = mat_color[inst_slot_map[inst, tri_slot[tri].long()].long()]
-    return project_shadow(origin, direction, dist, w, c, mc[:, :3],
-                          1.0 - mc[:, 3],
-                          chunk=_replay_chunk(origin.shape[0], tri.shape[0]))
-
-
-def _replay_chunk(r: int, f: int) -> int:
-    """Triangles per checkpointed replay chunk: 512 as in the JAX package,
-    fewer for wide wavefronts so that one chunk's [R, chunk] terms stay near
-    2^25 elements (128 at 512^2 rays)."""
-    return max(1, min(512, f, max(32, 2 ** 25 // max(r, 1))))
-
 
 def _fold_hits(hit, op, prod, zeros):
     """Walk 1 of the backward over one cluster: the hits ``hit`` [R, ct]
@@ -699,13 +644,10 @@ def _needs_grad(*xs) -> bool:
 def _check_soup_shadow(origin, direction, dist, box_tab, frames, op_tab):
     """The argument checks of B2 and B2-grad on a CUDA device. Returns
     (device, rays, table rows)."""
-    dev, r = origin.device, origin.shape[0]
-    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
-           dist=(dist, torch.float32), box_tab=(box_tab, torch.float32),
-           frames=(frames, torch.float32), op_tab=(op_tab, torch.float32))
-    cp = _check_tables(box_tab, frames, (
-        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
-        ("dist", dist, (r,)), ("op_tab", op_tab, (box_tab.shape[1], 4, CLUSTER_T))))
+    dev = _kernels.card(origin.device)
+    r = _check_rays(dev, origin, direction, dist=dist)
+    cp = _check_tables(dev, box_tab, frames)
+    _kernels.check(dev, "op_tab", op_tab, torch.float32, (cp, 4, CLUSTER_T))
     _aligned(frames=frames, op_tab=op_tab)
     return dev, r, cp
 
@@ -714,24 +656,23 @@ def _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox, frames,
                        cl_slot, op_tab):
     """The argument checks of B4 and B4-grad on a CUDA device. Returns
     (device, rays, instance rows)."""
-    dev, r = origin.device, origin.shape[0]
-    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
-           dist=(dist, torch.float32), ti_rows=(ti_rows, torch.float32),
-           cl_obox=(cl_obox, torch.float32), frames=(frames, torch.float32),
-           cl_slot=(cl_slot, torch.float32), op_tab=(op_tab, torch.float32))
-    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
-        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
-        ("dist", dist, (r,)), ("cl_slot", cl_slot, (cl_obox.shape[0], CLUSTER_T)),
-        ("op_tab", op_tab, (op_tab.shape[0], 4, SLOTS))))
+    dev = _kernels.card(origin.device)
+    r = _check_rays(dev, origin, direction, dist=dist)
+    ip = _check_inst_tables(dev, ti_rows, cl_obox, frames)
+    _kernels.check(dev, "cl_slot", cl_slot, torch.float32,
+                   (cl_obox.shape[0], CLUSTER_T))
+    _kernels.check(dev, "op_tab", op_tab, torch.float32,
+                   (op_tab.shape[0], 4, SLOTS))
     _aligned(frames=frames, cl_slot=cl_slot, op_tab=op_tab)
     return dev, r, ip
 
 
 def _check_cotangents(dev, r, g_rgb, g_a):
-    _check(dev, g_rgb=(g_rgb, torch.float32), g_a=(g_a, torch.float32))
-    _check_shapes((("g_rgb", g_rgb, (r, 3)), ("g_a", g_a, (r,))))
+    _kernels.check(dev, "g_rgb", g_rgb, torch.float32, (r, 3))
+    _kernels.check(dev, "g_a", g_a, torch.float32, (r,))
 
 
+@counted()
 def cluster_shadow_grad(origin, direction, dist, box_tab, frames, op_tab,
                         g_rgb, g_a, *, visits=None):
     """B2-grad: d_op_tab [Cp, 4, 128], the gradient of B2's product with
@@ -755,17 +696,14 @@ def cluster_shadow_grad(origin, direction, dist, box_tab, frames, op_tab,
     counts = _visit_buffer(visits, dev, r)
     d_op = torch.zeros_like(op_tab)
     if r:
-        _launch("cluster_shadow_grad", lib.rz_cluster_shadow_grad, dev,
+        _launch(cluster_shadow_grad, lib.rz_cluster_shadow_grad, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(g_rgb),
                 _ptr(g_a), _ptr(box_tab), _ptr(frames), _ptr(op_tab), r, cp,
                 _ptr(d_op), counts)
-        cluster_shadow_grad.launches += 1
     return d_op
 
 
-cluster_shadow_grad.launches = 0
-
-
+@counted()
 def cluster_shadow_inst_grad(origin, direction, dist, ti_rows, cl_obox, frames,
                              cl_slot, op_tab, g_rgb, g_a, *, visits=None):
     """B4-grad: d_op_tab [I, 4, 64], the gradient of B4's product with
@@ -790,15 +728,11 @@ def cluster_shadow_inst_grad(origin, direction, dist, ti_rows, cl_obox, frames,
     counts = _visit_buffer(visits, dev, r)
     d_op = torch.zeros_like(op_tab)
     if r:
-        _launch("cluster_shadow_inst_grad", lib.rz_cluster_shadow_inst_grad,
+        _launch(cluster_shadow_inst_grad, lib.rz_cluster_shadow_inst_grad,
                 dev, _ptr(origin), _ptr(direction), _ptr(dist), _ptr(g_rgb),
                 _ptr(g_a), _ptr(ti_rows), _ptr(cl_obox), _ptr(frames),
                 _ptr(cl_slot), _ptr(op_tab), r, ip, _ptr(d_op), counts)
-        cluster_shadow_inst_grad.launches += 1
     return d_op
-
-
-cluster_shadow_inst_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -865,13 +799,13 @@ def _shadow(origin, direction, dist, box_tab, frames, op_tab, visits=None):
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
-        _launch("cluster_shadow", lib.rz_cluster_shadow, dev,
+        _launch(cluster_shadow, lib.rz_cluster_shadow, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
                 _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts)
-        cluster_shadow.launches += 1
     return rgb, a
 
 
+@counted()
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                    count, op_rgb, op_a, *, tris=None, visits=None):
     """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
@@ -902,20 +836,22 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     return _shadow(origin, direction, dist, box_tab, frames, op_tab, visits)
 
 
-cluster_shadow.launches = 0
-
-
-def _check_inst_tables(ti_rows, cl_obox, frames, extra=()):
+def _check_inst_tables(dev, ti_rows, cl_obox, frames):
+    """B3's and B4's instance and cluster tables on ``dev``; returns their
+    instance rows Ip."""
     ip, cm = ti_rows.shape[0], cl_obox.shape[0]
     if (ti_rows.shape != (ip, TI_W) or ip % 128 or cl_obox.shape != (cm, 8)
             or frames.shape != (cm, 4, 3 * CLUSTER_T)):
         raise ValueError(f"instance tables disagree: ti_rows "
                          f"{tuple(ti_rows.shape)}, cl_obox {tuple(cl_obox.shape)}"
                          f", frames {tuple(frames.shape)}")
-    _check_shapes(extra)
+    for name, x in (("ti_rows", ti_rows), ("cl_obox", cl_obox),
+                    ("frames", frames)):
+        _kernels.check(dev, name, x, torch.float32)
     return ip
 
 
+@counted("rays")
 def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
                          frames, *, visits=None):
     """Two-level closest hit. Returns (t [R], tri_id [R] i32 in DEVICE
@@ -933,15 +869,9 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
         _count_plain(cluster_closest_inst, far > 0.0, ti_rows, visits)
         return out
     lib = _kernels.load()
-    dev = origin.device
-    r = origin.shape[0]
-    _check(dev, origin=(origin, torch.float32), direction=(direction, torch.float32),
-           near=(near, torch.float32), far=(far, torch.float32),
-           ti_rows=(ti_rows, torch.float32), cl_obox=(cl_obox, torch.float32),
-           frames=(frames, torch.float32))
-    ip = _check_inst_tables(ti_rows, cl_obox, frames, (
-        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
-        ("near", near, (r,)), ("far", far, (r,))))
+    dev = _kernels.card(origin.device)
+    r = _check_rays(dev, origin, direction, near=near, far=far)
+    ip = _check_inst_tables(dev, ti_rows, cl_obox, frames)
     _aligned(frames=frames)
     _ranked_smem(lib, dev, ip, kernel=3)
     counts = _visit_buffer(visits, dev, r)
@@ -950,17 +880,14 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     tid = torch.empty(r, dtype=torch.int32, device=dev)
     inst = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
-        _launch("cluster_closest_inst", lib.rz_cluster_closest_inst, dev,
+        _launch(cluster_closest_inst, lib.rz_cluster_closest_inst, dev,
                 _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
                 _ptr(ti_rows), _ptr(cl_obox), _ptr(frames), r, ip, _ptr(t),
                 _ptr(tid), _ptr(inst), counts, _ptr(work))
-        cluster_closest_inst.launches += 1
         cluster_closest_inst.rays += r
     return t, tid, inst
 
 
-cluster_closest_inst.launches = 0
-cluster_closest_inst.rays = 0
 cluster_closest_inst.work = WorkCounter()
 
 
@@ -983,15 +910,15 @@ def _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames, cl_slot,
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
-        _launch("cluster_shadow_inst", lib.rz_cluster_shadow_inst, dev,
+        _launch(cluster_shadow_inst, lib.rz_cluster_shadow_inst, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(ti_rows),
                 _ptr(cl_obox), _ptr(frames), _ptr(cl_slot), _ptr(op_tab), r, ip,
                 _ptr(rgb), _ptr(a), counts, _ptr(work))
-        cluster_shadow_inst.launches += 1
         cluster_shadow_inst.rays += r
     return rgb, a
 
 
+@counted("rays")
 def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
                         cl_slot, inst_slot_map, mat_color, *, tris=None,
                         expanded=None, visits=None):
@@ -1028,6 +955,4 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
                         cl_slot, op_tab, visits)
 
 
-cluster_shadow_inst.launches = 0
-cluster_shadow_inst.rays = 0
 cluster_shadow_inst.work = WorkCounter()

@@ -45,9 +45,9 @@ never touched, as in JAX.
   ``RuntimeError``.
 
 A captured kernel launches on every replay, but its wrapper's launch
-counter ran only while the step was captured; as in ``engine/cycle.py``,
-the step records what each counter of :data:`COUNTED` gained over the
-capture and adds it per replay.
+counter ran only while the step was captured; as in ``engine/cycle.py``
+(``capture``), the step records what each counter gained over the capture
+and adds it per replay.
 """
 from __future__ import annotations
 
@@ -60,8 +60,7 @@ from ..engine import cycle
 from ..engine.cycle import _int32, capture
 from ..engine.integrator import host_reads, render_steps_preserve
 from ..engine.state import _ARRAYS, RenderState
-from ..ops import gather, rng
-from ..ops import traverse_cluster as tc
+from ..ops import rng
 from ..utils.timing import span
 
 #: Scene leaves that receive gradients (the JAX package's list; each is
@@ -72,11 +71,6 @@ DIFF_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "mat_emission",
                "color_atlas", "scalar_atlas", "spot_emission", "dir_emission")
 
 _UNIT_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "color_atlas")
-
-#: the kernel wrappers whose host counters a replay advances: a
-#: render pass's, the shadow backwards and the gathers' backward
-COUNTED = cycle.COUNTED + (tc.cluster_shadow_grad, tc.cluster_shadow_inst_grad,
-                           gather.gather_rows_grad)
 
 
 def image_loss(scene, cam, cfg, state: RenderState, seed: int, target,
@@ -287,7 +281,7 @@ class _Step:
             # the warm-up's step (it also starts autograd's device thread)
             # goes into the output buffers, which the replay overwrites
             self._graph, self._per_replay = capture(
-                self._body, self._body, "training step: the step", COUNTED)
+                self._body, self._body, "training step: the step")
             self.captures += 1
             torch.cuda.synchronize()
         self.capture_ms = timed.ms

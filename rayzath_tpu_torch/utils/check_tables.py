@@ -27,6 +27,11 @@ opacities for the shadow walks (B2, B4).
 [t0, t1]), for the bounds and the made-against-needed checks;
 :func:`shadow_hits` / :func:`shadow_hits_inst` count the hits a shadow
 backward scatters (the ray and triangle pairs with t in (0, dist)).
+
+:func:`soup_replay` / :func:`inst_replay` are the JAX package's custom_vjp
+rules for B2 and B4, a dense replay of the shadow test through
+``ops/intersect.py`` ``project_shadow``: autograd through them is the
+oracle of the shadow walks' gradients.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from ..ops import _kernels
 from ..ops import traverse_cluster as tc
+from ..ops.intersect import project_shadow, triangle_frames_torch
 from ..ops.traverse_cluster import (B_BASE, B_CNT, B_MAX, B_MIN,
                                     build_cluster_tables,
                                     build_instance_tables)
@@ -364,3 +370,41 @@ def shadow_hits_inst(o, d, dist, ti_rows, cl_obox, frames) -> int:
             hits += int((tc._inside(b1, b2) & (t > 0.0)
                          & (t < dist[:, None])).sum())
     return hits
+
+
+def soup_replay(origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a):
+    """B2's replay (JAX ``_make_cluster_shadow`` bwd): the dense shadow test
+    over every soup triangle, frames built differentiably."""
+    w, c = triangle_frames_torch(tri_v0, tri_e1, tri_e2)
+    return project_shadow(origin, direction, dist, w, c, op_rgb, op_a,
+                          chunk=replay_chunk(origin.shape[0], tri_v0.shape[0]))
+
+
+def inst_replay(tri_slot, exp_tri, exp_inst, inst_fwd, inst_slot_map,
+                origin, direction, dist, tri_v0, tri_e1, tri_e2, mat_color):
+    """B4's replay (JAX ``_make_cluster_shadow_inst`` bwd): the dense shadow
+    test over the expanded (instance, triangle) set, each triangle moved to
+    world space by its instance's object->world rows and its opacity
+    resolved through the instance's slot table."""
+    tri, inst = exp_tri.long(), exp_inst.long()
+    a = inst_fwd[inst].reshape(-1, 3, 4)
+    lin = a[:, :, :3]
+
+    def l2g(v):
+        v = v[tri]
+        return (lin[:, :, 0] * v[:, 0:1] + lin[:, :, 1] * v[:, 1:2]
+                + lin[:, :, 2] * v[:, 2:3])
+
+    w, c = triangle_frames_torch(l2g(tri_v0) + a[:, :, 3], l2g(tri_e1),
+                                 l2g(tri_e2))
+    mc = mat_color[inst_slot_map[inst, tri_slot[tri].long()].long()]
+    return project_shadow(origin, direction, dist, w, c, mc[:, :3],
+                          1.0 - mc[:, 3],
+                          chunk=replay_chunk(origin.shape[0], tri.shape[0]))
+
+
+def replay_chunk(r: int, f: int) -> int:
+    """Triangles per checkpointed replay chunk: 512 as in the JAX package,
+    fewer for wide wavefronts so that one chunk's [R, chunk] terms stay near
+    2^25 elements (128 at 512^2 rays)."""
+    return max(1, min(512, f, max(32, 2 ** 25 // max(r, 1))))

@@ -1,16 +1,18 @@
 """The bounce's three stages (``engine/integrator.py`` ``_head``,
-``_surface``, ``_tail``) and their wrappers (``ops/bounce.py``) on the CPU.
+``_surface``, ``_tail``) and their kernel wrappers (``ops/bounce.py``) on
+the CPU.
 
-``bounce_step`` composes the stages around the walks; without autograd it
-calls the wrappers, which take the plain stages for CPU tensors and launch
-nothing. These tests hold:
+``bounce_step`` runs one sequence of stages around the walks; the
+integrator takes the kernel stages only on a card without autograd, so on
+the CPU it runs the plain stages and the wrappers, which have no CPU
+route, launch nothing. These tests hold:
 
-* the stages called one by one (``_head``, ``closest_hit``, ``_surface``,
-  the shadow walks, ``_tail``) equal to ``bounce_step`` bit for bit, with
-  autograd and without, on soup, textured, scattering, two-level and
-  cutout scenes;
-* the wrappers' CPU route equal to the plain stages, and their launch
-  counters unmoved on the CPU whatever the grad mode.
+* the stages called one by one (``_head``, ``_closest_walk``,
+  ``_surface``, the shadow walks, ``_tail``) equal to ``bounce_step`` bit
+  for bit, with autograd and without, on soup, textured, scattering,
+  two-level and cutout scenes, with no bounce launch counted;
+* each wrapper refusing CPU tensors (the kernel library's load raises
+  without a card; with one, the device check raises).
 
 That the stages equal the one-piece bounce they were cut from is held by
 the JAX parity tests (``test_torch_render.py``, ``test_torch_textures.py``,
@@ -60,9 +62,9 @@ def by_hand(scene, cam, cfg, state, u):
     """One bounce from the plain stages called one by one."""
     hw = (state.height, state.width)
     hd = I._head(scene, cam, state, u)
-    hit = I.closest_hit(scene, cfg, state.origin, state.direction, hd.near,
-                        hd.far_eff, hw=hw)
-    sf = I._surface(scene, cfg, state, u, hd, hit)
+    walk = I._closest_walk(scene, cfg, state.origin, state.direction,
+                           hd.near, hd.far_eff, hw=hw)
+    sf = I._surface(scene, cfg, state, u, hd, walk)
     vis = I._shadows(scene, cfg, sf, hw)
     assert len(vis) == len(sf.shadow_d) == len(sf.shadow_w)
     return I._tail(scene, cam, cfg, state, u, sf, vis, 0)
@@ -80,8 +82,8 @@ def assert_same(a, b):
 @pytest.mark.parametrize("grad", [True, False], ids=["autograd", "no_grad"])
 @pytest.mark.parametrize("name", WORLDS)
 def test_stages_compose_to_bounce_step(name, grad):
-    """_head -> closest_hit -> _surface -> shadows -> _tail, called by hand,
-    give bounce_step's state bit for bit over three bounces, and the
+    """_head -> _closest_walk -> _surface -> shadows -> _tail, called by
+    hand, give bounce_step's state bit for bit over three bounces, and the
     wrappers launch nothing on the CPU."""
     scene, cam, cfg = setup(name)
     state = init_state(RES, RES, "cpu")
@@ -94,39 +96,36 @@ def test_stages_compose_to_bounce_step(name, grad):
     assert [f.launches for f in STAGES] == start
 
 
-@pytest.mark.parametrize("name", ["textured_room", "instanced_field"])
-def test_wrappers_take_the_plain_stages_on_the_cpu(name):
-    """On CPU tensors each wrapper returns its plain stage's values, in the
-    plain stage's form, and counts no launch."""
+def stage_args(name):
+    """Each wrapper's arguments on CPU tensors, from the plain stages of
+    one bounce of ``name``."""
     scene, cam, cfg = setup(name)
     state = init_state(RES, RES, "cpu")
-    us = uniforms(scene, cfg, 3, seed=5)
+    u = uniforms(scene, cfg, 1)[0]
+    lights = I.light_samples(cfg, scene)
     with torch.no_grad():
-        for u in us[:2]:
-            state = I.bounce_step(scene, cam, cfg, state, u=u)
-        u = us[2]
-        start = [f.launches for f in STAGES]
-        hd = bounce.bounce_head(scene, cam, state, u)
-        hd_p = I._head(scene, cam, state, u)
-        for f in I.Head._fields:
-            assert torch.equal(getattr(hd, f), getattr(hd_p, f)), f
-        o, d = state.origin, state.direction
-        walk = I._closest_walk(scene, cfg, o, d, hd.near, hd.far_eff,
-                               hw=(RES, RES))
-        sf = bounce.bounce_surface(scene, cfg, state, u, hd, walk)
-        sf_p = I._surface(scene, cfg, state, u, hd_p, I.closest_hit(
-            scene, cfg, o, d, hd.near, hd.far_eff, hw=(RES, RES)))
-        for f in I.Surface._fields:
-            a, b = getattr(sf, f), getattr(sf_p, f)
-            if isinstance(a, tuple):
-                assert len(a) == len(b) > 0 and all(
-                    torch.equal(x, y) for x, y in zip(a, b)), f
-            else:
-                assert torch.equal(a, b), f
+        hd = I._head(scene, cam, state, u)
+        walk = I._closest_walk(scene, cfg, state.origin, state.direction,
+                               hd.near, hd.far_eff, hw=(RES, RES))
+        sf = I._surface(scene, cfg, state, u, hd, walk)
         vis = I._shadows(scene, cfg, sf, (RES, RES))
-        assert_same(bounce.bounce_tail(scene, cam, cfg, state, u, sf, vis),
-                    I._tail(scene, cam, cfg, state, u, sf, vis, 0))
-        assert [f.launches for f in STAGES] == start
+    return {bounce.bounce_head: (scene, cam, state, u, hd.mp),
+            bounce.bounce_surface: (scene, state, u, hd, walk, lights),
+            bounce.bounce_tail: (scene, cam, state, u, sf, vis, lights,
+                                 cfg.tracing.max_depth)}
+
+
+@pytest.mark.parametrize("stage", STAGES, ids=lambda f: f.__name__)
+def test_bounce_wrappers_refuse_tensors_off_a_card(stage):
+    """A wrapper called with CPU tensors raises and counts no launch: the
+    kernel library's load first (no card, no nvcc here), else the device
+    check. There is no CPU route."""
+    args = stage_args("textured_room")[stage]
+    start = stage.launches
+    with torch.no_grad(), pytest.raises(
+            ValueError if torch.cuda.is_available() else RuntimeError):
+        stage(*args)
+    assert stage.launches == start
 
 
 def test_renderer_on_the_cpu_launches_no_bounce_kernel():

@@ -1468,7 +1468,8 @@ def test_bounce_kernels_match_plain_stages(cuda, name):
     """The same numpy uniforms through bounce_step on the card without
     autograd (the kernels of csrc/bounce.cu) and with it (the plain torch
     stages), 5 bounces at 48^2: from each plain state the head kernel's
-    outputs equal ``_head``'s bit for bit and the next state's direction,
+    outputs (``integrator._head_kernel``, the wrapper ``bounce_head``)
+    equal ``_head``'s bit for bit and the next state's direction,
     throughput, medium and path depth differ on at most
     BOUNCE_FLIP_SHARE of the rays; the two chains' accumulations match by
     ``images_match``."""
@@ -1490,7 +1491,7 @@ def test_bounce_kernels_match_plain_stages(cuda, name):
         hd_p = I._head(scene, cam, plain, u)
         start = [f.launches for f in stages]
         with torch.no_grad():
-            hd = bounce.bounce_head(scene, cam, plain, u)
+            hd = I._head_kernel(scene, cam, plain, u)
             step = I.bounce_step(scene, cam, cfg, plain, u=u)
             fused = I.bounce_step(scene, cam, cfg, fused, u=u)
         assert [f.launches - s for f, s in zip(stages, start)] == [3, 2, 2]

@@ -7,15 +7,20 @@ counter per block.
 On the CPU: the plain versions' counts equal the sums of their per-ray
 ``visits``, a render counts each pass's rays, a captured graph's replays
 advance ``rays`` as they advance ``launches`` (``torch.cuda``'s graph API
-replaced by recorders), and a soup scene counts nothing. On a card
+replaced by recorders), every kernel wrapper of ``ops/`` launches through
+``_kernels.launch`` and is in its registry, whose every counter a capture
+and its replays advance, and a soup scene counts nothing. On a card
 (skipped without one; the file imports no jax, so run it there with
 ``python -m pytest --noconftest tests/test_torch_inst_counters.py``): the
 counters of a replayed graph equal its ``visits`` buffers' sums, B3's and
 B4's outputs are the same bits with and without counting, and a soup
 render leaves the counters at zero while a two-level render moves them.
 """
+import ast
 import contextlib
+import importlib
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ import torch
 import rayzath_tpu_torch as rt
 from rayzath_tpu_torch.engine import cycle
 from rayzath_tpu_torch.models import device_scene as tds
+from rayzath_tpu_torch.ops import _kernels
 from rayzath_tpu_torch.ops import camera as cam_ops
 from rayzath_tpu_torch.ops import traverse_cluster as tc
 from rayzath_tpu_torch.ops.intersect import BIG
@@ -157,6 +163,79 @@ def test_replays_advance_the_ray_counters(fake_graphs):
     cycle.advance(per_replay, 5)
     assert [(f.launches, f.rays) for f in WRAPPERS] == [
         (before[0][0], before[0][1] + 1000), (before[1][0], before[1][1] + 2000)]
+
+
+#: the library's entries that launch nothing: sizes and the error text
+QUERIES = {"rz_ranked_smem", "rz_gather_grad_partials", "rz_ray_sort_partials",
+           "rz_error_string"}
+
+
+def launch_sites():
+    """(wrappers named by the ``_kernels.launch`` calls of ``ops/``, the
+    library entries they launch, every ``rz_*`` entry ``ops/`` names)."""
+    wrappers, launched, named = set(), set(), set()
+    for path in sorted(Path(_kernels.__file__).parent.glob("*.py")):
+        module = importlib.import_module(f"rayzath_tpu_torch.ops.{path.stem}")
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute) and node.attr.startswith("rz_"):
+                named.add(node.attr)
+            fn = getattr(node, "func", None)
+            if isinstance(fn, ast.Name):
+                target = getattr(module, fn.id, None)
+            elif isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name):
+                target = getattr(getattr(module, fn.value.id, None), fn.attr,
+                                 None)
+            else:
+                continue
+            if target is _kernels.launch:
+                wrappers.add(getattr(module, node.args[0].id))
+                launched.add(node.args[1].attr)
+    return wrappers, launched, named
+
+
+def test_capture_advances_every_registered_counter(fake_graphs, monkeypatch):
+    """Every wrapper that launches through ``_kernels.launch`` is in
+    ``_kernels.COUNTED`` (all 14, and no other), every kernel entry of
+    the library is launched through it, and a capture leaves each
+    registered counter as it was while ``advance`` gives it n times its
+    per-replay gain."""
+    wrappers, launched, named = launch_sites()
+    assert wrappers == set(_kernels.COUNTED) and len(wrappers) == 14
+    assert launched == named - QUERIES == set(_kernels._SIGNATURES) - QUERIES
+    assert len(launched) == 14
+    assert {c for names in _kernels.COUNTED.values() for c in names} == {
+        "launches", "rays"}
+
+    class Stream:
+        cuda_stream = 0
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    gains = {(f, c): k for k, (f, c) in enumerate(
+        ((f, c) for f, names in _kernels.COUNTED.items() for c in names), 1)}
+    for f, c in gains:
+        monkeypatch.setattr(f, c, getattr(f, c))    # restored afterwards
+
+    def body():
+        for (f, c), k in gains.items():
+            for _ in range(k):
+                if c == "launches":
+                    _kernels.launch(f, lambda stream: 0, torch.device("cpu"))
+                else:
+                    setattr(f, c, getattr(f, c) + 1)
+
+    before = {fc: getattr(*fc) for fc in gains}
+    _, per_replay = cycle.capture(lambda: None, body, "test")
+    assert {fc: getattr(*fc) for fc in gains} == before
+    assert {(f, c): k for f, c, k in per_replay} == gains
+    cycle.advance(per_replay, 3)
+    assert {fc: getattr(*fc) - before[fc] for fc in gains} == {
+        fc: 3 * k for fc, k in gains.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,6 @@ from rayzath_tpu_torch.engine.state import (init_state, load_state,  # noqa: E40
                                             save_state, _ARRAYS)
 from rayzath_tpu_torch.models import device_scene as tds  # noqa: E402
 from rayzath_tpu_torch.ops import rng  # noqa: E402
-from rayzath_tpu_torch.ops import gather  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as tc  # noqa: E402
 from rayzath_tpu_torch.parallel import distributed as D  # noqa: E402
 from rayzath_tpu_torch.parallel import mesh as M  # noqa: E402
@@ -338,9 +337,9 @@ def test_launches_go_to_the_tensors_device(monkeypatch):
     """Each of B1-B4, and each G1 gather of the shadow kernels' opacity
     tables, launches inside ``torch.cuda.device(d)`` on
     ``torch.cuda.current_stream(d)``, d the device of its tensors. The
-    tensors live on the meta device; the kernel library, the device checks,
-    the shared-memory query, the device context and the stream lookup are
-    recorders."""
+    tensors live on the meta device; the kernel library, the check for a
+    CUDA device (``_kernels.card``), the shared-memory query, the device
+    context and the stream lookup are recorders."""
     seen = {"ctx": [], "stream": [], "calls": []}
 
     class Lib:
@@ -363,8 +362,7 @@ def test_launches_go_to_the_tensors_device(monkeypatch):
         return Stream()
 
     monkeypatch.setattr(tc._kernels, "load", lambda: Lib())
-    monkeypatch.setattr(tc, "_check", lambda dev, **tensors: None)
-    monkeypatch.setattr(gather, "_check_device", lambda dev: None)
+    monkeypatch.setattr(tc._kernels, "card", lambda dev: dev)
     monkeypatch.setattr(tc, "_ranked_smem", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "device", device_ctx)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)

@@ -92,10 +92,10 @@ def run_both(monkeypatch, make, n_passes, max_depth, packet, seed=3):
     n = scene.n_triangles
     tris = [x[:n].numpy() for x in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
     bounces = []
-    closest_hit = tint.closest_hit
+    closest_walk = tint._closest_walk
 
     def pinned(scene, cfg, o, d, near, far, hw=None):
-        out = closest_hit(scene, cfg, o, d, near, far, hw=hw)
+        out = closest_walk(scene, cfg, o, d, near, far, hw=hw)
         rays = [x.detach().numpy() for x in (o, d, near, far)]
         ids = oracle.mt_closest(*rays, *tris)[1]
         chaotic = (closest_f64(*rays[:2], *tris, *rays[2:])[1]
@@ -103,7 +103,7 @@ def run_both(monkeypatch, make, n_passes, max_depth, packet, seed=3):
         bounces.append((out[1].numpy(), ids, chaotic))
         return out
 
-    monkeypatch.setattr(tint, "closest_hit", pinned)
+    monkeypatch.setattr(tint, "_closest_walk", pinned)
     key = rng.key(seed)
     ns = tint.n_streams(cfg, scene)
     state = init_state(RES, RES, device="cpu")

@@ -37,6 +37,7 @@ from rayzath_tpu.models import device_scene as jds  # noqa: E402
 from rayzath_tpu.ops import traverse_cluster as jtc  # noqa: E402
 
 from rayzath_tpu_torch.ops import traverse_cluster as ttc  # noqa: E402
+from rayzath_tpu_torch.utils import check_tables  # noqa: E402
 from rayzath_tpu_torch.utils.parity import closest_f64, expand_instances  # noqa: E402
 
 from test_torch_gradients import (assert_grads_match, both_grads,  # noqa: E402
@@ -263,13 +264,14 @@ def _port_and_replay_grads(ts, o, d, dist, g):
         fn = ttc.cluster_shadow_inst(o, d, dist, ts.ti_rows, ts.cl_obox,
                                      ts.cl_lw, ts.cl_slot, ts.inst_slot_map,
                                      mc, tris=tris, expanded=expanded)
-        ref = ttc._inst_replay(*expanded, ts.inst_slot_map, o, d, dist, *tris,
-                               mc_r)
+        ref = check_tables.inst_replay(*expanded, ts.inst_slot_map, o, d,
+                                       dist, *tris, mc_r)
     else:
         fn = ttc.cluster_shadow(o, d, dist, ts.cl_box, ts.cl_lw, ts.cl_order,
                                 ts.cl_base, ts.cl_count, *_mat_op(mc, tri_mat),
                                 tris=tris)
-        ref = ttc._soup_replay(o, d, dist, *tris, *_mat_op(mc_r, tri_mat))
+        ref = check_tables.soup_replay(o, d, dist, *tris,
+                                      *_mat_op(mc_r, tri_mat))
     got, = torch.autograd.grad(fn, mc, g)
     want, = torch.autograd.grad(ref, mc_r, g)
     return fn[1].detach(), got.numpy(), want.numpy()
@@ -281,7 +283,8 @@ def _port_and_replay_grads(ts, o, d, dist, g):
 def test_function_grads_match_dense_replay_and_jax(kind, case):
     """mat_color gradients of the B2 / B4 Functions (B2-grad / B4-grad's
     plain versions: two walks of the cluster tables, no alpha stop) against
-    autograd through the dense replay (``_soup_replay`` / ``_inst_replay``)
+    autograd through the dense replay (``check_tables.soup_replay`` /
+    ``inst_replay``)
     and ``jax.vjp`` of the JAX entry points, on translucent worlds; the
     cotangent is zero only on f64-chaotic rays, so blocked rays (alpha below
     1e-4) and the products behind opaque hits count too."""

@@ -71,7 +71,7 @@ def graphed(monkeypatch):
     synchronize do nothing."""
     graphs = []
 
-    def capture(warm_up, body, what, counted=tcycle.COUNTED):
+    def capture(warm_up, body, what):
         graphs.append(FakeGraph())
         return graphs[-1], ()
 
