@@ -893,13 +893,38 @@ def phase_shadow_tables(dev):
               f"{staged:.2f} clusters staged per block", flush=True)
 
 
+def walk_stats(fn, r: int):
+    """(cluster tests per ray; staged clusters, groups entered and slab
+    tests per block) of one B1 or B2 call ``fn(visits)`` with the full
+    visit counter (off the main path)."""
+    import torch
+    blocks = -(-r // 128)
+    visits = torch.zeros(r + 3 * blocks, dtype=torch.int32, device="cuda")
+    fn(visits)
+    torch.cuda.synchronize()
+    per_block = visits[r:].reshape(3, blocks).double().mean(1).tolist()
+    return (float(visits[:r].sum()) / r, *per_block)
+
+
+def stats_text(stats) -> str:
+    tests, staged, groups, slabs = stats
+    return (f"tests per ray {tests:.3f}, per block {staged:.2f} clusters "
+            f"staged, {groups:.2f} groups entered, {slabs:.0f} slab tests")
+
+
 def phase_massive(card: str, dev):
-    """B1 and B2 on mesh_massive, whose cluster table is larger than one
-    ranked window: camera rays and bounce-like rays from their first hits
-    (found by the kernel), in the integrator's order; B1 bit for bit and B2
-    (dist = BIG, the scene's opacities and half of them at alpha 0.5) to
-    the forward gate, against the plain versions on every 64th ray (all of
-    them would take ~30 s a call), timed, with the visits made per ray."""
+    """B1 and B2 on mesh_massive, whose cluster table (5,632 rows) is above
+    the grouped line: camera rays and bounce-like rays from their first
+    hits (found by the kernel), in the integrator's order; B1 on the
+    grouped walk (as the integrator launches it, ``groups=``) bit for bit
+    to the plain version and to the flat walk, B2 (dist = BIG, the scene's
+    opacities and half of them at alpha 0.5) to the forward gate, against
+    the plain versions on every 64th ray (all of them would take ~30 s a
+    call). Both walks timed (device ms), with the cluster tests per ray
+    made against needed (B1; B2 opaque: to the first hit), and per block
+    the clusters staged, groups entered and slab tests; then each kernel's
+    registers, shared bytes and blocks per SM on both walks, and
+    mesh_heavy (768 rows, below the line) timed on both walks."""
     import numpy as np
     import torch
     import rayzath_tpu_torch as rt
@@ -909,7 +934,8 @@ def phase_massive(card: str, dev):
                                            triangle_aabbs)
     from rayzath_tpu_torch.ops.intersect import BIG
     from rayzath_tpu_torch.ops.traverse import build_aabb_links, leaf_table
-    from rayzath_tpu_torch.utils.cuda_timing import call_ms
+    from rayzath_tpu_torch.utils import check_tables as ct
+    from rayzath_tpu_torch.utils.cuda_timing import device_ms
     t0 = time.perf_counter()
     world = rt.scenes.mesh_massive(RES, RES)
     scene = compile_world(world, device=dev)
@@ -926,65 +952,142 @@ def phase_massive(card: str, dev):
                                          bvh.node_axis))
     leaf_table(bvh.node_begin, bvh.node_count, 8)
     tables = time.perf_counter() - t0
-    tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
     r = RES * RES
+    cp = scene.cl_box.shape[1]
     real = int((scene.cl_box[tc.B_CNT] > 0).sum())
-    print(f"mesh_massive: {n} triangles, {real} clusters, compiled in "
+    print(f"mesh_massive: {n} triangles, {real} clusters in {cp} rows, "
+          f"{scene.cl_group.shape[1]} group rows, compiled in "
           f"{compiled:.2f} s; the skip-link tables of a {bvh.n_nodes}-node BVH "
           f"of them take {tables:.3f} s ({100 * tables / compiled:.1f}% of the "
           f"compile)", flush=True)
+    if cp <= tc.GROUPED_ROWS:
+        raise AssertionError(f"mesh_massive: {cp} rows, not above the grouped "
+                             f"line {tc.GROUPED_ROWS}")
+    for kernel in ("closest", "shadow"):
+        for grouped in (False, True):
+            res = tc.walk_resources(kernel, cp, grouped)
+            print(f"  {'B1' if kernel == 'closest' else 'B2'} "
+                  f"{'grouped' if grouped else 'flat'} walk on {cp} rows: "
+                  f"{res['registers']} registers, {res['smem_bytes']} B of "
+                  f"shared memory, {res['blocks_per_sm']} blocks per SM "
+                  f"[{card}]", flush=True)
+    tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
+    grp = scene.cl_group
     o, d = world_rays(world, dev)
     near = torch.zeros(r, device=dev)
     far = torch.full((r,), 1e30, device=dev)
-    t = tc.cluster_closest(o, d, near, far, *tabs)[0]
+    t = tc.cluster_closest(o, d, near, far, *tabs, groups=grp)[0]
     p = torch.where(((t > 0) & (t < 1e30))[:, None],
                     o + d * (t * 0.9999)[:, None], o)
     v = np.random.default_rng(29).normal(size=(r, 3))
     v = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
     sub = torch.arange(0, r, 64, device=dev)
+    zero = torch.zeros(r, device=dev)
     for set_name, (o_s, d_s) in (("camera", (o, d)),
                                  ("bounce", (p.contiguous(),
                                              torch.as_tensor(v, device=dev)))):
         o_s, d_s, (n_s, f_s) = coherent_order(scene, o_s, d_s, (near, far))
-        got = tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs)
+        before = tc.cluster_closest.grouped
+        got = tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs, groups=grp)
+        if tc.cluster_closest.grouped != before + 1:
+            raise AssertionError("mesh_massive: B1 did not take the grouped walk")
+        flat = tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs)
         t_p, rid_p = tc.cluster_closest_plain(o_s[sub], d_s[sub], n_s[sub],
                                               f_s[sub], scene.cl_box,
                                               scene.cl_lw)
         torch.cuda.synchronize()
         assert_bits(f"mesh_massive/{set_name}", [x[sub] for x in got],
                     (t_p, tc._map_ids(rid_p, scene.cl_order)))
-        ms = call_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs), 10)
-        made, staged = visits_made(lambda v: tc.cluster_closest(
-            o_s, d_s, n_s, f_s, *tabs, visits=v), r)
+        assert_bits(f"mesh_massive/{set_name} grouped vs flat", got, flat)
+        needed = ct.needed_soup(o_s, d_s, n_s, got[0], scene.cl_box)[0] / r
+        for walk, g in (("grouped", grp), ("flat", None)):
+            ms = device_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs,
+                                                      groups=g))
+            stats = walk_stats(lambda vv: tc.cluster_closest(
+                o_s, d_s, n_s, f_s, *tabs, groups=g, visits=vv), r)
+            print(f"  mesh_massive/{set_name}: B1 {walk} {ms:.3f} ms "
+                  f"[{card}], {stats_text(stats)} ({needed:.3f} tests per ray "
+                  f"needed)", flush=True)
         print(f"  mesh_massive/{set_name}: B1 hits {int((got[1] >= 0).sum())}"
-              f"/{r}, plain on {len(sub)} rays bit for bit; {ms:.3f} ms "
-              f"[{card}], visits per ray {made:.3f}, clusters staged per "
-              f"block {staged:.2f}", flush=True)
+              f"/{r}, plain on {len(sub)} rays and the flat walk bit for bit",
+              flush=True)
         big = torch.full((r,), BIG, device=dev)
+        t_hit = torch.where(got[1] >= 0, got[0], big)
         for label, mc in (("", scene.mat_color),
                           (",alpha=0.5", half_translucent(scene.mat_color))):
             mat = mc[scene.tri_mat.long()]
             op = (mat[:, :3].contiguous(), (1.0 - mat[:, 3]).contiguous())
             shadow = (scene.cl_box, scene.cl_lw, scene.cl_order, scene.cl_base,
                       scene.cl_count, *op)
-            got = tc.cluster_shadow(o_s, d_s, big, *shadow)
+            before = tc.cluster_shadow.grouped
+            got2 = tc.cluster_shadow(o_s, d_s, big, *shadow, groups=grp)
+            if tc.cluster_shadow.grouped != before + 1:
+                raise AssertionError("mesh_massive: B2 did not take the "
+                                     "grouped walk")
             ref = tc.cluster_shadow_plain(
                 o_s[sub], d_s[sub], big[sub], scene.cl_box, scene.cl_lw,
                 tc.cluster_opacity(*op, scene.cl_order, scene.cl_base,
                                    scene.cl_count))
             torch.cuda.synchronize()
             err = shadow_gate(f"mesh_massive/{set_name}/dist=BIG{label} B2",
-                              [x[sub] for x in got], ref)
-            ms = call_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow), 10)
-            made, staged = visits_made(lambda v: tc.cluster_shadow(
-                o_s, d_s, big, *shadow, visits=v), r)
+                              [x[sub] for x in got2], ref)
             part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
+            to_hit = ""
+            if not label:
+                need2 = ct.needed_soup(o_s, d_s, zero, t_hit, scene.cl_box)[0]
+                to_hit = f" ({need2 / r:.3f} tests per ray needed to the first hit)"
+            for walk, g in (("grouped", grp), ("flat", None)):
+                ms = device_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow,
+                                                         groups=g))
+                stats = walk_stats(lambda vv: tc.cluster_shadow(
+                    o_s, d_s, big, *shadow, groups=g, visits=vv), r)
+                print(f"  mesh_massive/{set_name}/dist=BIG{label}: B2 {walk} "
+                      f"{ms:.3f} ms [{card}], {stats_text(stats)}{to_hit}",
+                      flush=True)
             print(f"  mesh_massive/{set_name}/dist=BIG{label}: B2 partial "
                   f"{part}/{len(sub)} on the plain's rays, max |d rgba| "
-                  f"{err:.3e}; {ms:.3f} ms [{card}], visits per ray "
-                  f"{made:.3f}, clusters staged per block {staged:.2f}",
-                  flush=True)
+                  f"{err:.3e}", flush=True)
     del scene, world
+    torch.cuda.empty_cache()
+    # mesh_heavy, below the line: both walks (the grouped one forced by
+    # moving the line), for the next move of the line
+    scene, (o, d), (bo, bd) = scene_rays("mesh_heavy", dev)
+    tabs = (scene.cl_box, scene.cl_lw, scene.cl_order)
+    line = tc.GROUPED_ROWS
+    for set_name, (o_s, d_s) in (("camera", (o, d)), ("bounce", (bo, bd))):
+        r = o_s.shape[0]
+        near = torch.zeros(r, device=dev)
+        far = torch.full((r,), 1e30, device=dev)
+        big = torch.full((r,), BIG, device=dev)
+        o_s, d_s, (n_s, f_s) = coherent_order(scene, o_s, d_s, (near, far))
+        mat = scene.mat_color[scene.tri_mat.long()]
+        shadow = (scene.cl_box, scene.cl_lw, scene.cl_order, scene.cl_base,
+                  scene.cl_count, mat[:, :3].contiguous(),
+                  (1.0 - mat[:, 3]).contiguous())
+        times = {}
+        try:
+            for walk, rows in (("flat", line), ("grouped", 0)):
+                tc.GROUPED_ROWS = rows
+                got = tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs,
+                                         groups=scene.cl_group)
+                times[walk] = (
+                    device_ms(lambda: tc.cluster_closest(
+                        o_s, d_s, n_s, f_s, *tabs, groups=scene.cl_group)),
+                    device_ms(lambda: tc.cluster_shadow(
+                        o_s, d_s, big, *shadow, groups=scene.cl_group)))
+                if walk == "flat":
+                    flat = got
+                else:
+                    assert_bits(f"mesh_heavy/{set_name} grouped vs flat", got,
+                                flat)
+        finally:
+            tc.GROUPED_ROWS = line
+        print(f"  mesh_heavy/{set_name} ({scene.cl_box.shape[1]} rows): B1 "
+              f"flat {times['flat'][0]:.3f} ms, grouped "
+              f"{times['grouped'][0]:.3f} ms; B2 dist=BIG flat "
+              f"{times['flat'][1]:.3f} ms, grouped {times['grouped'][1]:.3f} "
+              f"ms [{card}]", flush=True)
+    del scene
     torch.cuda.empty_cache()
 
 

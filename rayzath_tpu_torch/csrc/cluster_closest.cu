@@ -52,6 +52,20 @@
 //   buffer just tested.
 // - Tables larger than RANK_MAX rows are ranked and walked in consecutive
 //   windows of rows; the tie key keeps the result exact across windows.
+// - Grouped walk (a table above the host's line, ops/traverse_cluster.py
+//   GROUPED_ROWS): on mesh_massive's 5,632 rows the flat rank computed
+//   5,632 bounds and sorted 4,096 + 2,048 keys per block, and a block with
+//   an escaping ray (reach = far) voted on every row: each live ray slab-
+//   tested all of them. The block now ranks and votes on the group table
+//   (one row per 32 consecutive cluster rows, their union box: 176 rows),
+//   and sweeps the real rows of each group it enters in table order as
+//   one batch: the rays that need the group vote on each row with their
+//   exact gate and the marked rows are visited as above. (Ranking a
+//   group's rows by the bounds of the rays that need it, a warp sort, took
+//   28% longer on mesh_massive's bounce rays: its barriers cost more than
+//   the order saved; PERF.md.) A group's f32 slab interval holds each of its
+//   rows', so a ray that needs a row needs its group, and the stop vote
+//   holds at the group level; the tie key keeps the table-order answer.
 // The gate keeps `tmin <= best_t` with equality and a GATE_PAD slack
 // (rz_cluster.cuh gate_t), so a tied cluster is still visited. The rank
 // bounds entries at t >= 0 only: a block with a ray of near < 0 (a camera
@@ -66,15 +80,21 @@ namespace {
 
 using namespace rz;
 
+// GROUPED: the walk through the group table grp (walk_grouped), else the
+// flat walk of box_tab in windows; COUNT (grouped only): count each block's
+// groups entered and its rays' slab tests into stats.
+template <bool GROUPED, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
 closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ direction,
                const float* __restrict__ near_in,
                const float* __restrict__ far_in,
                const float* __restrict__ box,
-               const float* __restrict__ frames, int n_rays, int cp,
+               const float* __restrict__ frames,
+               const float* __restrict__ grp, int n_rays, int cp, int gp,
                int list_rows, float* __restrict__ t_out,
-               int* __restrict__ id_out, int* __restrict__ visits) {
+               int* __restrict__ id_out, int* __restrict__ visits,
+               int* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
@@ -100,11 +120,16 @@ closest_kernel(const float* __restrict__ origin,
   Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
-  auto need = [&](int c) {
+  int n_slabs = 0;  // this ray's slab tests (COUNT)
+
+  // the exact slab gate of row `row` of an [8][n] table (clusters or groups)
+  auto gate = [&](const float* tab, int n, int row) {
+    if (COUNT) ++n_slabs;
     float tmin, tmax;
-    slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    slab(tab, n, row, ox, oy, oz, ix, iy, iz, tmin, tmax);
     return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
   };
+  auto need = [&](int c) { return gate(box, cp, c); };
   auto cur_best = [&]() { return best_t; };
   auto center = [&](int c, float* ctr) {
 #pragma unroll
@@ -137,12 +162,21 @@ closest_kernel(const float* __restrict__ origin,
   store_ray(sh, o, d, near);
 
   if (__syncthreads_or(active)) {
-    for (int w0 = 0; w0 < cp; w0 += list_rows) {
-      const int n = min(list_rows, cp - w0);
-      const Bounds b = block_bounds(sh, active, o, d, near, best_t);
-      const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
-      walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
-                    cur_best, center, NoSide{}, ClosestTest{sh}, apply);
+    if constexpr (GROUPED) {
+      walk_grouped(
+          sh, w, grp, gp, list_rows, active, frames, block_visits,
+          COUNT ? stats + blockIdx.x : nullptr,
+          [&] { return block_bounds(sh, active, o, d, near, best_t); },
+          [&](int g) { return gate(grp, gp, g); }, need, cur_best, center,
+          NoSide{}, ClosestTest{sh}, apply);
+    } else {
+      for (int w0 = 0; w0 < cp; w0 += list_rows) {
+        const int n = min(list_rows, cp - w0);
+        const Bounds b = block_bounds(sh, active, o, d, near, best_t);
+        const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
+        walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
+                      cur_best, center, NoSide{}, ClosestTest{sh}, apply);
+      }
     }
   }
   if (in_range) {
@@ -150,26 +184,37 @@ closest_kernel(const float* __restrict__ origin,
     id_out[ray] = best_id;
     if (visits) visits[ray] = n_tests;
   }
+  if (COUNT) atomicAdd(stats + gridDim.x + blockIdx.x, n_slabs);
 }
 
 }  // namespace
 
-// visits: null on the render path; else int[n_rays + blocks] that receives
-// each ray's cluster tests and each block's staged clusters.
+// grp: null for the flat walk; else the group table [8][gp] of box_tab,
+// walked with walk_grouped. visits: null on the render path; else
+// int[n_rays + blocks] that receives each ray's cluster tests and each
+// block's staged clusters. stats: null on the render path; else
+// int[2 * blocks] that receives each block's group rows entered, then the
+// slab tests of its rays (box and group gates), on the grouped walk only
+// (the flat walk leaves them 0).
 extern "C" int rz_cluster_closest(const float* origin, const float* direction,
                                   const float* near, const float* far,
                                   const float* box_tab, const float* frames,
-                                  int n_rays, int cp, float* t_out,
-                                  int* id_out, int* visits, void* stream) {
+                                  const float* grp, int n_rays, int cp,
+                                  int gp, float* t_out, int* id_out,
+                                  int* visits, int* stats, void* stream) {
   if (n_rays <= 0) return 0;
+  if (grp == nullptr) gp = 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  const int list_rows = rank_rows_for(cp);
-  const size_t smem = kernel_smem(1, cp);
-  cudaError_t err = allow_smem(closest_kernel, smem);
+  const int list_rows = rank_rows_for(gp > 0 ? gp : cp);
+  const size_t smem = gp > 0 ? grouped_smem(1, gp) : kernel_smem(1, cp);
+  const auto kernel = gp == 0 ? closest_kernel<false, false>
+                      : stats ? closest_kernel<true, true>
+                              : closest_kernel<true, false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  closest_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      origin, direction, near, far, box_tab, frames, n_rays, cp, list_rows,
-      t_out, id_out, visits);
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      origin, direction, near, far, box_tab, frames, grp, n_rays, cp, gp,
+      list_rows, t_out, id_out, visits, stats);
   return (int)cudaGetLastError();
 }
 
@@ -179,6 +224,23 @@ extern "C" int rz_ranked_smem(int table_rows, int kernel) {
   return (int)rz::kernel_smem(kernel, table_rows);
 }
 
+// Dynamic shared memory of B1 or B2 (kernel 1, 2) on the grouped walk over
+// gp group rows.
+extern "C" int rz_grouped_smem(int gp, int kernel) {
+  return (int)rz::grouped_smem(kernel, gp);
+}
+
 extern "C" const char* rz_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Resources of a launch over cp cluster rows, flat (gp = 0) or grouped over
+// gp group rows: out[0] registers per thread, out[1] dynamic shared bytes,
+// out[2] resident blocks per SM.
+extern "C" int rz_closest_resources(int cp, int gp, int* out) {
+  const size_t smem = gp > 0 ? grouped_smem(1, gp) : kernel_smem(1, cp);
+  const auto kernel = gp > 0 ? closest_kernel<true, false> : closest_kernel<false, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return walk_resources(kernel, smem, out);
 }

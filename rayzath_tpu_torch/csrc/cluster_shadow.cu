@@ -43,6 +43,13 @@
 // - Double-buffered staging: the next marked cluster's frames and opacity
 //   block stream into the other shared buffers as one cp.async group while
 //   the current one is tested.
+// - A table above the host's grouped line is walked through its group
+//   table as B1 walks it (walk_grouped): rank and vote on groups of 32
+//   rows, then sweep the rows of each group entered; a live ray marks a
+//   group when its exact slab gate on (0, dist) passes the group's box,
+//   which holds every row's. A shadow ray that is not blocked has
+//   reach = dist = BIG for a direct light, so the flat walk's live rays
+//   slab-tested every row of the table.
 // - Tables larger than RANK_MAX rows are ranked and walked in consecutive
 //   windows of rows. A product needs no tie key: every hit in (0, dist)
 //   counts, whatever the order. The order moves only rounding, and the
@@ -55,15 +62,21 @@ namespace {
 
 using namespace rz;
 
+// GROUPED: the walk through the group table grp (walk_grouped), else the
+// flat walk of box_tab in windows; COUNT (grouped only): count each block's
+// groups entered and its rays' slab tests into stats.
+template <bool GROUPED, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
 shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ direction,
               const float* __restrict__ dist_in,
               const float* __restrict__ box,
               const float* __restrict__ frames,
-              const float* __restrict__ op_tab, int n_rays, int cp,
+              const float* __restrict__ op_tab,
+              const float* __restrict__ grp, int n_rays, int cp, int gp,
               int list_rows, float* __restrict__ rgb_out,
-              float* __restrict__ a_out, int* __restrict__ visits) {
+              float* __restrict__ a_out, int* __restrict__ visits,
+              int* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem, B2_SIDE);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
@@ -88,12 +101,18 @@ shadow_kernel(const float* __restrict__ origin,
 
   auto live = [&]() { return active && ma >= ALPHA_STOP; };
   auto reach = [&]() { return live() ? dist : -1.0f; };
-  auto need = [&](int c) {
+  int n_slabs = 0;  // this ray's slab tests (COUNT)
+
+  // the exact slab gate on (0, dist) of row `row` of an [8][n] table
+  // (clusters or groups), for a live ray
+  auto gate = [&](const float* tab, int n, int row) {
     if (!live()) return false;
+    if (COUNT) ++n_slabs;
     float tmin, tmax;
-    slab(box, cp, c, ox, oy, oz, ix, iy, iz, tmin, tmax);
+    slab(tab, n, row, ox, oy, oz, ix, iy, iz, tmin, tmax);
     return (tmax >= 0.0f) && (tmin <= tmax) && (tmin <= dist);
   };
+  auto need = [&](int c) { return gate(box, cp, c); };
   auto center = [&](int c, float* ctr) {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -130,12 +149,21 @@ shadow_kernel(const float* __restrict__ origin,
   store_ray(sh, o, d, dist);
 
   if (__syncthreads_or(active)) {
-    for (int w0 = 0; w0 < cp; w0 += list_rows) {
-      const int n = min(list_rows, cp - w0);
-      const Bounds b = block_bounds(sh, live(), o, d, 0.0f, dist);
-      const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
-      walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
-                    reach, center, side, test, apply);
+    if constexpr (GROUPED) {
+      walk_grouped(
+          sh, w, grp, gp, list_rows, active, frames, block_visits,
+          COUNT ? stats + blockIdx.x : nullptr,
+          [&] { return block_bounds(sh, live(), o, d, 0.0f, dist); },
+          [&](int g) { return gate(grp, gp, g); }, need, reach, center, side,
+          test, apply);
+    } else {
+      for (int w0 = 0; w0 < cp; w0 += list_rows) {
+        const int n = min(list_rows, cp - w0);
+        const Bounds b = block_bounds(sh, live(), o, d, 0.0f, dist);
+        const int nf = rank_window(sh, sh.keys, w0, n, b, row_box);
+        walk_clusters(sh, w, sh.keys, nf, active, frames, block_visits, need,
+                      reach, center, side, test, apply);
+      }
     }
   }
   if (in_range) {
@@ -145,25 +173,41 @@ shadow_kernel(const float* __restrict__ origin,
     a_out[ray] = ma;
     if (visits) visits[ray] = n_tests;
   }
+  if (COUNT) atomicAdd(stats + gridDim.x + blockIdx.x, n_slabs);
 }
 
 }  // namespace
 
-// visits: null on the render path; else int[n_rays + blocks] that receives
-// each ray's cluster tests and each block's staged clusters.
+// grp, visits, stats: as rz_cluster_closest's.
 extern "C" int rz_cluster_shadow(const float* origin, const float* direction,
                                  const float* dist, const float* box_tab,
                                  const float* frames, const float* op_tab,
-                                 int n_rays, int cp, float* rgb_out,
-                                 float* a_out, int* visits, void* stream) {
+                                 const float* grp, int n_rays, int cp, int gp,
+                                 float* rgb_out, float* a_out, int* visits,
+                                 int* stats, void* stream) {
   if (n_rays <= 0) return 0;
+  if (grp == nullptr) gp = 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  const int list_rows = rank_rows_for(cp);
-  const size_t smem = kernel_smem(2, cp);
-  cudaError_t err = allow_smem(shadow_kernel, smem);
+  const int list_rows = rank_rows_for(gp > 0 ? gp : cp);
+  const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
+  const auto kernel = gp == 0 ? shadow_kernel<false, false>
+                      : stats ? shadow_kernel<true, true>
+                              : shadow_kernel<true, false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  shadow_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, list_rows,
-      rgb_out, a_out, visits);
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      origin, direction, dist, box_tab, frames, op_tab, grp, n_rays, cp, gp,
+      list_rows, rgb_out, a_out, visits, stats);
   return (int)cudaGetLastError();
+}
+
+// Resources of a launch over cp cluster rows, flat (gp = 0) or grouped over
+// gp group rows: out[0] registers per thread, out[1] dynamic shared bytes,
+// out[2] resident blocks per SM.
+extern "C" int rz_shadow_resources(int cp, int gp, int* out) {
+  const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
+  const auto kernel = gp > 0 ? shadow_kernel<true, false> : shadow_kernel<false, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return walk_resources(kernel, smem, out);
 }

@@ -11,6 +11,10 @@
 //   frames  [cp][4][3*CT]  row k = input component (x, y, z, 1),
 //                          column a*CT + j = part a (b1, b2, z) of triangle j
 //   op_tab  [cp][4][CT]    rgba opacity per triangle slot (shadow only)
+//   grp     [8][gp]        per GROUP consecutive rows of box_tab: rows 0-5
+//                          the union AABB of the real ones, 6 the first
+//                          row, 7 the real rows, which lead the group (0 =
+//                          padding group); B1/B2 above the line
 // Instanced (two-level) tables:
 //   ti_rows [ip][TI_W]     per instance: world AABB min (0-2) and max (3-5),
 //                          world->object 3x4 row-major (6-17), first shared
@@ -35,7 +39,10 @@
 // previous cluster is tested. A visited cluster's tests are shared out:
 // each ray that needs it is tested by a whole warp, one triangle slot per
 // lane. The per-ray test is the kernel's: closest hit reduces a (t, slot)
-// minimum, shadow a product of rgba opacities.
+// minimum, shadow a product of rgba opacities. B1 and B2 walk a table of
+// more rows than the host's grouped line through its group table
+// (walk_grouped): the block ranks and votes on groups of 32 consecutive
+// rows first and sweeps the rows of the groups it enters.
 //
 // The shadow backwards (B2-grad, B4-grad) walk the same way twice with no
 // alpha stop: the first walk keeps each ray's product of non-zero factors
@@ -873,6 +880,65 @@ __device__ __forceinline__ void add_walk_counts(const Shared& sh,
   }
 }
 
+// ---------------------------------------------------------------------------
+// grouped walk of a large flat table (B1, B2)
+// ---------------------------------------------------------------------------
+
+// The group table grp [8][gp] of a flat table box_tab [8][cp] (built on the
+// host by ops/traverse_cluster.py group_table): column g covers the GROUP
+// cluster rows g * GROUP .. g * GROUP + GROUP - 1, consecutive BVH leaves;
+// rows 0-5 hold the union AABB of its real rows, row 6 its first row and
+// row 7 its count of real rows, which come first in the group (0 = padding
+// group, inverted box).
+constexpr int GROUP = 32;             // cluster rows per group row (one BATCH)
+static_assert(GROUP == BATCH, "a group's rows are swept as one vote batch");
+
+// Walk a flat table of cp cluster rows through its group table grp [8][gp],
+// in windows of list_g group rows: rank the group rows by entry_bound
+// against bounds() (the block's bounds of its active rays), walk them in
+// batches of 32 under the block vote, each active ray marking the groups
+// that its exact slab gate gneed(g) passes (a group's box holds its rows'
+// boxes, so its f32 slab interval holds theirs: a ray that needs a row
+// needs its group), and stop when the next group lies beyond every live
+// ray's reach. Each marked group's real rows (the first grp[7][g] of its
+// GROUP rows) are swept in table order as one batch of walk_clusters
+// (need, reach, center, side, test, apply as there), the rays that marked
+// the group voting on each row. The group keys lead sh.keys; a group's row
+// keys follow them. block_groups: null, or the block's count of groups
+// entered (thread 0 adds). Every thread calls it (block-uniform).
+template <class BoundsOf, class GNeed, class Need, class Reach, class Center,
+          class Side, class Test, class Apply>
+__device__ __forceinline__ void walk_grouped(
+    const Shared& sh, Walk& w, const float* __restrict__ grp, int gp,
+    int list_g, bool active, const float* __restrict__ frames,
+    int* block_visits, int* block_groups, BoundsOf bounds, GNeed gneed,
+    Need need, Reach reach, Center center, Side side, Test test,
+    Apply apply) {
+  u64* keys_g = sh.keys;
+  u64* keys_c = sh.keys + list_g;
+  auto group_box = [&](int g, float* lo, float* hi) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = grp[a * gp + g];
+      hi[a] = grp[(3 + a) * gp + g];
+    }
+    return grp[7 * gp + g] > 0.0f;
+  };
+  auto visit_group = [&](int g) {
+    const bool in_g = active && gneed(g);
+    if (block_groups != nullptr && threadIdx.x == 0) ++*block_groups;
+    const int n = sweep_window(keys_c, (int)grp[6 * gp + g],
+                               (int)grp[7 * gp + g]);
+    walk_clusters(sh, w, keys_c, n, in_g, frames, block_visits, need, reach,
+                  center, side, test, apply);
+  };
+  for (int g0 = 0; g0 < gp; g0 += list_g) {
+    const int nf = rank_window(sh, keys_g, g0, min(list_g, gp - g0), bounds(),
+                               group_box);
+    walk_rows(sh, w, keys_g, nf, active, gneed, reach, visit_group);
+  }
+}
+
 inline int rank_rows_for(int table_rows) {
   int p = BATCH;
   while (p < table_rows && p < RANK_MAX) p <<= 1;
@@ -894,6 +960,30 @@ inline size_t kernel_smem(int kernel, int table_rows) {
   const int grad = (kernel == B2_GRAD || kernel == B4_GRAD) ? GRAD_BYTES : 0;
   return (size_t)SHARED_HEAD + (size_t)shadow + (size_t)grad +
          (size_t)rows * sizeof(u64);
+}
+
+// Host: dynamic shared memory of B1 or B2 (kernel 1, 2) on the grouped
+// path over gp group rows: one window of group keys and one group's row
+// keys (walk_grouped).
+inline size_t grouped_smem(int kernel, int gp) {
+  return kernel_smem(kernel, gp) + (size_t)GROUP * sizeof(u64);
+}
+
+// Host: the resources of a launch of kernel with smem bytes of dynamic
+// shared memory: out[0] registers per thread, out[1] the shared bytes,
+// out[2] resident blocks per SM (for reports).
+template <class Kernel>
+inline int walk_resources(Kernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, smem);
+  out[0] = err == cudaSuccess ? attr.numRegs : 0;
+  out[1] = (int)smem;
+  out[2] = blocks;
+  return (int)err;
 }
 
 // Host: launch-side opt-in above the default 48 KB of shared memory.

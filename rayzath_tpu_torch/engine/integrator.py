@@ -260,7 +260,8 @@ def _closest_walk(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
         t, tid = _run_coherent(
             cfg, hw, o_k, d_k, (near, far),
             lambda o, d, near, far: cluster_closest(
-                o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order),
+                o, d, near, far, scene.cl_box, scene.cl_lw, scene.cl_order,
+                groups=scene.cl_group),
             sort=sort)
     else:
         t, tid = bvh_closest(o_k, d_k, near, far, scene.aabb_links,
@@ -388,7 +389,8 @@ def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
             cfg, hw, o, d, (dist,),
             lambda o, d, dist: cluster_shadow(
                 o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
-                scene.cl_base, scene.cl_count, op_rgb, op_a, tris=tris),
+                scene.cl_base, scene.cl_count, op_rgb, op_a, tris=tris,
+                groups=scene.cl_group),
             sort=_sort_traversal(cfg, scene))
     return bvh_shadow(o, d, dist, scene.aabb_links, scene.node_count,
                       scene.leaf_tri, *tris, op_rgb, op_a)

@@ -72,7 +72,8 @@ from ..ops.texture import block_indices
 from ..ops.traverse import build_aabb_links, leaf_table
 from ..ops.traverse_cluster import (build_cluster_tables,
                                     build_instance_tables, cluster_slot_rows,
-                                    B_MIN, B_MAX, B_BASE, B_CNT, SLOTS)
+                                    group_table, B_MIN, B_MAX, B_BASE, B_CNT,
+                                    SLOTS)
 from ..utils.device import DEFAULT, resolve
 from ..utils.hostmath import normalize as nrm, transform_matrices
 from ..utils.timing import span
@@ -147,6 +148,7 @@ class TorchScene:
     cl_order: Optional[torch.Tensor] = None  # [F] i32 cluster order -> soup index
     cl_base: Optional[torch.Tensor] = None   # [Cp] i32 first triangle (cluster order)
     cl_count: Optional[torch.Tensor] = None  # [Cp] i32 triangle count
+    cl_group: Optional[torch.Tensor] = None  # [8,Gp] group table of cl_box
     # dense projection frames of the soup's triangles (ops/intersect.py;
     # two-level: placeholders)
     tri_pw: Optional[torch.Tensor] = None    # [3,3F]
@@ -923,13 +925,17 @@ def scene_from_arrays(leaves: dict, statics: dict,
     the optional fields (the cutout set, the expanded lists) stay None when
     missing. A soup's ``leaf_tri``, which the JAX scene does not hold, is
     built from its ``node_begin`` / ``node_count`` at the default leaf
-    size."""
+    size. The group table ``cl_group`` of a ``cl_box`` is built here
+    (``group_table``) when the leaves lack it."""
     device = resolve(device)
     two_level = bool(statics.get("two_level", False))
     stand_in = placeholders(two_level)
     if not two_level and "leaf_tri" not in leaves and "node_count" in leaves:
         leaves = dict(leaves, leaf_tri=leaf_table(
             leaves["node_begin"], leaves["node_count"], DEFAULT_LEAF_SIZE))
+    box = leaves.get("cl_box", stand_in.get("cl_box"))
+    if "cl_group" not in leaves and box is not None:
+        leaves = dict(leaves, cl_group=group_table(box))
     tensors = {}
     for f in dataclasses.fields(TorchScene):
         if f.name in _STATICS or f.name in _FLAGS or f.name == "map_kinds_used":

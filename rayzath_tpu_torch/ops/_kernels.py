@@ -47,12 +47,16 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # origin, direction, near, far, box_tab, frames, n_rays, cp, t, id,
-    # visits (null: not counted), stream
-    "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # origin, direction, dist, box_tab, frames, op_tab, n_rays, cp, rgb, a,
-    # visits (null: not counted), stream
-    "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # origin, direction, near, far, box_tab, frames, group table (null: the
+    # flat walk), n_rays, cp, gp, t, id, visits (null: not counted), per
+    # block groups entered and slab tests (null: not counted), stream
+    "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                           _P, _P, _P],
+    # origin, direction, dist, box_tab, frames, op_tab, group table (null:
+    # the flat walk), n_rays, cp, gp, rgb, a, visits (null: not counted),
+    # per block groups entered and slab tests (null: not counted), stream
+    "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                          _P, _P, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
     # t, id, inst, visits (null: not counted), work (int64[2]: instance
     # visits, cluster tests; null: not counted), stream
@@ -73,6 +77,13 @@ _SIGNATURES = {
     # table rows, kernel (1-4: B1-B4; 5, 6: B2-grad, B4-grad) -> bytes of
     # its dynamic shared memory
     "rz_ranked_smem": [_I, _I],
+    # group rows, kernel (1, 2: B1, B2) -> bytes of its dynamic shared
+    # memory on the grouped walk
+    "rz_grouped_smem": [_I, _I],
+    # cluster rows, group rows (0: the flat walk), out int32[3]: registers
+    # per thread, dynamic shared bytes, resident blocks per SM of B1, B2
+    "rz_closest_resources": [_I, _I, _P],
+    "rz_shadow_resources": [_I, _I, _P],
     # out, pass key words k0, k1, row0, height, width, ns, stream
     "rz_threefry_uniform": [_P, _U, _U, _I, _I, _I, _I, _P],
     # out, key words (uint32[2]), pass index (int32[1]), row0, height,
@@ -194,8 +205,8 @@ def ptr(x) -> ctypes.c_void_p:
 
 
 #: every kernel wrapper -> the names of its host counters (function
-#: attributes): ``launches`` on each, advanced by :func:`launch`, and
-#: ``rays`` on B3 and B4, advanced by the wrapper
+#: attributes): ``launches`` on each, advanced by :func:`launch`, ``rays``
+#: on B3 and B4 and ``grouped`` on B1 and B2, advanced by the wrapper
 COUNTED: dict = {}
 
 

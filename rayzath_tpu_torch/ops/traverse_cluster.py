@@ -16,6 +16,17 @@ host by :func:`build_cluster_tables`:
   ``t = o'_z / -d'_z`` (d'_z nudged by DET_EPS when tiny),
   ``b1 = o'_x + t d'_x`` and ``b2 = o'_y + t d'_y``.
 
+A table of more than ``GROUPED_ROWS`` rows is also cut into groups of
+``GROUP`` (32) consecutive rows, neighbouring BVH leaves, by
+:func:`group_table`:
+
+* ``cl_group [8, Gp]``: per group the union AABB of its real rows (rows
+  0-5), its first row (row 6) and its count of real rows (row 7, 0 =
+  padding group), the ``box_tab`` layout.
+
+B1 and B2 given it (``groups=``) rank, vote on and enter groups first and
+walk the rows of the groups they enter; the hits are the flat walk's.
+
 The instanced (two-level) variant keeps one such table per mesh, in object
 space, concatenated into one shared table (each mesh padded to a multiple
 of 128 rows), plus one row per instance, built by
@@ -39,7 +50,8 @@ version for a tensor on the CPU and launches the hand-written CUDA kernel
 (``csrc/cluster_closest.cu``, ``csrc/cluster_shadow.cu``,
 ``csrc/cluster_closest_inst.cu``, ``csrc/cluster_shadow_inst.cu``) for a
 tensor on a CUDA device; any other device raises. Each counts its kernel
-launches in a ``launches`` attribute (``ops/_kernels.py`` ``launch``). The
+launches in a ``launches`` attribute (``ops/_kernels.py`` ``launch``), B1
+and B2 those on the grouped walk also in ``grouped``. The
 instanced entries also count the work of their walk: ``rays`` (host: the
 rays handed to the walk) and ``work`` (a :class:`WorkCounter`: per device
 the instance visits and the (instance, cluster) tests, added to by the
@@ -93,6 +105,21 @@ TI_NCL = 19             # real cluster count (0 = padding row)
 TI_ID = 20              # global instance index
 TI_W = 24
 SLOTS = 64              # material slots per instance
+
+# group table layout ([8, Gp] f32, one column per GROUP consecutive cluster
+# rows; group_table): rows 0-5 the union AABB of the group's real rows, row
+# 6 its first cluster row, row 7 its count of real rows (0 = padding group)
+GROUP = _kernels.header_constant("GROUP")
+#: B1 and B2 walk a flat table of more than GROUPED_ROWS cluster rows
+#: through its group table (ranking, voting on and entering groups of
+#: GROUP rows, then sweeping a group's rows), and a smaller one row by
+#: row. Both walks return the same hits. The line lies between the
+#: tables measured on an H100 (PERF.md, Findings, 512^2 camera and bounce
+#: rays): on mesh_massive's 5,632 rows the grouped walk ran B1 and B2
+#: 2.1-2.7x faster than the flat one, whose per-block rank and vote over
+#: every row took 65-71% of their time; on mesh_heavy's 768 rows it ran
+#: B1 4-7% slower and B2 10-11% faster.
+GROUPED_ROWS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +195,38 @@ def build_cluster_tables(tri_v0, tri_e1, tri_e2, cluster_t: int = CLUSTER_T):
                     c_all[cols].astype(np.float64) + ctr @ w_c
                 ).astype(np.float32)
     return box, frames, order.astype(np.int32), base, count
+
+
+def group_table(box_tab):
+    """Host build of the group table [8, Gp] f32 of a flat cluster table
+    ``box_tab`` [8, Cp] (NumPy, or a CPU tensor): column g covers cluster
+    rows g * GROUP .. g * GROUP + GROUP - 1, consecutive BVH leaves. Rows
+    0-5 hold the union AABB of the group's real rows, row 6 its first row,
+    row 7 its count of real rows, which the walk sweeps from the first
+    (so real rows have to come first in every group, as
+    :func:`build_cluster_tables` pads at the end; raises otherwise); a
+    group of padding rows only keeps their inverted box, and the rank
+    leaves it out."""
+    box = np.asarray(box_tab, np.float32)
+    cp = box.shape[1]
+    gp = -(-cp // GROUP)
+    rows = np.zeros((8, gp * GROUP), np.float32)
+    rows[B_MIN:B_MIN + 3] = 3e38
+    rows[B_MAX:B_MAX + 3] = -3e38
+    rows[:, :cp] = box
+    rows = rows.reshape(8, gp, GROUP)
+    real = rows[B_CNT] > 0
+    if (np.diff(real.astype(np.int8), axis=1) > 0).any():
+        raise ValueError("group_table: a padding row precedes a real row "
+                         "in a group")
+    out = np.zeros((8, gp), np.float32)
+    out[B_MIN:B_MIN + 3] = np.where(real, rows[B_MIN:B_MIN + 3],
+                                    np.float32(3e38)).min(2)
+    out[B_MAX:B_MAX + 3] = np.where(real, rows[B_MAX:B_MAX + 3],
+                                    np.float32(-3e38)).max(2)
+    out[B_BASE] = np.arange(gp) * GROUP
+    out[B_CNT] = real.sum(1)
+    return out
 
 
 def cluster_opacity(op_rgb, op_a, order, base, count,
@@ -423,11 +482,13 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
-def _ranked_smem(lib, dev, rows: int, kernel: int) -> int:
+def _ranked_smem(lib, dev, rows: int, kernel: int, grouped: bool = False) -> int:
     """Dynamic shared memory of a launch of kernel B``kernel`` (1-4) over
-    ``rows`` table rows (B1's and B2's clusters, B3's and B4's instances),
-    as the kernel asks for it; raises when the device cannot give it."""
-    need = lib.rz_ranked_smem(rows, kernel)
+    ``rows`` table rows (B1's and B2's clusters, or their group rows when
+    ``grouped``; B3's and B4's instances), as the kernel asks for it;
+    raises when the device cannot give it."""
+    need = (lib.rz_grouped_smem if grouped else lib.rz_ranked_smem)(rows,
+                                                                    kernel)
     have = _smem_optin(dev.index if dev.index is not None
                        else torch.cuda.current_device())
     if need > have:
@@ -445,6 +506,45 @@ def _visit_buffer(visits, dev, r):
     _kernels.check(dev, "visits", visits, torch.int32,
                    (r + -(-r // KERNEL_BLOCK),))
     return _ptr(visits)
+
+
+def _soup_visits(visits, dev, r):
+    """B1's and B2's visit counters: ``visits`` None, of R + B entries, B =
+    ceil(R / 128) (as :func:`_visit_buffer`), or of R + 3 B, whose last two
+    parts receive per block the group rows it entered (0 on the flat walk)
+    and the slab tests of its rays (the box and group gates). Returns the
+    two pointers, null where absent."""
+    blocks = -(-r // KERNEL_BLOCK)
+    if visits is not None and visits.shape == (r + 3 * blocks,):
+        return (_visit_buffer(visits[:r + blocks], dev, r),
+                _ptr(visits[r + blocks:]))
+    return _visit_buffer(visits, dev, r), ctypes.c_void_p(None)
+
+
+def walk_resources(kernel: str, cp: int, grouped: bool) -> dict:
+    """Registers per thread, dynamic shared bytes and resident blocks per SM
+    of B1 (``kernel="closest"``) or B2 (``"shadow"``) launched over ``cp``
+    cluster rows, on the flat or the grouped walk, on the current CUDA
+    device (for reports)."""
+    lib = _kernels.load()
+    fn = {"closest": lib.rz_closest_resources,
+          "shadow": lib.rz_shadow_resources}[kernel]
+    out = (ctypes.c_int * 3)()
+    err = fn(cp, -(-cp // GROUP) if grouped else 0, out)
+    if err:
+        raise RuntimeError(f"walk_resources: {_kernels.error_string(err)}")
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+
+
+def _group_args(dev, cp: int, groups):
+    """The group table's launch arguments (pointer, group rows) when B1 or
+    B2 takes the grouped walk (a group table given for more than
+    GROUPED_ROWS cluster rows), else (null, 0): the flat walk."""
+    if groups is None or cp <= GROUPED_ROWS:
+        return ctypes.c_void_p(None), 0
+    gp = -(-cp // GROUP)
+    _kernels.check(dev, "groups", groups, torch.float32, (8, gp))
+    return _ptr(groups), gp
 
 
 class WorkCounter:
@@ -515,17 +615,20 @@ def _map_ids(rid, order):
                        torch.full_like(rid, -1))
 
 
-@counted()
+@counted("grouped")
 def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
-                    visits=None):
+                    groups=None, visits=None):
     """Closest hit. Returns (t [R], tri_id [R] i32 in ORIGINAL order,
     -1 = miss). CPU tensors take :func:`cluster_closest_plain`; CUDA
     tensors launch the B1 kernel (``csrc/cluster_closest.cu``), a ranked
     front-to-back walk per block of 128 rays (a block with a ray of
-    near < 0 walks in table order instead). ``visits`` (CUDA only, off
-    the render path): an int32 tensor of R + ceil(R / 128) entries that
-    receives each ray's cluster tests, then each block's staged
-    clusters."""
+    near < 0 walks in table order instead). ``groups``: the table's
+    :func:`group_table`; above GROUPED_ROWS cluster rows the walk ranks and
+    enters groups of rows first (``grouped`` counts those launches).
+    ``visits`` (CUDA only, off the render path): an int32 tensor of R + B
+    entries, B = ceil(R / 128), that receives each ray's cluster tests, then
+    each block's staged clusters, optionally followed by 2 B entries: each
+    block's groups entered, then its rays' slab tests."""
     if origin.device.type == "cpu":
         t, rid = cluster_closest_plain(origin, direction, near, far, box_tab,
                                        frames)
@@ -535,14 +638,18 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
     r = _check_rays(dev, origin, direction, near=near, far=far)
     cp = _check_tables(dev, box_tab, frames)
     _aligned(frames=frames)
-    _ranked_smem(lib, dev, cp, kernel=1)
-    counts = _visit_buffer(visits, dev, r)
+    grp, gp = _group_args(dev, cp, groups)
+    _ranked_smem(lib, dev, gp or cp, kernel=1, grouped=gp > 0)
+    counts, stats = _soup_visits(visits, dev, r)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
         _launch(cluster_closest, lib.rz_cluster_closest, dev,
                 _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
-                _ptr(box_tab), _ptr(frames), r, cp, _ptr(t), _ptr(rid), counts)
+                _ptr(box_tab), _ptr(frames), grp, r, cp, gp, _ptr(t),
+                _ptr(rid), counts, stats)
+        if gp:
+            cluster_closest.grouped += 1
     return t, _map_ids(rid, order.to(dev))
 
 
@@ -746,10 +853,12 @@ class _Shadow(torch.autograd.Function):
     they get none)."""
 
     @staticmethod
-    def forward(ctx, origin, direction, dist, op_tab, box_tab, frames, visits):
+    def forward(ctx, origin, direction, dist, op_tab, box_tab, frames, groups,
+                visits):
         ctx.save_for_backward(origin, direction, dist, op_tab)
         ctx.tables = (box_tab, frames)
-        return _shadow(origin, direction, dist, box_tab, frames, op_tab, visits)
+        return _shadow(origin, direction, dist, box_tab, frames, op_tab,
+                       groups, visits)
 
     @staticmethod
     def backward(ctx, g_rgb, g_a):
@@ -758,7 +867,7 @@ class _Shadow(torch.autograd.Function):
             o, d, dist, op_tab = ctx.saved_tensors
             d_op = cluster_shadow_grad(o, d, dist, *ctx.tables, op_tab,
                                        g_rgb.contiguous(), g_a.contiguous())
-        return None, None, None, d_op, None, None, None
+        return None, None, None, d_op, None, None, None, None
 
 
 class _ShadowInst(torch.autograd.Function):
@@ -785,36 +894,42 @@ class _ShadowInst(torch.autograd.Function):
         return None, None, None, d_op, None, None, None, None, None
 
 
-def _shadow(origin, direction, dist, box_tab, frames, op_tab, visits=None):
+def _shadow(origin, direction, dist, box_tab, frames, op_tab, groups=None,
+            visits=None):
     """B2 on an opacity table: the plain version on the CPU, the kernel on
-    a card."""
+    a card (grouped as :func:`cluster_closest`)."""
     if origin.device.type == "cpu":
         return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
                                     op_tab)
     lib = _kernels.load()
     dev, r, cp = _check_soup_shadow(origin, direction, dist, box_tab, frames,
                                     op_tab)
-    _ranked_smem(lib, dev, cp, kernel=2)
-    counts = _visit_buffer(visits, dev, r)
+    grp, gp = _group_args(dev, cp, groups)
+    _ranked_smem(lib, dev, gp or cp, kernel=2, grouped=gp > 0)
+    counts, stats = _soup_visits(visits, dev, r)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
         _launch(cluster_shadow, lib.rz_cluster_shadow, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
-                _ptr(frames), _ptr(op_tab), r, cp, _ptr(rgb), _ptr(a), counts)
+                _ptr(frames), _ptr(op_tab), grp, r, cp, gp, _ptr(rgb), _ptr(a),
+                counts, stats)
+        if gp:
+            cluster_shadow.grouped += 1
     return rgb, a
 
 
-@counted()
+@counted("grouped")
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
-                   count, op_rgb, op_a, *, tris=None, visits=None):
+                   count, op_rgb, op_a, *, tris=None, groups=None,
+                   visits=None):
     """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
     product of the live material opacity over every hit in (0, dist).
     CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
     B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
     block of 128 rays that stops a ray once its alpha is below 1e-4.
-    ``visits`` as for :func:`cluster_closest` (CUDA only, off the render
-    path).
+    ``groups`` and ``visits`` as for :func:`cluster_closest` (``visits``
+    CUDA only, off the render path).
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2),
@@ -832,8 +947,9 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
     if grad:
         return _Shadow.apply(origin, direction, dist, op_tab, box_tab, frames,
-                             visits)
-    return _shadow(origin, direction, dist, box_tab, frames, op_tab, visits)
+                             groups, visits)
+    return _shadow(origin, direction, dist, box_tab, frames, op_tab, groups,
+                   visits)
 
 
 def _check_inst_tables(dev, ti_rows, cl_obox, frames):

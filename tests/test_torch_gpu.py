@@ -628,6 +628,140 @@ def test_ranked_shadow_matches_plain(cuda, case, kernel):
     assert made <= 2 * needed, (made, needed)
 
 
+def _grouped_tables(case):
+    """The tables of the ranked-walk tests built above the grouped line:
+    "ties" the tie table of a 70,000-triangle soup (copies 965 rows apart,
+    in other groups), "windows" the table of more than two rank windows,
+    "stop" a 1,100-row wall table (its last group part padding)."""
+    tabs = {"windows": ct.window_tables,
+            "stop": lambda: ct.window_tables(rows=1100, n=300, seed=8)}.get(
+                case, lambda: ct.tie_tables(n=70000))()
+    assert tabs["box_tab"].shape[1] > tc.GROUPED_ROWS
+    return tabs, tc.group_table(tabs["box_tab"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "windows", "stop", "negative_near"])
+def test_grouped_b1_matches_plain_bit_for_bit(cuda, case):
+    """B1's grouped walk on the tables of
+    test_ranked_b1_matches_plain_bit_for_bit built above the grouped line:
+    ids and t bit for bit as the plain version's, one launch counted in
+    ``grouped``, and the group rows each block entered in the visit
+    counter's third part; on the wall rays ("stop") at most twice the
+    needed cluster tests per ray, and under a quarter of the rows staged
+    per block, as the flat walk."""
+    tabs, groups = _grouped_tables(case)
+    box, frames, order, groups = _table_tensors(
+        dict(tabs, groups=groups), ("box_tab", "frames", "order", "groups"),
+        cuda)
+    r = 4096
+    blocks = r // 128
+    o, d, near, far = _aimed_rays(tabs, r, 5, cuda)
+    if case == "stop":
+        o, d = (torch.as_tensor(x, device=cuda)
+                for x in ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r))
+    if case == "negative_near":
+        near[::2] = -3.0
+    visits = torch.zeros(r + 3 * blocks, dtype=torch.int32, device=cuda)
+    before = tc.cluster_closest.grouped
+    t_k, tid_k = tc.cluster_closest(o, d, near, far, box, frames, order,
+                                    groups=groups, visits=visits)
+    assert tc.cluster_closest.grouped == before + 1
+    t_p, rid_p = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    tid_p = tc._map_ids(rid_p, order)
+    torch.cuda.synchronize()
+    assert torch.equal(tid_k, tid_p), int((tid_k != tid_p).sum())
+    assert torch.equal(t_k, t_p), int((t_k != t_p).sum())
+    assert int((tid_k >= 0).sum()) > r // 3
+    if case == "ties":      # the earlier copy wins every tie
+        m = tabs["real_rows"] // 2
+        assert m > tc.GROUP
+        assert bool((rid_p[rid_p >= 0] < int(box[tc.B_BASE, m])).all())
+    if case == "negative_near":
+        assert bool((t_p[tid_p >= 0] < 0).any())    # a hit behind an origin
+    real_groups = int((groups[tc.B_CNT] > 0).sum())
+    staged, entered, slabs = visits[r:].reshape(3, blocks)
+    assert int(visits[:r].sum()) > 0
+    assert 0 < int(staged.max()) <= tabs["real_rows"]
+    assert 0 < int(entered.max()) <= real_groups
+    # each ray's gate tests at most every group and every row of the groups
+    # its block entered, each twice (vote and visit)
+    assert bool((slabs > 0).all())
+    assert bool((slabs <= 2 * 128 * (real_groups + tc.GROUP * entered)).all())
+    if case == "stop":
+        needed = ct.needed_soup(o, d, near, t_p, box)[0]
+        on_line = ct.needed_soup(o, d, near, far, box)[0]
+        assert on_line >= 3 * needed > 0, (on_line, needed)
+        assert int(visits[:r].sum()) <= 2 * needed, (int(visits[:r].sum()), needed)
+        assert float(staged.float().mean()) < tabs["real_rows"] / 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["windows", "stop"])
+def test_grouped_b2_matches_plain(cuda, case):
+    """B2's grouped walk with dist = BIG on the tables above the grouped
+    line: translucent opacities on the table of more than two rank windows
+    ("windows"), opaque walls hit along (1, 1, 1) ("stop": at most twice
+    the needed cluster tests per ray); rgba to the forward gate, one
+    launch counted in ``grouped``."""
+    tabs, groups = _grouped_tables(case)
+    box, frames, order, groups = _table_tensors(
+        dict(tabs, groups=groups), ("box_tab", "frames", "order", "groups"),
+        cuda)
+    r = 4096
+    blocks = r // 128
+    dist = torch.full((r,), 3.4e38, device=cuda)
+    zero, far = torch.zeros(r, device=cuda), torch.full((r,), 1e30, device=cuda)
+    op = {k: torch.as_tensor(v, device=cuda)
+          for k, v in ct.soup_opacity(tabs, seed=10).items()}
+    if case == "stop":
+        op["op_a"].zero_()                                       # opaque
+        o, d = (torch.as_tensor(x, device=cuda)
+                for x in ct.wall_rays(tabs["v0"], tabs["e1"], tabs["e2"], r))
+    else:
+        o, d, *_ = _aimed_rays(tabs, r, 7, cuda)
+    args = (box, frames, order, op["base"], op["count"], op["op_rgb"],
+            op["op_a"])
+    visits = torch.zeros(r + 3 * blocks, dtype=torch.int32, device=cuda)
+    before = tc.cluster_shadow.grouped
+    got = tc.cluster_shadow(o, d, dist, *args, groups=groups, visits=visits)
+    assert tc.cluster_shadow.grouped == before + 1
+    ref = tc.cluster_shadow_plain(o, d, dist, box, frames, tc.cluster_opacity(
+        op["op_rgb"], op["op_a"], order, op["base"], op["count"]))
+    torch.cuda.synchronize()
+    shadow_gate(got, ref)
+    made = int(visits[:r].sum())
+    assert made > 0 and int(visits[r + blocks:r + 2 * blocks].max()) > 0
+    if case == "windows":
+        assert int(((ref[1] > 1e-4) & (ref[1] < 0.5)).sum()) > r // 20
+        return
+    assert bool((ref[1] == 0).all())              # every ray meets the wall
+    t = tc.cluster_closest_plain(o, d, zero, far, box, frames)[0]
+    needed = ct.needed_soup(o, d, zero, t, box)[0]
+    assert made <= 2 * needed, (made, needed)
+
+
+@pytest.mark.gpu
+def test_grouped_counts_replays(cuda):
+    """A replayed pass on a scene above the grouped line (mesh_heavy at
+    resolution 400) takes the grouped walk in every B1 and B2 launch:
+    ``grouped`` gains what ``launches`` gains; on cornell_box_nee (128
+    rows) it gains nothing."""
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
+    for big, world in ((True, rt.scenes.mesh_heavy(64, 64, resolution=400)),
+                       (False, rt.scenes.cornell_box_nee(64, 64))):
+        r = rt.Renderer(world, cfg, seed=3, device=cuda)
+        r.render(rpp=1)                              # capture
+        assert (r.scene.cl_box.shape[1] > tc.GROUPED_ROWS) == big
+        wrappers = (tc.cluster_closest, tc.cluster_shadow)
+        start = [(f.launches, f.grouped) for f in wrappers]
+        r.render(rpp=3)
+        for f, (launches, grouped) in zip(wrappers, start):
+            gained = f.launches - launches
+            assert gained >= 3
+            assert f.grouped - grouped == (gained if big else 0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,pass_idx,row0,h,w,ns", [
     (0, 0, 0, 4, 7, 8), (7, 3, 5, 16, 33, 14), (2 ** 31 - 1, 11, 300, 3, 512, 11),

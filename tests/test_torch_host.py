@@ -66,11 +66,15 @@ def assert_scene_equal(ts, leaves, statics):
     The expanded lists ``exp_tri``/``exp_inst`` may be None in the port,
     which builds them only for ``differentiable=True``. ``leaf_tri``, the
     port's own, holds the skip-link walk's leaf blocks of the JAX scene's
-    BVH (default leaf size) on a soup scene."""
+    BVH (default leaf size) on a soup scene; ``cl_group``, the port's own
+    too, the group table of the scene's ``cl_box``."""
     stand_in = tds.placeholders(ts.two_level)
     if not ts.two_level and "node_count" in leaves:
         stand_in["leaf_tri"] = ttw.leaf_table(leaves["node_begin"],
                                               leaves["node_count"], 8)
+    box = leaves.get("cl_box", stand_in.get("cl_box"))
+    if box is not None:
+        stand_in["cl_group"] = ttc.group_table(box)
     for f in dataclasses.fields(tds.TorchScene):
         a = getattr(ts, f.name)
         if a is None:

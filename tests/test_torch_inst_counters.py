@@ -165,9 +165,11 @@ def test_replays_advance_the_ray_counters(fake_graphs):
         (before[0][0], before[0][1] + 1000), (before[1][0], before[1][1] + 2000)]
 
 
-#: the library's entries that launch nothing: sizes and the error text
-QUERIES = {"rz_ranked_smem", "rz_gather_grad_partials", "rz_ray_sort_partials",
-           "rz_error_string"}
+#: the library's entries that launch nothing: sizes, resources and the
+#: error text
+QUERIES = {"rz_ranked_smem", "rz_grouped_smem", "rz_closest_resources",
+           "rz_shadow_resources", "rz_gather_grad_partials",
+           "rz_ray_sort_partials", "rz_error_string"}
 
 
 def launch_sites():
@@ -204,7 +206,7 @@ def test_capture_advances_every_registered_counter(fake_graphs, monkeypatch):
     assert launched == named - QUERIES == set(_kernels._SIGNATURES) - QUERIES
     assert len(launched) == 14
     assert {c for names in _kernels.COUNTED.values() for c in names} == {
-        "launches", "rays"}
+        "launches", "rays", "grouped"}
 
     class Stream:
         cuda_stream = 0

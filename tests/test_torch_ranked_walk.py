@@ -59,6 +59,7 @@ SWEEP_MAX = header_constant("SWEEP_MAX")    # B3: smaller meshes are swept
 GATE_PAD = np.float32(header_constant("GATE_PAD"))
 BIG = np.float32(header_constant("BIG"))
 ALPHA_STOP = header_constant("ALPHA_STOP")  # B2/B4: a ray below it is blocked
+GROUP = header_constant("GROUP")            # B1/B2: cluster rows per group row
 
 
 def safe_inv(v):
@@ -196,9 +197,37 @@ def walk(cands, reach, rays, need, visit):
     return visits
 
 
-def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW):
-    """B1's walk, block by block. Returns (t, cluster-order id, block
-    visits, cluster tests per ray)."""
+def walk_grouped(groups, gate, b, reach, active, need, visit):
+    """``walk_grouped`` (B1, B2 on a table above the line): the real group
+    rows ranked by the block's bounds ``b`` and walked under the block
+    vote, a ray marking the groups whose box passes ``gate(lo, hi,
+    rays)``; each group entered has its real rows (the first count of its
+    rows) swept in table order as one batch (entry -inf: no stop), the rays
+    that need the group (at the visit) voting on each row. Returns
+    (cluster visits, groups entered)."""
+    glo, ghi = groups[0:3].t(), groups[3:6].t()
+    visits = [0]
+
+    def gneed(g):
+        return gate(glo[g], ghi[g], active)
+
+    def visit_group(g):
+        first, count = int(groups[tc.B_BASE, g]), int(groups[tc.B_CNT, g])
+        sweep = [(-float("inf"), c) for c in range(first, first + count)]
+        visits[0] += walk(sweep, reach, gneed(g), need, visit)
+
+    real = [g for g in range(groups.shape[1]) if groups[tc.B_CNT, g] > 0]
+    entered = walk(rank(real, lambda g: (glo[g], ghi[g]), b), reach, active,
+                   gneed, visit_group)
+    return visits[0], entered
+
+
+def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW,
+                  groups=None, entered=None):
+    """B1's walk, block by block: flat, or through the group table
+    ``groups`` (then ``entered``, a list, receives each block's groups
+    entered). Returns (t, cluster-order id, block visits, cluster tests per
+    ray)."""
     cp = box_tab.shape[1]
     lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
     cnt = box_tab[tc.B_CNT]
@@ -216,7 +245,15 @@ def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW):
             t, b1, b2 = tc._project(ob, db, box_tab, frames, c)
             blk.take(t, b1, b2, need(c), c * 128, int(box_tab[tc.B_BASE, c]))
 
-        if bool(blk.active.any()):
+        if bool(blk.active.any()) and groups is not None:
+            v, g = walk_grouped(
+                groups,
+                lambda glo, ghi, rays: blk.gate(*slab(glo, ghi, ob, inv), rays),
+                bounds(ob, db, blk.active, blk.near, blk.best_t),
+                lambda: blk.best_t, blk.active, need, visit)
+            visits += v
+            entered.append(g)
+        elif bool(blk.active.any()):
             for w0 in range(0, cp, window):
                 rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
                 b = bounds(ob, db, blk.active, blk.near, blk.best_t)
@@ -489,9 +526,11 @@ class ShadowBlock:
         self.tests += rays.to(torch.int32)
 
 
-def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW):
-    """B2's walk, block by block. Returns (rgb, a, block visits, cluster
-    tests per ray)."""
+def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW,
+                 groups=None, entered=None):
+    """B2's walk, block by block: flat, or through the group table
+    ``groups`` (then ``entered``, a list, receives each block's groups
+    entered). Returns (rgb, a, block visits, cluster tests per ray)."""
     cp = box_tab.shape[1]
     lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
     cnt = box_tab[tc.B_CNT]
@@ -510,7 +549,15 @@ def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW):
             t, b1, b2 = tc._project(ob, db, box_tab, frames, c)
             blk.take(t, b1, b2, need(c), op_tab[c])
 
-        if bool(blk.active.any()):
+        if bool(blk.active.any()) and groups is not None:
+            v, g = walk_grouped(
+                groups,
+                lambda glo, ghi, rays: blk.gate(*slab(glo, ghi, ob, inv), rays),
+                bounds(ob, db, blk.live(), zero, blk.dist),
+                blk.reach, blk.active, need, visit)
+            visits += v
+            entered.append(g)
+        elif bool(blk.active.any()):
             for w0 in range(0, cp, window):
                 rows = [c for c in range(w0, min(cp, w0 + window)) if cnt[c] > 0]
                 b = bounds(ob, db, blk.live(), zero, blk.dist)
@@ -1029,3 +1076,208 @@ def test_model_b4_grad_matches_plain_on_instanced_field_like_rays(resolution,
         assert int(t1.sum()) >= needed and int(t1[~live].sum()) == 0
         assert int(t2.sum()) <= int(t1.sum())
         assert float(ref.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the grouped walks (B1, B2 on tables above the grouped line)
+# ---------------------------------------------------------------------------
+
+def _groups(box_tab):
+    return torch.as_tensor(tc.group_table(box_tab))
+
+
+@pytest.mark.parametrize("table", ["mesh_heavy", "window", "ties",
+                                   "two_level"])
+def test_group_table(table):
+    """Every real cluster box lies inside its group's box, which is their
+    union; a group's first row and count of real rows are its rows'; a
+    group of padding rows only is inverted (no slab reaches it), as a
+    padding row is. "window" (1,100 real rows of 1,152) ends in a group
+    that is part padding; "two_level" is a two-level scene's all-padding
+    soup table."""
+    if table == "mesh_heavy":
+        scene = tds.compile_world(rt.scenes.mesh_heavy(16, 16, resolution=40),
+                                  device="cpu")
+        box, groups = scene.cl_box, scene.cl_group
+        assert torch.equal(groups, _groups(box))
+    elif table == "two_level":
+        scene = tds.compile_world(rt.scenes.instanced_field(16, 16, n=3,
+                                                            resolution=8),
+                                  two_level=True, device="cpu")
+        box, groups = scene.cl_box, scene.cl_group
+    else:
+        tabs = (ct.window_tables(rows=1100, n=300, seed=8) if table == "window"
+                else ct.tie_tables(n=2400))
+        box = torch.as_tensor(tabs["box_tab"])
+        groups = _groups(box)
+    cp = box.shape[1]
+    assert groups.shape == (8, -(-cp // GROUP))
+    real = box[tc.B_CNT] > 0
+    for g in range(groups.shape[1]):
+        rows = slice(g * GROUP, (g + 1) * GROUP)
+        assert int(groups[tc.B_BASE, g]) == g * GROUP
+        n = int(real[rows].sum())
+        assert int(groups[tc.B_CNT, g]) == n
+        lo, hi = groups[0:3, g], groups[3:6, g]
+        if n == 0:
+            assert bool((lo == 3e38).all() and (hi == -3e38).all())
+            continue
+        blo, bhi = box[0:3, rows][:, real[rows]], box[3:6, rows][:, real[rows]]
+        assert bool((blo >= lo[:, None]).all() and (bhi <= hi[:, None]).all())
+        assert torch.equal(blo.amin(1), lo) and torch.equal(bhi.amax(1), hi)
+    counts = groups[tc.B_CNT]
+    if table == "window":
+        assert 0 < int(counts[int(real.sum()) // GROUP]) < GROUP   # part padding
+        assert int((counts == 0).sum()) > 0
+    if table == "two_level":
+        assert int(counts.sum()) == 0
+    bad = box.clone()
+    bad[tc.B_CNT, 0] = 0.0           # a padding row ahead of real ones
+    if int(real[:GROUP].sum()) > 1:
+        with pytest.raises(ValueError):
+            tc.group_table(bad)
+
+
+def _above_the_line(seed=8):
+    """A tiled table of 1,100 real rows (1,152 with padding): above the
+    grouped line, its last real group part padding."""
+    tabs = ct.window_tables(rows=1100, n=300, seed=seed)
+    box, frames = (torch.as_tensor(tabs[k]) for k in ("box_tab", "frames"))
+    assert box.shape[1] > tc.GROUPED_ROWS and tabs["real_rows"] % GROUP
+    return tabs, box, frames
+
+
+def test_model_b1_grouped_matches_plain_above_the_line():
+    """The grouped B1 walk on a table above the line, with aimed rays and
+    random ones that escape the grid: ids and t bit for bit as the plain
+    version's, and the walk culls: fewer cluster visits than rows per
+    block."""
+    tabs, box, frames = _above_the_line()
+    o, d, near, far = _table_rays(tabs, 512, seed=21)
+    groups = _groups(box)
+    entered = []
+    *got, visits, _ = model_closest(o, d, near, far, box, frames,
+                                    groups=groups, entered=entered)
+    ref = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    assert_bits(got, ref)
+    assert int((ref[1] >= 0).sum()) > len(o) // 4
+    assert int((ref[1] < 0).sum()) > len(o) // 8           # escaping rays
+    assert 0 < max(entered) <= int((groups[tc.B_CNT] > 0).sum())
+    assert 0 < visits < tabs["real_rows"] * len(entered)
+
+
+def test_model_b1_grouped_matches_plain_on_mesh_heavy_like_rays():
+    """The grouped B1 walk on a real scene's table (mesh_heavy's, below the
+    line: the model walks it grouped all the same), camera and bounce-like
+    rays: bit for bit as the plain version's."""
+    world = rt.scenes.mesh_heavy(24, 24, resolution=40)
+    scene = tds.compile_world(world, device="cpu")
+    sets, near, far = scene_rays(scene, world, 24, seed=3)
+    for o, d in sets:
+        *got, visits, _ = model_closest(o, d, near, far, scene.cl_box,
+                                        scene.cl_lw, groups=scene.cl_group,
+                                        entered=[])
+        assert_bits(got, tc.cluster_closest_plain(o, d, near, far,
+                                                  scene.cl_box, scene.cl_lw))
+        assert visits > 0
+
+
+def test_model_b1_grouped_ties_across_groups():
+    """Every hit ties exactly in rows c and c + 32, which lie in groups 0
+    and 1; the grown later row's group is entered first, and the earlier
+    row must win, as in table order."""
+    tabs = ct.tie_tables(n=2400)
+    box, frames = (torch.as_tensor(tabs[k]) for k in ("box_tab", "frames"))
+    m = tabs["real_rows"] // 2
+    assert m == GROUP                     # the copies fill groups 0 and 1
+    o, d, near, far = _table_rays(tabs, 384, seed=22)
+    got = model_closest(o, d, near, far, box, frames, groups=_groups(box),
+                        entered=[])[:2]
+    ref = tc.cluster_closest_plain(o, d, near, far, box, frames)
+    assert_bits(got, ref)
+    hit = ref[1] >= 0
+    assert int(hit.sum()) > 150
+    assert bool((ref[1][hit] < box[tc.B_BASE, m].item()).all())
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_model_grouped_with_negative_near(kernel):
+    """near < 0 on every other ray (B1), on the tie table across two
+    groups: the groups all bound at -inf, so such blocks walk both levels
+    in table order without the stop, and the result stays the plain
+    version's. B2 takes hits at t > 0 only, whatever near is; its grouped
+    walk meets the plain product under the forward gate on the same
+    rays."""
+    tabs = ct.tie_tables(n=2400)
+    box, frames = (torch.as_tensor(tabs[k]) for k in ("box_tab", "frames"))
+    o, d, near, far = _table_rays(tabs, 256, seed=23)
+    near[::2] = -3.0
+    if kernel == "b1":
+        got = model_closest(o, d, near, far, box, frames, groups=_groups(box),
+                            entered=[])[:2]
+        ref = tc.cluster_closest_plain(o, d, near, far, box, frames)
+        assert_bits(got, ref)
+        assert bool((ref[0][(ref[1] >= 0)] < 0).any())  # a hit behind an origin
+        return
+    op = tc.cluster_opacity(*(torch.as_tensor(ct.soup_opacity(tabs, seed=24)[k])
+                              for k in ("op_rgb", "op_a")),
+                            torch.as_tensor(tabs["order"]),
+                            box[tc.B_BASE].int(), box[tc.B_CNT].int())
+    dist = torch.full((len(o),), float(BIG))
+    got = model_shadow(o, d, dist, box, frames, op, groups=_groups(box),
+                       entered=[])[:2]
+    shadow_gate(got, tc.cluster_shadow_plain(o, d, dist, box, frames, op))
+
+
+@pytest.mark.parametrize("alpha", ["translucent", "opaque"])
+def test_model_b2_grouped_matches_plain_above_the_line(alpha):
+    """The grouped B2 walk on the table above the line with dist = BIG:
+    translucent opacities, whose products run over rows of many groups,
+    and opaque ones, which block a ray at its first hit; rgba to the
+    forward gate."""
+    tabs, box, frames = _above_the_line()
+    _, _, op_tab = _soup_tables(tabs, seed=25)
+    if alpha == "opaque":
+        op_tab = torch.zeros_like(op_tab)
+    o, d, *_ = _table_rays(tabs, 512, seed=26)
+    dist = torch.full((len(o),), float(BIG))
+    entered = []
+    *got, visits, _ = model_shadow(o, d, dist, box, frames, op_tab,
+                                   groups=_groups(box), entered=entered)
+    ref = tc.cluster_shadow_plain(o, d, dist, box, frames, op_tab)
+    shadow_gate(got, ref)
+    assert visits > 0 and max(entered) > 0
+    if alpha == "translucent":
+        assert int(((ref[1] > ALPHA_STOP) & (ref[1] < 0.5)).sum()) > 20
+        assert int((ref[1] == 1).sum()) > len(o) // 8      # unblocked rays
+    else:
+        assert int((ref[1] == 0).sum()) > len(o) // 4
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_model_grouped_stops_at_the_wall(kernel):
+    """Rays that hit a near wall along (1, 1, 1) on the table above the
+    line (B2: opaque, dist = BIG): their lines cross several times the
+    clusters they need, and the grouped walk tests at most twice the needed
+    ones, as the flat walk does."""
+    tabs, box, frames = _above_the_line()
+    r = 512
+    o, d = (torch.as_tensor(x) for x in ct.wall_rays(tabs["v0"], tabs["e1"],
+                                                     tabs["e2"], r))
+    zero, far = torch.zeros(r), torch.full((r,), 1e30)
+    ref_t = tc.cluster_closest_plain(o, d, zero, far, box, frames)
+    needed = ct.needed_soup(o, d, zero, ref_t[0], box)[0]
+    on_line = ct.needed_soup(o, d, zero, far, box)[0]
+    assert on_line >= 3 * needed > 0, (on_line, needed)
+    if kernel == "b1":
+        got_t, got_id, _, tests = model_closest(o, d, zero, far, box, frames,
+                                                groups=_groups(box), entered=[])
+        assert_bits((got_t, got_id), ref_t)
+    else:
+        op_tab = torch.zeros((box.shape[1], 4, tc.CLUSTER_T))
+        dist = torch.full((r,), float(BIG))
+        *got, _, tests = model_shadow(o, d, dist, box, frames, op_tab,
+                                      groups=_groups(box), entered=[])
+        shadow_gate(got, tc.cluster_shadow_plain(o, d, dist, box, frames,
+                                                 op_tab))
+    assert int(tests.sum()) <= 2 * needed, (int(tests.sum()), needed)
