@@ -893,17 +893,19 @@ def phase_shadow_tables(dev):
               f"{staged:.2f} clusters staged per block", flush=True)
 
 
-def walk_stats(fn, r: int):
+def walk_stats(fn, r: int, wrapper):
     """(cluster tests per ray; staged clusters, groups entered and slab
     tests per block) of one B1 or B2 call ``fn(visits)`` with the full
-    visit counter (off the main path)."""
+    visit counter (off the main path), the slab tests from the work counter
+    of ``wrapper`` (``cluster_closest`` or ``cluster_shadow``)."""
     import torch
     blocks = -(-r // 128)
-    visits = torch.zeros(r + 3 * blocks, dtype=torch.int32, device="cuda")
+    visits = torch.zeros(r + 2 * blocks, dtype=torch.int32, device="cuda")
+    slabs = wrapper.work.read()["slab_tests"]
     fn(visits)
-    torch.cuda.synchronize()
-    per_block = visits[r:].reshape(3, blocks).double().mean(1).tolist()
-    return (float(visits[:r].sum()) / r, *per_block)
+    slabs = wrapper.work.read()["slab_tests"] - slabs
+    per_block = visits[r:].reshape(2, blocks).double().mean(1).tolist()
+    return (float(visits[:r].sum()) / r, *per_block, slabs / blocks)
 
 
 def stats_text(stats) -> str:
@@ -1004,7 +1006,8 @@ def phase_massive(card: str, dev):
             ms = device_ms(lambda: tc.cluster_closest(o_s, d_s, n_s, f_s, *tabs,
                                                       groups=g))
             stats = walk_stats(lambda vv: tc.cluster_closest(
-                o_s, d_s, n_s, f_s, *tabs, groups=g, visits=vv), r)
+                o_s, d_s, n_s, f_s, *tabs, groups=g, visits=vv), r,
+                tc.cluster_closest)
             print(f"  mesh_massive/{set_name}: B1 {walk} {ms:.3f} ms "
                   f"[{card}], {stats_text(stats)} ({needed:.3f} tests per ray "
                   f"needed)", flush=True)
@@ -1040,7 +1043,8 @@ def phase_massive(card: str, dev):
                 ms = device_ms(lambda: tc.cluster_shadow(o_s, d_s, big, *shadow,
                                                          groups=g))
                 stats = walk_stats(lambda vv: tc.cluster_shadow(
-                    o_s, d_s, big, *shadow, groups=g, visits=vv), r)
+                    o_s, d_s, big, *shadow, groups=g, visits=vv), r,
+                    tc.cluster_shadow)
                 print(f"  mesh_massive/{set_name}/dist=BIG{label}: B2 {walk} "
                       f"{ms:.3f} ms [{card}], {stats_text(stats)}{to_hit}",
                       flush=True)

@@ -80,11 +80,20 @@ namespace {
 
 using namespace rz;
 
+// Resident blocks per SM that the flat walk's registers leave room for
+// where shared memory does too (closest_for; on every flat table up to
+// GROUPED_ROWS): left to itself the compiler gives the counted walk 84
+// registers, room for 5 blocks, where the uncounted walk had 78 and 6, and
+// B1 ran 8% slower on cornell_box_nee and 6% on mesh_heavy; at 80
+// registers and 32 bytes of spills it runs as the uncounted walk did
+// (PERF.md, Findings). A minimum of 0 blocks gives the compiler's own
+// choice; a minimum of 1 ran mesh_massive's grouped walk 7% slower.
+constexpr int MIN_BLOCKS = 6;
+
 // GROUPED: the walk through the group table grp (walk_grouped), else the
-// flat walk of box_tab in windows; COUNT (grouped only): count each block's
-// groups entered and its rays' slab tests into stats.
-template <bool GROUPED, bool COUNT>
-__global__ void __launch_bounds__(THREADS)
+// flat walk of box_tab in windows; registers for MIN resident blocks an SM.
+template <bool GROUPED, int MIN>
+__global__ void __launch_bounds__(THREADS, MIN)
 closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ direction,
                const float* __restrict__ near_in,
@@ -94,7 +103,8 @@ closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ grp, int n_rays, int cp, int gp,
                int list_rows, float* __restrict__ t_out,
                int* __restrict__ id_out, int* __restrict__ visits,
-               int* __restrict__ stats) {
+               int* __restrict__ stats,
+               unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
@@ -120,11 +130,12 @@ closest_kernel(const float* __restrict__ origin,
   Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
-  int n_slabs = 0;  // this ray's slab tests (COUNT)
+  int n_tris = 0;   // the real triangles of the clusters it tested
+  int n_slabs = 0;  // its slab tests
 
   // the exact slab gate of row `row` of an [8][n] table (clusters or groups)
   auto gate = [&](const float* tab, int n, int row) {
-    if (COUNT) ++n_slabs;
+    ++n_slabs;
     float tmin, tmax;
     slab(tab, n, row, ox, oy, oz, ix, iy, iz, tmin, tmax);
     return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
@@ -139,6 +150,7 @@ closest_kernel(const float* __restrict__ origin,
   };
   auto apply = [&](int c) {
     ++n_tests;
+    n_tris += (int)box[7 * cp + c];
     const u64 hit = sh.res[threadIdx.x];
     if (hit == NO_CAND) return;
     const float t = ord_float((unsigned)(hit >> 32));
@@ -165,7 +177,7 @@ closest_kernel(const float* __restrict__ origin,
     if constexpr (GROUPED) {
       walk_grouped(
           sh, w, grp, gp, list_rows, active, frames, block_visits,
-          COUNT ? stats + blockIdx.x : nullptr,
+          stats ? stats + blockIdx.x : nullptr,
           [&] { return block_bounds(sh, active, o, d, near, best_t); },
           [&](int g) { return gate(grp, gp, g); }, need, cur_best, center,
           NoSide{}, ClosestTest{sh}, apply);
@@ -184,7 +196,16 @@ closest_kernel(const float* __restrict__ origin,
     id_out[ray] = best_id;
     if (visits) visits[ray] = n_tests;
   }
-  if (COUNT) atomicAdd(stats + gridDim.x + blockIdx.x, n_slabs);
+  if (work) add_walk_counts(sh, work, n_tests, n_tris, n_slabs);
+}
+
+// The kernel of a launch with smem dynamic shared bytes: the grouped walk
+// (gp > 0), else the flat walk at MIN_BLOCKS where shared memory leaves
+// room for them, else at the compiler's own registers.
+auto closest_for(size_t smem, int gp) {
+  return gp > 0                        ? closest_kernel<true, 0>
+         : smem_fits(smem, MIN_BLOCKS) ? closest_kernel<false, MIN_BLOCKS>
+                                       : closest_kernel<false, 0>;
 }
 
 }  // namespace
@@ -193,28 +214,30 @@ closest_kernel(const float* __restrict__ origin,
 // walked with walk_grouped. visits: null on the render path; else
 // int[n_rays + blocks] that receives each ray's cluster tests and each
 // block's staged clusters. stats: null on the render path; else
-// int[2 * blocks] that receives each block's group rows entered, then the
-// slab tests of its rays (box and group gates), on the grouped walk only
-// (the flat walk leaves them 0).
+// int[blocks] that receives each block's group rows entered, on the
+// grouped walk only (the flat walk leaves them 0). work: null, or int64[3]
+// that the launch adds to (add_walk_counts), on either walk: its cluster
+// tests (each ray's tests of a cluster, as visits counts them), the real
+// triangles of those clusters (the ray-triangle tests whose slot j < cnt),
+// and its rays' slab tests (the box and group gates).
 extern "C" int rz_cluster_closest(const float* origin, const float* direction,
                                   const float* near, const float* far,
                                   const float* box_tab, const float* frames,
                                   const float* grp, int n_rays, int cp,
                                   int gp, float* t_out, int* id_out,
-                                  int* visits, int* stats, void* stream) {
+                                  int* visits, int* stats,
+                                  unsigned long long* work, void* stream) {
   if (n_rays <= 0) return 0;
   if (grp == nullptr) gp = 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_rows = rank_rows_for(gp > 0 ? gp : cp);
   const size_t smem = gp > 0 ? grouped_smem(1, gp) : kernel_smem(1, cp);
-  const auto kernel = gp == 0 ? closest_kernel<false, false>
-                      : stats ? closest_kernel<true, true>
-                              : closest_kernel<true, false>;
+  const auto kernel = closest_for(smem, gp);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, near, far, box_tab, frames, grp, n_rays, cp, gp,
-      list_rows, t_out, id_out, visits, stats);
+      list_rows, t_out, id_out, visits, stats, work);
   return (int)cudaGetLastError();
 }
 
@@ -239,7 +262,7 @@ extern "C" const char* rz_error_string(int code) {
 // out[2] resident blocks per SM.
 extern "C" int rz_closest_resources(int cp, int gp, int* out) {
   const size_t smem = gp > 0 ? grouped_smem(1, gp) : kernel_smem(1, cp);
-  const auto kernel = gp > 0 ? closest_kernel<true, false> : closest_kernel<false, false>;
+  const auto kernel = closest_for(smem, gp);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   return walk_resources(kernel, smem, out);

@@ -62,11 +62,18 @@ namespace {
 
 using namespace rz;
 
+// Resident blocks per SM on the flat walk where shared memory leaves room
+// for them, as closest_kernel's MIN_BLOCKS: counting left to the compiler
+// takes 86 registers, room for 5 blocks, where the uncounted walk had 64
+// and 8, and B2 ran 7% slower on cornell_box_nee (PERF.md, Findings).
+// Above 512 table rows shared memory holds B2 to 7 blocks, so there the
+// walk keeps the compiler's registers (shadow_for).
+constexpr int MIN_BLOCKS = 8;
+
 // GROUPED: the walk through the group table grp (walk_grouped), else the
-// flat walk of box_tab in windows; COUNT (grouped only): count each block's
-// groups entered and its rays' slab tests into stats.
-template <bool GROUPED, bool COUNT>
-__global__ void __launch_bounds__(THREADS)
+// flat walk of box_tab in windows; registers for MIN resident blocks an SM.
+template <bool GROUPED, int MIN>
+__global__ void __launch_bounds__(THREADS, MIN)
 shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ direction,
               const float* __restrict__ dist_in,
@@ -76,7 +83,8 @@ shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ grp, int n_rays, int cp, int gp,
               int list_rows, float* __restrict__ rgb_out,
               float* __restrict__ a_out, int* __restrict__ visits,
-              int* __restrict__ stats) {
+              int* __restrict__ stats,
+              unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem, B2_SIDE);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
@@ -101,13 +109,14 @@ shadow_kernel(const float* __restrict__ origin,
 
   auto live = [&]() { return active && ma >= ALPHA_STOP; };
   auto reach = [&]() { return live() ? dist : -1.0f; };
-  int n_slabs = 0;  // this ray's slab tests (COUNT)
+  int n_tris = 0;   // the real triangles of the clusters it tested
+  int n_slabs = 0;  // its slab tests
 
   // the exact slab gate on (0, dist) of row `row` of an [8][n] table
   // (clusters or groups), for a live ray
   auto gate = [&](const float* tab, int n, int row) {
     if (!live()) return false;
-    if (COUNT) ++n_slabs;
+    ++n_slabs;
     float tmin, tmax;
     slab(tab, n, row, ox, oy, oz, ix, iy, iz, tmin, tmax);
     return (tmax >= 0.0f) && (tmin <= tmax) && (tmin <= dist);
@@ -129,8 +138,9 @@ shadow_kernel(const float* __restrict__ origin,
       for (int k = 0; k < 4; ++k) f[k] = op[k * CT + j];
     });
   };
-  auto apply = [&](int) {
+  auto apply = [&](int c) {
     ++n_tests;
+    n_tris += (int)box[7 * cp + c];
     const float4 p = sh.prod[threadIdx.x];
     mr = mr * p.x;
     mg = mg * p.y;
@@ -152,7 +162,7 @@ shadow_kernel(const float* __restrict__ origin,
     if constexpr (GROUPED) {
       walk_grouped(
           sh, w, grp, gp, list_rows, active, frames, block_visits,
-          COUNT ? stats + blockIdx.x : nullptr,
+          stats ? stats + blockIdx.x : nullptr,
           [&] { return block_bounds(sh, live(), o, d, 0.0f, dist); },
           [&](int g) { return gate(grp, gp, g); }, need, reach, center, side,
           test, apply);
@@ -173,31 +183,37 @@ shadow_kernel(const float* __restrict__ origin,
     a_out[ray] = ma;
     if (visits) visits[ray] = n_tests;
   }
-  if (COUNT) atomicAdd(stats + gridDim.x + blockIdx.x, n_slabs);
+  if (work) add_walk_counts(sh, work, n_tests, n_tris, n_slabs);
+}
+
+// The kernel of a launch, as closest_for.
+auto shadow_for(size_t smem, int gp) {
+  return gp > 0                        ? shadow_kernel<true, 0>
+         : smem_fits(smem, MIN_BLOCKS) ? shadow_kernel<false, MIN_BLOCKS>
+                                       : shadow_kernel<false, 0>;
 }
 
 }  // namespace
 
-// grp, visits, stats: as rz_cluster_closest's.
+// grp, visits, stats, work: as rz_cluster_closest's.
 extern "C" int rz_cluster_shadow(const float* origin, const float* direction,
                                  const float* dist, const float* box_tab,
                                  const float* frames, const float* op_tab,
                                  const float* grp, int n_rays, int cp, int gp,
                                  float* rgb_out, float* a_out, int* visits,
-                                 int* stats, void* stream) {
+                                 int* stats, unsigned long long* work,
+                                 void* stream) {
   if (n_rays <= 0) return 0;
   if (grp == nullptr) gp = 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_rows = rank_rows_for(gp > 0 ? gp : cp);
   const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
-  const auto kernel = gp == 0 ? shadow_kernel<false, false>
-                      : stats ? shadow_kernel<true, true>
-                              : shadow_kernel<true, false>;
+  const auto kernel = shadow_for(smem, gp);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, dist, box_tab, frames, op_tab, grp, n_rays, cp, gp,
-      list_rows, rgb_out, a_out, visits, stats);
+      list_rows, rgb_out, a_out, visits, stats, work);
   return (int)cudaGetLastError();
 }
 
@@ -206,7 +222,7 @@ extern "C" int rz_cluster_shadow(const float* origin, const float* direction,
 // out[2] resident blocks per SM.
 extern "C" int rz_shadow_resources(int cp, int gp, int* out) {
   const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
-  const auto kernel = gp > 0 ? shadow_kernel<true, false> : shadow_kernel<false, false>;
+  const auto kernel = shadow_for(smem, gp);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   return walk_resources(kernel, smem, out);

@@ -849,34 +849,36 @@ __device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
   }
 }
 
-// B3/B4's work counters: add the block's instance visits (its rays' calls
-// of to_object) and (instance, cluster) tests to work[0] and work[1], a
-// warp sum each, then one atomicAdd per counter from thread 0. Every thread
-// calls it once, after its walk; the per-warp partials reuse the scratch
-// of block_bounds, whose last readers are done once the first barrier
-// passes.
+// The walks' work counters: add the block's counts to work[0], work[1],
+// ..., a warp sum each, then one atomicAdd per counter from thread 0.
+// B3/B4 count instance visits (their rays' calls of to_object) and
+// (instance, cluster) tests; B1/B2 cluster tests, the real triangles of
+// the clusters tested, and slab tests. Every thread calls it once, after
+// its walk; the per-warp partials reuse the scratch of block_bounds, whose
+// last readers are done once the first barrier passes.
+template <class... Counts>
 __device__ __forceinline__ void add_walk_counts(const Shared& sh,
                                                 unsigned long long* work,
-                                                int inst_visits,
-                                                int tests) {
+                                                Counts... counts) {
+  constexpr int N = sizeof...(Counts);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  inst_visits = __reduce_add_sync(FULL, inst_visits);
-  tests = __reduce_add_sync(FULL, tests);
+  int c[N] = {counts...};
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i] = __reduce_add_sync(FULL, c[i]);
   int* part = reinterpret_cast<int*>(sh.scratch);
   __syncthreads();
   if (lane == 0) {
-    part[warp] = inst_visits;
-    part[WARPS + warp] = tests;
+#pragma unroll
+    for (int i = 0; i < N; ++i) part[i * WARPS + warp] = c[i];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long v = 0, t = 0;
-    for (int k = 0; k < WARPS; ++k) {
-      v += (unsigned)part[k];
-      t += (unsigned)part[WARPS + k];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      unsigned long long v = 0;
+      for (int k = 0; k < WARPS; ++k) v += (unsigned)part[i * WARPS + k];
+      if (v) atomicAdd(work + i, v);
     }
-    if (v) atomicAdd(work, v);
-    if (t) atomicAdd(work + 1, t);
   }
 }
 
@@ -984,6 +986,25 @@ inline int walk_resources(Kernel kernel, size_t smem, int* out) {
   out[1] = (int)smem;
   out[2] = blocks;
   return (int)err;
+}
+
+// Host: attribute a of the current device (0 where it cannot be read).
+inline int device_attribute(cudaDeviceAttr a) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, a, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+// Host: whether `blocks` resident blocks of `smem` dynamic shared bytes
+// each (and no static ones) fit in one SM's shared memory.
+inline bool smem_fits(size_t smem, int blocks) {
+  static const long long per_sm =
+      device_attribute(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  static const long long reserved =
+      device_attribute(cudaDevAttrReservedSharedMemoryPerBlock);
+  return blocks * ((long long)smem + reserved) <= per_sm;
 }
 
 // Host: launch-side opt-in above the default 48 KB of shared memory.

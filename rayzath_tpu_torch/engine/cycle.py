@@ -34,10 +34,10 @@ buffers and replays the same graph. Capture never falls back: when capture
 or a replay fails, :meth:`RenderCycle.run` raises ``RuntimeError``.
 
 A captured kernel launches on every replay, but its wrapper's Python
-counters (``launches``, and B3's and B4's ``rays``: the registry
+counters (``launches``, and B1-B4's ``rays``: the registry
 ``ops/_kernels.py`` ``COUNTED``) ran only while the pass was captured. The
 cycle records what each counter gained over the captured pass and adds it
-per replay, so the counters count the launches that ran. B3's and B4's
+per replay, so the counters count the launches that ran. B1-B4's
 device-side work counters (``traverse_cluster.WorkCounter``) are added to
 by the kernels themselves, on every replay.
 """

@@ -49,14 +49,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # origin, direction, near, far, box_tab, frames, group table (null: the
     # flat walk), n_rays, cp, gp, t, id, visits (null: not counted), per
-    # block groups entered and slab tests (null: not counted), stream
+    # block groups entered (null: not counted), work (int64[3]: cluster
+    # tests, triangle tests, slab tests; null: not counted), stream
     "rz_cluster_closest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
     # origin, direction, dist, box_tab, frames, op_tab, group table (null:
     # the flat walk), n_rays, cp, gp, rgb, a, visits (null: not counted),
-    # per block groups entered and slab tests (null: not counted), stream
+    # per block groups entered (null: not counted), work (as B1's), stream
     "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                          _P, _P, _P],
+                          _P, _P, _P, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
     # t, id, inst, visits (null: not counted), work (int64[2]: instance
     # visits, cluster tests; null: not counted), stream
@@ -206,7 +207,7 @@ def ptr(x) -> ctypes.c_void_p:
 
 #: every kernel wrapper -> the names of its host counters (function
 #: attributes): ``launches`` on each, advanced by :func:`launch`, ``rays``
-#: on B3 and B4 and ``grouped`` on B1 and B2, advanced by the wrapper
+#: on B1-B4 and ``grouped`` on B1 and B2, advanced by the wrapper
 COUNTED: dict = {}
 
 

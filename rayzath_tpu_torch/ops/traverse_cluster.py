@@ -51,11 +51,12 @@ version for a tensor on the CPU and launches the hand-written CUDA kernel
 ``csrc/cluster_closest_inst.cu``, ``csrc/cluster_shadow_inst.cu``) for a
 tensor on a CUDA device; any other device raises. Each counts its kernel
 launches in a ``launches`` attribute (``ops/_kernels.py`` ``launch``), B1
-and B2 those on the grouped walk also in ``grouped``. The
-instanced entries also count the work of their walk: ``rays`` (host: the
-rays handed to the walk) and ``work`` (a :class:`WorkCounter`: per device
-the instance visits and the (instance, cluster) tests, added to by the
-kernels themselves, so that a captured graph counts on every replay). The plain versions visit every
+and B2 those on the grouped walk also in ``grouped``. Each also counts the
+work of its walk: ``rays`` (host: the rays handed to the walk) and
+``work`` (a :class:`WorkCounter`, per device, added to by the kernels
+themselves, so that a captured graph counts on every replay): B1 and B2
+their cluster tests, triangle tests and slab tests, B3 and B4 their
+instance visits and (instance, cluster) tests. The plain versions visit every
 real cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
 
@@ -120,6 +121,8 @@ GROUP = _kernels.header_constant("GROUP")
 #: every row took 65-71% of their time; on mesh_heavy's 768 rows it ran
 #: B1 4-7% slower and B2 10-11% faster.
 GROUPED_ROWS = 1024
+#: the keys of B1's and B2's work counters (:class:`WorkCounter`)
+SOUP_WORK = ("cluster_tests", "triangle_tests", "slab_tests")
 
 
 # ---------------------------------------------------------------------------
@@ -510,12 +513,11 @@ def _visit_buffer(visits, dev, r):
 
 def _soup_visits(visits, dev, r):
     """B1's and B2's visit counters: ``visits`` None, of R + B entries, B =
-    ceil(R / 128) (as :func:`_visit_buffer`), or of R + 3 B, whose last two
-    parts receive per block the group rows it entered (0 on the flat walk)
-    and the slab tests of its rays (the box and group gates). Returns the
-    two pointers, null where absent."""
+    ceil(R / 128) (as :func:`_visit_buffer`), or of R + 2 B, whose last
+    part receives per block the group rows it entered (0 on the flat
+    walk). Returns the two pointers, null where absent."""
     blocks = -(-r // KERNEL_BLOCK)
-    if visits is not None and visits.shape == (r + 3 * blocks,):
+    if visits is not None and visits.shape == (r + 2 * blocks,):
         return (_visit_buffer(visits[:r + blocks], dev, r),
                 _ptr(visits[r + blocks:]))
     return _visit_buffer(visits, dev, r), ctypes.c_void_p(None)
@@ -548,64 +550,86 @@ def _group_args(dev, cp: int, groups):
 
 
 class WorkCounter:
-    """What B3 or B4 walked since the process started: per device an
-    int64 pair [instance visits, (instance, cluster) tests]. An instance
-    visit is one ray moved into one instance's object space
-    (``to_object``, 33 operations); a test is one ray against one cluster
-    of 128 triangle slots. The kernels add their
-    launch's totals to the pair, one atomicAdd per counter per block of
-    128 rays, with no host sync and no allocation, so a captured graph
-    counts on every replay; on the CPU the wrapper adds what the plain
-    version tests (every real pair, for each ray that walks)."""
+    """What a walk made since the process started: per device one int64
+    count for each of ``keys``. B3 and B4 count [instance visits,
+    (instance, cluster) tests]: an instance visit is one ray moved into one
+    instance's object space (``to_object``, 33 operations); a test is one
+    ray against one cluster of 128 triangle slots. B1 and B2 count
+    [cluster tests, triangle tests, slab tests]: a triangle test is one
+    ray against one real triangle of a cluster it tests (the slots past
+    the cluster's count are not tested), a slab test one ray's gate
+    against one box of the cluster or group table (``slab``). The kernels
+    add their launch's totals, one atomicAdd per counter per block of 128
+    rays, with no host sync and no allocation, so a captured graph counts
+    on every replay; on the CPU the wrapper adds what the plain version
+    tests (every real cluster or pair, for each ray that walks, and no
+    slab test)."""
 
-    def __init__(self):
-        self._pairs: dict = {}
+    def __init__(self, keys=("instance_visits", "cluster_tests")):
+        self.keys = tuple(keys)
+        self._counts: dict = {}
 
     def pair(self, dev) -> torch.Tensor:
-        """The device's pair, made on its first use, which has to come
-        before any graph capture (the render cycle and the training step
-        run every launch once before they capture)."""
-        pair = self._pairs.get(dev)
-        if pair is None:
+        """The device's counts (a pair for B3 and B4, whose name it keeps),
+        made on their first use, which has to come before any graph capture
+        (the render cycle and the training step run every launch once
+        before they capture)."""
+        counts = self._counts.get(dev)
+        if counts is None:
             if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("the instanced walk's work counter has to "
-                                   "be made before a graph is captured")
-            pair = self._pairs[dev] = torch.zeros(2, dtype=torch.int64,
-                                                  device=dev)
-        return pair
+                raise RuntimeError("a walk's work counter has to be made "
+                                   "before a graph is captured")
+            counts = self._counts[dev] = torch.zeros(
+                len(self.keys), dtype=torch.int64, device=dev)
+        return counts
 
     def read(self) -> dict:
-        """``{"instance_visits", "cluster_tests"}`` summed over the devices
-        (a host read: it waits for each device's work so far)."""
-        visits = tests = 0
-        for pair in list(self._pairs.values()):
-            v, t = pair.tolist()
-            visits, tests = visits + v, tests + t
-        return {"instance_visits": visits, "cluster_tests": tests}
+        """The counts under :attr:`keys`, summed over the devices (a host
+        read: it waits for each device's work so far)."""
+        total = [0] * len(self.keys)
+        for counts in list(self._counts.values()):
+            total = [a + b for a, b in zip(total, counts.tolist())]
+        return dict(zip(self.keys, total))
 
 
-def _count_plain(wrapper, active, ti_rows, visits) -> None:
-    """Count a plain two-level walk on the CPU as the kernels count theirs:
-    ``wrapper.rays`` gains the rays, ``wrapper.work`` every real instance
-    and every (instance, cluster) pair for each ray that walks
-    (``active``); ``visits`` (optional, as for the kernels) receives each
-    ray's tests, then the pairs each block of 128 rays walks (all of them
-    when one of its rays walks)."""
+def _count_plain(wrapper, active, work, tests, visits) -> None:
+    """Count a plain walk on the CPU as the kernels count theirs:
+    ``wrapper.rays`` gains the rays, ``wrapper.work`` the counts ``work``
+    for each ray that walks (``active``); ``visits`` (optional, R + B
+    entries as for the kernels) receives each walking ray's ``tests``, then
+    the tests each block of 128 rays stages (all of them when one of its
+    rays walks)."""
     r = active.shape[0]
-    ncl = ti_rows[:, TI_NCL]
-    n_inst, n_pairs = int((ncl > 0).sum()), int(ncl.sum())
+    blocks = -(-r // KERNEL_BLOCK)
+    if visits is not None:
+        _kernels.check(active.device, "visits", visits, torch.int32,
+                       (r + blocks,))
     n = int(active.sum())
     wrapper.rays += r
     wrapper.work.pair(active.device).add_(
-        torch.tensor([n * n_inst, n * n_pairs], dtype=torch.int64))
+        torch.tensor([n * w for w in work], dtype=torch.int64))
     if visits is not None:
-        blocks = -(-r // KERNEL_BLOCK)
-        _kernels.check(active.device, "visits", visits, torch.int32,
-                       (r + blocks,))
         walks = torch.zeros(blocks * KERNEL_BLOCK, dtype=torch.bool)
         walks[:r] = active
-        visits[:r] = active.to(torch.int32) * n_pairs
-        visits[r:] = walks.reshape(blocks, -1).any(1).to(torch.int32) * n_pairs
+        visits[:r] = active.to(torch.int32) * tests
+        visits[r:] = walks.reshape(blocks, -1).any(1).to(torch.int32) * tests
+
+
+def _count_plain_inst(wrapper, active, ti_rows, visits) -> None:
+    """:func:`_count_plain` of B3 or B4: every real instance and every
+    (instance, cluster) pair for each ray that walks."""
+    ncl = ti_rows[:, TI_NCL]
+    n_pairs = int(ncl.sum())
+    _count_plain(wrapper, active, (int((ncl > 0).sum()), n_pairs), n_pairs,
+                 visits)
+
+
+def _count_plain_soup(wrapper, active, box_tab, visits) -> None:
+    """:func:`_count_plain` of B1 or B2: every real cluster and its real
+    triangles for each ray that walks, and no slab test."""
+    cnt = box_tab[B_CNT]
+    n_real = int((cnt > 0).sum())
+    _count_plain(wrapper, active, (n_real, int(cnt.sum()), 0), n_real, visits)
 
 
 def _map_ids(rid, order):
@@ -615,7 +639,7 @@ def _map_ids(rid, order):
                        torch.full_like(rid, -1))
 
 
-@counted("grouped")
+@counted("grouped", "rays")
 def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
                     groups=None, visits=None):
     """Closest hit. Returns (t [R], tri_id [R] i32 in ORIGINAL order,
@@ -625,13 +649,16 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
     near < 0 walks in table order instead). ``groups``: the table's
     :func:`group_table`; above GROUPED_ROWS cluster rows the walk ranks and
     enters groups of rows first (``grouped`` counts those launches).
-    ``visits`` (CUDA only, off the render path): an int32 tensor of R + B
-    entries, B = ceil(R / 128), that receives each ray's cluster tests, then
-    each block's staged clusters, optionally followed by 2 B entries: each
-    block's groups entered, then its rays' slab tests."""
+    ``visits`` (off the render path): an int32 tensor of R + B entries, B =
+    ceil(R / 128), that receives each ray's cluster tests, then each
+    block's staged clusters (on the CPU, as :func:`_count_plain_soup`
+    counts); on a card optionally followed by B entries, each block's
+    groups entered. Adds to ``rays`` and ``work`` (:class:`WorkCounter`:
+    :data:`SOUP_WORK`) on every call."""
     if origin.device.type == "cpu":
         t, rid = cluster_closest_plain(origin, direction, near, far, box_tab,
                                        frames)
+        _count_plain_soup(cluster_closest, far > 0.0, box_tab, visits)
         return t, _map_ids(rid, order)
     lib = _kernels.load()
     dev = _kernels.card(origin.device)
@@ -641,16 +668,21 @@ def cluster_closest(origin, direction, near, far, box_tab, frames, order, *,
     grp, gp = _group_args(dev, cp, groups)
     _ranked_smem(lib, dev, gp or cp, kernel=1, grouped=gp > 0)
     counts, stats = _soup_visits(visits, dev, r)
+    work = cluster_closest.work.pair(dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     rid = torch.empty(r, dtype=torch.int32, device=dev)
     if r:
         _launch(cluster_closest, lib.rz_cluster_closest, dev,
                 _ptr(origin), _ptr(direction), _ptr(near), _ptr(far),
                 _ptr(box_tab), _ptr(frames), grp, r, cp, gp, _ptr(t),
-                _ptr(rid), counts, stats)
+                _ptr(rid), counts, stats, _ptr(work))
+        cluster_closest.rays += r
         if gp:
             cluster_closest.grouped += 1
     return t, _map_ids(rid, order.to(dev))
+
+
+cluster_closest.work = WorkCounter(SOUP_WORK)
 
 
 # ---------------------------------------------------------------------------
@@ -897,29 +929,34 @@ class _ShadowInst(torch.autograd.Function):
 def _shadow(origin, direction, dist, box_tab, frames, op_tab, groups=None,
             visits=None):
     """B2 on an opacity table: the plain version on the CPU, the kernel on
-    a card (grouped as :func:`cluster_closest`)."""
+    a card (grouped as :func:`cluster_closest`); either adds to
+    ``cluster_shadow``'s ``rays`` and ``work``."""
     if origin.device.type == "cpu":
-        return cluster_shadow_plain(origin, direction, dist, box_tab, frames,
-                                    op_tab)
+        out = cluster_shadow_plain(origin, direction, dist, box_tab, frames,
+                                   op_tab)
+        _count_plain_soup(cluster_shadow, dist > 0.0, box_tab, visits)
+        return out
     lib = _kernels.load()
     dev, r, cp = _check_soup_shadow(origin, direction, dist, box_tab, frames,
                                     op_tab)
     grp, gp = _group_args(dev, cp, groups)
     _ranked_smem(lib, dev, gp or cp, kernel=2, grouped=gp > 0)
     counts, stats = _soup_visits(visits, dev, r)
+    work = cluster_shadow.work.pair(dev)
     rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
     a = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
         _launch(cluster_shadow, lib.rz_cluster_shadow, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
                 _ptr(frames), _ptr(op_tab), grp, r, cp, gp, _ptr(rgb), _ptr(a),
-                counts, stats)
+                counts, stats, _ptr(work))
+        cluster_shadow.rays += r
         if gp:
             cluster_shadow.grouped += 1
     return rgb, a
 
 
-@counted("grouped")
+@counted("grouped", "rays")
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                    count, op_rgb, op_a, *, tris=None, groups=None,
                    visits=None):
@@ -928,8 +965,8 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
     B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
     block of 128 rays that stops a ray once its alpha is below 1e-4.
-    ``groups`` and ``visits`` as for :func:`cluster_closest` (``visits``
-    CUDA only, off the render path).
+    ``groups``, ``visits``, ``rays`` and ``work`` as for
+    :func:`cluster_closest`.
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2),
@@ -950,6 +987,9 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                              groups, visits)
     return _shadow(origin, direction, dist, box_tab, frames, op_tab, groups,
                    visits)
+
+
+cluster_shadow.work = WorkCounter(SOUP_WORK)
 
 
 def _check_inst_tables(dev, ti_rows, cl_obox, frames):
@@ -982,7 +1022,8 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     if origin.device.type == "cpu":
         out = cluster_closest_inst_plain(origin, direction, near, far,
                                          ti_rows, cl_obox, frames)
-        _count_plain(cluster_closest_inst, far > 0.0, ti_rows, visits)
+        _count_plain_inst(cluster_closest_inst, far > 0.0, ti_rows,
+                          visits)
         return out
     lib = _kernels.load()
     dev = _kernels.card(origin.device)
@@ -1015,7 +1056,7 @@ def _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames, cl_slot,
     if origin.device.type == "cpu":
         out = cluster_shadow_inst_plain(origin, direction, dist, ti_rows,
                                         cl_obox, frames, cl_slot, op_tab)
-        _count_plain(cluster_shadow_inst, dist > 0.0, ti_rows, visits)
+        _count_plain_inst(cluster_shadow_inst, dist > 0.0, ti_rows, visits)
         return out
     lib = _kernels.load()
     dev, r, ip = _check_inst_shadow(origin, direction, dist, ti_rows, cl_obox,

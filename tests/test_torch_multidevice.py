@@ -366,10 +366,11 @@ def test_launches_go_to_the_tensors_device(monkeypatch):
     monkeypatch.setattr(tc, "_ranked_smem", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "device", device_ctx)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
-    # B3's and B4's work counters get their meta-device pairs here, not in
-    # the process-wide counters that later tests read
-    for wrapper in (tc.cluster_closest_inst, tc.cluster_shadow_inst):
-        monkeypatch.setattr(wrapper, "work", tc.WorkCounter())
+    # B1-B4's work counters get their meta-device pairs here, not in the
+    # process-wide counters that later tests read
+    for wrapper in (tc.cluster_closest, tc.cluster_shadow,
+                    tc.cluster_closest_inst, tc.cluster_shadow_inst):
+        monkeypatch.setattr(wrapper, "work", tc.WorkCounter(wrapper.work.keys))
     meta = torch.device("meta")
     r = 64
     o, d, x = (torch.zeros(r, 3, device=meta), torch.zeros(r, 3, device=meta),
