@@ -59,7 +59,13 @@ Phases, each of which raises on failure (exit code != 0):
    for the object transform). Then one 1280x720 cycle of 8 passes of
    instanced_field through ``Renderer.render``, the benchmark cell's
    settings: B3's and B4's work counters (``rays``, instance visits,
-   cluster tests) beside their launches. Then B1 and B3 bit for bit on the tables of
+   cluster tests) beside their launches. Then B3 and B4 on instanced_field's
+   1280x720 render rays (four eager passes after sixteen): B3 bit for bit
+   and B4 to the forward gate against the plain versions on every 64th ray,
+   each kernel's device ms a pass against its bound (the needed triangle
+   tests, the real triangles of the needed clusters), cluster tests a ray,
+   registers, spilled bytes and blocks per SM (``walk_resources``). Then B1
+   and B3 bit for bit on the tables of
    ``utils/check_tables.py``: exact ties across cluster and instance rows
    (also with near < 0 on every other ray), and walks of several windows
    of rows; B2 and B4 with dist = BIG on those window tables with
@@ -439,8 +445,10 @@ def check_shadow(scene, o, d, dist, label, mat_color=None):
 
 
 def visits_made(fn, r: int):
-    """(cluster tests per ray, staged clusters per block) of one kernel call
-    ``fn(visits)`` with the visit counter (off the main path)."""
+    """(cluster tests per ray, the visit counter's block entries per block:
+    staged clusters on the block walks, the warps' cluster visits summed on
+    B3's and B4's) of one kernel call ``fn(visits)`` with the visit counter
+    (off the main path)."""
     import torch
     blocks = -(-r // 128)
     visits = torch.zeros(r + blocks, dtype=torch.int32, device="cuda")
@@ -601,6 +609,7 @@ def check_closest_inst(tabs, o, d, near, far, sub, label):
 
 
 def check_shadow_inst(scene, o, d, dist, sub, mat_color, label):
+    """B4 kernel on all rays vs plain on the rays ``sub``."""
     import torch
     from rayzath_tpu_torch.ops import traverse_cluster as tc
     tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot)
@@ -703,13 +712,13 @@ def phase_inst_kernels(card: str, dev):
               f"{k3s:.3f} ms on {len(sub)}, plain {p3:.3f} ms on {len(sub)} "
               f"(median of 20 / {n3}), bound {b3[0]:.4f} ms ({b3[1]}), "
               f"visits per ray {made:.3f} made / {pairs3 / r:.3f} needed "
-              f"(instances {ipairs3 / r:.3f} needed), {staged:.2f} clusters "
-              f"staged per block; B4 kernel {d4:.4f} ms on the device (call "
+              f"(instances {ipairs3 / r:.3f} needed), {staged:.2f} cluster "
+              f"visits per block; B4 kernel {d4:.4f} ms on the device (call "
               f"{k4:.3f} ms) on {r}, {k4s:.3f} ms "
               f"on {len(sub)}, plain {p4:.3f} ms on {len(sub)} (median of 20 / "
               f"{n4}), bound {b4[0]:.4f} ms ({b4[1]}), visits per ray "
               f"{made4:.3f} made / {pairs4 / r:.3f} needed, {staged4:.2f} "
-              f"clusters staged per block; B3 on camera rays {kc:.3f} ms; phase "
+              f"cluster visits per block; B3 on camera rays {kc:.3f} ms; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["cluster_closest_inst"][name] = dict(
             ms=d3, call_ms=k3, plain_ms=p3, rays=r, plain_rays=len(sub), bound=b3,
@@ -768,6 +777,136 @@ def phase_inst_cycle(card: str, dev):
     torch.cuda.empty_cache()
 
 
+def inst_render_rays(dev, warm: int = 16, keep: int = 4):
+    """instanced_field at 1280x720, depth 16 (the benchmark cell's scene and
+    settings): the scene and the rays B3 and B4 take in ``keep`` eager
+    passes (``render_steps``) after ``warm``, sorted as the kernels see
+    them: [(o, d, near, far)], [(o, d, dist)]."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import (compile_camera,
+                                                       compile_world)
+    from rayzath_tpu_torch.ops import rng
+    b3, b4, on = [], [], [False]
+    walks = I.cluster_closest_inst, I.cluster_shadow_inst
+
+    def rec3(o, d, near, far, *a, **k):
+        if on[0]:
+            b3.append([x.clone() for x in (o, d, near, far)])
+        return walks[0](o, d, near, far, *a, **k)
+
+    def rec4(o, d, dist, *a, **k):
+        if on[0]:
+            b4.append([x.clone() for x in (o, d, dist)])
+        return walks[1](o, d, dist, *a, **k)
+
+    world = rt.scenes.instanced_field(1280, 720)
+    scene = compile_world(world, device=dev)
+    cam = compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=16, rpp=8),
+                          light_sampling=rt.LightSampling(spot_light=1,
+                                                          direct_light=1))
+    I.cluster_closest_inst, I.cluster_shadow_inst = rec3, rec4
+    try:
+        with torch.no_grad():
+            st = I.render_steps(scene, cam, cfg, init_state(1280, 720, dev),
+                                rng.key(11), warm)
+            on[0] = True
+            I.render_steps(scene, cam, cfg, st, rng.key(11), keep)
+    finally:
+        I.cluster_closest_inst, I.cluster_shadow_inst = walks
+    return scene, b3, b4
+
+
+def phase_inst_walks(card: str, dev):
+    """B3 and B4 on instanced_field's 1280x720 render rays (four passes
+    after sixteen, ``inst_render_rays``): B3's t, ids and instances bit for
+    bit and B4's rgba to the forward gate against the plain versions on
+    every 64th ray. Device ms a pass (``device_ms`` of each pass's call,
+    averaged) against the bound of the needed work (``needed_inst``: the
+    real triangles of the (instance, cluster) pairs whose exact intervals
+    meet [near, t] for B3 and (0, the first opaque hit or dist) for B4, at
+    TEST_OPS each, plus TO_OBJECT_OPS a needed instance), cluster tests a
+    ray (the work counters over each pass's first call), and each kernel's
+    registers, shared bytes, blocks per SM and spilled bytes
+    (``walk_resources``). Returns the record."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils.check_tables import needed_inst
+    from rayzath_tpu_torch.utils.cuda_timing import device_ms
+    t0 = time.perf_counter()
+    scene, b3, b4 = inst_render_rays(dev)
+    tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
+    mats = (scene.cl_slot, scene.inst_slot_map, scene.mat_color)
+    op_tab = tc.instance_opacity(scene.mat_color, scene.inst_slot_map)
+    ip = scene.ti_rows.shape[0]
+    rec, err = {}, 0.0
+    for name, f, calls in (("B3", tc.cluster_closest_inst, b3),
+                           ("B4", tc.cluster_shadow_inst, b4)):
+        ms, n_ops, rays, tests = 0.0, 0.0, 0, 0
+        for a in calls:
+            r = len(a[0])
+            sub = torch.arange(0, r, 64, device=dev)
+            tests0 = f.work.read()["cluster_tests"]
+            if name == "B3":
+                fn = lambda: tc.cluster_closest_inst(*a, *tabs)  # noqa: E731
+                got = fn()
+                tests += f.work.read()["cluster_tests"] - tests0
+                ref = tc.cluster_closest_inst_plain(
+                    *(x[sub] for x in a), *tabs)
+                assert_bits(f"instanced_field 720p render rays, {name}",
+                            [x[sub] for x in got], ref)
+                t0_, t1_ = a[2], got[0]
+            else:
+                fn = lambda: tc.cluster_shadow_inst(*a, *tabs, *mats)  # noqa: E731
+                got = fn()
+                tests += f.work.read()["cluster_tests"] - tests0
+                o, d, dist = a
+                ref = tc.cluster_shadow_inst_plain(
+                    o[sub], d[sub], dist[sub], *tabs, scene.cl_slot, op_tab)
+                err = max(err, shadow_gate(
+                    f"instanced_field 720p render rays, {name}",
+                    [x[sub] for x in got], ref))
+                t, tid, inst = tc.cluster_closest_inst(
+                    o, d, torch.zeros_like(dist), dist, *tabs)
+                hit = tid >= 0
+                a_factor = op_tab[torch.clamp(inst, min=0).long(), 3,
+                                  scene.tri_slot[torch.clamp(tid, min=0)
+                                                 .long()].long()]
+                t0_, t1_ = torch.zeros_like(dist), opaque_stop(t, hit,
+                                                               a_factor, dist)
+            _, tri, ipairs, *_ = needed_inst(a[0], a[1], t0_, t1_,
+                                             scene.ti_rows, scene.cl_obox)
+            n_ops += tri * TEST_OPS + ipairs * TO_OBJECT_OPS
+            ms += device_ms(fn, launches=10, repeats=3)
+            rays += r
+        torch.cuda.synchronize()
+        kernel = "closest_inst" if name == "B3" else "shadow_inst"
+        bound_ms = n_ops / len(calls) / F32_OPS_S * 1e3
+        rec[name] = dict(
+            ms_per_pass=ms / len(calls), bound_ms_per_pass=bound_ms,
+            tests_per_ray=tests / rays,
+            **tc.walk_resources(kernel, ip))
+    for k, v in rec.items():
+        print(f"  instanced_field 720p render rays [{card}]: {k} "
+              f"{v['ms_per_pass']:.4f} ms a pass on the device, bound "
+              f"{v['bound_ms_per_pass']:.4f} ms (operations of the needed "
+              f"real triangles; {v['ms_per_pass'] / v['bound_ms_per_pass']:.1f}"
+              f"x), {v['tests_per_ray']:.4f} cluster tests a ray, "
+              f"{v['registers']} registers, {v['spill_bytes']} B spilled, "
+              f"{v['smem_bytes']} B shared, {v['blocks_per_sm']} blocks per "
+              f"SM", flush=True)
+    print(f"instanced_field 720p render rays: {len(b3)} passes, B3 bit for "
+          f"bit and B4 (max |d rgba| {err:.3e}) as the plain versions on "
+          f"every 64th ray; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del scene, b3, b4
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_tables(dev):
     """B1 and B3 on the tables of ``utils/check_tables.py``: exact ties
     across cluster rows and instance rows (the later row entered first),
@@ -810,10 +949,10 @@ def phase_tables(dev):
         ray_set = rays(tabs, r, 32, behind)
         check_closest_inst(inst_tabs, *ray_set, torch.arange(r, device=dev),
                            f"{label} ({inst_tabs[1].shape[0]} clusters)")
-        made, staged = visits_made(lambda v: tc.cluster_closest_inst(
+        made, visited = visits_made(lambda v: tc.cluster_closest_inst(
             *ray_set, *inst_tabs, visits=v), r)
-        print(f"    visits per ray {made:.3f}, clusters staged per block "
-              f"{staged:.2f}", flush=True)
+        print(f"    visits per ray {made:.3f}, cluster visits per block "
+              f"{visited:.2f}", flush=True)
 
 
 def phase_shadow_tables(dev):
@@ -881,7 +1020,7 @@ def phase_shadow_tables(dev):
             tc.instance_opacity(mats["mat_color"], mats["inst_slot_map"]))
         label = f"{case} instance table ({obox.shape[0]} clusters), B4"
         err = shadow_gate(label, tc.cluster_shadow_inst(o, d, big, *args), ref)
-        made, staged = visits_made(lambda v: tc.cluster_shadow_inst(
+        made, visited = visits_made(lambda v: tc.cluster_shadow_inst(
             o, d, big, *args, visits=v), r)
         t = tc.cluster_closest_inst_plain(o, d, zero, far, ti, obox, frames)[0]
         needed = ct.needed_inst(o, d, zero, t, ti, obox)[0] / r
@@ -890,7 +1029,7 @@ def phase_shadow_tables(dev):
         part = int(((ref[1] > 0) & (ref[1] < 1)).sum())
         print(f"  {label}: partial {part}/{r}, max |d rgba| {err:.3e}, visits "
               f"per ray {made:.3f} made / {needed:.3f} needed to the first hit, "
-              f"{staged:.2f} clusters staged per block", flush=True)
+              f"{visited:.2f} cluster visits per block", flush=True)
 
 
 def walk_stats(fn, r: int, wrapper):
@@ -3072,6 +3211,7 @@ def main() -> int:
     kernels = phase_kernels(card, dev)
     kernels.update(phase_inst_kernels(card, dev))
     phase_inst_cycle(card, dev)
+    kernels["cluster_closest_inst"]["render_walks"] = phase_inst_walks(card, dev)
     phase_tables(dev)
     phase_shadow_tables(dev)
     phase_massive(card, dev)

@@ -1,6 +1,6 @@
 // B3: closest-hit traversal of the instanced (two-level) cluster tables,
-// ranked front to back per block of 128 rays at both levels (one ray's walk
-// state per thread).
+// ranked front to back at both levels, the instances per block of 128 rays
+// and the walk per warp of 32 (one ray's walk state per thread).
 //
 // Replaces the TPU kernel rayzath_tpu/ops/traverse_cluster.py
 // `_closest_kernel_inst` (launched by `_cluster_closest_inst_impl`, entry
@@ -27,28 +27,29 @@
 // every instance row in table order with a barrier per row and per
 // cluster, and tested each ray on its own thread.
 //
-// What the design does about it, per block of 128 coherence-ordered rays,
-// the B1 design (rz_cluster.cuh) at both levels:
-// - Rank the instance rows by the interval bound of the block's world rays
-//   against their world AABBs, sort by (bound, row), and walk them in rank
-//   order, 32 per block vote, stopping when no ray can still be improved.
-// - In a visited instance, each ray that needs it moves into object space
-//   once (`to_object`) and publishes that ray for the cooperative tests. A
-//   mesh of more than SWEEP_MAX (8) clusters has its clusters ranked the
-//   same way by the bounds of the object-space rays (instanced_field's
-//   sphere has 24); a smaller mesh is swept in table order, as the TPU
-//   reference does at max_ncl <= 8. The cluster walk stages frames
-//   double-buffered with cp.async and tests each needing ray with a whole
-//   warp, one triangle slot per lane.
-// - Instance tables larger than RANK_MAX rows, and meshes of more than
-//   CL_WINDOW (512) clusters, are ranked and walked in consecutive windows
-//   of rows.
+// What the design does about it, per block of 128 coherence-ordered rays
+// (rz_cluster.cuh, the warp walk):
+// - The block ranks the instance rows by the interval bound of its world
+//   rays against their world AABBs and sorts them by (bound, row); tables
+//   larger than RANK_MAX rows are ranked in consecutive windows.
+// - Each warp then walks that list for its own 32 rays, a candidate at a
+//   time under its own stop vote, with no block barrier: a block-uniform
+//   walk's instance visits served about 16 of its 128 rays on
+//   instanced_field's bounce rays, yet each cost all of them the
+//   transform, a block rank and vote, and each cluster visit two barriers.
+// - In a visited instance, the warp's rays that need it move into object
+//   space (`to_object`). A mesh of more than SWEEP_MAX (8) clusters has its
+//   clusters ranked per warp, BATCH (32) at a time, by the bounds of the
+//   warp's object-space rays (instanced_field's sphere has 24); a smaller
+//   mesh is swept in table order, as the TPU reference does at max_ncl <=
+//   8. Each needing ray of a visited cluster is tested by the whole warp,
+//   one triangle slot per lane, the frames read through L1.
 // Ties resolve as the plain version's table order, whatever the walk's
 // order: a hit replaces the best when it is nearer, or equally near with a
 // smaller (instance row, cluster row, slot). Both gates are widened
 // (GATE_PAD on the boxes, gate_t on best_t), so they can only add visits.
-// As in B1, a block with a ray of near < 0 walks both levels in table
-// order without the stop.
+// As in B1, a ray of near < 0 makes its block's instance list and its
+// warp's cluster lists table order, walked without the stop.
 //
 // Built with -fmad=false (see rz_cluster.cuh): the object transform and
 // the projection round like the plain PyTorch version.
@@ -66,14 +67,13 @@ closest_inst_kernel(const float* __restrict__ origin,
                     const float* __restrict__ ti_rows,
                     const float* __restrict__ cl_obox,
                     const float* __restrict__ frames, int n_rays, int ip,
-                    int list_i, int list_c, float* __restrict__ t_out,
+                    int list_i, float* __restrict__ t_out,
                     int* __restrict__ id_out, int* __restrict__ inst_out,
                     int* __restrict__ visits,
                     unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Shared sh = shared_layout(smem);
+  const Shared sh = warp_layout(smem);
   u64* keys_i = sh.keys;
-  u64* keys_c = sh.keys + list_i;
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
@@ -96,7 +96,6 @@ closest_inst_kernel(const float* __restrict__ origin,
   int n_tests = 0;
   int n_inst = 0;  // instances this ray moved into (to_object calls)
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
   auto cur_best = [&]() { return best_t; };
@@ -108,69 +107,82 @@ closest_inst_kernel(const float* __restrict__ origin,
     return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
   };
 
-  // One instance visit, block-uniform: the rays that need instance row k
-  // walk its mesh's clusters in object space.
-  auto visit_inst = [&](int k) {
-    const float* row = ti_rows + (size_t)k * TI_W;
-    const bool in_k = active && ineed(k);
-    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+  auto center = [&](int s, float* ctr) {
+    const float* cb = cl_obox + (size_t)s * OBOX_W;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) ctr[a] = (cb[a] + cb[3 + a]) * 0.5f;
+    return (int)cb[7];
+  };
+  auto cluster_box = [&](int s, float* lo, float* hi) {
+    const float* cb = cl_obox + (size_t)s * OBOX_W;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = cb[a];
+      hi[a] = cb[3 + a];
+    }
+    return true;
+  };
+  // A test's result, the (t, slot) key hit of cluster s of instance row k
+  // (global index gid), taken by the ray's own thread.
+  auto take = [&](int k, int s, int gid, u64 hit) {
+    ++n_tests;
+    if (hit == NO_CAND) return;
+    const float t = ord_float((unsigned)(hit >> 32));
+    const int j = (int)(unsigned)hit;
+    const u64 key = ((u64)k << 32) | ((unsigned)s * CT + j);
+    if (t < best_t || (t == best_t && key < best_key)) {
+      best_t = t;
+      best_key = key;
+      best_id = (int)cl_obox[(size_t)s * OBOX_W + 6] + j;
+      best_inst = gid;
+    }
+  };
+  // The gate of cluster s for this thread's object-space ray (origin o,
+  // inverse direction il).
+  auto cgate = [&](int s, const float* o, const float* il) {
+    const float* cb = cl_obox + (size_t)s * OBOX_W;
+    float tmin, tmax;
+    slab_wide(cb, cb + 3, o[0], o[1], o[2], il[0], il[1], il[2], tmin, tmax);
+    return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
+  };
+  // The object-space ray of this thread in instance row k (when in_k).
+  auto enter = [&](int k, bool in_k, float* o, float* d) {
     if (in_k) {
-      to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+      to_object(ti_rows + (size_t)k * TI_W + TI_INV, ox, oy, oz, dx, dy, dz,
+                o, d);
       ++n_inst;
     }
-    const float ixl = safe_inv(d[0]), iyl = safe_inv(d[1]),
-                izl = safe_inv(d[2]);
-    const int cl0 = (int)row[TI_CL0];
-    const int ncl = (int)row[TI_NCL];
+  };
+
+  // One instance visit, warp-uniform: the lanes of mask need instance row k
+  // and walk its mesh's clusters in object space; each cluster is tested
+  // for each lane of its mask by the whole warp.
+  auto visit_inst = [&](int k, unsigned mask) {
+    const float* row = ti_rows + (size_t)k * TI_W;
+    const int lane = threadIdx.x & 31;
+    const bool in_k = (mask >> lane) & 1u;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+    enter(k, in_k, o, d);
+    const float il[3] = {safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2])};
     const int gid = (int)row[TI_ID];
-    auto cneed = [&](int s) {
-      const float* cb = cl_obox + (size_t)s * OBOX_W;
-      float tmin, tmax;
-      slab_wide(cb, cb + 3, o[0], o[1], o[2], ixl, iyl, izl, tmin, tmax);
-      return (tmax >= near) && (tmin <= tmax) && (tmin <= gate_t(best_t));
-    };
-    auto center = [&](int s, float* ctr) {
-      const float* cb = cl_obox + (size_t)s * OBOX_W;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) ctr[a] = (cb[a] + cb[3 + a]) * 0.5f;
-      return (int)cb[7];
-    };
-    auto apply = [&](int s) {
-      ++n_tests;
-      const u64 hit = sh.res[threadIdx.x];
-      if (hit == NO_CAND) return;
-      const float t = ord_float((unsigned)(hit >> 32));
-      const int j = (int)(unsigned)hit;
-      const u64 key = ((u64)k << 32) | ((unsigned)s * CT + j);
-      if (t < best_t || (t == best_t && key < best_key)) {
-        best_t = t;
-        best_key = key;
-        best_id = (int)cl_obox[(size_t)s * OBOX_W + 6] + j;
-        best_inst = gid;
+    auto cneed = [&](int s) { return cgate(s, o, il); };
+    auto visit_cluster = [&](int s, unsigned m) {
+      float ctr[3];
+      const int cnt = center(s, ctr);
+      const float* fr = frames + (size_t)s * FRAME_FLOATS;
+      if (block_visits != nullptr && lane == 0) atomicAdd(block_visits, 1);
+      while (m) {
+        const int r = __ffs(m) - 1;
+        m &= m - 1;
+        float p[3], dr[3];
+        const float nr = warp_ray(o, d, near, ctr, r, p, dr);
+        const u64 hit = closest_slots(fr, cnt, p, dr, nr);
+        if (lane == r) take(k, s, gid, hit);
       }
     };
-    store_ray(sh, o, d, near);  // read after the window's first barrier
-    auto cluster_box = [&](int s, float* lo, float* hi) {
-      const float* cb = cl_obox + (size_t)s * OBOX_W;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        lo[a] = cb[a];
-        hi[a] = cb[3 + a];
-      }
-      return true;
-    };
-    for (int s0 = 0; s0 < ncl; s0 += list_c) {
-      const int n = min(list_c, ncl - s0);
-      int nf;
-      if (ncl <= SWEEP_MAX) {
-        nf = sweep_window(keys_c, cl0 + s0, n);
-      } else {
-        const Bounds b = block_bounds(sh, in_k, o, d, near, best_t);
-        nf = rank_window(sh, keys_c, cl0 + s0, n, b, cluster_box);
-      }
-      walk_clusters(sh, w, keys_c, nf, in_k, frames, block_visits, cneed,
-                    cur_best, center, NoSide{}, ClosestTest{sh}, apply);
-    }
+    warp_walk_mesh((int)row[TI_CL0], (int)row[TI_NCL], in_k,
+                   [&] { return warp_bounds(in_k, o, d, near, best_t); },
+                   cluster_box, cneed, cur_best, visit_cluster);
   };
 
   auto instance_box = [&](int k, float* lo, float* hi) {
@@ -188,7 +200,8 @@ closest_inst_kernel(const float* __restrict__ origin,
       const int n = min(list_i, ip - k0);
       const Bounds b = block_bounds(sh, active, wo, wd, near, best_t);
       const int nf = rank_window(sh, keys_i, k0, n, b, instance_box);
-      walk_rows(sh, w, keys_i, nf, active, ineed, cur_best, visit_inst);
+      warp_walk([&](int i) { return keys_i[i]; }, nf, active, ineed,
+                cur_best, visit_inst);
     }
   }
   if (in_range) {
@@ -203,30 +216,38 @@ closest_inst_kernel(const float* __restrict__ origin,
 }  // namespace
 
 // visits: null on the render path; else int[n_rays + blocks] that receives
-// each ray's (instance, cluster) tests and each block's staged clusters.
-// work: null, or int64[2] that the launch adds its instance visits and its
-// (instance, cluster) tests to (add_walk_counts); the render path's
-// counters, which a captured graph advances on every replay.
+// each ray's (instance, cluster) tests and each block's cluster visits (its
+// warps' visits summed). work: null, or int64[2] that the launch adds its
+// instance visits and its (instance, cluster) tests to (add_walk_counts);
+// the render path's counters, which a captured graph advances on every
+// replay.
 extern "C" int rz_cluster_closest_inst(const float* origin,
                                        const float* direction,
                                        const float* near, const float* far,
                                        const float* ti_rows,
                                        const float* cl_obox,
                                        const float* frames, int n_rays,
-                                       int ip, float* t_out,
-                                       int* id_out, int* inst_out,
-                                       int* visits,
+                                       int ip, float* t_out, int* id_out,
+                                       int* inst_out, int* visits,
                                        unsigned long long* work,
                                        void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_i = rank_rows_for(ip);
-  const int list_c = CL_WINDOW;
   const size_t smem = kernel_smem(3, ip);
   cudaError_t err = allow_smem(closest_inst_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   closest_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
-      list_i, list_c, t_out, id_out, inst_out, visits, work);
+      list_i, t_out, id_out, inst_out, visits, work);
   return (int)cudaGetLastError();
+}
+
+// Resources of a launch over ip instance rows (walk_resources: registers,
+// dynamic shared bytes, blocks per SM, spilled bytes).
+extern "C" int rz_closest_inst_resources(int ip, int* out) {
+  const size_t smem = kernel_smem(3, ip);
+  const cudaError_t err = allow_smem(closest_inst_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return walk_resources(closest_inst_kernel, smem, out);
 }

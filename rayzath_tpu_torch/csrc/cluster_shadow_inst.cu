@@ -1,6 +1,7 @@
 // B4: transmission-filtered shadow traversal of the instanced (two-level)
-// cluster tables, ranked front to back per block of 128 rays at both levels
-// (one ray's product per thread).
+// cluster tables, ranked front to back at both levels, the instances per
+// block of 128 rays and the walk per warp of 32 (one ray's product per
+// thread).
 //
 // Replaces the TPU kernel rayzath_tpu/ops/traverse_cluster.py
 // `_shadow_kernel_inst` (launched by `_cluster_shadow_inst_impl`, entry
@@ -30,28 +31,24 @@
 // row, tested each ray on its own thread and copied synchronously.
 //
 // What the design does about it, per block of 128 coherence-ordered rays:
-// B3's walk at both levels (rz_cluster.cuh), with B2's product.
-// - Rank the instance rows by the interval bound of the block's live world
-//   rays against their widened world AABBs, capped at the largest live
-//   dist, and walk them in rank order, 32 per block vote; a blocked ray
-//   votes no more, and the block stops when no live ray can reach the next
-//   candidate.
-// - In a visited instance, each live ray that needs it moves into object
-//   space once (`to_object`) and publishes itself for the cooperative
-//   tests; the instance's 4x64 opacity row is copied with cp.async into a
-//   buffer of its own, published by the barrier of the mesh's first
-//   cluster visit and left alone until the mesh walk ends. A mesh of more
-//   than SWEEP_MAX (8) clusters has its clusters ranked by the bounds of
-//   the object-space rays (instanced_field's sphere has 24); a smaller mesh
-//   is swept in table order (faster on <= 8 clusters, PERF.md).
-// - Each needing ray of a visited cluster is tested by a whole warp, a slot
-//   per lane, each hit's factor resolved through the staged slot row and
-//   the instance's opacity row, and the lanes' products multiplied by
-//   shuffles; the ray's own thread folds it into its product.
-// - The next marked cluster's frames and slot row stream into the other
-//   shared buffers as one cp.async group while the current one is tested.
-// - Instance tables larger than RANK_MAX rows, and meshes of more than
-//   CL_WINDOW (512) clusters, are ranked and walked in consecutive windows.
+// B3's walk at both levels (rz_cluster.cuh, the warp walk), with B2's
+// product.
+// - The block ranks the instance rows by the interval bound of its live
+//   world rays against their widened world AABBs, capped at the largest
+//   live dist; tables larger than RANK_MAX rows are ranked in consecutive
+//   windows. Each warp walks that list for its own 32 rays, a candidate at
+//   a time; a blocked ray votes no more, and the warp stops when no live
+//   ray of it can reach the next candidate.
+// - In a visited instance, the warp's live rays that need it move into
+//   object space (`to_object`). A mesh of more than SWEEP_MAX (8) clusters
+//   has its clusters ranked per warp, BATCH (32) at a time, by the bounds
+//   of the warp's object-space rays (instanced_field's sphere has 24); a
+//   smaller mesh is swept in table order.
+// - Each needing ray of a visited cluster is tested by the whole warp, a
+//   slot per lane, each hit's factor resolved through the cluster's slot
+//   row and the instance's 4x64 opacity row (both read through L1), and
+//   the lanes' products multiplied by shuffles; the ray's own thread folds
+//   it into its product, in its own walk order.
 // Both gates stay widened (GATE_PAD on the boxes) with tmin <= dist and
 // tmax >= 0, so they can only add visits.
 //
@@ -72,13 +69,12 @@ shadow_inst_kernel(const float* __restrict__ origin,
                    const float* __restrict__ frames,
                    const float* __restrict__ cl_slot,
                    const float* __restrict__ op_tab, int n_rays, int ip,
-                   int list_i, int list_c, float* __restrict__ rgb_out,
+                   int list_i, float* __restrict__ rgb_out,
                    float* __restrict__ a_out, int* __restrict__ visits,
                    unsigned long long* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Shared sh = shared_layout(smem, B4_SIDE, OP_ROW);
+  const Shared sh = warp_layout(smem);
   u64* keys_i = sh.keys;
-  u64* keys_c = sh.keys + list_i;
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
@@ -97,7 +93,6 @@ shadow_inst_kernel(const float* __restrict__ origin,
   int n_tests = 0;
   int n_inst = 0;  // instances this ray moved into (to_object calls)
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  Walk w{0, 0};
   int* block_visits = visits ? visits + n_rays + blockIdx.x : nullptr;
 
   auto live = [&]() { return active && ma >= ALPHA_STOP; };
@@ -113,31 +108,20 @@ shadow_inst_kernel(const float* __restrict__ origin,
               tmax);
     return gate(tmin, tmax);
   };
-  auto apply = [&](int) {
+  // A test's result, the ray's rgba product over one cluster, folded in
+  // by the ray's own thread.
+  auto take = [&](float pr, float pg, float pb, float pa) {
     ++n_tests;
-    const float4 p = sh.prod[threadIdx.x];
-    mr = mr * p.x;
-    mg = mg * p.y;
-    mb = mb * p.z;
-    ma = ma * p.w;
+    mr = mr * pr;
+    mg = mg * pg;
+    mb = mb * pb;
+    ma = ma * pa;
   };
   auto center = [&](int s, float* ctr) {
     const float* cb = cl_obox + (size_t)s * OBOX_W;
 #pragma unroll
     for (int a = 0; a < 3; ++a) ctr[a] = (cb[a] + cb[3 + a]) * 0.5f;
     return (int)cb[7];
-  };
-  auto side = [&](int buf, int s) {
-    stage_rows(sh.side + buf * B4_SIDE, cl_slot + (size_t)s * CT, B4_SIDE);
-  };
-  auto test = [&](const float* fr, int buf, const float* ctr, int cnt, int r) {
-    const float* sl = sh.side + buf * B4_SIDE;
-    const float* op = sh.op_row;
-    shadow_test_ray(sh, fr, ctr, cnt, r, [&](int j, float* f) {
-      const int q = (int)sl[j];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) f[k] = op[k * SLOTS + q];
-    });
   };
   auto cluster_box = [&](int s, float* lo, float* hi) {
     const float* cb = cl_obox + (size_t)s * OBOX_W;
@@ -149,49 +133,60 @@ shadow_inst_kernel(const float* __restrict__ origin,
     return true;
   };
 
-  // One instance visit, block-uniform: the live rays that need instance row
-  // k walk its mesh's clusters in object space.
-  auto visit_inst = [&](int k) {
-    const float* row = ti_rows + (size_t)k * TI_W;
-    const bool in_k = ineed(k);
-    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+  // The gate of cluster s for this thread's object-space ray (origin o,
+  // inverse direction il).
+  auto cgate = [&](int s, const float* o, const float* il) {
+    if (!live()) return false;
+    const float* cb = cl_obox + (size_t)s * OBOX_W;
+    float tmin, tmax;
+    slab_wide(cb, cb + 3, o[0], o[1], o[2], il[0], il[1], il[2], tmin, tmax);
+    return gate(tmin, tmax);
+  };
+  // The object-space ray of this thread in instance row k (when in_k).
+  auto enter = [&](int k, bool in_k, float* o, float* d) {
     if (in_k) {
-      to_object(row + TI_INV, ox, oy, oz, dx, dy, dz, o, d);
+      to_object(ti_rows + (size_t)k * TI_W + TI_INV, ox, oy, oz, dx, dy, dz,
+                o, d);
       ++n_inst;
     }
-    const float ixl = safe_inv(d[0]), iyl = safe_inv(d[1]),
-                izl = safe_inv(d[2]);
-    const int cl0 = (int)row[TI_CL0];
-    const int ncl = (int)row[TI_NCL];
-    const int gid = (int)row[TI_ID];
-    // The instance's opacity row, its own commit group, waited for with the
-    // first cluster's rows. An earlier instance's copy may still be in
-    // flight when that mesh had no cluster visit: wait for it first. No
-    // thread reads the buffer here: the last test of the previous mesh
-    // ended at a barrier.
-    __pipeline_wait_prior(0);
-    stage_rows(sh.op_row, op_tab + (size_t)gid * OP_ROW, OP_ROW);
-    __pipeline_commit();
-    auto cneed = [&](int s) {
-      if (!live()) return false;
-      const float* cb = cl_obox + (size_t)s * OBOX_W;
-      float tmin, tmax;
-      slab_wide(cb, cb + 3, o[0], o[1], o[2], ixl, iyl, izl, tmin, tmax);
-      return gate(tmin, tmax);
-    };
-    store_ray(sh, o, d, dist);  // read after the window's first barrier
-    for (int s0 = 0; s0 < ncl; s0 += list_c) {
-      const int n = min(list_c, ncl - s0);
-      int nf;
-      if (ncl <= SWEEP_MAX) {
-        nf = sweep_window(keys_c, cl0 + s0, n);
-      } else {
-        const Bounds b = block_bounds(sh, in_k && live(), o, d, 0.0f, dist);
-        nf = rank_window(sh, keys_c, cl0 + s0, n, b, cluster_box);
+  };
+
+  // One instance visit, warp-uniform: the lanes of mask are live rays that
+  // need instance row k and walk its mesh's clusters in object space; each
+  // cluster is tested for each live lane of its mask by the whole warp, a
+  // hit's factor read through the cluster's slot row and the instance's
+  // opacity row in global memory.
+  auto visit_inst = [&](int k, unsigned mask) {
+    const float* row = ti_rows + (size_t)k * TI_W;
+    const int lane = threadIdx.x & 31;
+    const bool in_k = (mask >> lane) & 1u;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+    enter(k, in_k, o, d);
+    const float il[3] = {safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2])};
+    const float* op = op_tab + (size_t)row[TI_ID] * OP_ROW;
+    auto cneed = [&](int s) { return cgate(s, o, il); };
+    auto visit_cluster = [&](int s, unsigned m) {
+      float ctr[3];
+      const int cnt = center(s, ctr);
+      const float* fr = frames + (size_t)s * FRAME_FLOATS;
+      const float* sl = cl_slot + (size_t)s * CT;
+      if (block_visits != nullptr && lane == 0) atomicAdd(block_visits, 1);
+      while (m) {
+        const int r = __ffs(m) - 1;
+        m &= m - 1;
+        float p[3], dr[3], f[4];
+        const float dist_r = warp_ray(o, d, dist, ctr, r, p, dr);
+        shadow_slots(fr, cnt, p, dr, dist_r, [&](int j, float* fj) {
+          const int q = (int)sl[j];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) fj[c] = op[c * SLOTS + q];
+        }, f);
+        if (lane == r) take(f[0], f[1], f[2], f[3]);
       }
-      walk_clusters(sh, w, keys_c, nf, in_k, frames, block_visits, cneed,
-                    reach, center, side, test, apply);
-    }
+    };
+    warp_walk_mesh((int)row[TI_CL0], (int)row[TI_NCL], in_k,
+                   [&] { return warp_bounds(in_k && live(), o, d, 0.0f, dist); },
+                   cluster_box, cneed, reach, visit_cluster);
   };
 
   auto instance_box = [&](int k, float* lo, float* hi) {
@@ -209,9 +204,9 @@ shadow_inst_kernel(const float* __restrict__ origin,
       const int n = min(list_i, ip - k0);
       const Bounds b = block_bounds(sh, live(), wo, wd, 0.0f, dist);
       const int nf = rank_window(sh, keys_i, k0, n, b, instance_box);
-      walk_rows(sh, w, keys_i, nf, active, ineed, reach, visit_inst);
+      warp_walk([&](int i) { return keys_i[i]; }, nf, active, ineed, reach,
+                visit_inst);
     }
-    __pipeline_wait_prior(0);  // the last opacity row, if no cluster took it
   }
   if (in_range) {
     rgb_out[3 * ray + 0] = mr;
@@ -226,9 +221,9 @@ shadow_inst_kernel(const float* __restrict__ origin,
 }  // namespace
 
 // visits: null on the render path; else int[n_rays + blocks] that receives
-// each ray's (instance, cluster) tests and each block's staged clusters.
-// work: null, or int64[2] that the launch adds its instance visits and its
-// (instance, cluster) tests to, as B3's.
+// each ray's (instance, cluster) tests and each block's cluster visits, as
+// B3's. work: null, or int64[2] that the launch adds its instance visits
+// and its (instance, cluster) tests to, as B3's.
 extern "C" int rz_cluster_shadow_inst(const float* origin,
                                       const float* direction,
                                       const float* dist, const float* ti_rows,
@@ -243,12 +238,19 @@ extern "C" int rz_cluster_shadow_inst(const float* origin,
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_i = rank_rows_for(ip);
-  const int list_c = CL_WINDOW;
   const size_t smem = kernel_smem(4, ip);
   cudaError_t err = allow_smem(shadow_inst_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   shadow_inst_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
-      n_rays, ip, list_i, list_c, rgb_out, a_out, visits, work);
+      n_rays, ip, list_i, rgb_out, a_out, visits, work);
   return (int)cudaGetLastError();
+}
+
+// Resources of a launch over ip instance rows, as rz_closest_inst_resources.
+extern "C" int rz_shadow_inst_resources(int ip, int* out) {
+  const size_t smem = kernel_smem(4, ip);
+  const cudaError_t err = allow_smem(shadow_inst_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  return walk_resources(shadow_inst_kernel, smem, out);
 }

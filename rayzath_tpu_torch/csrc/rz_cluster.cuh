@@ -29,8 +29,8 @@
 // sum below rounds on its own, in the order written, exactly like the plain
 // PyTorch versions in ops/traverse_cluster.py; division is IEEE.
 //
-// The second half of this header is the ranked front-to-back walk of every
-// kernel (B1-B4): a block ranks the candidate rows of a table window by a
+// The second half of this header is the ranked front-to-back walk of the
+// kernels: a block ranks the candidate rows of a table window by a
 // lower bound of the entry distance of its rays (interval arithmetic on the
 // block's origin and direction bounds), sorts them by (bound, row) in
 // shared memory, and walks them in batches of 32 with one block vote per
@@ -42,7 +42,10 @@
 // minimum, shadow a product of rgba opacities. B1 and B2 walk a table of
 // more rows than the host's grouped line through its group table
 // (walk_grouped): the block ranks and votes on groups of 32 consecutive
-// rows first and sweeps the rows of the groups it enters.
+// rows first and sweeps the rows of the groups it enters. B3 and B4 walk
+// a two-level table per warp of 32 rays below the block's instance rank
+// (warp walk, third part): no shared stage and no block barrier inside the
+// walk. B4-grad walks both levels block by block.
 //
 // The shadow backwards (B2-grad, B4-grad) walk the same way twice with no
 // alpha stop: the first walk keeps each ray's product of non-zero factors
@@ -171,15 +174,15 @@ constexpr int BATCH = 32;            // candidates per block vote (one mask bit 
 constexpr int RANK_MAX = 4096;       // table rows per ranked window (8 B each)
 constexpr int B2_GRAD = 5;           // kernel_smem's number of B2-grad
 constexpr int B4_GRAD = 6;           // and of B4-grad
-constexpr int SWEEP_MAX = 8;         // B3/B4: meshes of <= 8 clusters are swept in order
-constexpr int CL_WINDOW = 512;       // B3/B4: cluster rows per ranked window of one mesh
+constexpr int SWEEP_MAX = 8;         // B3/B4/B4-grad: meshes of <= 8 clusters are swept in order
+constexpr int CL_WINDOW = 512;       // B4-grad: cluster rows per ranked window of one mesh
 constexpr u64 NO_CAND = ~0ull;       // empty slot of a candidate list
 constexpr int FRAME_BYTES = FRAME_FLOATS * 4;
 constexpr float ALPHA_STOP = 1e-4f;  // B2/B4: a ray whose alpha is below it is blocked
 // floats staged beside each visited cluster's frames by the shadow kernels
 constexpr int B2_SIDE = 4 * CT;      // B2: the cluster's rgba opacity block op_tab[c]
-constexpr int B4_SIDE = CT;          // B4: the cluster's slot row cl_slot[s]
-constexpr int OP_ROW = 4 * SLOTS;    // B4: the visited instance's opacity row
+constexpr int B4_SIDE = CT;          // B4-grad: the cluster's slot row cl_slot[s]
+constexpr int OP_ROW = 4 * SLOTS;    // B4, B4-grad: an instance's opacity row
 // the backwards' region: each ray's two coefficient rows [2][4][THREADS]
 // and the block accumulator of one visit (B2-grad: [4][CT]; B4-grad:
 // [4][SLOTS] of the visited instance)
@@ -222,7 +225,7 @@ __device__ __forceinline__ int pow2_at_least(int n) {
 // Shared memory of a block: two frame buffers, the vote words, the
 // feasible-candidate counter, the block's rays and their per-visit results
 // for the cooperative tests; for a shadow kernel two side-row buffers, the
-// per-visit products and (B4) the instance's opacity row; for a shadow
+// per-visit products and (B4-grad) the instance's opacity row; for a shadow
 // backward the coefficients and the accumulator (GRAD_BYTES); then the
 // candidate lists (8 B per row).
 struct Shared {
@@ -236,7 +239,7 @@ struct Shared {
   float* scratch;       // [16][WARPS]: per-warp partials of block_bounds
   float* side;          // shadow: [2][side floats], beside the two frame buffers
   float4* prod;         // shadow: [THREADS]: each tested ray's rgba product
-  float* op_row;        // B4: [OP_ROW]: the visited instance's opacity row
+  float* op_row;        // B4-grad: [OP_ROW]: the visited instance's opacity row
   float* coef;          // backward: [2][4][THREADS]: each ray's A and B rows
   float* acc;           // backward: [GRAD_ACC]: one visit's gradient sums
   u64* keys;            // candidate lists
@@ -309,15 +312,12 @@ struct Bounds {
 
 constexpr int N_BOUNDS = 14;  // minima that block_bounds reduces
 
-// block_bounds of the rays (o, d, near, reach) whose thread has active set:
-// 14 minima (maxima as minima of negations), per warp with shuffles, then
-// across the warps through shared scratch. Every thread calls it; two
-// barriers. The shadow kernels pass near = 0 (they take hits at t > 0).
-__device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
-                                               const float* o, const float* d,
-                                               float near, float reach) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float v[N_BOUNDS];
+// The 14 minima of the bounds (maxima as minima of negations) over the
+// rays of this warp whose lane has active set, with shuffles: every lane
+// of the warp calls it and gets them in v.
+__device__ __forceinline__ void warp_minima(bool active, const float* o,
+                                            const float* d, float near,
+                                            float reach, float* v) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     v[a] = active ? o[a] : INFINITY;
@@ -331,15 +331,10 @@ __device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
   for (int i = 0; i < N_BOUNDS; ++i)
     for (int s = 16; s > 0; s >>= 1)
       v[i] = fminf(v[i], __shfl_xor_sync(FULL, v[i], s));
-  __syncthreads();  // the previous call's readers are done with the scratch
-  if (lane == 0)
-    for (int i = 0; i < N_BOUNDS; ++i) sh.scratch[i * WARPS + warp] = v[i];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N_BOUNDS; ++i) {
-    v[i] = sh.scratch[i * WARPS];
-    for (int k = 1; k < WARPS; ++k) v[i] = fminf(v[i], sh.scratch[i * WARPS + k]);
-  }
+}
+
+// The Bounds of the minima v (warp_minima).
+__device__ __forceinline__ Bounds bounds_of(const float* v) {
   Bounds b;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -351,6 +346,38 @@ __device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
   b.nlo = v[13];
   b.cap = v[12] == INFINITY ? -INFINITY : gate_t(-v[12]);
   return b;
+}
+
+// block_bounds of the rays (o, d, near, reach) whose thread has active set:
+// the warps' minima (warp_minima), then across the warps through shared
+// scratch. Every thread calls it; two barriers. The shadow kernels pass
+// near = 0 (they take hits at t > 0).
+__device__ __forceinline__ Bounds block_bounds(const Shared& sh, bool active,
+                                               const float* o, const float* d,
+                                               float near, float reach) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v[N_BOUNDS];
+  warp_minima(active, o, d, near, reach, v);
+  __syncthreads();  // the previous call's readers are done with the scratch
+  if (lane == 0)
+    for (int i = 0; i < N_BOUNDS; ++i) sh.scratch[i * WARPS + warp] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N_BOUNDS; ++i) {
+    v[i] = sh.scratch[i * WARPS];
+    for (int k = 1; k < WARPS; ++k) v[i] = fminf(v[i], sh.scratch[i * WARPS + k]);
+  }
+  return bounds_of(v);
+}
+
+// The same bounds over this warp's rays alone: no shared memory and no
+// barrier; every lane of the warp calls it.
+__device__ __forceinline__ Bounds warp_bounds(bool active, const float* o,
+                                              const float* d, float near,
+                                              float reach) {
+  float v[N_BOUNDS];
+  warp_minima(active, o, d, near, reach, v);
+  return bounds_of(v);
 }
 
 // Conservative lower bound of the distance t >= 0 at which some ray of the
@@ -395,23 +422,26 @@ __device__ __forceinline__ float entry_bound(const Bounds& b, const float* lo,
   return (tl <= th && tl <= b.cap) ? tl : INFINITY;
 }
 
+// The 32 keys of a warp, one a lane, sorted ascending across the lanes (a
+// bitonic network with shuffles): lane l gets the l-th smallest. Every lane
+// of the warp calls it.
+__device__ __forceinline__ u64 warp_sort(u64 v, int lane) {
+  for (int size = 2; size <= 32; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 o = __shfl_xor_sync(FULL, v, stride);
+      const bool up = (lane & size) == 0;
+      const bool lower = (lane & stride) == 0;
+      v = (lower == up) ? (v < o ? v : o) : (v < o ? o : v);
+    }
+  }
+  return v;
+}
+
 // Sort keys[0 .. n) ascending, n a power of two >= 32: warp 0 with shuffles
 // for n == 32, else a block-wide bitonic network. Ends with a barrier.
 __device__ __forceinline__ void sort_keys(u64* keys, int n) {
   if (n == BATCH) {
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      u64 v = keys[lane];
-      for (int size = 2; size <= 32; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          const u64 o = __shfl_xor_sync(FULL, v, stride);
-          const bool up = (lane & size) == 0;
-          const bool lower = (lane & stride) == 0;
-          v = (lower == up) ? (v < o ? v : o) : (v < o ? o : v);
-        }
-      }
-      keys[lane] = v;
-    }
+    if (threadIdx.x < 32) keys[threadIdx.x] = warp_sort(keys[threadIdx.x], threadIdx.x);
     __syncthreads();
     return;
   }
@@ -538,14 +568,15 @@ __device__ __forceinline__ float ray_slot(const Shared& sh, const float* ctr,
   return R[6 * THREADS + r];
 }
 
-// One ray's closest-hit tests against the staged cluster, by one warp:
-// lane l takes slots l, l + 32, l + 64, l + 96; the warp keeps the smallest
-// (t, slot) key of the hits with t > near (NO_CAND: none) in res[r].
-__device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
-                                         const float* ctr, int cnt, int r) {
+// One ray's closest-hit tests against a cluster's frames fr, by one warp
+// (origin p relative to the cluster's centre, direction d): lane l takes
+// slots l, l + 32, l + 64, l + 96, and the warp reduces the smallest (t,
+// slot) key of the hits with t > near (NO_CAND: none), which every lane
+// returns.
+__device__ __forceinline__ u64 closest_slots(const float* fr, int cnt,
+                                             const float* p, const float* d,
+                                             float near) {
   const int lane = threadIdx.x & 31;
-  float p[3], d[3];
-  const float near = ray_slot(sh, ctr, r, p, d);
   u64 best = NO_CAND;
 #pragma unroll
   for (int q = 0; q < CT / 32; ++q) {
@@ -564,24 +595,34 @@ __device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
     const u64 o = __shfl_xor_sync(FULL, best, s);
     best = o < best ? o : best;
   }
-  if (lane == 0) sh.res[r] = best;
+  return best;
 }
 
-// One ray's shadow tests against the staged cluster, by one warp: lane l
-// takes slots l, l + 32, l + 64, l + 96 and multiplies the rgba factors
-// factor(j, f) of its hits with t in (0, dist); the warp multiplies the
-// lanes' four partial products by shuffles, and lane 0 writes the ray's
-// product over this cluster to prod[r]. (The plain version also takes one
-// product per cluster; the order inside it differs, by rounding only.)
-template <class Factor>
-__device__ __forceinline__ void shadow_test_ray(const Shared& sh,
-                                                const float* fr,
-                                                const float* ctr, int cnt,
-                                                int r, Factor factor) {
-  const int lane = threadIdx.x & 31;
+// closest_slots of ray r of the block's rays against the staged cluster;
+// lane 0 writes the key to res[r].
+__device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
+                                         const float* ctr, int cnt, int r) {
   float p[3], d[3];
-  const float dist = ray_slot(sh, ctr, r, p, d);
-  float m[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  const float near = ray_slot(sh, ctr, r, p, d);
+  const u64 best = closest_slots(fr, cnt, p, d, near);
+  if ((threadIdx.x & 31) == 0) sh.res[r] = best;
+}
+
+// One ray's shadow tests against a cluster's frames fr, by one warp (p, d
+// as for closest_slots): lane l takes slots l, l + 32, l + 64, l + 96 and
+// multiplies the rgba factors factor(j, f) of its hits with t in (0,
+// dist); the warp multiplies the lanes' four partial products by shuffles
+// into m, the same bits on every lane (each step multiplies a pair of
+// lanes' values, which commute). (The plain version also takes one product
+// per cluster; the order inside it differs, by rounding only.)
+template <class Factor>
+__device__ __forceinline__ void shadow_slots(const float* fr, int cnt,
+                                             const float* p, const float* d,
+                                             float dist, Factor factor,
+                                             float* m) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m[k] = 1.0f;
 #pragma unroll
   for (int q = 0; q < CT / 32; ++q) {
     const int j = lane + 32 * q;
@@ -600,7 +641,19 @@ __device__ __forceinline__ void shadow_test_ray(const Shared& sh,
   for (int s = 16; s > 0; s >>= 1)
 #pragma unroll
     for (int k = 0; k < 4; ++k) m[k] = m[k] * __shfl_xor_sync(FULL, m[k], s);
-  if (lane == 0) sh.prod[r] = make_float4(m[0], m[1], m[2], m[3]);
+}
+
+// shadow_slots of ray r of the block's rays against the staged cluster;
+// lane 0 writes the ray's product over this cluster to prod[r].
+template <class Factor>
+__device__ __forceinline__ void shadow_test_ray(const Shared& sh,
+                                                const float* fr,
+                                                const float* ctr, int cnt,
+                                                int r, Factor factor) {
+  float p[3], d[3], m[4];
+  const float dist = ray_slot(sh, ctr, r, p, d);
+  shadow_slots(fr, cnt, p, d, dist, factor, m);
+  if ((threadIdx.x & 31) == 0) sh.prod[r] = make_float4(m[0], m[1], m[2], m[3]);
 }
 
 // The first walk of a shadow backward: one ray's tests against the staged
@@ -830,7 +883,7 @@ __device__ __forceinline__ void walk_clusters(const Shared& sh, Walk& w,
   }
 }
 
-// Walk the candidates keys[0 .. n) of the instance level (B3, B4) in rank
+// Walk the candidates keys[0 .. n) of the instance level (B4-grad) in rank
 // order, batches and stop vote as walk_clusters; visit(row) runs the
 // instance's whole cluster walk, block-uniformly.
 template <class Need, class Reach, class Visit>
@@ -941,6 +994,125 @@ __device__ __forceinline__ void walk_grouped(
   }
 }
 
+// ---------------------------------------------------------------------------
+// warp walk of the two-level tables (B3, B4)
+// ---------------------------------------------------------------------------
+
+// B3 and B4 rank the instance rows per block as above and then let each
+// warp walk that list, and every mesh it enters, for its own 32 rays
+// alone. A block instance visit served few of its 128 rays, yet every one
+// cost all of them the object transform, a block rank of the mesh's
+// clusters and a vote, and every cluster visit two block barriers. In the
+// warp walk a visit costs only the warp whose rays need it: the lanes that
+// need the instance move into object space, the warp takes its own bounds
+// with shuffles (warp_bounds), ranks the mesh's clusters one a lane,
+// BATCH at a time (warp_rank; meshes of at most SWEEP_MAX clusters are
+// swept in table order), and visits them in rank order under its own vote
+// (warp_walk). Each needing ray of a visited cluster is tested by the
+// whole warp, a slot a lane, its origin and direction taken from its lane
+// by shuffles and the cluster's frames read straight from global memory
+// (a mesh's frames stay in L1 and L2: instanced_field's whole object table
+// is 25 clusters of 6 KB), so no shared memory is staged and no barrier
+// waits. The block's instance bounds hold each warp's rays, so every entry
+// bound of the block's list stays a lower bound for each warp and the
+// warp's stop is exact; the per-ray gates and the tie key make B3's hits
+// independent of the walk's order, so they are the plain version's bits.
+
+// The warp walk's shared memory: the candidate counter, block_bounds'
+// scratch and the instance list; nothing a visit.
+constexpr int WARP_OFF_SCRATCH = 16;
+constexpr int WARP_HEAD = WARP_OFF_SCRATCH + 16 * WARPS * 4;
+
+__device__ __forceinline__ Shared warp_layout(unsigned char* smem) {
+  Shared s{};
+  s.count = reinterpret_cast<int*>(smem);
+  s.scratch = reinterpret_cast<float*>(smem + WARP_OFF_SCRATCH);
+  s.keys = reinterpret_cast<u64*>(smem + WARP_HEAD);
+  return s;
+}
+
+// The warp's candidates among rows r0 .. r0+n-1 (n <= BATCH), one key a
+// lane in rank order: each lane l < n takes row r0 + l, row_box gives its
+// box (false: a padding row), a feasible row becomes its (entry_bound
+// against the warp's bounds b, row) key and the rest NO_CAND, and the warp
+// sorts them (warp_sort). Sets nf to the feasible candidates, which lead.
+template <class RowBox>
+__device__ __forceinline__ u64 warp_rank(const Bounds& b, int r0, int n,
+                                         RowBox row_box, int& nf) {
+  const int lane = threadIdx.x & 31;
+  u64 key = NO_CAND;
+  float lo[3], hi[3];
+  if (lane < n && row_box(r0 + lane, lo, hi)) {
+    const float pd = entry_bound(b, lo, hi);
+    if (pd != INFINITY) key = cand_key(pd, r0 + lane);
+  }
+  key = warp_sort(key, lane);
+  nf = __popc(__ballot_sync(FULL, key != NO_CAND));
+  return key;
+}
+
+// sweep_window for a warp: rows r0 .. r0+n-1 (n <= BATCH) in table order,
+// entry -inf, one key a lane.
+__device__ __forceinline__ u64 warp_sweep(int r0, int n) {
+  const int lane = threadIdx.x & 31;
+  return lane < n ? cand_key(-INFINITY, r0 + lane) : NO_CAND;
+}
+
+// Walk a warp's candidates in rank order, key_at(i) being candidate i (the
+// same on every lane). Before each, the warp stops when no active lane's
+// gate, gate_t(reach()), reaches its entry (every later entry is farther;
+// a blocked shadow ray's reach of -1 is below every ranked entry); the
+// lanes whose ray needs it (need(row) at their current reach) form a
+// mask, and a candidate with a non-empty mask is visited: visit(row,
+// mask). Every lane of the warp calls it with the same n (warp-uniform).
+template <class KeyAt, class Need, class Reach, class Visit>
+__device__ __forceinline__ void warp_walk(KeyAt key_at, int n, bool active,
+                                          Need need, Reach reach,
+                                          Visit visit) {
+  for (int i = 0; i < n; ++i) {
+    const u64 key = key_at(i);
+    if (!__any_sync(FULL, active && cand_pd(key) <= gate_t(reach()))) return;
+    const int row = cand_row(key);
+    const unsigned mask = __ballot_sync(FULL, active && need(row));
+    if (mask) visit(row, mask);
+  }
+}
+
+// A visited mesh's clusters cl0 .. cl0+ncl-1 for the warp, in windows of
+// BATCH: ranked by the warp's bounds of its rays that entered the mesh
+// (bounds()), or swept when ncl <= SWEEP_MAX, and walked by warp_walk
+// (active: this lane's ray entered the mesh; need, reach, visit as
+// there).
+template <class BoundsOf, class RowBox, class Need, class Reach, class Visit>
+__device__ __forceinline__ void warp_walk_mesh(int cl0, int ncl, bool active,
+                                               BoundsOf bounds, RowBox row_box,
+                                               Need need, Reach reach,
+                                               Visit visit) {
+  for (int s0 = 0; s0 < ncl; s0 += BATCH) {
+    const int n = min(BATCH, ncl - s0);
+    int nf = n;
+    const u64 key = ncl <= SWEEP_MAX
+                        ? warp_sweep(cl0 + s0, n)
+                        : warp_rank(bounds(), cl0 + s0, n, row_box, nf);
+    warp_walk([&](int i) { return __shfl_sync(FULL, key, i); }, nf, active,
+              need, reach, visit);
+  }
+}
+
+// Ray r of the warp for a test against a cluster centred at ctr: the lane
+// r's object-space origin o and direction d by shuffles, p = o - ctr as
+// ray_slot forms it; returns lane r's v (near or dist).
+__device__ __forceinline__ float warp_ray(const float* o, const float* d,
+                                          float v, const float* ctr, int r,
+                                          float* p, float* dr) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p[a] = __shfl_sync(FULL, o[a], r) - ctr[a];
+    dr[a] = __shfl_sync(FULL, d[a], r);
+  }
+  return __shfl_sync(FULL, v, r);
+}
+
 inline int rank_rows_for(int table_rows) {
   int p = BATCH;
   while (p < table_rows && p < RANK_MAX) p <<= 1;
@@ -949,16 +1121,18 @@ inline int rank_rows_for(int table_rows) {
 
 // Host: dynamic shared memory of kernel B<kernel> (1-4; 5: B2-grad, 6:
 // B4-grad) over table_rows rows: the candidate list of one window of them
-// (B1/B2: cluster rows; B3/B4: instance rows, plus one window of a mesh's
-// clusters) and the kernel's shadow and backward regions.
+// (B1/B2: cluster rows; B3/B4, B4-grad: instance rows, B4-grad's plus one
+// window of a mesh's clusters) after the warp walk's head (B3/B4,
+// warp_layout) or the block walk's and its shadow and backward regions.
 inline size_t kernel_smem(int kernel, int table_rows) {
-  const bool inst = kernel == 3 || kernel == 4 || kernel == B4_GRAD;
-  const int rows = rank_rows_for(table_rows) + (inst ? CL_WINDOW : 0);
+  if (kernel == 3 || kernel == 4)
+    return (size_t)WARP_HEAD + (size_t)rank_rows_for(table_rows) * sizeof(u64);
+  const int rows =
+      rank_rows_for(table_rows) + (kernel == B4_GRAD ? CL_WINDOW : 0);
   const int shadow = (kernel == 2 || kernel == B2_GRAD)
                          ? shadow_bytes(B2_SIDE, 0)
-                     : (kernel == 4 || kernel == B4_GRAD)
-                         ? shadow_bytes(B4_SIDE, OP_ROW)
-                         : 0;
+                     : kernel == B4_GRAD ? shadow_bytes(B4_SIDE, OP_ROW)
+                                         : 0;
   const int grad = (kernel == B2_GRAD || kernel == B4_GRAD) ? GRAD_BYTES : 0;
   return (size_t)SHARED_HEAD + (size_t)shadow + (size_t)grad +
          (size_t)rows * sizeof(u64);
@@ -973,7 +1147,8 @@ inline size_t grouped_smem(int kernel, int gp) {
 
 // Host: the resources of a launch of kernel with smem bytes of dynamic
 // shared memory: out[0] registers per thread, out[1] the shared bytes,
-// out[2] resident blocks per SM (for reports).
+// out[2] resident blocks per SM, out[3] local (spilled) bytes per thread
+// (for reports).
 template <class Kernel>
 inline int walk_resources(Kernel kernel, size_t smem, int* out) {
   cudaFuncAttributes attr;
@@ -985,6 +1160,7 @@ inline int walk_resources(Kernel kernel, size_t smem, int* out) {
   out[0] = err == cudaSuccess ? attr.numRegs : 0;
   out[1] = (int)smem;
   out[2] = blocks;
+  out[3] = err == cudaSuccess ? (int)attr.localSizeBytes : 0;
   return (int)err;
 }
 

@@ -81,10 +81,14 @@ _SIGNATURES = {
     # group rows, kernel (1, 2: B1, B2) -> bytes of its dynamic shared
     # memory on the grouped walk
     "rz_grouped_smem": [_I, _I],
-    # cluster rows, group rows (0: the flat walk), out int32[3]: registers
-    # per thread, dynamic shared bytes, resident blocks per SM of B1, B2
+    # cluster rows, group rows (0: the flat walk), out int32[4]: registers
+    # per thread, dynamic shared bytes, resident blocks per SM and spilled
+    # (local) bytes per thread of B1, B2
     "rz_closest_resources": [_I, _I, _P],
     "rz_shadow_resources": [_I, _I, _P],
+    # instance rows, out int32[4] as above, of B3, B4
+    "rz_closest_inst_resources": [_I, _P],
+    "rz_shadow_inst_resources": [_I, _P],
     # out, pass key words k0, k1, row0, height, width, ns, stream
     "rz_threefry_uniform": [_P, _U, _U, _I, _I, _I, _I, _P],
     # out, key words (uint32[2]), pass index (int32[1]), row0, height,

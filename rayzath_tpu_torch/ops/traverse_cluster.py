@@ -44,6 +44,9 @@ A ray visits an instance by moving into its object space,
 ``o' = A o + a`` and ``d' = A d`` with d' left unnormalized, so that t stays
 the world t, and then walks that mesh's clusters.
 
+B3 and B4 rank the instances per block of 128 rays and walk them, and
+each visited mesh's clusters, per warp of 32 rays.
+
 Each public entry point (``cluster_closest``, ``cluster_shadow``,
 ``cluster_closest_inst``, ``cluster_shadow_inst``) takes the plain PyTorch
 version for a tensor on the CPU and launches the hand-written CUDA kernel
@@ -523,19 +526,27 @@ def _soup_visits(visits, dev, r):
     return _visit_buffer(visits, dev, r), ctypes.c_void_p(None)
 
 
-def walk_resources(kernel: str, cp: int, grouped: bool) -> dict:
-    """Registers per thread, dynamic shared bytes and resident blocks per SM
-    of B1 (``kernel="closest"``) or B2 (``"shadow"``) launched over ``cp``
-    cluster rows, on the flat or the grouped walk, on the current CUDA
-    device (for reports)."""
+def walk_resources(kernel: str, rows: int, grouped: bool = False) -> dict:
+    """Registers per thread, dynamic shared bytes, resident blocks per SM
+    and spilled (local) bytes per thread of B1 (``kernel="closest"``) or B2
+    (``"shadow"``) launched over ``rows`` cluster rows on the flat or the
+    grouped walk, or of B3 (``"closest_inst"``) or B4 (``"shadow_inst"``)
+    over ``rows`` instance rows, on the current CUDA device (for
+    reports)."""
     lib = _kernels.load()
-    fn = {"closest": lib.rz_closest_resources,
-          "shadow": lib.rz_shadow_resources}[kernel]
-    out = (ctypes.c_int * 3)()
-    err = fn(cp, -(-cp // GROUP) if grouped else 0, out)
+    out = (ctypes.c_int * 4)()
+    if kernel in ("closest", "shadow"):
+        fn = {"closest": lib.rz_closest_resources,
+              "shadow": lib.rz_shadow_resources}[kernel]
+        err = fn(rows, -(-rows // GROUP) if grouped else 0, out)
+    else:
+        fn = {"closest_inst": lib.rz_closest_inst_resources,
+              "shadow_inst": lib.rz_shadow_inst_resources}[kernel]
+        err = fn(rows, out)
     if err:
         raise RuntimeError(f"walk_resources: {_kernels.error_string(err)}")
-    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                spill_bytes=out[3])
 
 
 def _group_args(dev, cp: int, groups):
@@ -1014,8 +1025,9 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     order, i.e. the order of ``tri_pack``, and inst_id [R] i32; -1 = miss).
     CPU tensors take :func:`cluster_closest_inst_plain`; CUDA tensors launch
     the B3 kernel (``csrc/cluster_closest_inst.cu``), a ranked front-to-back
-    walk of the instances and of each visited mesh's clusters per block of
-    128 rays (near < 0 as for :func:`cluster_closest`). ``visits`` as for
+    walk of the instances, ranked per block of 128 rays, and of each
+    visited mesh's clusters, per warp of 32 rays (near < 0 as for
+    :func:`cluster_closest`). ``visits`` as for
     :func:`cluster_closest`, counting (instance, cluster) tests (on the CPU
     too, as :func:`_count_plain` counts). Adds to ``rays`` and ``work``
     (:class:`WorkCounter`) on every call."""
@@ -1085,9 +1097,8 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
     (0, dist). CPU tensors take :func:`cluster_shadow_inst_plain`; CUDA
     tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), a
     ranked front-to-back walk of the instances and of each visited mesh's
-    clusters per block of 128 rays that stops a ray once its alpha is below
-    1e-4. ``visits``, ``rays`` and ``work`` as for
-    :func:`cluster_closest_inst`.
+    clusters, as B3's, that stops a ray once its alpha is below 1e-4.
+    ``visits``, ``rays`` and ``work`` as for :func:`cluster_closest_inst`.
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2)

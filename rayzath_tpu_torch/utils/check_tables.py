@@ -15,7 +15,11 @@ plain versions, for ``chip_smoke.py`` and the port's tests.
 * :func:`window_tables` / :func:`window_instance_tables`: a soup's clusters
   tiled with shifted boxes into more rows than the kernels rank at once
   (``RANK_WINDOW`` cluster rows for B1, ``MESH_WINDOW`` clusters of one mesh
-  for B3), so their walks take several windows.
+  for B4-grad; B3 and B4 rank a mesh 32 clusters at a time), so their walks
+  take several windows.
+* :func:`many_instance_tables`: a small soup's mesh under more instance rows
+  than the kernels rank at once (``RANK_WINDOW``), so B3's and B4's
+  instance walk takes several windows.
 
 Each returns NumPy arrays and the world-space triangles (``v0``, ``e1``,
 ``e2``, in the order of the ids the tables report) to aim rays at;
@@ -46,7 +50,7 @@ from ..ops.traverse_cluster import (B_BASE, B_CNT, B_MAX, B_MIN,
                                     build_instance_tables)
 
 RANK_WINDOW = _kernels.header_constant("RANK_MAX")     # B1 rows per window
-MESH_WINDOW = _kernels.header_constant("CL_WINDOW")    # B3 clusters per window
+MESH_WINDOW = _kernels.header_constant("CL_WINDOW")    # B4-grad clusters per window
 _F = np.float32
 
 
@@ -242,6 +246,24 @@ def window_instance_tables(rows: int = MESH_WINDOW + 100, n: int = 300,
     out.update(ti_rows=_instances(cl_obox, moves, (False, False)),
                cl_obox=cl_obox, frames=frames)
     return out
+
+
+def many_instance_tables(rows: int = RANK_WINDOW + 100, n: int = 200,
+                         seed: int = 10) -> dict:
+    """Instanced tables of one small soup's mesh (``n`` triangles) under
+    ``rows`` instances on a square grid 12 apart."""
+    v0, e1, e2, box, frames, _, m = _soup_tables(n, seed)
+    cl_obox, frames = _mesh(dict(box_tab=box, frames=frames, real_rows=m))
+    side = int(np.ceil(np.sqrt(rows)))
+    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                                indexing="ij"), -1).reshape(-1, 2)[:rows]
+    moves = np.zeros((rows, 3), _F)
+    moves[:, 0], moves[:, 2] = grid[:, 0] * 12.0, grid[:, 1] * 12.0
+    moves -= moves.mean(0)
+    return dict(v0=np.concatenate([v0 + mv for mv in moves]),
+                e1=np.tile(e1, (rows, 1)), e2=np.tile(e2, (rows, 1)),
+                ti_rows=_instances(cl_obox, moves, (False,) * rows),
+                cl_obox=cl_obox, frames=frames)
 
 
 def soup_opacity(tabs: dict, seed: int) -> dict:

@@ -9,7 +9,9 @@ jax; ``tests/conftest.py`` imports jax, so there run it as
 Rules (as in chip_smoke.py phase 2): B1 and B3 ids (and B3 instance ids)
 equal the plain version's except on f64-chaotic rays, t to rtol 1e-5, and
 bit for bit on the tables of ``utils/check_tables.py`` (exact ties across
-rows, walks of several windows, near < 0), where B1 must also test at
+rows, walks of several windows, near < 0; B3 also on instanced_field's
+720p render rays and a table of more instance rows than a rank window),
+where B1 must also test at
 most twice the needed clusters per ray on rays that hit a near wall; B2
 and B4 rgba to rtol 1e-5 / atol 1e-6 where the plain alpha >= 1e-4, and
 both below 1e-4 elsewhere, also with translucent opacities on tables of
@@ -552,6 +554,145 @@ def test_ranked_b3_matches_plain_bit_for_bit(cuda, case):
     if case == "negative_near":
         assert bool((ref[0][hit] < 0).any())        # a hit behind an origin
     assert int(visits[:r].sum()) > 0 and int(visits[r:].max()) > 0
+
+
+def _field_rays(scene, world, dev, res):
+    """instanced_field's camera rays (u = 0.5) at res^2 and bounce-like rays
+    with seeded sphere directions from their first hits (plain B3)."""
+    cam = tds.compile_camera(world.cameras[0], dev)
+    r = res * res
+    o, d = cam_ops.generate_rays(cam, cam_ops.pixel_grid(res, res, device=dev),
+                                 torch.full((r, 4), 0.5, device=dev))
+    near, far = torch.zeros(r, device=dev), torch.full((r,), 1e30, device=dev)
+    t, tid, _ = tc.cluster_closest_inst_plain(o, d, near, far, scene.ti_rows,
+                                              scene.cl_obox, scene.cl_lw)
+    p = torch.where((tid >= 0)[:, None], o + d * (t * 0.999)[:, None], o)
+    v = np.random.default_rng(res).normal(size=(r, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return [(o, d), (p.contiguous(), torch.as_tensor(v, device=dev))]
+
+
+def _render_walk_rays(world, dev, monkeypatch, passes=3):
+    """The rays that B3 and B4 take in the last of ``passes`` eager passes
+    (``render_steps``) of ``world``, sorted as the kernels see them: [(o, d,
+    near, far)] and [(o, d, dist)]."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.ops import rng
+    seen = {}
+    b3, b4 = I.cluster_closest_inst, I.cluster_shadow_inst
+
+    def rec3(o, d, near, far, *a, **k):
+        seen["b3"] = [x.clone() for x in (o, d, near, far)]
+        return b3(o, d, near, far, *a, **k)
+
+    def rec4(o, d, dist, *a, **k):
+        seen["b4"] = [x.clone() for x in (o, d, dist)]
+        return b4(o, d, dist, *a, **k)
+
+    monkeypatch.setattr(I, "cluster_closest_inst", rec3)
+    monkeypatch.setattr(I, "cluster_shadow_inst", rec4)
+    scene = tds.compile_world(world, device=dev)
+    cam = tds.compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=16),
+                          light_sampling=rt.LightSampling(spot_light=1,
+                                                          direct_light=1))
+    st = init_state(world.cameras[0].resolution[0],
+                    world.cameras[0].resolution[1], dev)
+    with torch.no_grad():
+        I.render_steps(scene, cam, cfg, st, rng.key(5), passes)
+    monkeypatch.undo()
+    return scene, [seen["b3"]], [seen["b4"]]
+
+
+def _inst_walk_case(case, dev, monkeypatch):
+    """(B3 tables, B4 tables, [(o, d, near, far)], [(o, d, dist)], plain
+    stride) of a case of test_inst_walks_match_plain."""
+    big = 3.4e38
+    if case in ("field", "big_mesh"):
+        resolution = 60 if case == "big_mesh" else 48
+        world = rt.scenes.instanced_field(64, 64, resolution=resolution)
+        scene = tds.compile_world(world, two_level=True, device=dev)
+        sets = _field_rays(scene, world, dev, 64)
+        b3 = [(o, d, torch.zeros(len(o), device=dev),
+               torch.full((len(o),), 1e30, device=dev)) for o, d in sets]
+        b4 = [(o, d, torch.full((len(o),), big, device=dev)) for o, d in sets]
+    elif case == "field_720":
+        scene, b3, b4 = _render_walk_rays(rt.scenes.instanced_field(1280, 720),
+                                          dev, monkeypatch)
+    if case in ("field", "big_mesh", "field_720"):
+        mats = (scene.cl_slot, scene.inst_slot_map,
+                half_translucent(scene.mat_color))
+        return ((scene.ti_rows, scene.cl_obox, scene.cl_lw), mats, b3, b4,
+                64 if case == "field_720" else 1)
+    tabs = {"instance_windows": ct.many_instance_tables,
+            "mesh_windows": ct.window_instance_tables}.get(
+                case, ct.tie_instance_tables)()
+    ti, obox, frames = _table_tensors(tabs, ("ti_rows", "cl_obox", "frames"),
+                                      dev)
+    mats = ct.instance_materials(tabs, seed=16)
+    mats = tuple(torch.as_tensor(mats[k], device=dev)
+                 for k in ("cl_slot", "inst_slot_map", "mat_color"))
+    r = 4096
+    if case == "instance_windows":
+        o, d = (torch.as_tensor(x, device=dev) for x in ct.aimed_rays(
+            tabs["v0"], tabs["e1"], tabs["e2"], r, 17, spread=200.0))
+        rays = (o, d, torch.zeros(r, device=dev),
+                torch.full((r,), 1e30, device=dev))
+    else:
+        rays = _aimed_rays(tabs, r, 6, dev)
+        if case == "negative_near":
+            rays[2][::2] = -3.0
+    return ((ti, obox, frames), mats, [rays],
+            [(*rays[:2], torch.full((r,), big, device=dev))],
+            16 if case == "instance_windows" else 1)
+
+
+def half_translucent(mat_color):
+    """Every other material (from index 2) at alpha 0.5, as chip_smoke.py's
+    translucent sets."""
+    mc = mat_color.clone()
+    mc[2::2, 3] = 0.5
+    return mc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["field", "field_720", "negative_near",
+                                  "instance_windows", "big_mesh",
+                                  "mesh_windows", "ties"])
+def test_inst_walks_match_plain(cuda, case, monkeypatch):
+    """B3 and B4 (the warp walk) against the plain versions: B3's t, ids
+    and instances bit for bit, B4 to the forward gate. Cases:
+    instanced_field (24 + 1 clusters) at 64^2, camera and bounce-like rays;
+    its 1280x720 render rays (the third pass, the plain versions on every
+    64th ray); a table of more instance rows than one rank window
+    (RANK_WINDOW), plain on every 16th ray; a sphere of 40 clusters and a
+    mesh of 612, which a warp ranks and walks in windows of BATCH; the tie
+    tables (a mesh of BATCH clusters), also with near < 0 on every other
+    ray."""
+    (ti, obox, frames), mats, b3_sets, b4_sets, stride = \
+        _inst_walk_case(case, cuda, monkeypatch)
+    assert (case != "instance_windows") or ti.shape[0] > ct.RANK_WINDOW
+    op_tab = tc.instance_opacity(mats[2], mats[1])
+    for o, d, near, far in b3_sets:
+        got = tc.cluster_closest_inst(o, d, near, far, ti, obox, frames)
+        sub = torch.arange(0, len(o), stride, device=cuda)
+        ref = tc.cluster_closest_inst_plain(o[sub], d[sub], near[sub],
+                                            far[sub], ti, obox, frames)
+        torch.cuda.synchronize()
+        for a, c in zip(got, ref):
+            assert torch.equal(a[sub], c), int((a[sub] != c).sum())
+        assert int((got[1] >= 0).sum()) > len(o) // 5
+        if case == "negative_near":
+            assert bool((ref[0][ref[1] >= 0] < 0).any())
+    for o, d, dist in b4_sets:
+        got = tc.cluster_shadow_inst(o, d, dist, ti, obox, frames, *mats)
+        sub = torch.arange(0, len(o), stride, device=cuda)
+        ref = tc.cluster_shadow_inst_plain(o[sub], d[sub], dist[sub], ti,
+                                           obox, frames, mats[0], op_tab)
+        torch.cuda.synchronize()
+        shadow_gate([x[sub] for x in got], ref)
+        assert int(((ref[1] > 0) & (ref[1] < 1)).sum()) > 0
 
 
 @pytest.mark.gpu

@@ -168,7 +168,8 @@ def test_replays_advance_the_ray_counters(fake_graphs):
 #: the library's entries that launch nothing: sizes, resources and the
 #: error text
 QUERIES = {"rz_ranked_smem", "rz_grouped_smem", "rz_closest_resources",
-           "rz_shadow_resources", "rz_gather_grad_partials",
+           "rz_shadow_resources", "rz_closest_inst_resources",
+           "rz_shadow_inst_resources", "rz_gather_grad_partials",
            "rz_ray_sort_partials", "rz_error_string"}
 
 

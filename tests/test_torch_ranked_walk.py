@@ -18,6 +18,12 @@ row entered first, and with a window small enough that the walk takes
 three or more windows. The kernels themselves meet the same tables on the
 card in tests/test_torch_gpu.py.
 
+B3 and B4 walk per warp below the block's instance rank (the warp walk):
+the block ranks the instance rows, then each warp of 32 rays walks that
+list alone, a candidate at a time under its own stop, and ranks a visited
+mesh's clusters BATCH at a time by the bounds of its own rays. The model
+does the same, on meshes of one to several windows of BATCH clusters.
+
 The shadow model walks the same way with a product in place of the
 minimum: a ray is live while its alpha is at least ALPHA_STOP, its reach
 is its dist while live and -1 once blocked (so it votes no more and marks
@@ -51,7 +57,7 @@ from rayzath_tpu_torch.ops import camera as cam_ops  # noqa: E402
 from rayzath_tpu_torch.ops import traverse_cluster as tc  # noqa: E402
 from rayzath_tpu_torch.ops._kernels import header_constant  # noqa: E402
 from rayzath_tpu_torch.utils import check_tables as ct  # noqa: E402
-from test_torch_gpu import shadow_gate  # noqa: E402
+from test_torch_gpu import half_translucent, shadow_gate  # noqa: E402
 
 THREADS = header_constant("THREADS")        # rays per block
 BATCH = header_constant("BATCH")            # candidates per block vote
@@ -197,6 +203,30 @@ def walk(cands, reach, rays, need, visit):
     return visits
 
 
+def warp_walk(cands, reach, rays, need, visit):
+    """``warp_walk`` (B3/B4): the ranked candidates one at a time for the
+    rays ``rays`` of one warp: stop when none of them reaches the
+    candidate's entry (gate_t(reach())), visit it when one of them needs
+    it. Returns the visits."""
+    visits = 0
+    for pd, row in cands:
+        if not bool((rays & (torch.tensor(pd, dtype=torch.float32)
+                             <= gate_t(reach()))).any()):
+            break
+        if bool((rays & need(row)).any()):
+            visit(row)
+            visits += 1
+    return visits
+
+
+def warp_lanes(n):
+    """The masks of a block's warps of 32 rays (of ``n``)."""
+    for w0 in range(0, n, 32):
+        lanes = torch.zeros(n, dtype=torch.bool)
+        lanes[w0:w0 + 32] = True
+        yield lanes
+
+
 def walk_grouped(groups, gate, b, reach, active, need, visit):
     """``walk_grouped`` (B1, B2 on a table above the line): the real group
     rows ranked by the block's bounds ``b`` and walked under the block
@@ -266,10 +296,12 @@ def model_closest(o, d, near, far, box_tab, frames, window=ct.RANK_WINDOW,
 
 
 def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
-                       window=ct.RANK_WINDOW, mesh_window=ct.MESH_WINDOW):
-    """B3's walk, block by block: instances ranked, each visited mesh's
-    clusters ranked (more than SWEEP_MAX) or swept. Returns (t, id, inst,
-    block visits)."""
+                       window=ct.RANK_WINDOW):
+    """B3's walk, block by block: instances ranked by the block's rays in
+    windows of ``window`` rows, then each warp of 32 rays walking the
+    block's instance list alone (:func:`warp_walk`) and each visited mesh's
+    clusters, ranked BATCH at a time by the bounds of its own rays (more
+    than SWEEP_MAX) or swept. Returns (t, id, inst, visits)."""
     box = cl_obox.t().contiguous()
     t_out, id_out, inst_out, visits = [], [], [], 0
     for b0 in range(0, len(o), THREADS):
@@ -284,9 +316,9 @@ def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
             return blk.gate(*slab(row[0:3], row[3:6], ob, inv, pad=True),
                             blk.active)
 
-        def visit_inst(k):
+        def visit_inst(k, lanes):
             row = ti_rows[k]
-            in_k = ineed(k)
+            in_k = ineed(k) & lanes
             oo, dd = tc._object_rays(ob, db, ti_rows, k)
             invl = safe_inv(dd)
             cl0, ncl, gid = (int(row[tc.TI_CL0]), int(row[tc.TI_NCL]),
@@ -301,16 +333,16 @@ def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
                 blk.take(t, b1, b2, cneed(s), (k << 32) + s * 128,
                          int(cl_obox[s, tc.B_BASE]), gid)
 
-            for s0 in range(cl0, cl0 + ncl, mesh_window):
-                rows = list(range(s0, min(cl0 + ncl, s0 + mesh_window)))
+            for s0 in range(cl0, cl0 + ncl, BATCH):
+                rows = list(range(s0, min(cl0 + ncl, s0 + BATCH)))
                 if ncl <= SWEEP_MAX:
                     cands = [(-float("inf"), s) for s in rows]
                 else:
                     cands = rank(rows, lambda s: (cl_obox[s, 0:3],
                                                   cl_obox[s, 3:6]),
                                  bounds(oo, dd, in_k, blk.near, blk.best_t))
-                n_visits[0] += walk(cands, lambda: blk.best_t, in_k, cneed,
-                                    cvisit)
+                n_visits[0] += warp_walk(cands, lambda: blk.best_t, in_k,
+                                         cneed, cvisit)
 
         if bool(blk.active.any()):
             ip = ti_rows.shape[0]
@@ -318,8 +350,11 @@ def model_closest_inst(o, d, near, far, ti_rows, cl_obox, frames,
                 rows = [k for k in range(w0, min(ip, w0 + window))
                         if ti_rows[k, tc.TI_NCL] > 0]
                 b = bounds(ob, db, blk.active, blk.near, blk.best_t)
-                walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
-                          b), lambda: blk.best_t, blk.active, ineed, visit_inst)
+                cands = rank(rows, lambda k: (ti_rows[k, 0:3],
+                                              ti_rows[k, 3:6]), b)
+                for lanes in warp_lanes(len(ob)):
+                    warp_walk(cands, lambda: blk.best_t, blk.active & lanes,
+                              ineed, lambda k: visit_inst(k, lanes))
         visits += n_visits[0]
         t_out.append(blk.best_t)
         id_out.append(blk.best_id)
@@ -371,12 +406,14 @@ def test_model_b1_matches_plain_on_mesh_heavy_like_rays(window):
         assert 0 < visits < real * -(-len(o) // THREADS)   # the walk culls
 
 
-@pytest.mark.parametrize("resolution", [8, 48])
+@pytest.mark.parametrize("resolution", [8, 48, 60, 96])
 def test_model_b3_matches_plain_on_instanced_field_like_rays(resolution):
-    """resolution 8: one cluster per ball (swept); 48: 24 (ranked)."""
+    """resolution 8: one cluster per ball (swept); 48: 24 (ranked); 60: 40
+    and 96: 104 (ranked and walked in windows of BATCH)."""
     world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
     scene = tds.compile_world(world, two_level=True, device="cpu")
-    assert (scene.max_ncl > SWEEP_MAX) == (resolution == 48)
+    assert (scene.max_ncl > SWEEP_MAX) == (resolution > 8)
+    assert (scene.max_ncl > BATCH) == (resolution > 48)
     sets, near, far = scene_rays(scene, world, 16, seed=4)
     tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw)
     for o, d in sets:
@@ -433,15 +470,14 @@ def test_model_b3_ties_across_instances_and_clusters():
 
 
 def test_model_b3_mesh_windows():
-    """A mesh of more clusters than a window: with 16-cluster windows the
-    mesh walk takes three or more windows; the result stays exact."""
-    tabs = ct.tie_instance_tables()
+    """A mesh of more than three times BATCH clusters, which a warp ranks
+    and walks in windows of BATCH: the result stays exact."""
+    tabs = ct.window_instance_tables(rows=100, n=300, seed=9)
     ti, obox, frames = (torch.as_tensor(tabs[k])
                         for k in ("ti_rows", "cl_obox", "frames"))
-    assert obox.shape[0] > 2 * 8
+    assert int(ti[:, tc.TI_NCL].max()) > 3 * BATCH
     o, d, near, far = _table_rays(tabs, 256, seed=7)
-    got = model_closest_inst(o, d, near, far, ti, obox, frames, window=128,
-                             mesh_window=8)[:3]
+    got = model_closest_inst(o, d, near, far, ti, obox, frames)[:3]
     assert_bits(got, tc.cluster_closest_inst_plain(o, d, near, far, ti, obox,
                                                    frames))
 
@@ -570,11 +606,10 @@ def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW,
 
 
 def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
-                      window=ct.RANK_WINDOW, mesh_window=ct.MESH_WINDOW):
-    """B4's walk, block by block: instances ranked, each visited mesh's
-    clusters ranked (more than SWEEP_MAX) or swept, each hit's factor
-    op_tab[gid, :, cl_slot[s, j]]. Returns (rgb, a, block visits, cluster
-    tests per ray)."""
+                      window=ct.RANK_WINDOW):
+    """B4's walk, block by block, as :func:`model_closest_inst`'s, each
+    hit's factor op_tab[gid, :, cl_slot[s, j]]. Returns (rgb, a, visits,
+    cluster tests per ray)."""
     box = cl_obox.t().contiguous()
     slots = cl_slot.long()
     m_out, tests, visits = [], [], 0
@@ -591,9 +626,9 @@ def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
             return blk.gate(*slab(row[0:3], row[3:6], ob, inv, pad=True),
                             blk.active)
 
-        def visit_inst(k):
+        def visit_inst(k, lanes):
             row = ti_rows[k]
-            in_k = ineed(k)
+            in_k = ineed(k) & lanes
             oo, dd = tc._object_rays(ob, db, ti_rows, k)
             invl = safe_inv(dd)
             cl0, ncl, gid = (int(row[tc.TI_CL0]), int(row[tc.TI_NCL]),
@@ -607,8 +642,8 @@ def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
                 t, b1, b2 = tc._project(oo, dd, box, frames, s)
                 blk.take(t, b1, b2, cneed(s), op_tab[gid][:, slots[s]])
 
-            for s0 in range(cl0, cl0 + ncl, mesh_window):
-                rows = list(range(s0, min(cl0 + ncl, s0 + mesh_window)))
+            for s0 in range(cl0, cl0 + ncl, BATCH):
+                rows = list(range(s0, min(cl0 + ncl, s0 + BATCH)))
                 if ncl <= SWEEP_MAX:
                     cands = [(-float("inf"), s) for s in rows]
                 else:
@@ -616,7 +651,8 @@ def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
                                                   cl_obox[s, 3:6]),
                                  bounds(oo, dd, in_k & blk.live(), zero,
                                         blk.dist))
-                n_visits[0] += walk(cands, blk.reach, in_k, cneed, cvisit)
+                n_visits[0] += warp_walk(cands, blk.reach, in_k, cneed,
+                                         cvisit)
 
         if bool(blk.active.any()):
             ip = ti_rows.shape[0]
@@ -624,8 +660,11 @@ def model_shadow_inst(o, d, dist, ti_rows, cl_obox, frames, cl_slot, op_tab,
                 rows = [k for k in range(w0, min(ip, w0 + window))
                         if ti_rows[k, tc.TI_NCL] > 0]
                 b = bounds(ob, db, blk.live(), zero, blk.dist)
-                walk(rank(rows, lambda k: (ti_rows[k, 0:3], ti_rows[k, 3:6]),
-                          b), blk.reach, blk.active, ineed, visit_inst)
+                cands = rank(rows, lambda k: (ti_rows[k, 0:3],
+                                              ti_rows[k, 3:6]), b)
+                for lanes in warp_lanes(len(ob)):
+                    warp_walk(cands, blk.reach, blk.active & lanes, ineed,
+                              lambda k: visit_inst(k, lanes))
         visits += n_visits[0]
         m_out.append(blk.m)
         tests.append(blk.tests)
@@ -639,14 +678,6 @@ def _soup_op(scene, mat_color):
                               scene.cl_base, scene.cl_count)
 
 
-def _half_translucent(mat_color):
-    """Every other material (from index 2) at alpha 0.5, as chip_smoke.py's
-    translucent sets."""
-    mc = mat_color.clone()
-    mc[2::2, 3] = 0.5
-    return mc
-
-
 def _dists(t, hit):
     """dist = the ray's first hit (else BIG), and dist = BIG."""
     big = torch.full_like(t, float(BIG))
@@ -658,7 +689,7 @@ def _dists(t, hit):
 def test_model_b2_matches_plain_on_mesh_heavy_like_rays(dist, alpha):
     world = rt.scenes.mesh_heavy(24, 24, resolution=40)
     scene = tds.compile_world(world, device="cpu")
-    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    mc = scene.mat_color if alpha == "opaque" else half_translucent(scene.mat_color)
     op_tab = _soup_op(scene, mc)
     sets, near, far = scene_rays(scene, world, 24, seed=3)
     partial = 0
@@ -679,14 +710,16 @@ def test_model_b2_matches_plain_on_mesh_heavy_like_rays(dist, alpha):
 
 
 @pytest.mark.parametrize("alpha", ["opaque", "half"])
-@pytest.mark.parametrize("resolution", [8, 48])
+@pytest.mark.parametrize("resolution", [8, 48, 60, 96])
 def test_model_b4_matches_plain_on_instanced_field_like_rays(resolution, alpha):
-    """resolution 8: one cluster per ball (swept); 48: 24 (ranked); each
-    ray set at dist = hit and dist = BIG."""
+    """resolution 8: one cluster per ball (swept); 48: 24 (ranked); 60: 40
+    and 96: 104 (ranked in windows of BATCH); each ray set at dist = hit
+    and dist = BIG: each ray's thread takes its per-cluster products in its
+    own walk order, within the forward gate of the plain version."""
     world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
     scene = tds.compile_world(world, two_level=True, device="cpu")
-    assert (scene.max_ncl > SWEEP_MAX) == (resolution == 48)
-    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    assert (scene.max_ncl > SWEEP_MAX) == (resolution > 8)
+    mc = scene.mat_color if alpha == "opaque" else half_translucent(scene.mat_color)
     op_tab = tc.instance_opacity(mc, scene.inst_slot_map)
     tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot, op_tab)
     sets, near, far = scene_rays(scene, world, 16, seed=4)
@@ -742,25 +775,26 @@ def test_model_b2_translucent_window_table(window):
 
 
 def test_model_b4_translucent_window_table():
-    """Translucent products over one mesh of more clusters than three mesh
-    windows of 8, under two instances: a product spans three or more mesh
-    windows (of either instance), and slot rows and instance opacity rows
-    resolve every factor."""
+    """Translucent products over one mesh of more clusters than three of a
+    warp's windows of BATCH, under two instances: a product spans three or
+    more windows (of either instance), and slot rows and instance opacity
+    rows resolve every factor."""
     tabs = ct.window_instance_tables(rows=100, n=2000, seed=9)
     mats = {k: torch.as_tensor(v) for k, v in
             ct.instance_materials(tabs, seed=12).items()}
     ti, obox, frames = (torch.as_tensor(tabs[k])
                         for k in ("ti_rows", "cl_obox", "frames"))
-    assert obox.shape[0] > 3 * 8 > SWEEP_MAX
+    assert obox.shape[0] > 3 * BATCH > SWEEP_MAX
     op_tab = tc.instance_opacity(mats["mat_color"], mats["inst_slot_map"])
     o, d, *_ = _table_rays(tabs, 256, seed=13)
     dist = torch.full((len(o),), float(BIG))
     tabs_t = (ti, obox, frames, mats["cl_slot"], op_tab)
     ref = tc.cluster_shadow_inst_plain(o, d, dist, *tabs_t)
-    got = model_shadow_inst(o, d, dist, *tabs_t, mesh_window=8)[:2]
+    got = model_shadow_inst(o, d, dist, *tabs_t)[:2]
     shadow_gate(got, ref)
     spans = sum(_window_spans(*tc._object_rays(o, d, ti, k), dist,
-                              obox.t().contiguous(), frames, 8) for k in (0, 1))
+                              obox.t().contiguous(), frames, BATCH)
+                for k in (0, 1))
     assert int(((ref[1] >= ALPHA_STOP) & (spans >= 3)).sum()) > 10
     assert int(((ref[1] > ALPHA_STOP) & (ref[1] < 0.5)).sum()) > 10
 
@@ -1028,7 +1062,7 @@ def test_model_b2_grad_matches_plain_on_mesh_heavy_like_rays(alpha):
     clusters of each ray (no stop), walk 2 no more."""
     world = rt.scenes.mesh_heavy(24, 24, resolution=40)
     scene = tds.compile_world(world, device="cpu")
-    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    mc = scene.mat_color if alpha == "opaque" else half_translucent(scene.mat_color)
     op_tab = _soup_op(scene, mc)
     sets, near, far = scene_rays(scene, world, 24, seed=3)
     zero = torch.zeros(len(near))
@@ -1059,7 +1093,7 @@ def test_model_b4_grad_matches_plain_on_instanced_field_like_rays(resolution,
     walk 2 no more than walk 1."""
     world = rt.scenes.instanced_field(16, 16, n=3, resolution=resolution)
     scene = tds.compile_world(world, two_level=True, device="cpu")
-    mc = scene.mat_color if alpha == "opaque" else _half_translucent(scene.mat_color)
+    mc = scene.mat_color if alpha == "opaque" else half_translucent(scene.mat_color)
     op_tab = tc.instance_opacity(mc, scene.inst_slot_map)
     tabs = (scene.ti_rows, scene.cl_obox, scene.cl_lw, scene.cl_slot, op_tab)
     sets, near, far = scene_rays(scene, world, 16, seed=4)
@@ -1281,3 +1315,24 @@ def test_model_grouped_stops_at_the_wall(kernel):
         shadow_gate(got, tc.cluster_shadow_plain(o, d, dist, box, frames,
                                                  op_tab))
     assert int(tests.sum()) <= 2 * needed, (int(tests.sum()), needed)
+
+
+# ---------------------------------------------------------------------------
+# the mesh sizes compile_world records
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("resolution,clusters", [(48, 24), (56, 32), (60, 40)])
+def test_compile_world_records_the_mesh_clusters(resolution, clusters):
+    """``compile_world`` records the largest real cluster count of a mesh
+    (``max_ncl``): instanced_field's sphere has 24 clusters at resolution
+    48 (its ground 1), 32 at 56 and 40 at 60. The padding rows, of
+    instances (145 real rows of 256) and of clusters (each mesh padded to
+    128 rows), are not counted."""
+    world = rt.scenes.instanced_field(8, 8, n=12, resolution=resolution)
+    scene = tds.compile_world(world, two_level=True, device="cpu")
+    ncl = scene.ti_rows[:, tc.TI_NCL]
+    real = ncl > 0
+    assert int(real.sum()) == 145 < scene.ti_rows.shape[0]
+    assert sorted(set(ncl[real].tolist())) == [1, clusters]
+    assert scene.cl_obox.shape[0] == 256
+    assert scene.max_ncl == int(ncl.max()) == clusters
