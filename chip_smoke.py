@@ -64,7 +64,15 @@ Phases, each of which raises on failure (exit code != 0):
    and B4 to the forward gate against the plain versions on every 64th ray,
    each kernel's device ms a pass against its bound (the needed triangle
    tests, the real triangles of the needed clusters), cluster tests a ray,
-   registers, spilled bytes and blocks per SM (``walk_resources``). Then B1
+   registers, spilled bytes and blocks per SM (``walk_resources``). Then
+   B2's cutout variant on leaf_canopy's 1280x720 bounce shadow rays (one
+   eager pass after two): the grouped walk over its 1,664 rows, rgba to
+   the forward gate of the plain twin with the same cutouts on every 64th
+   ray, the texels fetched on those rays at most the plain twin's and
+   equal where the stop never fired, device ms a pass against the bound
+   of the tests and fetches it made (the benchmark's pricing), fetches and
+   cluster tests a ray, and its resources (``cutout_render_walks`` in B2's
+   record). Then B1
    and B3 bit for bit on the tables of
    ``utils/check_tables.py``: exact ties across cluster and instance rows
    (also with near < 0 on every other ray), and walks of several windows
@@ -83,8 +91,11 @@ Phases, each of which raises on failure (exit code != 0):
    is piecewise constant in geometry). Cotangents are zero on rays whose
    plain alpha is below 1e-4 (the kernels stop there) or that an f64
    Moller-Trumbore calls chaotic. Then device times of the plain torch
-   pieces of this slice at 512^2: the texture fetch, the cutout pass and
-   B2's forward and forward + backward on textured_room. Then B2-grad
+   pieces of this slice at 512^2: the texture fetch, the cutout pass,
+   the cutout world's shadow rays through B2 and the cutout pass against
+   B2's cutout variant (their time and largest alpha gap, at most 5e-3;
+   the variant's registers, shared bytes, blocks per SM and spills),
+   and B2's forward and forward + backward on textured_room. Then B2-grad
    (``csrc/cluster_shadow_grad.cu``) on mesh_heavy and B4-grad
    (``csrc/cluster_shadow_inst_grad.cu``) on instanced_field at 512^2 on
    bounce-like rays with dist = BIG, half the materials translucent and
@@ -907,6 +918,154 @@ def phase_inst_walks(card: str, dev):
     return rec
 
 
+# the cutout variant's pricing, as benchmark/lib/cutout_work.py derives it:
+# a slab test (benchmark/lib/soup_work.py) and a texel fetch with its factor
+# (the uv, the map's transform, the clamp, the bilinear weights and blend,
+# the product), and a fetch's bytes (its 2x2 block row and four texels)
+SLAB_OPS = 25
+FETCH_OPS = 76
+FETCH_BYTES = 80
+
+
+def canopy_render_rays(dev, warm: int = 2, keep: int = 1):
+    """leaf_canopy at 1280x720, depth 16 (the benchmark cell's scene and
+    settings): the scene and the calls of B2 with cutouts that ``keep``
+    eager passes (``render_steps``) make after ``warm``, as the kernel
+    sees them (rays in the integrator's order, the opacity table, the
+    group table and the cutouts): [dict]."""
+    import torch
+    import rayzath_tpu_torch as rt
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    from rayzath_tpu_torch.models.device_scene import (compile_camera,
+                                                       compile_world)
+    from rayzath_tpu_torch.ops import rng
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    calls, on, real = [], [False], I.cluster_shadow
+
+    def rec(o, d, dist, box, frames, order, base, count, op_rgb, op_a, **k):
+        if on[0] and k.get("cutouts") is not None:
+            calls.append(dict(
+                rays=[x.clone() for x in (o, d, dist)], box=box,
+                frames=frames, groups=k.get("groups"), cutouts=k["cutouts"],
+                op_tab=tc.cluster_opacity(op_rgb, op_a, order, base, count)))
+        return real(o, d, dist, box, frames, order, base, count, op_rgb,
+                    op_a, **k)
+
+    world = rt.scenes.leaf_canopy(1280, 720)
+    scene = compile_world(world, device=dev)
+    cam = compile_camera(world.cameras[0], dev)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=16, rpp=8),
+                          light_sampling=rt.LightSampling(spot_light=1,
+                                                          direct_light=1))
+    I.cluster_shadow = rec
+    try:
+        with torch.no_grad():
+            st = I.render_steps(scene, cam, cfg, init_state(1280, 720, dev),
+                                rng.key(12), warm)
+            on[0] = True
+            I.render_steps(scene, cam, cfg, st, rng.key(12), keep)
+    finally:
+        I.cluster_shadow = real
+    return scene, calls
+
+
+def phase_cutout_walks(card: str, dev):
+    """B2's cutout variant on the main path's shapes: leaf_canopy's
+    1280x720 bounce shadow rays (one eager pass after two,
+    ``canopy_render_rays``) through its 1,664 cluster rows, which must
+    take the grouped walk (``shadow_kernel<true, 0, true>``; the calls
+    carry the group table and ``grouped`` counts them). On every 64th ray
+    of each call the variant's rgba meets the forward gate of the plain
+    twin with the same cutouts (``_shadow_plain``), and the variant run on
+    those rays alone fetches at most the plain twin's texels, and exactly
+    as many on the rays whose plain alpha stays above 2e-4 (where the stop
+    never fired). Device ms a pass (``device_ms`` of each call, summed)
+    against the bound of the work the kernel made (its work and fetch
+    counters over each call: 49 operations a triangle test, 25 a slab
+    test, 76 and 80 B a fetch, as the benchmark's
+    ``cutout_shadow_bound_share`` prices them), fetches and cluster tests
+    a ray, and the variant's registers, shared bytes, blocks per SM and
+    spills (``walk_resources``). Returns the record."""
+    import torch
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
+    from rayzath_tpu_torch.utils.cuda_timing import device_ms
+    t0 = time.perf_counter()
+    scene, calls = canopy_render_rays(dev)
+    cp = scene.cl_box.shape[1]
+    if cp <= tc.GROUPED_ROWS or not calls:
+        raise AssertionError(f"leaf_canopy 720p: {cp} rows, {len(calls)} "
+                             f"calls of B2 with cutouts")
+    if any(c["groups"] is None for c in calls):
+        raise AssertionError("leaf_canopy 720p: a B2 call without the group "
+                             "table")
+    work, fetches = tc.cluster_shadow.work, tc.cluster_shadow.fetches
+    ms = bound_s = err = 0.0
+    rays = tests = fetched = checked = 0
+    for c in calls:
+        o, d, dist = c["rays"]
+        args = (c["box"], c["frames"], c["op_tab"])
+
+        def fn(o=o, d=d, dist=dist, args=args, c=c):
+            return tc._shadow(o, d, dist, *args, c["groups"], None,
+                              c["cutouts"])
+
+        w0, f0, g0 = work.read(), fetches.read(), tc.cluster_shadow.grouped
+        got = fn()
+        torch.cuda.synchronize()
+        w1, f1 = work.read(), fetches.read()
+        if tc.cluster_shadow.grouped != g0 + 1:
+            raise AssertionError("leaf_canopy 720p: B2 took the flat walk")
+        n_fetch = f1["cutout_fetches"] - f0["cutout_fetches"]
+        ops = (TEST_OPS * (w1["triangle_tests"] - w0["triangle_tests"])
+               + SLAB_OPS * (w1["slab_tests"] - w0["slab_tests"])
+               + FETCH_OPS * n_fetch)
+        bound_s += max(ops / F32_OPS_S, FETCH_BYTES * n_fetch / HBM_BYTES_S)
+        tests += w1["cluster_tests"] - w0["cluster_tests"]
+        fetched += n_fetch
+        rays += len(o)
+        sub = torch.arange(0, len(o), 64, device=dev)
+        so, sd, sdist = o[sub], d[sub], dist[sub]
+        *ref, want = tc._shadow_plain(so, sd, sdist, *args, c["cutouts"])
+        err = max(err, shadow_gate("leaf_canopy 720p render rays, B2 with "
+                                   "cutouts", [x[sub] for x in got], ref))
+        free = ref[1] >= 2e-4
+        for label, keep, need in (("every", None, int(want.sum())),
+                                  ("free", free, int(want[free].sum()))):
+            ko, kd, kdist = ((so, sd, sdist) if keep is None else
+                             (x[keep].contiguous() for x in (so, sd, sdist)))
+            f0 = fetches.read()["cutout_fetches"]
+            tc._shadow(ko, kd, kdist, *args, c["groups"], None, c["cutouts"])
+            torch.cuda.synchronize()
+            n = fetches.read()["cutout_fetches"] - f0
+            if (n > need) if keep is None else (n != need):
+                raise AssertionError(
+                    f"leaf_canopy 720p: B2 fetched {n} texels on the "
+                    f"{label} sampled rays, the plain twin {need}")
+        checked += len(sub)
+        ms += device_ms(fn, launches=10, repeats=3)
+    torch.cuda.synchronize()
+    res = tc.walk_resources("shadow", cp, True, cutout=True)
+    rec = dict(calls=len(calls), rays=rays, ms_per_pass=ms,
+               bound_ms_per_pass=bound_s * 1e3, fetches_per_ray=fetched / rays,
+               tests_per_ray=tests / rays, max_abs_err=err, **res)
+    print(f"  leaf_canopy 720p render rays [{card}]: B2 with cutouts "
+          f"(grouped, {cp} rows) {ms:.4f} ms a pass on the device "
+          f"({len(calls)} calls), bound {bound_s * 1e3:.4f} ms (the made "
+          f"tests and fetches; {ms / (bound_s * 1e3):.1f}x), "
+          f"{fetched / rays:.4f} fetches and {tests / rays:.4f} cluster "
+          f"tests a ray, {res['registers']} registers, {res['spill_bytes']} "
+          f"B spilled, {res['smem_bytes']} B shared, {res['blocks_per_sm']} "
+          f"blocks per SM", flush=True)
+    print(f"leaf_canopy 720p render rays: B2 with cutouts as the plain twin "
+          f"on {checked} rays (every 64th; max |d rgba| {err:.3e}), fetches "
+          f"within the plain twin's; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del scene, calls
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_tables(dev):
     """B1 and B3 on the tables of ``utils/check_tables.py``: exact ties
     across cluster rows and instance rows (the later row entered first),
@@ -1370,6 +1529,7 @@ def phase_backward(card: str, dev):
     from rayzath_tpu_torch.engine import integrator as I
     from rayzath_tpu_torch.models.device_scene import compile_world
     from rayzath_tpu_torch.ops import texture as tex_ops
+    from rayzath_tpu_torch.ops import traverse_cluster as tc
     from rayzath_tpu_torch.utils import check_worlds
     from rayzath_tpu_torch.utils.cuda_timing import call_ms
     out = {}
@@ -1411,14 +1571,46 @@ def phase_backward(card: str, dev):
     cscene = compile_world(cworld, device=dev)
     co, cd = bounce_rays(cscene, cworld, dev, RES, 25)
     t_cut = call_ms(lambda: I.texture_shadow_factor(cscene, co, cd, dist), 20)
+    # the same shadow rays through B2's cutout variant (the render path on
+    # the card) and through the dense route (B2, then the cutout pass)
+    cmat = cscene.mat_color[cscene.tri_mat.long()]
+
+    def b2(cutouts):
+        return tc.cluster_shadow(co, cd, dist, cscene.cl_box, cscene.cl_lw,
+                                 cscene.cl_order, cscene.cl_base,
+                                 cscene.cl_count, cmat[:, :3].contiguous(),
+                                 (1.0 - cmat[:, 3]).contiguous(),
+                                 groups=cscene.cl_group, cutouts=cutouts)
+
+    def dense():
+        rgb, a = b2(None)
+        trgb, ta = I.texture_shadow_factor(cscene, co, cd, dist)
+        return rgb * trgb, a * ta
+
+    with torch.no_grad():
+        cut = tc.Cutouts.of(cscene)
+        t_fused = call_ms(lambda: b2(cut), 20)
+        t_dense = call_ms(dense, 20)
+        (rgb_f, a_f), (rgb_d, a_d) = b2(cut), dense()
+        err = float((a_f - a_d).abs().max())
     print(f"  plain pieces at {RES}^2 [{card}]: texture fetch (color atlas) "
           f"{t_fetch:.3f} ms; cutout pass ({cscene.n_cutout} cutouts) "
-          f"{t_cut:.3f} ms; B2 Function on textured_room "
+          f"{t_cut:.3f} ms; B2 and the cutout pass {t_dense:.3f} ms against "
+          f"B2's cutout variant {t_fused:.3f} ms (max |a| gap {err:.3g}); "
+          f"B2 Function on textured_room "
           f"({scene.tri_v0.shape[0]} triangles) forward (B2) {t_fwd:.3f} ms, "
           f"forward + backward (B2-grad) {t_bwd:.3f} ms, peak {peak:.2f} GiB",
           flush=True)
+    if err > 5e-3:
+        raise AssertionError(f"B2's cutout variant leaves the dense route by "
+                             f"{err:.3g} in alpha")
+    res = {f"{'grouped' if g else 'flat'}": tc.walk_resources(
+        "shadow", 2048, g, cutout=True) for g in (False, True)}
+    print(f"  B2's cutout variant over 2,048 rows: {res}", flush=True)
     out["times"] = dict(fetch_ms=t_fetch, cutout_ms=t_cut, b2_fwd_ms=t_fwd,
-                        b2_fwd_bwd_ms=t_bwd)
+                        b2_fwd_bwd_ms=t_bwd, b2_cutout_ms=t_fused,
+                        b2_dense_cutout_ms=t_dense, b2_cutout_a_gap=err,
+                        b2_cutout_resources=res)
     return out
 
 
@@ -3212,6 +3404,7 @@ def main() -> int:
     kernels.update(phase_inst_kernels(card, dev))
     phase_inst_cycle(card, dev)
     kernels["cluster_closest_inst"]["render_walks"] = phase_inst_walks(card, dev)
+    kernels["cluster_shadow"]["render_walks"] = phase_cutout_walks(card, dev)
     phase_tables(dev)
     phase_shadow_tables(dev)
     phase_massive(card, dev)
@@ -3266,6 +3459,8 @@ def main() -> int:
             "needed_visits_per_ray": m["needed_visits_per_ray"]})
         if "visits_per_ray" in m:
             record[-1]["visits_per_ray"] = m["visits_per_ray"]
+        if name == "cluster_shadow":
+            record[-1]["cutout_render_walks"] = kernels[name]["render_walks"]
         if name in backward:
             record[-1].update(backward_max_rel_err=backward[name],
                               backward_rtol=BACKWARD_RTOL)

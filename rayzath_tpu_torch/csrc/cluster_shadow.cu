@@ -55,12 +55,64 @@
 //   counts, whatever the order. The order moves only rounding, and the
 //   alpha stop only where the plain product is below ALPHA_STOP too.
 //
+// Texture-alpha cutouts (CUTOUT, soup scenes with a cutout set): the
+// reference filters a shadow ray through each hit's colour-map texel
+// (cuda_instance.cuh:92-164; per-hit factor (rgb * tex_rgb, (1 - alpha) *
+// (1 - tex_alpha)), cuda_material.cuh:86-95). Where a dense pass over every
+// cutout triangle for every ray (engine/integrator.py
+// texture_shadow_factor) costs R x C projections a call, this variant
+// fetches the texel at the walk's own hits: at each hit in (0, dist) of a
+// slot whose cutout map id (cut.map, in the cluster table's slot order) is
+// >= 0, it interpolates the texture coordinates from the barycentrics the
+// test already has, fetches the texel through rz_texture.cuh's fetch<true>
+// (the bounce's fetch) and multiplies (tex_rgb, 1 - tex_alpha) into the
+// hit's factor beside the slot's constant opacity. The walk, its stop and
+// its shared memory are B2's: the tables are read from global memory at
+// the hits only (L1/L2), and a ray stops once its combined alpha is below
+// ALPHA_STOP, where the dense pass multiplies every texel (a departure of
+// less than ALPHA_STOP in alpha).
+//
 // Built with -fmad=false (see rz_cluster.cuh).
 #include "rz_cluster.cuh"
+#include "rz_texture.cuh"
 
 namespace {
 
 using namespace rz;
+
+// B2's cutout tables: per cluster slot (row * CT + j) the colour map id of
+// its triangle (-1: not in the cutout set) and the triangle's texture
+// coordinates t0, t1 - t0, t2 - t0; and the colour atlas the ids name.
+struct Cutouts {
+  const int* map;                  // [cp * CT]
+  const float* uv;                 // [cp * CT][6]
+  unsigned long long* fetched;     // [1]: texels fetched (null: not counted)
+  Maps maps;                       // colour fields only
+};
+
+// The texel factor of a hit at (b1, b2) in cutout slot `slot` multiplied
+// into f, as the dense pass takes it: uv = t0 + b1 (t1 - t0) + b2 (t2 -
+// t0), f *= (tex_rgb, 1 - tex_alpha); a slot off the cutout set leaves f.
+// n_fetch counts the fetches. Called, not inlined: inlined into each of
+// the four unrolled slots of shadow_slots, the fetch took the grouped walk
+// to 128 registers and 4 blocks an SM, and B2 on the leaf canopy's 720p
+// shadow rays to twice the time of its walk without cutouts; called, 96
+// registers, 5 blocks and 6-12% over that walk (PERF.md, Findings).
+__device__ __noinline__ void cutout_factor(const Cutouts& cut, int slot,
+                                              float b1, float b2, float* f,
+                                              int& n_fetch) {
+  const int mid = __ldg(cut.map + slot);
+  if (mid < 0) return;
+  const float* t = cut.uv + 6 * (size_t)slot;
+  const float u = __ldg(t + 0) + b1 * __ldg(t + 2) + b2 * __ldg(t + 4);
+  const float v = __ldg(t + 1) + b1 * __ldg(t + 3) + b2 * __ldg(t + 5);
+  const float4 tex = fetch<true>(cut.maps, mid, u, v);
+  f[0] = f[0] * tex.x;
+  f[1] = f[1] * tex.y;
+  f[2] = f[2] * tex.z;
+  f[3] = f[3] * (1.0f - tex.w);
+  ++n_fetch;
+}
 
 // Resident blocks per SM on the flat walk where shared memory leaves room
 // for them, as closest_kernel's MIN_BLOCKS: counting left to the compiler
@@ -71,8 +123,9 @@ using namespace rz;
 constexpr int MIN_BLOCKS = 8;
 
 // GROUPED: the walk through the group table grp (walk_grouped), else the
-// flat walk of box_tab in windows; registers for MIN resident blocks an SM.
-template <bool GROUPED, int MIN>
+// flat walk of box_tab in windows; registers for MIN resident blocks an SM;
+// CUTOUT: each hit's texel factor from cut (cutout_factor).
+template <bool GROUPED, int MIN, bool CUTOUT>
 __global__ void __launch_bounds__(THREADS, MIN)
 shadow_kernel(const float* __restrict__ origin,
               const float* __restrict__ direction,
@@ -84,7 +137,7 @@ shadow_kernel(const float* __restrict__ origin,
               int list_rows, float* __restrict__ rgb_out,
               float* __restrict__ a_out, int* __restrict__ visits,
               int* __restrict__ stats,
-              unsigned long long* __restrict__ work) {
+              unsigned long long* __restrict__ work, const Cutouts cut) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Shared sh = shared_layout(smem, B2_SIDE);
   const int ray = blockIdx.x * THREADS + threadIdx.x;
@@ -111,6 +164,8 @@ shadow_kernel(const float* __restrict__ origin,
   auto reach = [&]() { return live() ? dist : -1.0f; };
   int n_tris = 0;   // the real triangles of the clusters it tested
   int n_slabs = 0;  // its slab tests
+  int n_fetch = 0;  // CUTOUT: the texels its lanes fetched
+  int visited = 0;  // CUTOUT: the cluster row under test (center sets it)
 
   // the exact slab gate on (0, dist) of row `row` of an [8][n] table
   // (clusters or groups), for a live ray
@@ -123,6 +178,7 @@ shadow_kernel(const float* __restrict__ origin,
   };
   auto need = [&](int c) { return gate(box, cp, c); };
   auto center = [&](int c, float* ctr) {
+    if constexpr (CUTOUT) visited = c;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       ctr[a] = (box[a * cp + c] + box[(3 + a) * cp + c]) * 0.5f;
@@ -133,9 +189,12 @@ shadow_kernel(const float* __restrict__ origin,
   };
   auto test = [&](const float* fr, int buf, const float* ctr, int cnt, int r) {
     const float* op = sh.side + buf * B2_SIDE;
-    shadow_test_ray(sh, fr, ctr, cnt, r, [&](int j, float* f) {
+    shadow_test_ray(sh, fr, ctr, cnt, r, [&](int j, float b1, float b2,
+                                             float* f) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) f[k] = op[k * CT + j];
+      if constexpr (CUTOUT)
+        cutout_factor(cut, visited * CT + j, b1, b2, f, n_fetch);
     });
   };
   auto apply = [&](int c) {
@@ -184,45 +243,76 @@ shadow_kernel(const float* __restrict__ origin,
     if (visits) visits[ray] = n_tests;
   }
   if (work) add_walk_counts(sh, work, n_tests, n_tris, n_slabs);
+  if constexpr (CUTOUT)
+    if (cut.fetched) add_walk_counts(sh, cut.fetched, n_fetch);
 }
 
-// The kernel of a launch, as closest_for.
-auto shadow_for(size_t smem, int gp) {
-  return gp > 0                        ? shadow_kernel<true, 0>
-         : smem_fits(smem, MIN_BLOCKS) ? shadow_kernel<false, MIN_BLOCKS>
-                                       : shadow_kernel<false, 0>;
+// The kernel of a launch, as closest_for; the cutout variants keep the
+// compiler's registers (the fetch's code would spill under the flat walk's
+// cap of 64).
+auto shadow_for(size_t smem, int gp, bool cutout) {
+  if (cutout)
+    return gp > 0 ? shadow_kernel<true, 0, true> : shadow_kernel<false, 0, true>;
+  return gp > 0                        ? shadow_kernel<true, 0, false>
+         : smem_fits(smem, MIN_BLOCKS) ? shadow_kernel<false, MIN_BLOCKS, false>
+                                       : shadow_kernel<false, 0, false>;
 }
 
 }  // namespace
 
-// grp, visits, stats, work: as rz_cluster_closest's.
+// grp, visits, stats, work: as rz_cluster_closest's. cut_map: null, or the
+// cutout tables [cp * 128] i32 and cut_uv [cp * 128][6] f32 with the count
+// of texels fetched (fetched, int64[1], added to once per block; null: not
+// counted), the colour atlas [n_col][4] f32, its block table col_blk
+// [n_col][4] i32 and the map tables rect [n_maps][4] i32, flags
+// [n_maps][3] i32, map_uv [n_maps][5] f32 (an atlas wc texels wide): the
+// cutout variant.
 extern "C" int rz_cluster_shadow(const float* origin, const float* direction,
                                  const float* dist, const float* box_tab,
                                  const float* frames, const float* op_tab,
                                  const float* grp, int n_rays, int cp, int gp,
                                  float* rgb_out, float* a_out, int* visits,
                                  int* stats, unsigned long long* work,
-                                 void* stream) {
+                                 const int* cut_map, const float* cut_uv,
+                                 unsigned long long* fetched,
+                                 const float* color, const int* col_blk,
+                                 const int* rect, const int* flags,
+                                 const float* map_uv, int n_maps, int wc,
+                                 int n_col, void* stream) {
   if (n_rays <= 0) return 0;
   if (grp == nullptr) gp = 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const int list_rows = rank_rows_for(gp > 0 ? gp : cp);
   const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
-  const auto kernel = shadow_for(smem, gp);
+  const auto kernel = shadow_for(smem, gp, cut_map != nullptr);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  Cutouts cut{};
+  if (cut_map != nullptr) {
+    cut.map = cut_map;
+    cut.uv = cut_uv;
+    cut.fetched = fetched;
+    cut.maps.color = color;
+    cut.maps.col_blk = col_blk;
+    cut.maps.rect = rect;
+    cut.maps.flags = flags;
+    cut.maps.uv = map_uv;
+    cut.maps.n_maps = n_maps;
+    cut.maps.wc = wc;
+    cut.maps.n_col = n_col;
+  }
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       origin, direction, dist, box_tab, frames, op_tab, grp, n_rays, cp, gp,
-      list_rows, rgb_out, a_out, visits, stats, work);
+      list_rows, rgb_out, a_out, visits, stats, work, cut);
   return (int)cudaGetLastError();
 }
 
 // Resources of a launch over cp cluster rows, flat (gp = 0) or grouped over
-// gp group rows: out[0] registers per thread, out[1] dynamic shared bytes,
-// out[2] resident blocks per SM.
-extern "C" int rz_shadow_resources(int cp, int gp, int* out) {
+// gp group rows, of the cutout variant when cutout != 0: out[0] registers
+// per thread, out[1] dynamic shared bytes, out[2] resident blocks per SM.
+extern "C" int rz_shadow_resources(int cp, int gp, int cutout, int* out) {
   const size_t smem = gp > 0 ? grouped_smem(2, gp) : kernel_smem(2, cp);
-  const auto kernel = shadow_for(smem, gp);
+  const auto kernel = shadow_for(smem, gp, cutout != 0);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   return walk_resources(kernel, smem, out);

@@ -176,7 +176,8 @@ shadow_inst_kernel(const float* __restrict__ origin,
         m &= m - 1;
         float p[3], dr[3], f[4];
         const float dist_r = warp_ray(o, d, dist, ctr, r, p, dr);
-        shadow_slots(fr, cnt, p, dr, dist_r, [&](int j, float* fj) {
+        shadow_slots(fr, cnt, p, dr, dist_r,
+                     [&](int j, float, float, float* fj) {
           const int q = (int)sl[j];
 #pragma unroll
           for (int c = 0; c < 4; ++c) fj[c] = op[c * SLOTS + q];

@@ -138,11 +138,13 @@ __device__ __forceinline__ void to_object(const float* __restrict__ a,
 }
 
 // Projection of one ray onto triangle j of the cluster whose frames sit in
-// shared memory. Returns t and sets inside when (b1, b2) lies in the
-// triangle.
+// shared memory. Returns t, sets inside when (b1, b2) lies in the triangle
+// and gives (b1, b2), the hit's weights of the triangle's second and third
+// vertex.
 __device__ __forceinline__ float project(const float* fr, int j, float px,
                                          float py, float pz, float dx,
-                                         float dy, float dz, bool& inside) {
+                                         float dy, float dz, bool& inside,
+                                         float& b1, float& b2) {
   const float f0x = fr[0 * PARTS + j], f1x = fr[1 * PARTS + j];
   const float f2x = fr[2 * PARTS + j], f3x = fr[3 * PARTS + j];
   const float f0y = fr[0 * PARTS + CT + j], f1y = fr[1 * PARTS + CT + j];
@@ -157,10 +159,17 @@ __device__ __forceinline__ float project(const float* fr, int j, float px,
   float dlz = f0z * dx + f1z * dy + f2z * dz;
   dlz = dlz + (fabsf(dlz) < DET_EPS ? DET_EPS : 0.0f);
   const float t = olz / -dlz;
-  const float b1 = olx + t * dlx;
-  const float b2 = oly + t * dly;
+  b1 = olx + t * dlx;
+  b2 = oly + t * dly;
   inside = (b1 >= 0.0f) & (b1 <= 1.0f) & (b2 >= 0.0f) & (b1 + b2 <= 1.0f);
   return t;
+}
+
+__device__ __forceinline__ float project(const float* fr, int j, float px,
+                                         float py, float pz, float dx,
+                                         float dy, float dz, bool& inside) {
+  float b1, b2;
+  return project(fr, j, px, py, pz, dx, dy, dz, inside, b1, b2);
 }
 
 // ---------------------------------------------------------------------------
@@ -610,8 +619,8 @@ __device__ __forceinline__ void test_ray(const Shared& sh, const float* fr,
 
 // One ray's shadow tests against a cluster's frames fr, by one warp (p, d
 // as for closest_slots): lane l takes slots l, l + 32, l + 64, l + 96 and
-// multiplies the rgba factors factor(j, f) of its hits with t in (0,
-// dist); the warp multiplies the lanes' four partial products by shuffles
+// multiplies the rgba factors factor(j, b1, b2, f) of its hits with t in
+// (0, dist), (b1, b2) the hit's barycentrics; the warp multiplies the lanes' four partial products by shuffles
 // into m, the same bits on every lane (each step multiplies a pair of
 // lanes' values, which commute). (The plain version also takes one product
 // per cluster; the order inside it differs, by rounding only.)
@@ -628,10 +637,12 @@ __device__ __forceinline__ void shadow_slots(const float* fr, int cnt,
     const int j = lane + 32 * q;
     if (j < cnt) {
       bool inside;
-      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2], inside);
+      float b1, b2;
+      const float t = project(fr, j, p[0], p[1], p[2], d[0], d[1], d[2],
+                              inside, b1, b2);
       if (inside && t > 0.0f && t < dist) {
         float f[4];
-        factor(j, f);
+        factor(j, b1, b2, f);
 #pragma unroll
         for (int k = 0; k < 4; ++k) m[k] = m[k] * f[k];
       }

@@ -47,6 +47,14 @@ value exactly 1).
 no graph; ``render_steps(..., remat=True)`` checkpoints each bounce for
 training (parallel/train.py).
 
+Texture-alpha cutouts (a material with a colour map and alpha < 1):
+:func:`shadow_route` alone chooses how a shadow ray is filtered through
+them, as :func:`_stages` chooses the stages. On a card without autograd
+(every ``Renderer.render`` pass there) a soup scene's B2 walk fetches the
+texel at its own hits (its cutout variant); elsewhere (the CPU, training,
+two-level scenes) the dense pass :func:`texture_shadow_factor` multiplies
+every cutout triangle's texel into the walk's product.
+
 A bounce's arithmetic is three stages cut at the walks (``_head``,
 ``_surface``, ``_tail``). :func:`_stages` alone chooses how they run: on a
 card without autograd (every ``Renderer.render`` pass there) one
@@ -68,13 +76,14 @@ from ..ops import camera as cam_ops
 from ..ops.gather import gather_rows
 from ..ops import rng
 from ..ops import texture as tex_ops
+from ..ops._kernels import counted
 from ..ops.intersect import (_project_terms, project_closest, project_shadow,
                              refine_tri)
 from ..ops.sort_rays import sort_payload, unsort_payload
 from ..ops.traverse import bvh_closest, bvh_shadow
 from ..ops.traverse_cluster import (cluster_closest, cluster_shadow,
                                     cluster_closest_inst, cluster_shadow_inst,
-                                    SLOTS)
+                                    Cutouts, SLOTS)
 from ..ops.vec import (dot, normalize, lerp, reflect, halfway,
                        cosine_sample_hemisphere, sample_sphere,
                        sample_hemisphere, sample_disk, fresnel_specular_ratio,
@@ -315,6 +324,7 @@ def closest_hit(scene: TorchScene, cfg: RenderConfig, o, d, near, far,
     return t, tid, inst, b1, b2, ext, tp
 
 
+@counted()
 def texture_shadow_factor(scene: TorchScene, o, d, dist, chunk: int = 512):
     """Texture part of the transmission-filtered shadow mask (the JAX
     package's ``texture_shadow_factor``).
@@ -328,7 +338,11 @@ def texture_shadow_factor(scene: TorchScene, o, d, dist, chunk: int = 512):
     interpolated texcrd. |dz| < 1e-7 is nudged, as in ``ops/intersect.py``;
     the last chunk is ragged where the JAX package pads it with never-hit
     frames (the same products). Unlike B2/B4 this pass has no alpha < 1e-4
-    stop (ROADMAP C). Differentiable: gradients reach the color atlas."""
+    stop (ROADMAP C). Differentiable: gradients reach the color atlas.
+    Taken where :func:`shadow_route` says "dense"; ``launches`` counts its
+    calls (``ops/_kernels.py`` ``COUNTED``, so a replayed graph counts
+    them too)."""
+    texture_shadow_factor.launches += 1
     c_total = scene.cut_pw.shape[1] // 3
     pw = scene.cut_pw.reshape(3, 3, c_total)
     pc = scene.cut_pc.reshape(3, c_total)
@@ -353,19 +367,42 @@ def texture_shadow_factor(scene: TorchScene, o, d, dist, chunk: int = 512):
     return rgb, a
 
 
+def shadow_route(scene: TorchScene, cfg: RenderConfig, device) -> str:
+    """How :func:`shadow_test` filters shadow rays on ``device`` through the
+    scene's texture-alpha cutouts: "none" (no cutout set); "fused", B2's
+    cutout variant fetching each hit's texel inside the walk, for a soup
+    scene walked by B2 on a CUDA device with autograd off (every
+    ``Renderer.render`` pass there); else "dense", the walk's product times
+    :func:`texture_shadow_factor`: the CPU, training (the dense pass carries
+    the atlas's gradient, B2-grad knows no texel factor), two-level scenes
+    (B4), and the dense and skip-link routes. Every soup scene with
+    cutouts and a cluster table holds the per-slot tables
+    (``compile_world``, ``scene_from_arrays``)."""
+    if not scene.n_cutout:
+        return "none"
+    fused = (torch.device(device).type == "cuda"
+             and not torch.is_grad_enabled() and not scene.two_level
+             and cfg.packet_traversal and not _dense(cfg, scene))
+    return "fused" if fused else "dense"
+
+
 def shadow_test(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
     """Transmission-filtered visibility (reference World::anyIntersection):
     the B2 (soup) or B4 (two-level) kernel's product of constant material
-    opacity over every hit, resolved from the live material table, times
-    :func:`texture_shadow_factor` when the scene has cutouts."""
-    if scene.n_cutout:
+    opacity over every hit, resolved from the live material table, and the
+    texel factors of the hits on cutouts, inside B2 or by
+    :func:`texture_shadow_factor` (:func:`shadow_route`)."""
+    route = shadow_route(scene, cfg, o.device)
+    if route == "dense":
         base_rgb, base_a = _shadow_core(scene, cfg, o, d, dist, hw)
         tex_rgb, tex_a = texture_shadow_factor(scene, o, d, dist)
         return base_rgb * tex_rgb, base_a * tex_a
-    return _shadow_core(scene, cfg, o, d, dist, hw)
+    return _shadow_core(scene, cfg, o, d, dist, hw,
+                        Cutouts.of(scene) if route == "fused" else None)
 
 
-def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
+def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None,
+                 cutouts=None):
     tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
     if scene.two_level:
         expanded = (None if scene.exp_tri is None else
@@ -390,7 +427,7 @@ def _shadow_core(scene: TorchScene, cfg: RenderConfig, o, d, dist, hw=None):
             lambda o, d, dist: cluster_shadow(
                 o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
                 scene.cl_base, scene.cl_count, op_rgb, op_a, tris=tris,
-                groups=scene.cl_group),
+                groups=scene.cl_group, cutouts=cutouts),
             sort=_sort_traversal(cfg, scene))
     return bvh_shadow(o, d, dist, scene.aabb_links, scene.node_count,
                       scene.leaf_tri, *tris, op_rgb, op_a)

@@ -27,7 +27,10 @@ shelf-packed into one RGBA and one scalar atlas, with the 2x2 block tables
 of ``ops/texture.py``) and the texture-alpha "cutout" set: the world-space
 triangles whose material has a color texture and alpha < 1, whose texture
 term the integrator's dense cutout pass multiplies into the shadow
-kernels' constant opacity. With ``differentiable=True`` a two-level scene
+kernels' constant opacity. A soup scene with such a set also gets it per
+slot of its cluster table (``cl_cut_map``, ``cl_cut_uv``;
+:func:`cutout_slots`), which B2's cutout variant reads at its own hits on a
+card (``engine/integrator.py`` ``shadow_route``). With ``differentiable=True`` a two-level scene
 also gets the expanded (instance, triangle) lists ``exp_tri``/``exp_inst``
 that only the B4 backward reads (317,954 rows on ``instanced_field``, so
 the serve path never builds them).
@@ -55,7 +58,8 @@ oracle).
 
 ``compile_world``'s parts are spans (``utils/timing.span``): ``rz::geometry``
 (the soup or two-level geometry, BVH builds included), ``rz::atlas`` (the
-atlases and map tables) and ``rz::upload`` (``scene_from_arrays``).
+atlases and map tables), ``rz::cutouts`` (a soup's per-slot cutout tables)
+and ``rz::upload`` (``scene_from_arrays``).
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ from ..ops.traverse import build_aabb_links, leaf_table
 from ..ops.traverse_cluster import (build_cluster_tables,
                                     build_instance_tables, cluster_slot_rows,
                                     group_table, B_MIN, B_MAX, B_BASE, B_CNT,
-                                    SLOTS)
+                                    CLUSTER_T, SLOTS)
 from ..utils.device import DEFAULT, resolve
 from ..utils.hostmath import normalize as nrm, transform_matrices
 from ..utils.timing import span
@@ -166,6 +170,10 @@ class TorchScene:
     cut_t1: Optional[torch.Tensor] = None
     cut_t2: Optional[torch.Tensor] = None
     cut_map: Optional[torch.Tensor] = None   # [C] i32 texture map id
+    # the same set per slot of the soup's cluster table (cutout_slots; None
+    # when n_cutout == 0, on a two-level scene and without a cluster table)
+    cl_cut_map: Optional[torch.Tensor] = None  # [Cp,128] i32 map id, -1 none
+    cl_cut_uv: Optional[torch.Tensor] = None   # [Cp,128,6] t0, t1-t0, t2-t0
     # expanded (instance, triangle) lists of a two-level scene, for the B4
     # backward (None unless compiled with differentiable=True)
     exp_tri: Optional[torch.Tensor] = None   # [K] i32 device-order triangle
@@ -384,6 +392,9 @@ def compile_world(world: World, leaf_size: int = DEFAULT_LEAF_SIZE,
                               geo["tri_t0"], geo["tri_t1"], geo["tri_t2"],
                               tri_mat, inst_rows)
     cut = _cutout_from_soup(geo, tri_mat, mat_color, mat_maps)
+    if cut and geo["cl_fields"]:
+        with span("cutouts"):
+            cut.update(cutout_slots(geo, tri_mat, mat_color, mat_maps))
     arrays = dict(
         tri_v0=geo["tri_v0"], tri_e1=geo["tri_e1"], tri_e2=geo["tri_e2"],
         tri_mat=tri_mat, tri_inst=inst_rows, tri_pack=tri_pack,
@@ -488,6 +499,44 @@ def _cutout_from_soup(geo: dict, tri_mat, mat_color, mat_maps) -> dict:
     return _cut_arrays(*(geo[k][:n][sel] for k in ("tri_v0", "tri_e1", "tri_e2",
                                                    "tri_t0", "tri_t1", "tri_t2")),
                        mat_maps[tm[sel], 0])
+
+
+def cutout_slots(geo: dict, tri_mat, mat_color, mat_maps) -> dict:
+    """The soup's cutout set per slot of its cluster table, in the order of
+    ``cl_order`` / ``cl_base``: ``cl_cut_map`` [Cp, 128] i32, the colour map
+    id of slot j of row c's triangle (soup index ``cl_order[cl_base[c] +
+    j]``) where it is in the set (:func:`_cutout`), else -1 (padding slots
+    too), and ``cl_cut_uv`` [Cp, 128, 6] f32, its texture coordinates t0,
+    t1 - t0, t2 - t0 (zero off the set), so that B2's cutout variant
+    interpolates t0 + b1 (t1 - t0) + b2 (t2 - t0) as the dense pass does.
+    Static: a material edit that changes the set needs a recompile, as for
+    the dense pass's set."""
+    cl = geo["cl_fields"]
+    order, base, count = cl["cl_order"], cl["cl_base"], cl["cl_count"]
+    lanes = np.arange(CLUSTER_T)[None, :]
+    valid = lanes < count[:, None]
+    tri = order[np.clip(base[:, None] + lanes, 0, len(order) - 1)]
+    gmat = tri_mat[tri]
+    sel = valid & _cutout(gmat, mat_color, mat_maps)
+    t0 = geo["tri_t0"][tri]
+    uv = np.concatenate([t0, geo["tri_t1"][tri] - t0, geo["tri_t2"][tri] - t0],
+                        axis=-1)
+    return dict(cl_cut_map=np.where(sel, mat_maps[gmat, 0], -1).astype(np.int32),
+                cl_cut_uv=np.where(sel[..., None], uv, 0.0).astype(np.float32))
+
+
+def _slots_from_leaves(leaves: dict) -> dict:
+    """:func:`cutout_slots` of a soup given as named arrays: the cluster
+    order and the texture coordinates t0, t1, t2 of ``tri_pack``'s columns
+    18-23 (:func:`_pack_tri_rows`)."""
+    tp = np.asarray(leaves["tri_pack"])
+    geo = {"cl_fields": {k: np.asarray(leaves[k])
+                         for k in ("cl_order", "cl_base", "cl_count")},
+           "tri_t0": tp[:, 18:20], "tri_t1": tp[:, 20:22],
+           "tri_t2": tp[:, 22:24]}
+    return cutout_slots(geo, np.asarray(leaves["tri_mat"]),
+                        np.asarray(leaves["mat_color"]),
+                        np.asarray(leaves["mat_maps"]))
 
 
 def _cutout_fields(world: World, mat_index, mat_color, mat_maps) -> dict:
@@ -926,7 +975,10 @@ def scene_from_arrays(leaves: dict, statics: dict,
     missing. A soup's ``leaf_tri``, which the JAX scene does not hold, is
     built from its ``node_begin`` / ``node_count`` at the default leaf
     size. The group table ``cl_group`` of a ``cl_box`` is built here
-    (``group_table``) when the leaves lack it."""
+    (``group_table``) when the leaves lack it, and so is a soup's cutout
+    set per cluster slot (:func:`cutout_slots`, from the cluster order,
+    ``tri_mat``, the material tables and ``tri_pack``'s texture
+    coordinates) when the scene has cutouts and a cluster table."""
     device = resolve(device)
     two_level = bool(statics.get("two_level", False))
     stand_in = placeholders(two_level)
@@ -936,6 +988,9 @@ def scene_from_arrays(leaves: dict, statics: dict,
     box = leaves.get("cl_box", stand_in.get("cl_box"))
     if "cl_group" not in leaves and box is not None:
         leaves = dict(leaves, cl_group=group_table(box))
+    if (not two_level and int(statics.get("n_cutout", 0))
+            and "cl_box" in leaves and "cl_cut_map" not in leaves):
+        leaves = dict(leaves, **_slots_from_leaves(leaves))
     tensors = {}
     for f in dataclasses.fields(TorchScene):
         if f.name in _STATICS or f.name in _FLAGS or f.name == "map_kinds_used":

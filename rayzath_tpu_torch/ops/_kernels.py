@@ -55,9 +55,14 @@ _SIGNATURES = {
                            _P, _P, _P, _P],
     # origin, direction, dist, box_tab, frames, op_tab, group table (null:
     # the flat walk), n_rays, cp, gp, rgb, a, visits (null: not counted),
-    # per block groups entered (null: not counted), work (as B1's), stream
+    # per block groups entered (null: not counted), work (as B1's), the
+    # cutout tables slot_map and slot_uv (null: no cutouts), the fetch
+    # count (int64[1]; null: not counted), the colour atlas, its block
+    # table, the map rects, flags and uv transforms, maps, atlas width,
+    # atlas texels, stream
     "rz_cluster_shadow": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                          _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _P],
     # origin, direction, near, far, ti_rows, cl_obox, frames, n_rays, ip,
     # t, id, inst, visits (null: not counted), work (int64[2]: instance
     # visits, cluster tests; null: not counted), stream
@@ -81,11 +86,11 @@ _SIGNATURES = {
     # group rows, kernel (1, 2: B1, B2) -> bytes of its dynamic shared
     # memory on the grouped walk
     "rz_grouped_smem": [_I, _I],
-    # cluster rows, group rows (0: the flat walk), out int32[4]: registers
-    # per thread, dynamic shared bytes, resident blocks per SM and spilled
-    # (local) bytes per thread of B1, B2
+    # cluster rows, group rows (0: the flat walk), (B2: cutout variant 0 or
+    # 1,) out int32[4]: registers per thread, dynamic shared bytes,
+    # resident blocks per SM and spilled (local) bytes per thread of B1, B2
     "rz_closest_resources": [_I, _I, _P],
-    "rz_shadow_resources": [_I, _I, _P],
+    "rz_shadow_resources": [_I, _I, _I, _P],
     # instance rows, out int32[4] as above, of B3, B4
     "rz_closest_inst_resources": [_I, _P],
     "rz_shadow_inst_resources": [_I, _P],

@@ -63,6 +63,14 @@ instance visits and (instance, cluster) tests. The plain versions visit every
 real cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
 
+B2 also takes a soup scene's texture-alpha cutouts (``cutouts=``, a
+:class:`Cutouts`): at each hit of a slot in the cutout set it fetches the
+colour map's texel at the hit's texture coordinates and multiplies (rgb,
+1 - alpha) into the hit's factor, so that the walk's product is the whole
+transmission of the reference's any-hit walk (cuda_instance.cuh:92-164);
+it counts its fetches in ``fetches`` (a :class:`WorkCounter` of one key,
+``cutout_fetches``, beside ``work``).
+
 The closest-hit entries return discrete hits and carry no gradient. The
 shadow entries are ``torch.autograd.Function``s when an input requires
 grad: the forward is the kernel (or the plain version on the CPU), the
@@ -81,6 +89,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -88,6 +97,7 @@ import torch
 from . import _kernels
 from ._kernels import counted, launch as _launch, ptr as _ptr
 from .gather import gather_rows
+from .texture import fetch as _fetch_texel
 from .bvh import build_bvh, triangle_aabbs
 from .intersect import BIG, DET_EPS, triangle_frames
 
@@ -126,6 +136,29 @@ GROUP = _kernels.header_constant("GROUP")
 GROUPED_ROWS = 1024
 #: the keys of B1's and B2's work counters (:class:`WorkCounter`)
 SOUP_WORK = ("cluster_tests", "triangle_tests", "slab_tests")
+#: the key of B2's counter of the texels its cutout variant fetched
+CUTOUT_WORK = ("cutout_fetches",)
+
+
+class Cutouts(NamedTuple):
+    """A soup scene's texture-alpha cutouts for B2, per slot of its cluster
+    table (``models/device_scene.py`` ``cutout_slots``) with the colour
+    atlas and map tables they name (``TorchScene`` fields of the same
+    meaning)."""
+    slot_map: torch.Tensor       # [Cp, 128] i32 colour map id, -1 off the set
+    slot_uv: torch.Tensor        # [Cp, 128, 6] f32 t0, t1 - t0, t2 - t0
+    color_atlas: torch.Tensor    # [Hc, Wc, 4]
+    col_blk_idx: torch.Tensor    # [Hc * Wc, 4] i32
+    map_rect: torch.Tensor       # [K, 4] i32
+    map_flags: torch.Tensor      # [K, 3] i32
+    map_uv: torch.Tensor         # [K, 5]
+
+    @classmethod
+    def of(cls, scene) -> "Cutouts":
+        """The cutouts of a compiled soup scene with per-slot tables."""
+        return cls(scene.cl_cut_map, scene.cl_cut_uv, scene.color_atlas,
+                   scene.col_blk_idx, scene.map_rect, scene.map_flags,
+                   scene.map_uv)
 
 
 # ---------------------------------------------------------------------------
@@ -350,17 +383,58 @@ def cluster_closest_plain(origin, direction, near, far, box_tab, frames):
     return best_t, best_id
 
 
-def cluster_shadow_plain(origin, direction, dist, box_tab, frames, op_tab):
-    """Product of the rgba opacity of every hit with t in (0, dist), over
-    every real cluster. Returns (rgb [R,3], a [R])."""
+def cutout_factors(c: int, hit, b1, b2, cutouts: Cutouts):
+    """The texel factors of cluster ``c``'s hits ``hit`` [R, 128] at the
+    barycentrics (b1, b2) [R, 128] in its cutout slots: ([R, 4, 128], 1
+    elsewhere; the number of fetches per ray [R]), or None where no hit
+    lies in a cutout slot. A factor is (tex_rgb, 1 - tex_alpha) of the
+    slot's colour map at uv = t0 + b1 (t1 - t0) + b2 (t2 - t0), as the
+    dense pass (``engine/integrator.py`` ``texture_shadow_factor``) and
+    B2's cutout variant take it."""
+    mid = cutouts.slot_map[c]                                       # [128]
+    take = hit & (mid >= 0)[None, :]
+    if not bool(take.any()):
+        return None
+    ray, slot = torch.nonzero(take, as_tuple=True)
+    uv = cutouts.slot_uv[c][slot]                                   # [K, 6]
+    u = uv[:, 0:2] + b1[ray, slot][:, None] * uv[:, 2:4] \
+        + b2[ray, slot][:, None] * uv[:, 4:6]
+    tex = _fetch_texel(cutouts.color_atlas, cutouts.col_blk_idx,
+                       cutouts.map_rect, cutouts.map_flags, cutouts.map_uv,
+                       mid[slot], u)
+    fac = torch.ones((hit.shape[0], CLUSTER_T, 4), dtype=torch.float32,
+                     device=hit.device)
+    fac[ray, slot] = torch.cat([tex[:, :3], 1.0 - tex[:, 3:4]], dim=1)
+    return fac.permute(0, 2, 1), take.sum(dim=1)
+
+
+def _shadow_plain(origin, direction, dist, box_tab, frames, op_tab,
+                  cutouts=None):
+    """:func:`cluster_shadow_plain` and its texel fetches per ray [R]."""
     r = origin.shape[0]
     m = torch.ones((r, 4), dtype=torch.float32, device=origin.device)
+    fetches = torch.zeros(r, dtype=torch.int64, device=origin.device)
     for c, _ in _real_clusters(box_tab):
         t, b1, b2 = _project(origin, direction, box_tab, frames, c)
         valid = _inside(b1, b2) & (t > 0.0) & (t < dist[:, None])   # [R,ct]
         fac = torch.where(valid[:, None, :], op_tab[c][None], 1.0)  # [R,4,ct]
+        tex = None if cutouts is None else cutout_factors(c, valid, b1, b2,
+                                                          cutouts)
+        if tex is not None:
+            fac = fac * tex[0]
+            fetches += tex[1]
         m = m * fac.prod(dim=2)
-    return m[:, 0:3].contiguous(), m[:, 3].contiguous()
+    return m[:, 0:3].contiguous(), m[:, 3].contiguous(), fetches
+
+
+def cluster_shadow_plain(origin, direction, dist, box_tab, frames, op_tab,
+                         cutouts=None):
+    """Product of the rgba opacity of every hit with t in (0, dist), over
+    every real cluster, times each hit's texel factor in the cutout slots
+    of ``cutouts`` (:func:`cutout_factors`; no alpha stop). Returns (rgb
+    [R,3], a [R])."""
+    return _shadow_plain(origin, direction, dist, box_tab, frames, op_tab,
+                         cutouts)[:2]
 
 
 def _real_instances(ti_rows, cl_obox):
@@ -526,19 +600,21 @@ def _soup_visits(visits, dev, r):
     return _visit_buffer(visits, dev, r), ctypes.c_void_p(None)
 
 
-def walk_resources(kernel: str, rows: int, grouped: bool = False) -> dict:
+def walk_resources(kernel: str, rows: int, grouped: bool = False,
+                   cutout: bool = False) -> dict:
     """Registers per thread, dynamic shared bytes, resident blocks per SM
     and spilled (local) bytes per thread of B1 (``kernel="closest"``) or B2
-    (``"shadow"``) launched over ``rows`` cluster rows on the flat or the
-    grouped walk, or of B3 (``"closest_inst"``) or B4 (``"shadow_inst"``)
-    over ``rows`` instance rows, on the current CUDA device (for
-    reports)."""
+    (``"shadow"``; its cutout variant with ``cutout``) launched over
+    ``rows`` cluster rows on the flat or the grouped walk, or of B3
+    (``"closest_inst"``) or B4 (``"shadow_inst"``) over ``rows`` instance
+    rows, on the current CUDA device (for reports)."""
     lib = _kernels.load()
     out = (ctypes.c_int * 4)()
-    if kernel in ("closest", "shadow"):
-        fn = {"closest": lib.rz_closest_resources,
-              "shadow": lib.rz_shadow_resources}[kernel]
-        err = fn(rows, -(-rows // GROUP) if grouped else 0, out)
+    gp = -(-rows // GROUP) if grouped else 0
+    if kernel == "closest":
+        err = lib.rz_closest_resources(rows, gp, out)
+    elif kernel == "shadow":
+        err = lib.rz_shadow_resources(rows, gp, int(cutout), out)
     else:
         fn = {"closest_inst": lib.rz_closest_inst_resources,
               "shadow_inst": lib.rz_shadow_inst_resources}[kernel]
@@ -937,20 +1013,50 @@ class _ShadowInst(torch.autograd.Function):
         return None, None, None, d_op, None, None, None, None, None
 
 
+def _cutout_args(dev, cp: int, cutouts):
+    """B2's cutout launch arguments: null pointers and zeros without
+    ``cutouts``, else its tables, checked, the device's fetch counter
+    (``cluster_shadow.fetches``) and the colour atlas's sizes."""
+    if cutouts is None:
+        return (ctypes.c_void_p(None),) * 8 + (0, 0, 0)
+    c = cutouts
+    k = c.map_rect.shape[0]
+    _kernels.check(dev, "slot_map", c.slot_map, torch.int32, (cp, CLUSTER_T))
+    _kernels.check(dev, "slot_uv", c.slot_uv, torch.float32,
+                   (cp, CLUSTER_T, 6))
+    _kernels.check(dev, "color_atlas", c.color_atlas, torch.float32)
+    hc, wc = c.color_atlas.shape[:2]
+    _kernels.check(dev, "col_blk_idx", c.col_blk_idx, torch.int32,
+                   (hc * wc, 4))
+    _kernels.check(dev, "map_rect", c.map_rect, torch.int32, (k, 4))
+    _kernels.check(dev, "map_flags", c.map_flags, torch.int32, (k, 3))
+    _kernels.check(dev, "map_uv", c.map_uv, torch.float32, (k, 5))
+    _aligned(color_atlas=c.color_atlas, col_blk_idx=c.col_blk_idx)
+    return (_ptr(c.slot_map), _ptr(c.slot_uv),
+            _ptr(cluster_shadow.fetches.pair(dev)), _ptr(c.color_atlas),
+            _ptr(c.col_blk_idx), _ptr(c.map_rect), _ptr(c.map_flags),
+            _ptr(c.map_uv), k, wc, hc * wc)
+
+
 def _shadow(origin, direction, dist, box_tab, frames, op_tab, groups=None,
-            visits=None):
-    """B2 on an opacity table: the plain version on the CPU, the kernel on
-    a card (grouped as :func:`cluster_closest`); either adds to
-    ``cluster_shadow``'s ``rays`` and ``work``."""
+            visits=None, cutouts=None):
+    """B2 on an opacity table, with the texel factors of ``cutouts`` where
+    given: the plain version on the CPU, the kernel on a card (grouped as
+    :func:`cluster_closest`); either adds to ``cluster_shadow``'s ``rays``
+    and ``work``."""
     if origin.device.type == "cpu":
-        out = cluster_shadow_plain(origin, direction, dist, box_tab, frames,
-                                   op_tab)
+        *out, fetches = _shadow_plain(origin, direction, dist, box_tab,
+                                      frames, op_tab, cutouts)
         _count_plain_soup(cluster_shadow, dist > 0.0, box_tab, visits)
-        return out
+        if cutouts is not None:
+            cluster_shadow.fetches.pair(origin.device).add_(
+                fetches.sum().reshape(1))
+        return tuple(out)
     lib = _kernels.load()
     dev, r, cp = _check_soup_shadow(origin, direction, dist, box_tab, frames,
                                     op_tab)
     grp, gp = _group_args(dev, cp, groups)
+    cut = _cutout_args(dev, cp, cutouts)
     _ranked_smem(lib, dev, gp or cp, kernel=2, grouped=gp > 0)
     counts, stats = _soup_visits(visits, dev, r)
     work = cluster_shadow.work.pair(dev)
@@ -960,7 +1066,7 @@ def _shadow(origin, direction, dist, box_tab, frames, op_tab, groups=None,
         _launch(cluster_shadow, lib.rz_cluster_shadow, dev,
                 _ptr(origin), _ptr(direction), _ptr(dist), _ptr(box_tab),
                 _ptr(frames), _ptr(op_tab), grp, r, cp, gp, _ptr(rgb), _ptr(a),
-                counts, stats, _ptr(work))
+                counts, stats, _ptr(work), *cut)
         cluster_shadow.rays += r
         if gp:
             cluster_shadow.grouped += 1
@@ -970,7 +1076,7 @@ def _shadow(origin, direction, dist, box_tab, frames, op_tab, groups=None,
 @counted("grouped", "rays")
 def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                    count, op_rgb, op_a, *, tris=None, groups=None,
-                   visits=None):
+                   visits=None, cutouts=None):
     """Transmission-filtered visibility: (mask_rgb [R,3], mask_a [R]), the
     product of the live material opacity over every hit in (0, dist).
     CPU tensors take :func:`cluster_shadow_plain`; CUDA tensors launch the
@@ -978,6 +1084,31 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     block of 128 rays that stops a ray once its alpha is below 1e-4.
     ``groups``, ``visits``, ``rays`` and ``work`` as for
     :func:`cluster_closest`.
+
+    ``cutouts`` (a :class:`Cutouts`): each hit in a cutout slot also takes
+    its texel factor (rgb, 1 - alpha) (:func:`cutout_factors`; on a card
+    the kernel's cutout variant), and ``fetches`` (:class:`WorkCounter`:
+    :data:`CUTOUT_WORK`) counts the texels fetched, so that the product is
+    the whole transmission through texture-alpha cutouts. Against the
+    dense pass (``engine/integrator.py`` ``texture_shadow_factor`` times
+    this product without ``cutouts``) the kernel departs in alpha by less
+    than 1e-4 where its stop fires (a ray is blocked once the combined
+    alpha is below 1e-4; the dense pass multiplies every texel), and both
+    it and the plain version (no stop) by the rounding of a hit's
+    barycentrics, which they take in the cluster's local frame and the
+    dense pass in a world-space frame: at a silhouette's edge a bilinear
+    alpha map of 256 texels moves by up to 256 per unit of texture
+    coordinate (some 4e-3 there on the leaf canopy). A ray that starts on
+    a cutout, as a bounce off a leaf does where the integrator's nudge
+    (1e-4 of the path's last segment) is below the frames' rounding,
+    meets that card within rounding of t = 0, and the two frames may put
+    the hit on either side of 0: there each route's result is the result
+    with that card's factor or the one without it (the dense route's with
+    the origin moved 3e-5 m back or on along the ray), to the rounding
+    above, which grows as 1 / |cos| of the angle between the ray and the
+    card's normal, and the routes may take different ones. With
+    ``cutouts`` it is not differentiable: the dense pass carries the
+    atlas's gradient.
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2),
@@ -992,15 +1123,19 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     if not grad and _needs_grad(origin, direction, op_rgb, op_a):
         raise ValueError("cluster_shadow needs tris=(tri_v0, tri_e1, tri_e2) "
                          "to differentiate")
+    if grad and cutouts is not None:
+        raise ValueError("cluster_shadow differentiates no texel factor: "
+                         "take the dense cutout pass under autograd")
     op_tab = cluster_opacity(op_rgb, op_a, order, base, count)
     if grad:
         return _Shadow.apply(origin, direction, dist, op_tab, box_tab, frames,
                              groups, visits)
     return _shadow(origin, direction, dist, box_tab, frames, op_tab, groups,
-                   visits)
+                   visits, cutouts)
 
 
 cluster_shadow.work = WorkCounter(SOUP_WORK)
+cluster_shadow.fetches = WorkCounter(CUTOUT_WORK)
 
 
 def _check_inst_tables(dev, ti_rows, cl_obox, frames):

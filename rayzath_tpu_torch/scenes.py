@@ -322,6 +322,110 @@ def mesh_massive(width: int = 512, height: int = 512) -> World:
     return mesh_heavy(width, height, resolution=708)
 
 
+def _leaf_maps(size: int = 256):
+    """Four 256x256 RGBA leaf textures: green RGB with a darker midrib and
+    a leaf silhouette in alpha (1 on the leaf, 0 around it) that covers
+    55% of the card, each leaf a little longer or wider than the next."""
+    from .models.texture import Texture
+    c = (np.arange(size, dtype=np.float64) + 0.5) / size * 2.0 - 1.0
+    y, x = np.meshgrid(c, c, indexing="ij")          # rows: v, columns: u
+    greens = [(0.16, 0.42, 0.10), (0.22, 0.50, 0.14), (0.12, 0.36, 0.08),
+              (0.26, 0.55, 0.17)]
+    maps = []
+    for k, rgb in enumerate(greens):
+        a = 0.98 - 0.04 * k                # half-length along v
+        # a lens-shaped leaf |x| < b (1 - (y / a)^2)^0.75, its width b set
+        # so that the silhouette covers 55% of the card
+        shape = np.clip(1.0 - (y / a) ** 2, 0.0, None) ** 0.75
+        b = 0.55 / shape.mean()
+        alpha = (np.abs(x) < b * shape).astype(np.float32)
+        vein = 1.0 - 0.35 * np.exp(-(x / 0.03) ** 2)
+        rgba = np.stack([np.full_like(x, rgb[0]) * vein,
+                         np.full_like(x, rgb[1]) * vein,
+                         np.full_like(x, rgb[2]) * vein, alpha], -1)
+        maps.append(Texture(name=f"leaf {k}", data=rgba.astype(np.float32),
+                            filter_mode="linear", address_mode="clamp"))
+    return maps
+
+
+def leaf_canopy(width: int = 512, height: int = 512,
+                cards: int = 65536) -> World:
+    """A tree crown of leaf cards over a ground plane: the texture-alpha
+    cutout world of ``utils/check_worlds.py`` (a leaf quad with an alpha
+    texture between a spot light and the floor) scaled up to a broadleaf
+    crown, the scale of the foliage RayZath users render (cutout shadows:
+    cuda_instance.cuh:92-164, cuda_material.cuh:86-95).
+
+    ``cards`` square cards of side 0.093 m (two triangles each: 131,072 at
+    the default), centred uniformly in an ellipsoid of radii (5, 2.5, 5) m
+    whose centre is 4.5 m above a 40 m ground plane, their normals and
+    in-plane turns uniform (vectorised draws of a fixed
+    ``np.random.default_rng``), in one mesh and one instance, so the scene
+    compiles as a soup. Four transparent leaf materials (colour (1, 1, 1,
+    0)) each carry a 256x256 RGBA map (:func:`_leaf_maps`) whose alpha
+    silhouette covers 55% of a card: a leaf area index of about 4 over the
+    crown's footprint, so the ground under it is dappled, not black. A
+    direct "sun" from above and a spot light above the crown pointing down
+    through it send both NEE samples' shadow rays through the leaves; the
+    sky glows as in the other scenes. The camera stands 1.7 m above the
+    ground, 9 m from the trunk axis, and sees ground in and out of the
+    crown's shadow, the crown, and sky beside and through it."""
+    w = World()
+    ground = w.generate_material("paper")
+    maps = _leaf_maps()
+    leaves = []
+    for k, tex in enumerate(maps):
+        w.textures.create(tex)
+        m = w.create_material(f"leaf {k}", color=(1.0, 1.0, 1.0, 0.0))
+        m.texture = tex
+        leaves.append(m)
+
+    rng = np.random.default_rng(11)
+    n = int(cards)
+    # centres uniform in the ellipsoid: a point of the unit ball, scaled
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    centre = (dirs * rng.random((n, 1)) ** (1.0 / 3.0) * (5.0, 2.5, 5.0)
+              + (0.0, 4.5, 0.0))
+    # card normals uniform on the sphere, then a uniform turn in the plane
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    helper = np.where(np.abs(nrm[:, 1:2]) < 0.9, (0.0, 1.0, 0.0), (1.0, 0.0, 0.0))
+    tu = np.cross(nrm, helper)
+    tu /= np.linalg.norm(tu, axis=1, keepdims=True)
+    tv = np.cross(nrm, tu)
+    turn = rng.random((n, 1)) * 2.0 * np.pi
+    eu = np.cos(turn) * tu + np.sin(turn) * tv
+    ev = -np.sin(turn) * tu + np.cos(turn) * tv
+    h = 0.093 * 0.5
+    corners = np.stack([centre - h * eu - h * ev, centre + h * eu - h * ev,
+                        centre + h * eu + h * ev, centre - h * eu + h * ev], 1)
+    base = 4 * np.arange(n, dtype=np.int32)[:, None]
+    tri_v = np.concatenate([base + (0, 1, 2), base + (0, 2, 3)], 1).reshape(-1, 3)
+    tri_t = np.tile(np.asarray([[0, 1, 2], [0, 2, 3]], np.int32), (n, 1))
+    crown = Mesh("crown", vertices=corners.reshape(-1, 3).astype(np.float32),
+                 texcrds=np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+                 tri_v=tri_v, tri_t=tri_t,
+                 tri_mat=np.repeat(rng.integers(0, len(leaves), n), 2))
+    w.meshes.create(crown)
+    w.create_instance(name="crown", mesh=crown, materials=leaves)
+    plane = w.generate_mesh("plane", sides=4, width=40.0, height=40.0)
+    w.create_instance(name="ground", mesh=plane, materials=[ground])
+
+    w.create_direct_light(direction=(-0.25, -1.0, 0.2), emission=6.0,
+                          angular_size=0.1)
+    w.create_spot_light(position=(0.0, 9.5, 0.0), direction=(0.0, -1.0, 0.0),
+                        color=(1.0, 0.96, 0.9), size=0.3, emission=400.0,
+                        beam_angle=0.65)
+    w.material.emission = 0.55
+    cam = w.create_camera("camera", position=(0.0, 1.7, -9.0),
+                          resolution=(width, height), fov=2.3,
+                          focal_distance=9.0, aperture=0.001,
+                          exposure_time=6.0)
+    cam.look_at((0.0, 2.95, 0.0))
+    return w
+
+
 SCENES = {
     "cornell_box": cornell_box,
     "cornell_box_nee": cornell_box_nee,
@@ -332,4 +436,5 @@ SCENES = {
     "mesh_heavy": mesh_heavy,
     "mesh_massive": mesh_massive,
     "instanced_field": instanced_field,
+    "leaf_canopy": leaf_canopy,
 }

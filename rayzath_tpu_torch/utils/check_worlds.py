@@ -8,6 +8,8 @@ classes, for the checks that run where jax is not installed
 * :func:`lit_world`: ``tests/test_gradients.py`` ``lit_world``, a spot and
   a direct light over a glossy floor with a translucent blocker.
 * :func:`empty_world`: no geometry at all (the dense path's empty case).
+* :func:`canopy_shadow_rays`: seeded shadow rays through the leaf canopy
+  of ``scenes.leaf_canopy``, the checks of B2's cutout variant.
 * :func:`scene_files`: a world written out as scene files (a JSON scene,
   one OBJ and MTL per mesh, an HDR sky), the fixture of the scene-file
   checks; :func:`write_hdr` writes the ``.hdr``.
@@ -75,6 +77,78 @@ def lit_world(res: int) -> World:
                           aperture=0.01, exposure_time=1.0)
     cam.look_at((0, 0.3, 0))
     return w
+
+
+def canopy_shadow_rays(world: World, n: int, seed: int, device="cpu",
+                       on_cards: bool = False):
+    """(origin [n,3], direction [n,3], dist [n]) of ``n`` shadow rays as a
+    bounce of ``scenes.leaf_canopy`` casts them: from points on the ground
+    under the crown (first half) and inside the crown (second half), drawn
+    from ``seed``, every other ray to a point on the spot light's disk
+    (dist: its distance) and the rest against the direct light's direction
+    (dist: 3e38), except every fourth ray, which passes through a random
+    point of a random card (dist: 3e38), so that a sparse crown is hit
+    too. With ``on_cards`` every ray starts instead at a random point of a
+    random card (drawn from a second generator of ``seed``; the rest as
+    above), as a bounce off a leaf does before the integrator's nudge
+    along the normal: the ray meets its own card within float rounding of
+    t = 0, on its front or its back. A ray of those within 10 degrees of
+    its card's plane leaves along the card's upward normal instead (dist:
+    3e38): the rounding of the hit's barycentrics on its own card grows
+    as 1 / |cos| of the angle between the ray and the card's normal, so
+    that at a grazing angle it moves the hit by a texel of the leaf map
+    and more."""
+    import torch
+    g = np.random.default_rng(seed)
+    half = n // 2
+    o = np.empty((n, 3), np.float64)
+    o[:half, 0] = g.uniform(-6.0, 6.0, half)
+    o[:half, 1] = 1e-3
+    o[:half, 2] = g.uniform(-6.0, 6.0, half)
+    v = g.normal(size=(n - half, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    o[half:] = (v * g.random((n - half, 1)) ** (1.0 / 3.0) * (5.0, 2.5, 5.0)
+                + (0.0, 4.5, 0.0))
+    crown = next(i.mesh for i in world.instances if i.name == "crown")
+    quads = crown.vertices.reshape(-1, 4, 3).astype(np.float64)
+    if on_cards:
+        g2 = np.random.default_rng([seed, 1])
+        own = quads[g2.integers(0, len(quads), n)]
+        s, t = g2.random((2, n, 1))
+        o = (own[:, 0] + s * (own[:, 1] - own[:, 0])
+             + t * (own[:, 3] - own[:, 0]))
+    spot, = world.spot_lights
+    sun, = world.direct_lights
+    d = np.empty((n, 3), np.float64)
+    dist = np.full(n, 3e38)
+    to_spot = np.arange(n) % 2 == 0
+    disk = np.asarray(spot.position, np.float64) + np.concatenate(
+        [g.uniform(-spot.size, spot.size, (n, 1)), np.zeros((n, 1)),
+         g.uniform(-spot.size, spot.size, (n, 1))], 1)
+    d[to_spot] = disk[to_spot] - o[to_spot]
+    dist[to_spot] = np.linalg.norm(d[to_spot], axis=1)
+    d[~to_spot] = -np.asarray(sun.direction, np.float64)
+    # every fourth ray from its origin through a point of a random card of
+    # the crown (within its square), on to the sky
+    pick = quads[g.integers(0, len(quads), n)]
+    s, t = g.random((2, n, 1))
+    target = (pick[:, 0] + s * (pick[:, 1] - pick[:, 0])
+              + t * (pick[:, 3] - pick[:, 0]))
+    aim = np.arange(n) % 4 == 1
+    d[aim] = target[aim] - o[aim]
+    dist[aim] = 3e38
+    d[np.linalg.norm(d, axis=1) == 0.0] = -np.asarray(sun.direction)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if on_cards:
+        up = np.cross(own[:, 1] - own[:, 0], own[:, 3] - own[:, 0])
+        up *= np.sign(up[:, 1:2]) / np.linalg.norm(up, axis=1, keepdims=True)
+        graze = np.abs((d * up).sum(1)) < np.sin(np.radians(10.0))
+        d[graze], dist[graze] = up[graze], 3e38
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    return t(o), t(d), t(dist)
 
 
 def empty_world(res: int, world_cls=World) -> World:

@@ -1808,3 +1808,155 @@ def test_replays_count_bounce_launches(cuda):
     r.render(rpp=5)
     assert [f.launches - s for f, s in zip(wrappers, start)] == [5, 5, 5]
     assert r.views[id(world.cameras[0])].cycle.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# B2's cutout variant: texture-alpha shadows filtered at the walk's hits
+# ---------------------------------------------------------------------------
+
+def _canopy(cards, dev):
+    world = rt.scenes.leaf_canopy(64, 36, cards=cards)
+    return world, tds.compile_world(world, device=dev)
+
+
+def _b2_cutouts(scene, o, d, dist):
+    mat = scene.mat_color[scene.tri_mat.long()]
+    return tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                             scene.cl_order, scene.cl_base, scene.cl_count,
+                             mat[:, :3].contiguous(),
+                             (1.0 - mat[:, 3]).contiguous(),
+                             groups=scene.cl_group,
+                             cutouts=tc.Cutouts.of(scene))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [3000, 65536], ids=["flat", "grouped"])
+def test_b2_cutouts_match_plain(cuda, cards):
+    """B2's cutout variant on a crown of 3,000 cards (a flat table of 71
+    rows) and on the full leaf canopy (1,664 rows: the grouped walk),
+    65,536 shadow rays of ``check_worlds.canopy_shadow_rays``: rgba to the
+    shadow gate of the plain twin with the same cutouts; its
+    ``cutout_fetches`` at most the plain twin's and, over the rays whose
+    plain alpha stays above 2e-4 (where the stop never fired), equal to
+    it."""
+    from rayzath_tpu_torch.utils.check_worlds import canopy_shadow_rays
+    world, scene = _canopy(cards, cuda)
+    grouped = scene.cl_box.shape[1] > tc.GROUPED_ROWS
+    assert grouped == (cards == 65536)
+    o, d, dist = canopy_shadow_rays(world, 65536, seed=31, device=cuda)
+    cut = tc.Cutouts.of(scene)
+    mat = scene.mat_color[scene.tri_mat.long()]
+    op_tab = tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                                scene.cl_base, scene.cl_count)
+    *ref, want = tc._shadow_plain(o, d, dist, scene.cl_box, scene.cl_lw,
+                                  op_tab, cut)
+    start = (tc.cluster_shadow.fetches.read()["cutout_fetches"],
+             tc.cluster_shadow.grouped)
+    got = _b2_cutouts(scene, o, d, dist)
+    torch.cuda.synchronize()
+    fetched = tc.cluster_shadow.fetches.read()["cutout_fetches"] - start[0]
+    assert tc.cluster_shadow.grouped - start[1] == int(grouped)
+    shadow_gate(got, ref)
+    assert 0 < fetched <= int(want.sum())
+    free = ref[1] >= 2e-4
+    o, d, dist = (x[free].contiguous() for x in (o, d, dist))
+    start = tc.cluster_shadow.fetches.read()["cutout_fetches"]
+    _b2_cutouts(scene, o, d, dist)
+    torch.cuda.synchronize()
+    assert (tc.cluster_shadow.fetches.read()["cutout_fetches"] - start
+            == int(want[free].sum()) > 0)
+    assert int((ref[1] < 1e-4).sum()) > 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [3000, 65536], ids=["flat", "grouped"])
+def test_b2_cutouts_from_a_card(cuda, cards):
+    """B2's cutout variant on 16,384 shadow rays that start on a card
+    (``canopy_shadow_rays(..., on_cards=True)``, a bounce off a leaf),
+    flat and grouped: a and rgb * a within 1e-4 of the dense route's
+    result with the ray's own card (origin moved 3e-5 m back along the
+    ray) or without it (moved 3e-5 m on) on all but 1% of the rays and
+    within 5e-3 on all but one in 1,000 (``cluster_shadow``'s rule for a
+    hit within rounding of t = 0; the bounds and the bracket are derived
+    in ``tests/test_torch_cutout_shadow.py``)."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.utils.check_worlds import canopy_shadow_rays
+    world, scene = _canopy(cards, cuda)
+    o, d, dist = canopy_shadow_rays(world, 16384, seed=33, device=cuda,
+                                    on_cards=True)
+    cfg = rt.RenderConfig()
+
+    def dense(o, d, dist):
+        base = I._shadow_core(scene, cfg, o, d, dist)
+        tex = I.texture_shadow_factor(scene, o, d, dist)
+        return base[0] * tex[0], base[1] * tex[1]
+
+    def gap(x, y):
+        return torch.maximum((x[1] - y[1]).abs(),
+                             (x[0] * x[1][:, None] - y[0] * y[1][:, None])
+                             .abs().amax(1))
+
+    with torch.no_grad():
+        got = _b2_cutouts(scene, o, d, dist)
+        take = dense(o - 3e-5 * d, d, dist + 3e-5)
+        leave = dense(o + 3e-5 * d, d, dist - 3e-5)
+    g = torch.minimum(gap(got, take), gap(got, leave))
+    assert float((g > 1e-4).float().mean()) <= 0.01, float(g.max())
+    assert int((g > 5e-3).sum()) <= len(g) // 1000, float(g.max())
+    assert float(((take[1] - leave[1]).abs() > 1e-3).float().mean()) >= 0.1
+
+
+@pytest.mark.gpu
+def test_b2_cutouts_keep_the_plain_variant(cuda):
+    """Without cutouts B2 launches its variant without the texel factor:
+    the shadow gate of the plain version without cutouts, no fetch
+    counted; the cutout variant's resources are reported apart."""
+    from rayzath_tpu_torch.utils.check_worlds import canopy_shadow_rays
+    world, scene = _canopy(3000, cuda)
+    o, d, dist = canopy_shadow_rays(world, 8192, seed=32, device=cuda)
+    mat = scene.mat_color[scene.tri_mat.long()]
+    start = tc.cluster_shadow.fetches.read()["cutout_fetches"]
+    got = tc.cluster_shadow(o, d, dist, scene.cl_box, scene.cl_lw,
+                            scene.cl_order, scene.cl_base, scene.cl_count,
+                            mat[:, :3].contiguous(),
+                            (1.0 - mat[:, 3]).contiguous())
+    op_tab = tc.cluster_opacity(mat[:, :3], 1.0 - mat[:, 3], scene.cl_order,
+                                scene.cl_base, scene.cl_count)
+    shadow_gate(got, tc.cluster_shadow_plain(o, d, dist, scene.cl_box,
+                                             scene.cl_lw, op_tab))
+    assert tc.cluster_shadow.fetches.read()["cutout_fetches"] == start
+    rows = scene.cl_box.shape[1]
+    for grouped in (False, True):
+        res = tc.walk_resources("shadow", rows, grouped, cutout=True)
+        assert res["registers"] > 0 and res["blocks_per_sm"] > 0
+
+
+@pytest.mark.gpu
+def test_cutout_render_fused_matches_dense(cuda, monkeypatch):
+    """A captured render of the small crown (3,000 cards, 64x36, depth 8,
+    4 passes) takes B2's cutout variant and never the dense pass (its
+    counter stays, replays included, and fetches are counted); the same
+    render with the dense route forced calls the dense pass for each light
+    sample of each pass, and the two accumulations match by
+    ``images_match``."""
+    from rayzath_tpu_torch.engine import integrator as I
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=8))
+
+    def render():
+        world = rt.scenes.leaf_canopy(64, 36, cards=3000)
+        r = rt.Renderer(world, cfg, seed=5, device=cuda)
+        r.render(rpp=4)
+        return r.views[id(world.cameras[0])].state.accum.cpu().numpy()
+
+    dense0 = I.texture_shadow_factor.launches
+    fetch0 = tc.cluster_shadow.fetches.read()["cutout_fetches"]
+    fused = render()
+    assert I.texture_shadow_factor.launches == dense0
+    assert tc.cluster_shadow.fetches.read()["cutout_fetches"] > fetch0
+    real = I.shadow_route
+    monkeypatch.setattr(I, "shadow_route",
+                        lambda *a: "dense" if real(*a) == "fused" else real(*a))
+    dense = render()
+    calls = I.texture_shadow_factor.launches - dense0
+    assert calls >= 4 * 2 and calls % 2 == 0      # two NEE samples a pass
+    images_match(fused, dense)

@@ -67,7 +67,10 @@ def assert_scene_equal(ts, leaves, statics):
     which builds them only for ``differentiable=True``. ``leaf_tri``, the
     port's own, holds the skip-link walk's leaf blocks of the JAX scene's
     BVH (default leaf size) on a soup scene; ``cl_group``, the port's own
-    too, the group table of the scene's ``cl_box``."""
+    too, the group table of the scene's ``cl_box``; ``cl_cut_map`` /
+    ``cl_cut_uv``, the port's own too, a soup's cutout set per slot of its
+    cluster table (``cutout_slots`` of the JAX scene's cluster order,
+    materials and ``tri_pack`` texture coordinates)."""
     stand_in = tds.placeholders(ts.two_level)
     if not ts.two_level and "node_count" in leaves:
         stand_in["leaf_tri"] = ttw.leaf_table(leaves["node_begin"],
@@ -75,6 +78,15 @@ def assert_scene_equal(ts, leaves, statics):
     box = leaves.get("cl_box", stand_in.get("cl_box"))
     if box is not None:
         stand_in["cl_group"] = ttc.group_table(box)
+    if ts.cl_cut_map is not None:
+        tp = leaves["tri_pack"]
+        geo = {"cl_fields": {k: leaves[k] for k in ("cl_order", "cl_base",
+                                                     "cl_count")},
+               "tri_t0": tp[:, 18:20], "tri_t1": tp[:, 20:22],
+               "tri_t2": tp[:, 22:24]}
+        stand_in.update(tds.cutout_slots(geo, leaves["tri_mat"],
+                                         leaves["mat_color"],
+                                         leaves["mat_maps"]))
     for f in dataclasses.fields(tds.TorchScene):
         a = getattr(ts, f.name)
         if a is None:

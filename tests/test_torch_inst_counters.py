@@ -27,7 +27,7 @@ import pytest
 import torch
 
 import rayzath_tpu_torch as rt
-from rayzath_tpu_torch.engine import cycle
+from rayzath_tpu_torch.engine import cycle, integrator
 from rayzath_tpu_torch.models import device_scene as tds
 from rayzath_tpu_torch.ops import _kernels
 from rayzath_tpu_torch.ops import camera as cam_ops
@@ -198,12 +198,14 @@ def launch_sites():
 
 def test_capture_advances_every_registered_counter(fake_graphs, monkeypatch):
     """Every wrapper that launches through ``_kernels.launch`` is in
-    ``_kernels.COUNTED`` (all 14, and no other), every kernel entry of
+    ``_kernels.COUNTED`` (all 14, and no other but the dense cutout pass,
+    which launches no kernel and counts its calls), every kernel entry of
     the library is launched through it, and a capture leaves each
     registered counter as it was while ``advance`` gives it n times its
     per-replay gain."""
     wrappers, launched, named = launch_sites()
-    assert wrappers == set(_kernels.COUNTED) and len(wrappers) == 14
+    assert wrappers == set(_kernels.COUNTED) - {
+        integrator.texture_shadow_factor} and len(wrappers) == 14
     assert launched == named - QUERIES == set(_kernels._SIGNATURES) - QUERIES
     assert len(launched) == 14
     assert {c for names in _kernels.COUNTED.values() for c in names} == {

@@ -540,6 +540,7 @@ class ShadowBlock:
         self.active = dist > 0
         self.m = torch.ones((len(dist), 4))
         self.tests = torch.zeros(len(dist), dtype=torch.int32)
+        self.fetches = torch.zeros(len(dist), dtype=torch.int64)
 
     def live(self):
         return self.active & (self.m[:, 3] >= ALPHA_STOP)
@@ -553,20 +554,30 @@ class ShadowBlock:
         return (rays & self.live() & (tmax >= 0) & (tmin <= tmax)
                 & (tmin <= self.dist))
 
-    def take(self, t, b1, b2, rays, op):
+    def take(self, t, b1, b2, rays, op, cutouts=None, c=None):
         """One cluster's product for the rays ``rays``: op [4, 128] is the
-        factor of each slot, taken where the slot is hit in (0, dist)."""
+        factor of each slot, taken where the slot is hit in (0, dist), times
+        the texel factor of a hit in a cutout slot of row ``c`` (B2's cutout
+        variant, ``cutouts`` a ``tc.Cutouts``), whose fetches it counts."""
         hit = tc._inside(b1, b2) & (t > 0.0) & (t < self.dist[:, None])
-        fac = torch.where(hit[:, None, :], op[None], 1.0).prod(dim=2)
+        fac = torch.where(hit[:, None, :], op[None], 1.0)
+        tex = (None if cutouts is None else
+               tc.cutout_factors(c, hit & rays[:, None], b1, b2, cutouts))
+        if tex is not None:
+            fac = fac * tex[0]
+            self.fetches += tex[1]
+        fac = fac.prod(dim=2)
         self.m = torch.where(rays[:, None], self.m * fac, self.m)
         self.tests += rays.to(torch.int32)
 
 
 def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW,
-                 groups=None, entered=None):
+                 groups=None, entered=None, cutouts=None, fetches=None):
     """B2's walk, block by block: flat, or through the group table
     ``groups`` (then ``entered``, a list, receives each block's groups
-    entered). Returns (rgb, a, block visits, cluster tests per ray)."""
+    entered); with ``cutouts``, its cutout variant (then ``fetches``, a
+    list, receives each block's texel fetches per ray). Returns (rgb, a,
+    block visits, cluster tests per ray)."""
     cp = box_tab.shape[1]
     lo, hi = box_tab[0:3].t(), box_tab[3:6].t()
     cnt = box_tab[tc.B_CNT]
@@ -583,7 +594,7 @@ def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW,
 
         def visit(c):
             t, b1, b2 = tc._project(ob, db, box_tab, frames, c)
-            blk.take(t, b1, b2, need(c), op_tab[c])
+            blk.take(t, b1, b2, need(c), op_tab[c], cutouts, c)
 
         if bool(blk.active.any()) and groups is not None:
             v, g = walk_grouped(
@@ -601,6 +612,8 @@ def model_shadow(o, d, dist, box_tab, frames, op_tab, window=ct.RANK_WINDOW,
                                blk.reach, blk.active, need, visit)
         m_out.append(blk.m)
         tests.append(blk.tests)
+        if fetches is not None:
+            fetches.append(blk.fetches)
     m = torch.cat(m_out)
     return m[:, 0:3], m[:, 3], visits, torch.cat(tests)
 
