@@ -356,6 +356,15 @@ __device__ __forceinline__ void direct_sample(const Lights& L, V3 next_dir, V3 d
   w = mul(lcol, brdf_color);
 }
 
+// `_live_dist`: a light sample's shadow distance, or 0 where the sample
+// weighs exactly zero whatever its visibility: a lane that hit nothing (the
+// tail drops its NEE) or a radiance of exactly 0 (a NaN stays traced). A
+// walk takes a ray of dist 0 as inactive (visibility 1, no vote, no test),
+// and the tail's product with the radiance is the same +0.
+__device__ __forceinline__ float live_dist(float dist, bool any_hit, float rad) {
+  return any_hit && rad != 0.0f ? dist : 0.0f;
+}
+
 // ---------------------------------------------------------------------------
 // the three kernels
 // ---------------------------------------------------------------------------
@@ -624,7 +633,7 @@ bounce_surface_kernel(const SurfaceArgs a) {
                   reflectance, brdf_color, vs_pdf, med_scatter, u + 8 + 3 * s, vpl_n, d_pl, w,
                   rad);
       st3(a.shadow_d + 3 * (k * a.n + i), vpl_n);
-      a.shadow_dist[k * a.n + i] = d_pl;
+      a.shadow_dist[k * a.n + i] = live_dist(d_pl, any_hit, rad);
       st3(a.shadow_w + 3 * (k * a.n + i), w);
       a.shadow_rad[k * a.n + i] = rad;
     }
@@ -635,7 +644,7 @@ bounce_surface_kernel(const SurfaceArgs a) {
       direct_sample(L, next_dir, d, mapped_normal, mat.scat, mat.rough, mat.alpha_op,
                     reflectance, brdf_color, vs_pdf, ud + 3 * s, vpl_n, w, rad);
       st3(a.shadow_d + 3 * (k * a.n + i), vpl_n);
-      a.shadow_dist[k * a.n + i] = BIG;
+      a.shadow_dist[k * a.n + i] = live_dist(BIG, any_hit, rad);
       st3(a.shadow_w + 3 * (k * a.n + i), w);
       a.shadow_rad[k * a.n + i] = rad;
     }

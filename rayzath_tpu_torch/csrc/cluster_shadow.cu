@@ -242,7 +242,7 @@ shadow_kernel(const float* __restrict__ origin,
     a_out[ray] = ma;
     if (visits) visits[ray] = n_tests;
   }
-  if (work) add_walk_counts(sh, work, n_tests, n_tris, n_slabs);
+  if (work) add_walk_counts(sh, work, n_tests, n_tris, n_slabs, (int)active);
   if constexpr (CUTOUT)
     if (cut.fetched) add_walk_counts(sh, cut.fetched, n_fetch);
 }
@@ -260,7 +260,9 @@ auto shadow_for(size_t smem, int gp, bool cutout) {
 
 }  // namespace
 
-// grp, visits, stats, work: as rz_cluster_closest's. cut_map: null, or the
+// grp, visits, stats: as rz_cluster_closest's; work: null, or int64[4] that
+// the launch adds its cluster, triangle and slab tests and its live rays
+// (dist > 0) to. cut_map: null, or the
 // cutout tables [cp * 128] i32 and cut_uv [cp * 128][6] f32 with the count
 // of texels fetched (fetched, int64[1], added to once per block; null: not
 // counted), the colour atlas [n_col][4] f32, its block table col_blk

@@ -216,15 +216,15 @@ shadow_inst_kernel(const float* __restrict__ origin,
     a_out[ray] = ma;
     if (visits) visits[ray] = n_tests;
   }
-  if (work) add_walk_counts(sh, work, n_inst, n_tests);
+  if (work) add_walk_counts(sh, work, n_inst, n_tests, (int)active);
 }
 
 }  // namespace
 
 // visits: null on the render path; else int[n_rays + blocks] that receives
 // each ray's (instance, cluster) tests and each block's cluster visits, as
-// B3's. work: null, or int64[2] that the launch adds its instance visits
-// and its (instance, cluster) tests to, as B3's.
+// B3's. work: null, or int64[3] that the launch adds its instance visits,
+// its (instance, cluster) tests and its live rays (dist > 0) to.
 extern "C" int rz_cluster_shadow_inst(const float* origin,
                                       const float* direction,
                                       const float* dist, const float* ti_rows,

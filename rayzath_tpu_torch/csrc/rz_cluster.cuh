@@ -917,7 +917,8 @@ __device__ __forceinline__ void walk_rows(const Shared& sh, Walk& w,
 // ..., a warp sum each, then one atomicAdd per counter from thread 0.
 // B3/B4 count instance visits (their rays' calls of to_object) and
 // (instance, cluster) tests; B1/B2 cluster tests, the real triangles of
-// the clusters tested, and slab tests. Every thread calls it once, after
+// the clusters tested, and slab tests; B2 and B4 then their live rays
+// (dist > 0: the rays that walk at all). Every thread calls it once, after
 // its walk; the per-warp partials reuse the scratch of block_bounds, whose
 // last readers are done once the first barrier passes.
 template <class... Counts>

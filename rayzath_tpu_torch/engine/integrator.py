@@ -595,6 +595,17 @@ def _direct_sample(scene, next_dir, d_in, mapped_normal, surf_scattering,
     return vpl_n, torch.full_like(se, BIG), lcol * brdf_color, radiance
 
 
+def _live_dist(dist, any_hit, radiance):
+    """A light sample's shadow distance, or 0 where the sample weighs
+    exactly zero whatever its visibility: a lane that hit nothing
+    (:func:`_tail` drops its NEE) or a radiance of exactly 0 (a NaN stays
+    traced). Every walk takes a ray of dist 0 as inactive, with visibility
+    (1, 1, 1, 1) and no test, and :func:`_tail`'s product with the
+    radiance is the same +0 as with the walked visibility."""
+    return torch.where(any_hit & (radiance != 0.0), dist,
+                       torch.zeros_like(dist))
+
+
 # ---------------------------------------------------------------------------
 # one wavefront bounce: _head, the closest-hit walk, _surface, the shadow
 # walks, _tail
@@ -668,7 +679,7 @@ class Surface(NamedTuple):
     score: torch.Tensor        # [R]
     shadow_o: Optional[torch.Tensor]  # [R,3] origin of every shadow ray
     shadow_d: tuple            # per light sample: [R,3] direction
-    shadow_dist: tuple         # per light sample: [R] distance
+    shadow_dist: tuple         # per light sample: [R] distance; 0 culled
     shadow_w: tuple            # per light sample: [R,3] lcol * brdf_color
     shadow_rad: tuple          # per light sample: [R] radiance
 
@@ -702,7 +713,8 @@ def _surface(scene: TorchScene, cfg: RenderConfig, state: RenderState, u,
     :func:`closest_hit` does) to the shadow rays: the surface frame, the
     material with its maps, normal mapping, Beer's law, the emission, the
     next direction, the hit point and each light sample's shadow ray and
-    unshadowed weight."""
+    unshadowed weight, the ray inactive (dist 0) where that weight is
+    exactly zero (:func:`_live_dist`)."""
     o, d = state.origin, state.direction
     t, tri_id, inst_id = walk
     t, b1, b2, external, tp = _hit_row(scene, o, d, t, tri_id, inst_id)
@@ -853,6 +865,8 @@ def _surface(scene: TorchScene, cfg: RenderConfig, state: RenderState, u,
     # --- throughput tint (cuda_render_kernel.cu:235) ---
     throughput_next = lerp(throughput, throughput * mat.color_rgb, tint[:, None])
     new_medium = torch.where(refracted, behind_mat, med)
+    shadows = [(vpl_n, _live_dist(dist, any_hit, rad), w, rad)
+               for vpl_n, dist, w, rad in shadows]
     per_sample = tuple(zip(*shadows)) if shadows else ((), (), (), ())
     return Surface(t_final, any_hit, point, next_dir, throughput,
                    throughput_next, contrib, metallic_tint, new_medium,

@@ -59,7 +59,10 @@ work of its walk: ``rays`` (host: the rays handed to the walk) and
 ``work`` (a :class:`WorkCounter`, per device, added to by the kernels
 themselves, so that a captured graph counts on every replay): B1 and B2
 their cluster tests, triangle tests and slab tests, B3 and B4 their
-instance visits and (instance, cluster) tests. The plain versions visit every
+instance visits and (instance, cluster) tests, and B2 and B4 besides their
+live rays, those handed in with dist > 0 (a ray of dist 0, which the
+bounce writes for a light sample that weighs exactly zero, is inactive:
+visibility 1, no vote, no test). The plain versions visit every
 real cluster (of every real instance) with no culling; the kernels cull
 conservatively, so both return the same hits.
 
@@ -134,8 +137,14 @@ GROUP = _kernels.header_constant("GROUP")
 #: every row took 65-71% of their time; on mesh_heavy's 768 rows it ran
 #: B1 4-7% slower and B2 10-11% faster.
 GROUPED_ROWS = 1024
-#: the keys of B1's and B2's work counters (:class:`WorkCounter`)
+#: the keys of B1's work counter (:class:`WorkCounter`)
 SOUP_WORK = ("cluster_tests", "triangle_tests", "slab_tests")
+#: B2's: B1's keys, then its live rays (dist > 0: the rays that walk)
+SHADOW_WORK = SOUP_WORK + ("live",)
+#: B3's
+INST_WORK = ("instance_visits", "cluster_tests")
+#: B4's: B3's keys, then its live rays
+INST_SHADOW_WORK = INST_WORK + ("live",)
 #: the key of B2's counter of the texels its cutout variant fetched
 CUTOUT_WORK = ("cutout_fetches",)
 
@@ -645,14 +654,15 @@ class WorkCounter:
     [cluster tests, triangle tests, slab tests]: a triangle test is one
     ray against one real triangle of a cluster it tests (the slots past
     the cluster's count are not tested), a slab test one ray's gate
-    against one box of the cluster or group table (``slab``). The kernels
+    against one box of the cluster or group table (``slab``). B2 and B4
+    add a last key, ``live``: the rays handed in with dist > 0. The kernels
     add their launch's totals, one atomicAdd per counter per block of 128
     rays, with no host sync and no allocation, so a captured graph counts
     on every replay; on the CPU the wrapper adds what the plain version
     tests (every real cluster or pair, for each ray that walks, and no
     slab test)."""
 
-    def __init__(self, keys=("instance_visits", "cluster_tests")):
+    def __init__(self, keys=INST_WORK):
         self.keys = tuple(keys)
         self._counts: dict = {}
 
@@ -681,11 +691,11 @@ class WorkCounter:
 
 def _count_plain(wrapper, active, work, tests, visits) -> None:
     """Count a plain walk on the CPU as the kernels count theirs:
-    ``wrapper.rays`` gains the rays, ``wrapper.work`` the counts ``work``
-    for each ray that walks (``active``); ``visits`` (optional, R + B
-    entries as for the kernels) receives each walking ray's ``tests``, then
-    the tests each block of 128 rays stages (all of them when one of its
-    rays walks)."""
+    ``wrapper.rays`` gains the rays, ``wrapper.work`` for each ray that
+    walks (``active``) the count ``work`` gives under each of its keys (a
+    ``live`` key counts one); ``visits`` (optional, R + B entries as for
+    the kernels) receives each walking ray's ``tests``, then the tests each
+    block of 128 rays stages (all of them when one of its rays walks)."""
     r = active.shape[0]
     blocks = -(-r // KERNEL_BLOCK)
     if visits is not None:
@@ -693,8 +703,9 @@ def _count_plain(wrapper, active, work, tests, visits) -> None:
                        (r + blocks,))
     n = int(active.sum())
     wrapper.rays += r
-    wrapper.work.pair(active.device).add_(
-        torch.tensor([n * w for w in work], dtype=torch.int64))
+    per_ray = dict(work, live=1)
+    wrapper.work.pair(active.device).add_(torch.tensor(
+        [n * per_ray[k] for k in wrapper.work.keys], dtype=torch.int64))
     if visits is not None:
         walks = torch.zeros(blocks * KERNEL_BLOCK, dtype=torch.bool)
         walks[:r] = active
@@ -707,8 +718,9 @@ def _count_plain_inst(wrapper, active, ti_rows, visits) -> None:
     (instance, cluster) pair for each ray that walks."""
     ncl = ti_rows[:, TI_NCL]
     n_pairs = int(ncl.sum())
-    _count_plain(wrapper, active, (int((ncl > 0).sum()), n_pairs), n_pairs,
-                 visits)
+    _count_plain(wrapper, active, dict(instance_visits=int((ncl > 0).sum()),
+                                       cluster_tests=n_pairs),
+                 n_pairs, visits)
 
 
 def _count_plain_soup(wrapper, active, box_tab, visits) -> None:
@@ -716,7 +728,9 @@ def _count_plain_soup(wrapper, active, box_tab, visits) -> None:
     triangles for each ray that walks, and no slab test."""
     cnt = box_tab[B_CNT]
     n_real = int((cnt > 0).sum())
-    _count_plain(wrapper, active, (n_real, int(cnt.sum()), 0), n_real, visits)
+    _count_plain(wrapper, active, dict(cluster_tests=n_real,
+                                       triangle_tests=int(cnt.sum()),
+                                       slab_tests=0), n_real, visits)
 
 
 def _map_ids(rid, order):
@@ -1083,7 +1097,9 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
     B2 kernel (``csrc/cluster_shadow.cu``), a ranked front-to-back walk per
     block of 128 rays that stops a ray once its alpha is below 1e-4.
     ``groups``, ``visits``, ``rays`` and ``work`` as for
-    :func:`cluster_closest`.
+    :func:`cluster_closest`; ``work`` (:data:`SHADOW_WORK`) also counts the
+    live rays, those of dist > 0 (a ray of dist <= 0 walks nothing and
+    gets visibility 1).
 
     ``cutouts`` (a :class:`Cutouts`): each hit in a cutout slot also takes
     its texel factor (rgb, 1 - alpha) (:func:`cutout_factors`; on a card
@@ -1134,7 +1150,7 @@ def cluster_shadow(origin, direction, dist, box_tab, frames, order, base,
                    visits, cutouts)
 
 
-cluster_shadow.work = WorkCounter(SOUP_WORK)
+cluster_shadow.work = WorkCounter(SHADOW_WORK)
 cluster_shadow.fetches = WorkCounter(CUTOUT_WORK)
 
 
@@ -1192,7 +1208,7 @@ def cluster_closest_inst(origin, direction, near, far, ti_rows, cl_obox,
     return t, tid, inst
 
 
-cluster_closest_inst.work = WorkCounter()
+cluster_closest_inst.work = WorkCounter(INST_WORK)
 
 
 def _shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames, cl_slot,
@@ -1233,7 +1249,9 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
     tensors launch the B4 kernel (``csrc/cluster_shadow_inst.cu``), a
     ranked front-to-back walk of the instances and of each visited mesh's
     clusters, as B3's, that stops a ray once its alpha is below 1e-4.
-    ``visits``, ``rays`` and ``work`` as for :func:`cluster_closest_inst`.
+    ``visits``, ``rays`` and ``work`` as for :func:`cluster_closest_inst`;
+    ``work`` (:data:`INST_SHADOW_WORK`) also counts the live rays, as
+    :func:`cluster_shadow`'s.
 
     Differentiable when grad mode is on and an input requires grad; as in
     the JAX package the caller passes ``tris`` = (tri_v0, tri_e1, tri_e2)
@@ -1258,4 +1276,4 @@ def cluster_shadow_inst(origin, direction, dist, ti_rows, cl_obox, frames,
                         cl_slot, op_tab, visits)
 
 
-cluster_shadow_inst.work = WorkCounter()
+cluster_shadow_inst.work = WorkCounter(INST_SHADOW_WORK)

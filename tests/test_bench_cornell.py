@@ -133,12 +133,12 @@ def synthetic(kind="progressive", names=(B1, B2)):
 def counted(monkeypatch):
     """B1 and B2 as after 10 launches each: B1 of 1,000 rays and 900
     cluster, 32,400 triangle and 5,000 slab tests, B2 of 2,000 rays and
-    1,500, 54,000 and 7,000."""
+    1,500, 54,000 and 7,000, and 1,600 live rays."""
     for f, (rays, *work_done) in (
             (tc.cluster_closest, (1000, 900, 32400, 5000)),
-            (tc.cluster_shadow, (2000, 1500, 54000, 7000))):
+            (tc.cluster_shadow, (2000, 1500, 54000, 7000, 1600))):
         work = tc.WorkCounter(f.work.keys)
-        assert work.keys == soup_work.WORK
+        assert work.keys[:3] == soup_work.WORK
         work.pair(torch.device("cpu")).add_(torch.tensor(work_done))
         monkeypatch.setattr(f, "work", work)
         monkeypatch.setattr(f, "launches", 10)

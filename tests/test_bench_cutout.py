@@ -61,7 +61,7 @@ def test_the_configuration_and_its_cell():
                        "gather_ms_per_pass", "elementwise_ms_per_pass",
                        "compile_s.setup", "capture_s.setup",
                        "launch_gap_ms.render",
-                       "cluster_tests_per_ray"} == per_layer
+                       "cluster_tests_per_ray", "shadow_live_share"} == per_layer
     for m in man["per_layer"]:
         if m["name"] in NEW:
             assert m["workloads"] == [CELL] and m["moves"] == "rays_per_s"
@@ -200,10 +200,11 @@ def synthetic(kind="progressive", names=(CUT,)):
 @pytest.fixture
 def counted(monkeypatch):
     """B2 as after 10 launches of 2,000 rays: 1,500 cluster, 54,000
-    triangle and 7,000 slab tests, 3,000 texel fetches."""
+    triangle and 7,000 slab tests, 600 live rays, 3,000 texel fetches."""
     f = tc.cluster_shadow
     work = tc.WorkCounter(f.work.keys)
-    work.pair(torch.device("cpu")).add_(torch.tensor([1500, 54000, 7000]))
+    work.pair(torch.device("cpu")).add_(torch.tensor([1500, 54000, 7000,
+                                                      600]))
     fetches = tc.WorkCounter(f.fetches.keys)
     fetches.pair(torch.device("cpu")).add_(torch.tensor([3000]))
     monkeypatch.setattr(f, "work", work)

@@ -38,14 +38,14 @@ WORLDS = ("cornell_box_nee", "multi_light", "glass_and_fog", "textured_room",
 STAGES = (bounce.bounce_head, bounce.bounce_surface, bounce.bounce_tail)
 
 
-def setup(name):
+def setup(name, two_level=None):
     if name == "cutout world":
         world = cutout_world(RES)
     elif name == "instanced_field":
         world = rt.scenes.instanced_field(RES, RES, n=3, resolution=12)
     else:
         world = rt.scenes.SCENES[name](RES, RES)
-    scene = tds.compile_world(world, device="cpu")
+    scene = tds.compile_world(world, two_level=two_level, device="cpu")
     cam = tds.compile_camera(world.cameras[0], device="cpu")
     cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=4))
     return scene, cam, cfg
@@ -138,3 +138,75 @@ def test_renderer_on_the_cpu_launches_no_bounce_kernel():
     r.render(rpp=2)
     assert [f.launches for f in STAGES] == start
     assert float(r.views[id(world.cameras[0])].state.accum[..., 3].sum()) > 0
+
+
+CULL_WORLDS = ("cutout world", "textured_room", "cornell_box_nee",
+               "instanced_field")
+
+
+def _same(x, y):
+    """Two Surface fields the same bits (tensors, tuples of them, None)."""
+    if isinstance(x, tuple):
+        return len(x) == len(y) and all(_same(a, b) for a, b in zip(x, y))
+    if x is None or y is None:
+        return x is y
+    return torch.equal(x, y) or (
+        x.is_floating_point() and torch.equal(torch.isnan(x), torch.isnan(y))
+        and torch.equal(x[~torch.isnan(x)], y[~torch.isnan(y)]))
+
+
+@pytest.mark.parametrize("name", CULL_WORLDS)
+def test_zero_weight_samples_enter_the_walks_inactive(name, monkeypatch):
+    """Over three bounces, ``_surface`` hands a light sample's shadow ray
+    in with dist 0 exactly where the sample weighs zero whatever its
+    visibility (its lane hit nothing or its radiance is 0), and every
+    other sample with the distance of the uncut formula (``_live_dist``
+    the identity), all else the same bits. The walks give a culled ray
+    visibility (1, 1, 1, 1), and ``_tail`` gives the same accumulation and
+    next state bit for bit with the culled samples' visibility replaced by
+    seeded values in [0, 1], and from the uncut rays' walked visibility.
+    instanced_field is compiled two-level, so that B4 walks its rays."""
+    scene, cam, cfg = setup(name, two_level=name == "instanced_field" or None)
+    assert scene.two_level == (name == "instanced_field")
+    state = init_state(RES, RES, "cpu")
+    hw = (RES, RES)
+    gen = torch.Generator().manual_seed(11)
+    culled_rays = missed = 0
+    with torch.no_grad():
+        for u in uniforms(scene, cfg, 3):
+            hd = I._head(scene, cam, state, u)
+            walk = I._closest_walk(scene, cfg, state.origin, state.direction,
+                                   hd.near, hd.far_eff, hw=hw)
+            sf = I._surface(scene, cfg, state, u, hd, walk)
+            with monkeypatch.context() as m:
+                m.setattr(I, "_live_dist", lambda dist, any_hit, rad: dist)
+                uncut = I._surface(scene, cfg, state, u, hd, walk)
+            assert len(sf.shadow_dist) > 0
+            for f in I.Surface._fields:
+                if f != "shadow_dist":
+                    assert _same(getattr(sf, f), getattr(uncut, f)), f
+            for dist, full, rad in zip(sf.shadow_dist, uncut.shadow_dist,
+                                       sf.shadow_rad):
+                culled = ~sf.any_hit | (rad == 0.0)
+                assert torch.equal(dist == 0.0, culled)
+                assert torch.equal(dist[~culled], full[~culled])
+                assert bool((full > 0.0).all())
+                culled_rays += int(culled.sum())
+            missed += int((~sf.any_hit).sum())
+
+            vis = I._shadows(scene, cfg, sf, hw)
+            noisy = []
+            for (v_rgb, v_a), dist in zip(vis, sf.shadow_dist):
+                off = dist == 0.0
+                assert bool((v_rgb[off] == 1.0).all() and (v_a[off] == 1.0).all())
+                noisy.append((
+                    torch.where(off[:, None], torch.rand(v_rgb.shape,
+                                                         generator=gen), v_rgb),
+                    torch.where(off, torch.rand(v_a.shape, generator=gen),
+                                v_a)))
+            got = I._tail(scene, cam, cfg, state, u, sf, vis, 0)
+            assert_same(got, I._tail(scene, cam, cfg, state, u, sf, noisy, 0))
+            assert_same(got, I._tail(scene, cam, cfg, state, u, uncut,
+                                     I._shadows(scene, cfg, uncut, hw), 0))
+            state = got
+    assert culled_rays > 0 and missed > 0

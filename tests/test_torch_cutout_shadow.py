@@ -177,7 +177,7 @@ def test_model_walk_matches_the_plain_twin(canopy):
 def test_plain_walk_counts_its_fetches():
     """A CPU ``cluster_shadow`` call with cutouts adds the plain twin's
     texel fetches to ``cluster_shadow.fetches``; one without adds none;
-    B2's ``work`` keeps its three keys."""
+    B2's ``work`` keeps B1's three keys and its live rays."""
     world = rt.scenes.leaf_canopy(16, 16, cards=600)
     scene = tds.compile_world(world, device="cpu")
     o, d, dist = canopy_shadow_rays(world, 256, seed=7)
@@ -189,7 +189,7 @@ def test_plain_walk_counts_its_fetches():
     assert got == int(want.sum()) > 0
     I._shadow_core(scene, rt.RenderConfig(), o, d, dist)
     assert tc.cluster_shadow.fetches.read()["cutout_fetches"] - start == got
-    assert tc.cluster_shadow.work.keys == tc.SOUP_WORK
+    assert tc.cluster_shadow.work.keys == tc.SOUP_WORK + ("live",)
     assert tc.cluster_shadow.fetches.keys == ("cutout_fetches",)
 
 

@@ -61,7 +61,10 @@ direct lights, media and refraction, all five map kinds, two-level,
 cutouts), the head's outputs bit for bit, the next state's direction,
 throughput, medium and depth different on at most ``BOUNCE_FLIP_SHARE``
 of the rays, the accumulations by ``images_match``; each wrapper counted
-once a replayed pass and not at all under autograd.
+once a replayed pass and not at all under autograd; the surface kernel's
+culled shadow rays (dist 0: a sample of zero weight) exactly the plain
+stage's, and B2's and B4's ``live`` counts those of dist > 0, eager and
+in a replayed graph.
 """
 import numpy as np
 import pytest
@@ -1808,6 +1811,110 @@ def test_replays_count_bounce_launches(cuda):
     r.render(rpp=5)
     assert [f.launches - s for f, s in zip(wrappers, start)] == [5, 5, 5]
     assert r.views[id(world.cameras[0])].cycle.captures == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell_box_nee", "multi_light",
+                                  "glass_and_fog", "textured_room",
+                                  "instanced_field", "cutout world"])
+def test_bounce_surface_culls_as_the_plain_stage(cuda, name):
+    """The same numpy uniforms and closest-hit walk, 5 bounces at 48^2:
+    the shadow rays that ``bounce_surface_kernel`` hands the walks
+    inactive (dist 0) are exactly those ``_surface`` culls, which are
+    exactly the kernel's samples of a lane that hit nothing or of a
+    radiance of 0."""
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    res = 48
+    world = _bounce_world(name, res)
+    scene = tds.compile_world(world, device=cuda)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=6))
+    ns = I.n_streams(cfg, scene)
+    rng = np.random.default_rng(9)
+    state = init_state(res, res, cuda)
+    culled = 0
+    with torch.no_grad():
+        for _ in range(5):
+            u = torch.as_tensor(rng.random((res * res, ns), dtype=np.float32),
+                                device=cuda)
+            hd = I._head(scene, cam, state, u)
+            walk = I._closest_walk(scene, cfg, state.origin, state.direction,
+                                   hd.near, hd.far_eff, hw=(res, res))
+            plain = I._surface(scene, cfg, state, u, hd, walk)
+            fused = I._surface_kernel(scene, cfg, state, u,
+                                      I._head_kernel(scene, cam, state, u),
+                                      walk)
+            assert len(fused.shadow_dist) == len(plain.shadow_dist) > 0
+            for k, (got, want, rad) in enumerate(zip(
+                    fused.shadow_dist, plain.shadow_dist, fused.shadow_rad)):
+                off = got == 0.0
+                assert torch.equal(off, want == 0.0), k
+                assert torch.equal(off, ~fused.any_hit | (rad == 0.0)), k
+                culled += int(off.sum())
+            state = I.bounce_step(scene, cam, cfg, state, u=u)
+    assert culled > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["textured_room", "mesh_heavy",
+                                  "cutout world", "instanced_field"])
+def test_shadow_walks_count_live_rays(cuda, name):
+    """B2 (flat on textured_room, grouped on mesh_heavy at resolution 400,
+    its cutout variant on the cutout world) and B4 (instanced_field) on a
+    bounce's shadow rays as ``bounce_surface_kernel`` writes them: their
+    ``work``'s ``live`` gains the rays of dist > 0 on one eager call of
+    the shadow walks, and 4 times that over a graph of the call replayed
+    3 times after its warm-up, while ``rays`` gains every ray."""
+    from rayzath_tpu_torch.engine import cycle
+    from rayzath_tpu_torch.engine import integrator as I
+    from rayzath_tpu_torch.engine.state import init_state
+    res = 64
+    world = (rt.scenes.mesh_heavy(res, res, resolution=400)
+             if name == "mesh_heavy" else _bounce_world(name, res))
+    scene = tds.compile_world(world, device=cuda,
+                              two_level=name == "instanced_field" or None)
+    cam = tds.compile_camera(world.cameras[0], cuda)
+    cfg = rt.RenderConfig(tracing=rt.Tracing(max_depth=6))
+    assert scene.two_level == (name == "instanced_field")
+    if not scene.two_level:
+        assert (scene.cl_box.shape[1] > tc.GROUPED_ROWS) == (
+            name == "mesh_heavy")
+    ns = I.n_streams(cfg, scene)
+    rng = np.random.default_rng(4)
+    state = init_state(res, res, cuda)
+    with torch.no_grad():
+        for _ in range(3):
+            u = torch.as_tensor(rng.random((res * res, ns), dtype=np.float32),
+                                device=cuda)
+            hd = I._head_kernel(scene, cam, state, u)
+            walk = I._closest_walk(scene, cfg, state.origin, state.direction,
+                                   hd.near, hd.far_eff, hw=(res, res))
+            sf = I._surface_kernel(scene, cfg, state, u, hd, walk)
+            state = I.bounce_step(scene, cam, cfg, state, u=u)
+        if name == "cutout world":
+            assert I.shadow_route(scene, cfg, cuda) == "fused"
+    f = tc.cluster_shadow_inst if scene.two_level else tc.cluster_shadow
+    n = sum(len(dist) for dist in sf.shadow_dist)
+    want = sum(int((dist > 0.0).sum()) for dist in sf.shadow_dist)
+    assert 0 < want < n
+
+    def walks():
+        with torch.no_grad():
+            return [I.shadow_test(scene, cfg, sf.shadow_o, d, dist)
+                    for d, dist in zip(sf.shadow_d, sf.shadow_dist)]
+
+    start, rays = f.work.read()["live"], f.rays
+    walks()
+    torch.cuda.synchronize()
+    assert (f.work.read()["live"] - start, f.rays - rays) == (want, n)
+    start, rays = f.work.read()["live"], f.rays
+    graph, per_replay = cycle.capture(walks, walks, "test")
+    for _ in range(3):
+        graph.replay()
+    cycle.advance(per_replay, 3)
+    torch.cuda.synchronize()
+    assert (f.work.read()["live"] - start, f.rays - rays) == (4 * want, 4 * n)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 B4 ``cluster_shadow_inst`` (``rayzath_tpu_torch/ops/traverse_cluster.py``
 ``WorkCounter``): ``rays`` on the host, and per device the instance visits
 and (instance, cluster) tests that the kernels add to, one atomicAdd per
-counter per block.
+counter per block, and B4's live rays (dist > 0).
 
 On the CPU: the plain versions' counts equal the sums of their per-ray
 ``visits``, a render counts each pass's rays, a captured graph's replays
@@ -84,7 +84,8 @@ def wrapper(kernel):
 
 
 def held():
-    """Every counter of B3 and B4: (launches, rays, visits, tests) each."""
+    """Every counter of B3 and B4: (launches, rays, visits, tests) each,
+    and B4's live rays last."""
     return [(f.launches, f.rays, *f.work.read().values()) for f in WRAPPERS]
 
 
@@ -105,6 +106,10 @@ def test_plain_counts_equal_the_visits_sums(kernel):
     assert got["instance_visits"] - before[2]["instance_visits"] == walked * n_inst
     assert int((visits[:r] == 0).sum()) == r - walked
     assert visits[r:].tolist() == [int(scene.ti_rows[:, tc.TI_NCL].sum())] * 3
+    if kernel == "shadow":
+        assert got["live"] - before[2]["live"] == walked < r
+    else:
+        assert "live" not in got
 
 
 def test_a_render_counts_every_pass():
@@ -113,10 +118,13 @@ def test_a_render_counts_every_pass():
     before = held()
     r.render(rpp=3)
     assert r.scene.two_level
-    for (_, rays0, v0, t0), (_, rays1, v1, t1) in zip(before, held()):
+    for (_, rays0, v0, t0, *l0), (_, rays1, v1, t1, *l1) in zip(before,
+                                                                 held()):
         assert rays1 - rays0 == 3 * 12 * 8
         # one cluster per instance row here: a visit is one test
         assert 0 < t1 - t0 == v1 - v0 <= 3 * 12 * 8 * 10
+        if l0:
+            assert 0 < l1[0] - l0[0] <= rays1 - rays0
 
 
 def test_a_soup_render_counts_nothing():
@@ -274,6 +282,7 @@ def test_graph_counters_equal_the_visits_sums(cuda, kernel):
     assert 0 < got["instance_visits"] <= 4 * walked * 10
     assert got["instance_visits"] % 4 == 0
     assert (f.launches - launches, f.rays - count) == (4, 4 * r)
+    assert got.get("live", 4 * walked) == 4 * walked
 
 
 @pytest.mark.gpu
@@ -309,6 +318,9 @@ def test_only_a_two_level_render_counts(cuda):
     before = held()
     r.render(rpp=4)
     torch.cuda.synchronize()
-    for (l0, rays0, v0, t0), (l1, rays1, v1, t1) in zip(before, held()):
+    for (l0, rays0, v0, t0, *n0), (l1, rays1, v1, t1, *n1) in zip(before,
+                                                                   held()):
         assert (l1 - l0, rays1 - rays0) == (4, 4 * 64 * 64)
         assert t1 > t0 and v1 > v0
+        if n0:
+            assert 0 < n1[0] - n0[0] < rays1 - rays0

@@ -2,7 +2,8 @@
 ``cluster_shadow`` (``rayzath_tpu_torch/ops/traverse_cluster.py``
 ``WorkCounter``): ``rays`` on the host, and per device the cluster tests,
 triangle tests and slab tests that the kernels add to, one atomicAdd per
-counter per block, on the flat and the grouped walk alike.
+counter per block, on the flat and the grouped walk alike, and B2's live
+rays (dist > 0).
 
 On the CPU: the plain versions' counts equal the sums of their per-ray
 ``visits`` (each cluster test its cluster's real triangles, and no slab
@@ -92,7 +93,7 @@ def wrapper(kernel):
 
 def held():
     """Every counter of B1 and B2: (launches, rays, cluster tests, triangle
-    tests, slab tests) each."""
+    tests, slab tests) each, and B2's live rays last."""
     return [(f.launches, f.rays, *f.work.read().values()) for f in WRAPPERS]
 
 
@@ -104,7 +105,7 @@ def held():
 def test_plain_counts_equal_the_visits_sums(kernel):
     """A plain B1 or B2 call counts every real cluster and its real
     triangles for each ray that walks, as its ``visits`` say ray by ray,
-    and no slab test."""
+    and no slab test; B2 the rays that walk as live."""
     world, scene = soup("cpu")
     r = 300
     blocks = -(-r // 128)
@@ -126,6 +127,10 @@ def test_plain_counts_equal_the_visits_sums(kernel):
     assert got["slab_tests"] == before[2]["slab_tests"]
     assert int((visits[:r] == 0).sum()) == r - walked
     assert visits[r:].tolist() == [n_real] * blocks
+    if kernel == "shadow":
+        assert got["live"] - before[2]["live"] == walked < r
+    else:
+        assert "live" not in got
 
 
 @pytest.mark.parametrize("kernel", ["closest", "shadow"])
@@ -146,18 +151,22 @@ def test_plain_walk_refuses_a_grouped_visit_buffer(kernel):
 
 def test_a_render_counts_every_pass():
     """A CPU render of cornell_box_nee: B1 and B2 each take every pass's
-    rays once, and test the one real cluster at most once a ray."""
+    rays once, and test the one real cluster at most once a ray; B2 walks
+    only its live rays, each of which tests the cluster."""
     w, h = 12, 8
     r = rt.Renderer(rt.scenes.cornell_box_nee(w, h), rt.RenderConfig(), seed=3,
                     device="cpu")
     before = held()
     r.render(rpp=3)
     assert r.scene.n_clusters == 1 and not r.scene.two_level
-    for (_, rays0, t0, n0, s0), (_, rays1, t1, n1, s1) in zip(before, held()):
+    for (_, rays0, t0, n0, s0, *l0), (_, rays1, t1, n1, s1, *l1) in zip(
+            before, held()):
         assert rays1 - rays0 == 3 * w * h
         assert 0 < t1 - t0 <= rays1 - rays0
         assert n1 - n0 == 36 * (t1 - t0)        # 36 triangles, one cluster
         assert s1 == s0
+        if l0:
+            assert l1[0] - l0[0] == t1 - t0
 
 
 @pytest.fixture
@@ -199,15 +208,16 @@ def test_replays_advance_the_ray_counters(fake_graphs):
 
 def test_the_work_counter_keeps_its_keys():
     """B1's and B2's counts read as cluster, triangle and slab tests, B3's
-    and B4's as instance visits and (instance, cluster) tests; a device's
-    counts are made on its first use, one for each key, and summed over
-    devices."""
-    assert [f.work.keys for f in WRAPPERS] == [("cluster_tests",
-                                                "triangle_tests",
-                                                "slab_tests")] * 2
+    and B4's as instance visits and (instance, cluster) tests, B2's and
+    B4's then as live rays; a device's counts are made on its first use,
+    one for each key, and summed over devices."""
+    soup_keys = ("cluster_tests", "triangle_tests", "slab_tests")
+    assert [f.work.keys for f in WRAPPERS] == [soup_keys,
+                                               soup_keys + ("live",)]
+    inst_keys = ("instance_visits", "cluster_tests")
     assert [f.work.keys for f in (tc.cluster_closest_inst,
                                   tc.cluster_shadow_inst)] == [
-        ("instance_visits", "cluster_tests")] * 2
+        inst_keys, inst_keys + ("live",)]
     w = tc.WorkCounter(("a", "b", "c"))
     assert w.read() == {"a": 0, "b": 0, "c": 0}
     w.pair(torch.device("cpu")).add_(torch.tensor([2, 5, 7]))
@@ -261,6 +271,7 @@ def test_graph_counters_equal_the_visits_sums(cuda, kernel, big):
     entered = visits[r + blocks:]
     assert (int(entered.max()) > 0) == big    # the flat walk leaves it 0
     assert (f.launches - launches, f.rays - count) == (4, 4 * r)
+    assert got.get("live", 4 * walked) == 4 * walked
 
 
 @pytest.mark.gpu
@@ -316,12 +327,14 @@ def test_cornell_box_nee_renders_at_720p(cuda):
     torch.cuda.synchronize()
     pixels = cfg["width"] * cfg["height"]
     assert sort_rays.coherence_keys.launches == keys
-    for (l0, rays0, t0, n0, s0), (l1, rays1, t1, n1, s1) in zip(before,
-                                                                 held()):
+    for (l0, rays0, t0, n0, s0, *v0), (l1, rays1, t1, n1, s1, *v1) in zip(
+            before, held()):
         assert (l1 - l0, rays1 - rays0) == (8, 8 * pixels)
         assert 0 < t1 - t0 <= rays1 - rays0
         assert n1 - n0 == 36 * (t1 - t0)        # 36 triangles, one cluster
         assert s1 > s0
+        if v0:
+            assert 0 < v1[0] - v0[0] < rays1 - rays0
     st = r.view(world.cameras[0]).state
     assert bool(torch.isfinite(st.accum).all())
     assert float(st.accum[..., :3].mean()) > 0.0
